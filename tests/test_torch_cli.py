@@ -1,0 +1,88 @@
+"""The port's sampling CLI on the CPU (``--device cpu``), end to end on a tiny
+checkpoint and a tiny .pkl test set: result pickles of the right shapes, the
+NaN-retry bookkeeping, resume, and clear errors for what is not ported."""
+
+import os
+import pickle
+
+import numpy as np
+import jax
+import pytest
+import torch
+
+from tsdiff_tpu_torch.cli import sampling
+from tsdiff_tpu_torch.data.dataset import save_dataset
+
+from test_condensenc import MODEL_CFG
+from test_torch_common import small_setup
+
+
+@pytest.fixture(scope="module")
+def inputs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("cli")
+    _, params, _, _, _, graphs = small_setup(seed=6, sizes=(5, 9, 7), members=2)
+    ckpts = []
+    for m, p in enumerate(params):
+        path = str(d / f"m{m}.ckpt")
+        with open(path, "wb") as f:
+            pickle.dump({"format": "tsdiff_tpu.ckpt.v1",
+                         "config": {"model": MODEL_CFG.to_dict()},
+                         "params": jax.device_get(p), "ema_params": None}, f)
+        ckpts.append(path)
+    for i, g in enumerate(graphs):
+        g["smiles"] = f"g{i}"
+    test_set = str(d / "test.pkl")
+    save_dataset(test_set, graphs)
+    return ckpts, test_set, graphs
+
+
+def run(inputs, save_dir, *extra):
+    ckpts, test_set, _ = inputs
+    return sampling.main(ckpts + [
+        "--test_set", test_set, "--save_dir", str(save_dir), "--n_steps", "6",
+        "--batch_size", "2", "--fused_score", "--device", "cpu", "--sort_by_size", *extra,
+    ])
+
+
+def test_cli_writes_samples(inputs, tmp_path):
+    path = run(inputs, tmp_path)
+    assert path == str(tmp_path / "samples_all.pkl")
+    assert not os.path.exists(tmp_path / "samples_not_all.pkl")
+    with open(path, "rb") as f:
+        results = pickle.load(f)
+    assert sorted(r["smiles"] for r in results) == ["g0", "g1", "g2"]
+    assert [len(r["atom_type"]) for r in results] == [5, 7, 9]   # sorted by size
+    for r in results:
+        assert r["pos_gen"].shape == (len(r["atom_type"]), 3)
+        assert np.isfinite(r["pos_gen"]).all()
+        assert r["sampling_attempts"] == 1
+
+
+def test_cli_bf16_traj_and_resume(inputs, tmp_path):
+    path = run(inputs, tmp_path, "--dtype", "bfloat16", "--save_traj", "--end_idx", "2")
+    with open(path, "rb") as f:
+        results = pickle.load(f)
+    assert len(results) == 2
+    for r in results:
+        assert r["pos_gen"].shape == (6, len(r["atom_type"]), 3)
+    resumed = run(inputs, tmp_path / "resumed", "--resume", path)
+    with open(resumed, "rb") as f:
+        assert sorted(r["smiles"] for r in pickle.load(f)) == ["g0", "g1", "g2"]
+
+
+def test_cli_rejects_what_is_not_ported(inputs, tmp_path):
+    ckpts, test_set, _ = inputs
+    base = ckpts + ["--save_dir", str(tmp_path), "--device", "cpu"]
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        sampling.main(base + ["--test_set", "reactions.txt", "--fused_score"])
+    with pytest.raises(NotImplementedError, match="--fused_score"):
+        sampling.main(base + ["--test_set", test_set])
+
+
+def test_cli_cuda_default_raises_without_a_card(inputs, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CUDA default is exercised by chip_smoke.py")
+    ckpts, test_set, _ = inputs
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        sampling.main(ckpts + ["--test_set", test_set, "--save_dir", str(tmp_path),
+                               "--fused_score"])

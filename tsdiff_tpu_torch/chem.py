@@ -1,0 +1,20 @@
+"""Chemistry constants of the condensed reaction graph.
+
+The bond-type vocabulary is RDKit's ``BondType`` enum in value order (22
+names).  The condensed edge code is ``r_type * NUM_BOND_TYPES + p_type`` with
+0 = no bond, and a k-hop (k >= 2) edge of the order extension gets type
+``NUM_BOND_TYPES + k - 1``.
+"""
+
+from __future__ import annotations
+
+# RDKit Chem.rdchem.BondType names in enum-value order.
+BOND_TYPE_NAMES = (
+    "UNSPECIFIED", "SINGLE", "DOUBLE", "TRIPLE", "QUADRUPLE", "QUINTUPLE",
+    "HEXTUPLE", "ONEANDAHALF", "TWOANDAHALF", "THREEANDAHALF", "FOURANDAHALF",
+    "FIVEANDAHALF", "AROMATIC", "IONIC", "HYDROGEN", "THREECENTER",
+    "DATIVEONE", "DATIVE", "DATIVEL", "DATIVER", "OTHER", "ZERO",
+)
+
+#: Number of bond types — the base of the condensed edge encoding (== 22).
+NUM_BOND_TYPES = len(BOND_TYPE_NAMES)

@@ -1,0 +1,240 @@
+"""Ensemble TS-generation CLI on PyTorch.
+
+Usage:
+    python -m tsdiff_tpu_torch.cli.sampling CKPT [CKPT ...] --test_set X.pkl \
+        --save_dir OUT --fused_score [--dtype bfloat16 --sampling_type ld \
+        --n_steps 5000 --timestep_respacing 625 --device cuda ...]
+
+Loads N checkpoints (the model is rebuilt from the embedded config), reads a
+``tsdiff_tpu.v1`` .pkl test set, batches it with optional per-reaction
+repetition (each batch padded to a row tier and a node bucket), runs the
+packed ensemble reverse diffusion, retries a batch at clip 20 if NaNs
+appear, rescales the final frame, and pickles incremental
+(``samples_not_all.pkl``) and final (``samples_all.pkl``) results.  Each
+result records ``sampling_attempts``, the number of sampling runs its batch
+took.
+
+Runs on CUDA unless ``--device cpu`` is given.  Not ported yet: .txt and
+raw-SMARTS test sets (they need RDKit featurisation), the dense score path
+(``--fused_score`` is required), multi-device meshes and int8 scores.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import pickle
+
+import numpy as np
+import torch
+
+
+def _ceil_to(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def batching(items, batch_size, repeat_num=1):
+    """Repeat each item repeat_num times, then chunk."""
+    expanded = []
+    for x in items:
+        expanded.extend([dict(x) for _ in range(repeat_num)])
+    for i in range(0, len(expanded), batch_size):
+        yield expanded[i : i + batch_size]
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("ckpt", type=str, nargs="+", help="checkpoint path(s) for the ensemble")
+    parser.add_argument("--batch_size", type=int, default=100)
+    parser.add_argument("--resume", type=str, default=None, help="path to partial results pickle")
+    parser.add_argument("--save_traj", action="store_true", default=False)
+    parser.add_argument("--save_dir", type=str, required=True)
+    parser.add_argument("--test_set", type=str, required=True, help="tsdiff_tpu.v1 .pkl dataset")
+    parser.add_argument("--start_idx", type=int, default=0)
+    parser.add_argument("--end_idx", type=int, default=9999)
+    parser.add_argument("--repeat", type=int, default=1)
+    parser.add_argument("--from_ts_guess", action="store_true", default=False)
+    parser.add_argument("--denoise_from_time_t", type=int, default=None)
+    parser.add_argument("--noise_from_time_t", type=int, default=None)
+    parser.add_argument("--clip", type=float, default=1000.0)
+    parser.add_argument("--n_steps", type=int, default=5000)
+    parser.add_argument("--sampling_type", type=str, default="ld",
+                        help="ld | ddpm | ddpm_noisy | ddpm_det | generalized")
+    parser.add_argument("--timestep_respacing", type=int, default=None,
+                        help="walk an evenly-strided M-step subsequence of the n_steps window")
+    parser.add_argument("--eta", type=float, default=1.0)
+    parser.add_argument("--step_lr", type=float, default=1e-7)
+    parser.add_argument("--seed", type=int, default=2022)
+    parser.add_argument("--dtype", type=str, default="float32", choices=["float32", "bfloat16"])
+    parser.add_argument("--sort_by_size", action="store_true", default=False,
+                        help="sort reactions by atom count before batching")
+    parser.add_argument("--use_ema", action="store_true", default=False,
+                        help="use EMA weights from checkpoints when present")
+    parser.add_argument("--fused_score", action="store_true", default=False,
+                        help="offset-packed fused score kernel (required: the dense path "
+                             "is not ported yet)")
+    parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    return parser.parse_args(argv)
+
+
+def _load_members(args, device, dtype, logger):
+    from tsdiff_tpu_torch.config import Config
+    from tsdiff_tpu_torch.convert import params_from_jax
+    from tsdiff_tpu_torch.models import CondenseEncoderEpsNetwork
+    from tsdiff_tpu_torch.train import load_checkpoint, select_params
+
+    members, model_cfg = [], None
+    for path in args.ckpt:
+        ck = load_checkpoint(path)
+        cfg = Config(ck["config"]).model
+        if cfg.get("network", "condensenc") != "condensenc":
+            raise NotImplementedError(f"{path}: network {cfg.network} is not ported yet")
+        if model_cfg is None:
+            model_cfg = cfg
+        params, used_ema = select_params(ck, args.use_ema)
+        if args.use_ema and not used_ema:
+            logger.warning("--use_ema: %s has no EMA weights; using raw params", path)
+        model = CondenseEncoderEpsNetwork.from_config(cfg, dtype=dtype)
+        model.load_state_dict(params_from_jax(params))
+        members.append(model.to(device).eval())
+    return members, model_cfg
+
+
+def main(argv=None) -> str:
+    args = parse_args(argv)
+
+    from tsdiff_tpu_torch.core.graph import from_numpy_graphs
+    from tsdiff_tpu_torch.data.dataset import default_buckets, load_dataset, pick_bucket, tier_ladder
+    from tsdiff_tpu_torch.diffusion.ensemble import make_packed_ensemble_eps_fn
+    from tsdiff_tpu_torch.diffusion.sampler import (
+        SamplingSettings,
+        dynamic_sampling,
+        final_frame_scale,
+        rescale_trajectory,
+    )
+    from tsdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
+    from tsdiff_tpu_torch.utils.misc import get_logger, resolve_device
+
+    device = resolve_device(args.device)
+    if not args.fused_score:
+        raise NotImplementedError(
+            "the dense score path is not ported yet; pass --fused_score"
+        )
+    if not args.test_set.endswith((".pkl", ".pck")):
+        raise NotImplementedError(
+            "only .pkl test sets are ported; .txt and raw-SMARTS test sets need RDKit "
+            "featurisation, which is not yet ported"
+        )
+    os.makedirs(args.save_dir, exist_ok=True)
+    logger = get_logger("sampling", args.save_dir)
+    logger.info(args)
+
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    logger.info("Loading checkpoints...")
+    members, model_cfg = _load_members(args, device, dtype, logger)
+    schedule = DiffusionSchedule.from_config(model_cfg)
+
+    logger.info("Loading test set...")
+    test_set, _ = load_dataset(args.test_set)
+    test_set = [g for i, g in enumerate(test_set) if args.start_idx <= i < args.end_idx]
+    if args.sort_by_size:
+        test_set = sorted(test_set, key=lambda g: int(g["atom_type"].shape[0]))
+    logger.info(f"{len(test_set)} reactions selected")
+
+    results = []
+    if args.resume is not None:
+        with open(args.resume, "rb") as f:
+            results = pickle.load(f)
+        done_smiles = {g.get("smiles") for g in results}
+        test_set = [g for g in test_set if g.get("smiles") not in done_smiles]
+        logger.info(f"Resumed {len(results)} results; {len(test_set)} remaining")
+    if not test_set:
+        logger.info("nothing to sample")
+
+    buckets = default_buckets(max((int(g["atom_type"].shape[0]) for g in test_set), default=8))
+    # each batch is padded up to a row tier with duplicates of its last
+    # reaction (dropped when unbatching), so only a few shapes occur
+    tiers = tier_ladder(args.batch_size, 1, max_tiers=3)
+
+    def _tier(n: int) -> int:
+        return min((t for t in tiers if t >= n), default=args.batch_size)
+
+    def make_settings(clip: float) -> SamplingSettings:
+        return SamplingSettings(
+            sampling_type=args.sampling_type,
+            n_steps=args.n_steps,
+            step_lr=args.step_lr,
+            clip=clip,
+            eta=args.eta,
+            denoise_from_time_t=args.denoise_from_time_t,
+            noise_from_time_t=args.noise_from_time_t,
+            save_traj=args.save_traj,
+            timestep_respacing=args.timestep_respacing,
+        )
+
+    def sample_batch(gpad: list[dict], n_pad: int, clip: float):
+        batch = from_numpy_graphs(gpad, max_nodes=n_pad, device=device)
+        settings = make_settings(clip)
+        gen = torch.Generator(device=device)
+        if args.from_ts_guess:
+            if args.denoise_from_time_t is None:
+                raise ValueError("--from_ts_guess needs --denoise_from_time_t")
+            guess_key = "ts_guess" if "ts_guess" in gpad[0] else "pos"
+            pos_init = np.zeros((len(gpad), n_pad, 3), np.float32)
+            for b, g in enumerate(gpad):
+                pos_init[b, : len(g[guess_key])] = g[guess_key]
+            start_t = (
+                args.noise_from_time_t if args.noise_from_time_t is not None
+                else args.denoise_from_time_t
+            )
+            sqrt_a = float(np.sqrt(schedule.alphas[start_t - 1])) if start_t != 0 else 1.0
+            pos_init = torch.from_numpy(pos_init).to(device) / sqrt_a
+        else:
+            gen.manual_seed(args.seed + len(results))
+            pos_init = torch.randn((len(gpad), n_pad, 3), generator=gen, device=device)
+        gen.manual_seed(args.seed * 7919 + len(results))
+        node_eq_fn = make_packed_ensemble_eps_fn(members, batch)
+        res = dynamic_sampling(node_eq_fn, schedule, pos_init, batch.node_mask, settings,
+                               generator=gen)
+        return res, settings
+
+    for graphs in batching(test_set, args.batch_size, args.repeat):
+        gpad = list(graphs) + [graphs[-1]] * (_tier(len(graphs)) - len(graphs))
+        n_pad = max(pick_bucket(int(g["atom_type"].shape[0]), buckets) for g in gpad)
+        for attempt, clip in enumerate([args.clip, 20.0]):  # retry at clip=20 on NaN
+            res, settings = sample_batch(gpad, n_pad, clip)
+            nan_persisted = bool(res.nan_detected.item())  # the loop's one host sync
+            if not nan_persisted:
+                break
+            if attempt == 0:
+                logger.warning("NaN detected; retrying with clipping thresh 20.")
+        if nan_persisted:
+            logger.error("NaN persisted after the clip-20 retry; batch results are "
+                         "flagged nan_persisted=True.")
+        pos = res.pos.cpu().numpy() * final_frame_scale(schedule, settings)
+        traj = None
+        if args.save_traj and res.traj is not None:
+            traj = rescale_trajectory(res.traj, schedule, settings).cpu().numpy()
+        for b, g in enumerate(graphs):
+            n = int(g["atom_type"].shape[0])
+            out = dict(g)
+            out["pos_gen"] = traj[:, b, :n] if traj is not None else pos[b, :n]
+            out["sampling_attempts"] = attempt + 1
+            if nan_persisted:
+                out["nan_persisted"] = True
+            results.append(out)
+        with open(os.path.join(args.save_dir, "samples_not_all.pkl"), "wb") as f:
+            pickle.dump(results, f)
+
+    save_path = os.path.join(args.save_dir, "samples_all.pkl")
+    partial = os.path.join(args.save_dir, "samples_not_all.pkl")
+    if os.path.exists(partial):
+        os.remove(partial)
+    logger.info("Saving samples to: %s" % save_path)
+    with open(save_path, "wb") as f:
+        pickle.dump(results, f)
+    return save_path
+
+
+if __name__ == "__main__":
+    main()

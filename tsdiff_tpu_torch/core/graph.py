@@ -1,0 +1,75 @@
+"""Padded dense reaction-graph batch.
+
+A batch is a stack of fixed-size padded graphs:
+
+  * ``atom_type``  (B, N)      int64   atomic numbers, 0-padded
+  * ``r_feat``     (B, N, F)   uint8   one-hot reactant atom features
+  * ``p_feat``     (B, N, F)   uint8   one-hot product atom features
+  * ``pos``        (B, N, 3)   float32 coordinates
+  * ``bond_mat``   (B, N, N)   int64   condensed bond types
+                               ``r_type * NUM_BOND_TYPES + p_type``, 0 = none
+  * ``node_mask``  (B, N)      bool    True for real atoms
+
+``N`` is a bucket size.  Packing runs in numpy on the host; the batch is then
+moved to its device in one go.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ReactionBatch:
+    atom_type: torch.Tensor
+    r_feat: torch.Tensor
+    p_feat: torch.Tensor
+    pos: torch.Tensor
+    bond_mat: torch.Tensor
+    node_mask: torch.Tensor
+
+
+def from_numpy_graphs(
+    graphs: list[dict], max_nodes: int | None = None, device="cpu"
+) -> ReactionBatch:
+    """Pack host-side graph dicts into a padded ReactionBatch on ``device``.
+
+    Each graph dict has ``atom_type (n,)``, ``r_feat (n,F)``, ``p_feat
+    (n,F)``, optional ``pos (n,3)``, and either ``bond_mat (n,n)`` or sparse
+    ``edge_index (2,E)`` + ``edge_type (E,)``.
+    """
+    n_max = max_nodes or max(int(g["atom_type"].shape[0]) for g in graphs)
+    B = len(graphs)
+    feat_dim = int(graphs[0]["r_feat"].shape[-1])
+
+    atom_type = np.zeros((B, n_max), dtype=np.int64)
+    r_feat = np.zeros((B, n_max, feat_dim), dtype=np.uint8)
+    p_feat = np.zeros((B, n_max, feat_dim), dtype=np.uint8)
+    pos = np.zeros((B, n_max, 3), dtype=np.float32)
+    bond_mat = np.zeros((B, n_max, n_max), dtype=np.int64)
+    node_mask = np.zeros((B, n_max), dtype=bool)
+
+    for b, g in enumerate(graphs):
+        n = int(g["atom_type"].shape[0])
+        if n > n_max:
+            raise ValueError(f"graph with {n} atoms exceeds max_nodes={n_max}")
+        atom_type[b, :n] = g["atom_type"]
+        r_feat[b, :n] = g["r_feat"]
+        p_feat[b, :n] = g["p_feat"]
+        if g.get("pos") is not None:
+            pos[b, :n] = g["pos"]
+        if "bond_mat" in g:
+            bond_mat[b, :n, :n] = g["bond_mat"]
+        else:
+            ei = np.asarray(g["edge_index"])
+            bond_mat[b, ei[0], ei[1]] = np.asarray(g["edge_type"])
+        node_mask[b, :n] = True
+
+    arrays = dict(
+        atom_type=atom_type, r_feat=r_feat, p_feat=p_feat, pos=pos,
+        bond_mat=bond_mat, node_mask=node_mask,
+    )
+    return ReactionBatch(**{k: torch.from_numpy(v).to(device) for k, v in arrays.items()})

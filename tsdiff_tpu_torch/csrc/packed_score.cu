@@ -1,0 +1,499 @@
+// Offset-packed fused score step of the condensed-encoder ensemble, for Hopper.
+//
+// Replaces the TPU kernel tsdiff_tpu/ops/pallas/condensed_score_packed.py::
+// packed_score_pallas (kernel _score_kernel) and computes the same function
+// for all M ensemble members in one launch.  Per (member m, graph b), on the
+// packed pair rows p = (k-1)*N + i (the unordered pair {i, (i+k) % N}):
+//
+//   1. distance MLP   de = W1 silu(d*w0 + b0) + b1                   (R, H)
+//   2. bond embedding er/ep = table[type]  (a row read; the TPU did a
+//      one-hot matmul against a 128-row table)
+//   3. edge_cat       ea = C1 silu(C0r (de*er) + C0p (de*ep) + c0) + c1
+//   4. L SchNet blocks with the symmetric roll aggregation
+//        agg[(i+k)%N] += w[k,i]*xh[i],   agg[i] += w[k,i]*xh[(i+k)%N]
+//   5. out-order edge_cat on the same de (recomputed, see below)
+//   6. head MLP 2H->H->H/2->1 on [h_i * h_(i+k)%N, ea_out]
+//
+// Layout and rounding follow the TPU kernel: the working type T (float or
+// bf16) is what every activation is rounded to after each bias add and each
+// silu/ssp, products w*xh are rounded to T before they are summed in f32,
+// matrix products accumulate in f32.
+//
+// Design.  One CTA owns one (member, graph): the node states h, xh and the
+// f32 aggregation buffer agg (N x H each) stay in shared memory, so the
+// aggregation needs no atomics and is deterministic.  Pair rows are walked
+// in tiles of TR rows.  The encoder-order edge features ea are written once
+// to a global scratch buffer (allocated by the caller) and read back by every
+// block; de is recomputed for the output stage instead of being stored.
+// Weights stream from global memory (L2-resident across CTAs of a member):
+// each warp owns 32 output columns and reads its B fragments straight from
+// the (out, in) weight rows.  bf16 products run on the tensor cores through
+// mma.sync.m16n8k16 with f32 accumulation; the f32 path uses FMA loops (it
+// exists to check the kernel against the plain version, not for speed).
+//
+// Bound at the main path's shapes (M=8, B=100, N=24, H=F=256, L=7, bf16):
+// ~7.6e11 flop per launch against ~56 MB of inputs and outputs (mostly the
+// members' weights), so the tensor-core rate bounds it (~0.77 ms at 989
+// TFLOP/s, against ~17 us for the bytes at 3.35 TB/s).  This first version makes no attempt
+// at that bound: no TMA, no wgmma, no warp specialisation, and each weight
+// matrix is re-read from L2 once per row tile.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kNumPtrs = 35;
+constexpr float kLog2 = 0.6931471805599453f;
+
+template <typename T>
+struct Params {
+  const float* d;     // (B, R) packed distances
+  const float* c;     // (B, R) cutoff mask with the 0.5 last-slab factor
+  const T* z;         // (M, B, N, H) node states
+  const int* tr_in;   // (B, R) bond types, encoder order
+  const int* tp_in;
+  const int* tr_out;  // (B, R) bond types, output order
+  const int* tp_out;
+  // weights, each stacked (M, ...); matrices in (out, in) layout
+  const T* table;  // (V, H)
+  const T* dw0;    // (H)
+  const T* db0;
+  const T* dw1;    // (H, H)
+  const T* db1;
+  const T* c0r;    // (H, H)
+  const T* c0p;
+  const T* c0b;
+  const T* c1w;
+  const T* c1b;
+  const T* f1w;    // (L, H, H)
+  const T* f1b;    // (L, H)
+  const T* f2w;
+  const T* f2b;
+  const T* l1w;
+  const T* l2w;
+  const T* l2b;
+  const T* ow;
+  const T* ob;
+  const T* g0h;    // (H, H)
+  const T* g0e;
+  const T* g0b;
+  const T* g1w;    // (H/2, H)
+  const T* g1b;
+  const T* g2w;    // (H/2)
+  const T* g2b;    // (1)
+  T* ea;           // (M*B, R, H) scratch
+  float* out;      // (M, B, R)
+  int M, B, N, H, L, V;
+};
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// round to the working type and back
+template <typename T> __device__ __forceinline__ float rnd(float x) { return to_f(from_f<T>(x)); }
+
+__device__ __forceinline__ float silu_f(float x) { return x * (1.0f / (1.0f + expf(-x))); }
+__device__ __forceinline__ float ssp_f(float x) {
+  return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x))) - kLog2;
+}
+
+// ---------------------------------------------------------------------------
+// Tile products.  acc[mf][nf][0..3] holds the m16n8 fragment of rows
+// mf*16 + {g, g+8} and columns n0 + nf*8 + 2t + {0, 1}, g = lane/4, t = lane%4
+// (the mma.sync C layout, also used by the FMA path so both share epilogues).
+
+template <typename T, int MF>
+struct Mma;
+
+template <int MF>
+struct Mma<__nv_bfloat16, MF> {
+  using T = __nv_bfloat16;
+  static __device__ __forceinline__ void load_b(uint32_t (&b)[4][2], const T* __restrict__ W,
+                                                int Kin, int n0, int k0, int g, int t) {
+#pragma unroll
+    for (int nf = 0; nf < 4; ++nf) {
+      const T* wp = W + (size_t)(n0 + nf * 8 + g) * Kin + k0 + 2 * t;
+      b[nf][0] = __ldg(reinterpret_cast<const unsigned int*>(wp));
+      b[nf][1] = __ldg(reinterpret_cast<const unsigned int*>(wp + 8));
+    }
+  }
+  // acc += A[rows, Kin] @ W[n0:n0+32, Kin]^T
+  static __device__ __forceinline__ void accum(float (&acc)[MF][4][4], const T* A, int lda,
+                                               int mfr, const T* __restrict__ W, int Kin,
+                                               int n0, int g, int t) {
+    uint32_t bc[4][2], bn[4][2];
+    load_b(bc, W, Kin, n0, 0, g, t);
+    for (int k0 = 0; k0 < Kin; k0 += 16) {
+      if (k0 + 16 < Kin) load_b(bn, W, Kin, n0, k0 + 16, g, t);
+#pragma unroll
+      for (int mf = 0; mf < MF; ++mf) {
+        if (mf < mfr) {
+          const T* ap = A + (mf * 16 + g) * lda + k0 + 2 * t;
+          uint32_t a0 = *reinterpret_cast<const uint32_t*>(ap);
+          uint32_t a1 = *reinterpret_cast<const uint32_t*>(ap + 8 * lda);
+          uint32_t a2 = *reinterpret_cast<const uint32_t*>(ap + 8);
+          uint32_t a3 = *reinterpret_cast<const uint32_t*>(ap + 8 * lda + 8);
+#pragma unroll
+          for (int nf = 0; nf < 4; ++nf) {
+            float* c = acc[mf][nf];
+            asm volatile(
+                "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+                "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+                : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+                : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(bc[nf][0]), "r"(bc[nf][1]));
+          }
+        }
+      }
+#pragma unroll
+      for (int nf = 0; nf < 4; ++nf) {
+        bc[nf][0] = bn[nf][0];
+        bc[nf][1] = bn[nf][1];
+      }
+    }
+  }
+};
+
+template <int MF>
+struct Mma<float, MF> {
+  static __device__ __forceinline__ void accum(float (&acc)[MF][4][4], const float* A, int lda,
+                                               int mfr, const float* __restrict__ W, int Kin,
+                                               int n0, int g, int t) {
+    for (int k0 = 0; k0 < Kin; k0 += 4) {
+      float4 b[4][2];
+#pragma unroll
+      for (int nf = 0; nf < 4; ++nf) {
+        const float* wp = W + (size_t)(n0 + nf * 8 + 2 * t) * Kin + k0;
+        b[nf][0] = __ldg(reinterpret_cast<const float4*>(wp));
+        b[nf][1] = __ldg(reinterpret_cast<const float4*>(wp + Kin));
+      }
+#pragma unroll
+      for (int mf = 0; mf < MF; ++mf) {
+        if (mf < mfr) {
+          const float4 lo = *reinterpret_cast<const float4*>(A + (mf * 16 + g) * lda + k0);
+          const float4 hi = *reinterpret_cast<const float4*>(A + (mf * 16 + g + 8) * lda + k0);
+#pragma unroll
+          for (int nf = 0; nf < 4; ++nf) {
+            float* c = acc[mf][nf];
+            const float4 w0 = b[nf][0], w1 = b[nf][1];
+            c[0] = fmaf(lo.x, w0.x, c[0]); c[0] = fmaf(lo.y, w0.y, c[0]);
+            c[0] = fmaf(lo.z, w0.z, c[0]); c[0] = fmaf(lo.w, w0.w, c[0]);
+            c[1] = fmaf(lo.x, w1.x, c[1]); c[1] = fmaf(lo.y, w1.y, c[1]);
+            c[1] = fmaf(lo.z, w1.z, c[1]); c[1] = fmaf(lo.w, w1.w, c[1]);
+            c[2] = fmaf(hi.x, w0.x, c[2]); c[2] = fmaf(hi.y, w0.y, c[2]);
+            c[2] = fmaf(hi.z, w0.z, c[2]); c[2] = fmaf(hi.w, w0.w, c[2]);
+            c[3] = fmaf(hi.x, w1.x, c[3]); c[3] = fmaf(hi.y, w1.y, c[3]);
+            c[3] = fmaf(hi.z, w1.z, c[3]); c[3] = fmaf(hi.w, w1.w, c[3]);
+          }
+        }
+      }
+    }
+  }
+};
+
+// out[r, c] = epi(r, c, sum_k A1[r,k] W1[c,k] (+ sum_k A2[r,k] W2[c,k]))
+// for r < rows (a multiple of 16), c < Nout (a multiple of 32).  Ends with a
+// block barrier.
+template <typename T, int MF, typename Epi>
+__device__ __forceinline__ void gemm(const T* A1, const T* __restrict__ W1, const T* A2,
+                                     const T* __restrict__ W2, int lda, int rows, int Kin,
+                                     int Nout, Epi epi) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int mfr = rows / 16;
+  for (int n0 = warp * 32; n0 < Nout; n0 += kWarps * 32) {
+    float acc[MF][4][4];
+#pragma unroll
+    for (int mf = 0; mf < MF; ++mf)
+#pragma unroll
+      for (int nf = 0; nf < 4; ++nf)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mf][nf][q] = 0.0f;
+    Mma<T, MF>::accum(acc, A1, lda, mfr, W1, Kin, n0, g, t);
+    if (A2 != nullptr) Mma<T, MF>::accum(acc, A2, lda, mfr, W2, Kin, n0, g, t);
+#pragma unroll
+    for (int mf = 0; mf < MF; ++mf) {
+      if (mf < mfr) {
+#pragma unroll
+        for (int nf = 0; nf < 4; ++nf) {
+          const int r = mf * 16 + g, col = n0 + nf * 8 + 2 * t;
+          epi(r, col, acc[mf][nf][0]);
+          epi(r, col + 1, acc[mf][nf][1]);
+          epi(r + 8, col, acc[mf][nf][2]);
+          epi(r + 8, col + 1, acc[mf][nf][3]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// Shared-memory carve-up, shared by the kernel and the host-side size check.
+struct Smem {
+  size_t buf, node, agg, rows, total;
+  int lda, np;
+};
+
+template <typename T, int TR>
+__host__ __device__ inline Smem smem_layout(int N, int H) {
+  Smem s;
+  s.lda = H + 16 / (int)sizeof(T);  // +16 bytes per row: conflict-free fragment loads
+  s.np = (N + 15) / 16 * 16;
+  s.buf = (size_t)TR * s.lda * sizeof(T);
+  s.node = (size_t)s.np * s.lda * sizeof(T);
+  s.agg = (size_t)N * H * sizeof(float);
+  s.rows = (size_t)TR * 4 * sizeof(float);
+  s.total = 3 * s.buf + 2 * s.node + s.agg + s.rows;
+  return s;
+}
+
+template <typename T, int TR>
+__global__ void __launch_bounds__(kThreads, 1) packed_score_kernel(Params<T> p) {
+  constexpr int MF = TR / 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int N = p.N, H = p.H, L = p.L, B = p.B;
+  const int K = N / 2, R = K * N, Hh = H / 2;
+  const Smem lay = smem_layout<T, TR>(N, H);
+  const int lda = lay.lda, NP = lay.np;
+
+  T* bufA = reinterpret_cast<T*>(smem);
+  T* bufB = reinterpret_cast<T*>(smem + lay.buf);
+  T* bufC = reinterpret_cast<T*>(smem + 2 * lay.buf);
+  T* h_s = reinterpret_cast<T*>(smem + 3 * lay.buf);
+  T* xh_s = reinterpret_cast<T*>(smem + 3 * lay.buf + lay.node);
+  float* agg = reinterpret_cast<float*>(smem + 3 * lay.buf + 2 * lay.node);
+  float* d_s = reinterpret_cast<float*>(smem + 3 * lay.buf + 2 * lay.node + lay.agg);
+  float* c_s = d_s + TR;
+  int* ta_s = reinterpret_cast<int*>(c_s + TR);
+  int* tb_s = ta_s + TR;
+
+  const int mb = blockIdx.x;  // member-major: CTAs in flight share a member's weights
+  const int m = mb / B, b = mb % B;
+  const int tid = threadIdx.x;
+
+  const size_t HH = (size_t)H * H;
+  const T* table = p.table + (size_t)m * p.V * H;
+  const T* dw0 = p.dw0 + (size_t)m * H;
+  const T* db0 = p.db0 + (size_t)m * H;
+  const T* dw1 = p.dw1 + m * HH;
+  const T* db1 = p.db1 + (size_t)m * H;
+  const T* c0r = p.c0r + m * HH;
+  const T* c0p = p.c0p + m * HH;
+  const T* c0b = p.c0b + (size_t)m * H;
+  const T* c1w = p.c1w + m * HH;
+  const T* c1b = p.c1b + (size_t)m * H;
+  const T* f1w = p.f1w + m * L * HH;
+  const T* f1b = p.f1b + (size_t)m * L * H;
+  const T* f2w = p.f2w + m * L * HH;
+  const T* f2b = p.f2b + (size_t)m * L * H;
+  const T* l1w = p.l1w + m * L * HH;
+  const T* l2w = p.l2w + m * L * HH;
+  const T* l2b = p.l2b + (size_t)m * L * H;
+  const T* ow = p.ow + m * L * HH;
+  const T* ob = p.ob + (size_t)m * L * H;
+  const T* g0h = p.g0h + m * HH;
+  const T* g0e = p.g0e + m * HH;
+  const T* g0b = p.g0b + (size_t)m * H;
+  const T* g1w = p.g1w + m * (HH / 2);
+  const T* g1b = p.g1b + (size_t)m * Hh;
+  const T* g2w = p.g2w + (size_t)m * Hh;
+  const float g2b = to_f(p.g2b[m]);
+
+  const float* d_g = p.d + (size_t)b * R;
+  const float* c_g = p.c + (size_t)b * R;
+  T* ea_g = p.ea + (size_t)mb * R * H;
+
+  // node states; pad rows stay zero
+  for (int idx = tid; idx < NP * H; idx += kThreads) {
+    const int r = idx / H, col = idx % H;
+    h_s[r * lda + col] = r < N ? p.z[((size_t)mb * N + r) * H + col] : from_f<T>(0.0f);
+  }
+
+  auto load_rows = [&](int r0, int nr, const int* ta, const int* tb) {
+    for (int r = tid; r < nr; r += kThreads) {
+      d_s[r] = rnd<T>(d_g[r0 + r]);
+      c_s[r] = rnd<T>(c_g[r0 + r]);
+      ta_s[r] = ta[(size_t)b * R + r0 + r];
+      tb_s[r] = tb[(size_t)b * R + r0 + r];
+    }
+    __syncthreads();
+  };
+
+  // edge_cat of one row tile (d_s, ta_s, tb_s loaded) into dst (leading dim ld)
+  auto edge_cat = [&](int nr, T* dst, int ld) {
+    for (int idx = tid; idx < nr * H; idx += kThreads) {
+      const int r = idx / H, col = idx % H;
+      float x = rnd<T>(d_s[r] * to_f(dw0[col]));
+      x = rnd<T>(x + to_f(db0[col]));
+      bufA[r * lda + col] = from_f<T>(silu_f(x));
+    }
+    __syncthreads();
+    gemm<T, MF>(bufA, dw1, nullptr, nullptr, lda, nr, H, H, [&](int r, int col, float v) {
+      bufB[r * lda + col] = from_f<T>(v + to_f(db1[col]));
+    });
+    for (int idx = tid; idx < nr * H; idx += kThreads) {
+      const int r = idx / H, col = idx % H;
+      const float de = to_f(bufB[r * lda + col]);
+      bufA[r * lda + col] = from_f<T>(de * to_f(table[(size_t)ta_s[r] * H + col]));
+      bufC[r * lda + col] = from_f<T>(de * to_f(table[(size_t)tb_s[r] * H + col]));
+    }
+    __syncthreads();
+    gemm<T, MF>(bufA, c0r, bufC, c0p, lda, nr, H, H, [&](int r, int col, float v) {
+      bufB[r * lda + col] = from_f<T>(silu_f(rnd<T>(v + to_f(c0b[col]))));
+    });
+    gemm<T, MF>(bufB, c1w, nullptr, nullptr, lda, nr, H, H, [&](int r, int col, float v) {
+      dst[(size_t)r * ld + col] = from_f<T>(v + to_f(c1b[col]));
+    });
+  };
+
+  // 1. encoder-order edge features of every row, into the global scratch
+  for (int r0 = 0; r0 < R; r0 += TR) {
+    const int nr = min(TR, R - r0);
+    load_rows(r0, nr, p.tr_in, p.tp_in);
+    edge_cat(nr, ea_g + (size_t)r0 * H, H);
+  }
+
+  // 2. interaction blocks
+  constexpr int kVec = 16 / sizeof(T);
+  for (int l = 0; l < L; ++l) {
+    const size_t wo = (size_t)l * HH, bo = (size_t)l * H;
+    gemm<T, MF>(h_s, l1w + wo, nullptr, nullptr, lda, NP, H, H, [&](int r, int col, float v) {
+      xh_s[r * lda + col] = r < N ? from_f<T>(v) : from_f<T>(0.0f);
+    });
+    for (int idx = tid; idx < N * H; idx += kThreads) agg[idx] = 0.0f;
+    for (int r0 = 0; r0 < R; r0 += TR) {
+      const int nr = min(TR, R - r0);
+      for (int r = tid; r < nr; r += kThreads) c_s[r] = rnd<T>(c_g[r0 + r]);
+      for (int idx = tid; idx < nr * H / kVec; idx += kThreads) {
+        const int r = idx / (H / kVec), cv = idx % (H / kVec);
+        *reinterpret_cast<uint4*>(bufA + r * lda + cv * kVec) =
+            *reinterpret_cast<const uint4*>(ea_g + (size_t)(r0 + r) * H + cv * kVec);
+      }
+      __syncthreads();
+      gemm<T, MF>(bufA, f1w + wo, nullptr, nullptr, lda, nr, H, H, [&](int r, int col, float v) {
+        bufB[r * lda + col] = from_f<T>(ssp_f(rnd<T>(v + to_f(f1b[bo + col]))));
+      });
+      gemm<T, MF>(bufB, f2w + wo, nullptr, nullptr, lda, nr, H, H, [&](int r, int col, float v) {
+        bufA[r * lda + col] = from_f<T>(rnd<T>(v + to_f(f2b[bo + col])) * c_s[r]);
+      });
+      // each thread owns feature columns: no two threads touch one agg entry
+      for (int col = tid; col < H; col += kThreads) {
+        for (int r = 0; r < nr; ++r) {
+          const int pr = r0 + r, k = pr / N + 1, i = pr - (k - 1) * N;
+          const int j = i + k < N ? i + k : i + k - N;
+          const float w = to_f(bufA[r * lda + col]);
+          agg[j * H + col] += rnd<T>(w * to_f(xh_s[i * lda + col]));
+          agg[i * H + col] += rnd<T>(w * to_f(xh_s[j * lda + col]));
+        }
+      }
+      __syncthreads();
+    }
+    // node update: h += ow ssp(l2w agg + l2b) + ob
+    T* t_s = bufA;
+    for (int idx = tid; idx < NP * H; idx += kThreads) {
+      const int r = idx / H, col = idx % H;
+      t_s[r * lda + col] = r < N ? from_f<T>(agg[r * H + col]) : from_f<T>(0.0f);
+    }
+    __syncthreads();
+    gemm<T, MF>(t_s, l2w + wo, nullptr, nullptr, lda, NP, H, H, [&](int r, int col, float v) {
+      xh_s[r * lda + col] =
+          r < N ? from_f<T>(ssp_f(rnd<T>(v + to_f(l2b[bo + col])))) : from_f<T>(0.0f);
+    });
+    gemm<T, MF>(xh_s, ow + wo, nullptr, nullptr, lda, NP, H, H, [&](int r, int col, float v) {
+      if (r < N) {
+        const float y = rnd<T>(v + to_f(ob[bo + col]));
+        h_s[r * lda + col] = from_f<T>(to_f(h_s[r * lda + col]) + y);
+      }
+    });
+  }
+
+  // 3. head on [h_i * h_j, ea_out] with the output-order edge features
+  const int warp = tid / 32, lane = tid % 32;
+  float* out = p.out + (size_t)mb * R;
+  for (int r0 = 0; r0 < R; r0 += TR) {
+    const int nr = min(TR, R - r0);
+    load_rows(r0, nr, p.tr_out, p.tp_out);
+    edge_cat(nr, bufA, lda);
+    for (int idx = tid; idx < nr * H; idx += kThreads) {
+      const int r = idx / H, col = idx % H;
+      const int pr = r0 + r, k = pr / N + 1, i = pr - (k - 1) * N;
+      const int j = i + k < N ? i + k : i + k - N;
+      bufC[r * lda + col] = from_f<T>(to_f(h_s[i * lda + col]) * to_f(h_s[j * lda + col]));
+    }
+    __syncthreads();
+    gemm<T, MF>(bufC, g0h, bufA, g0e, lda, nr, H, H, [&](int r, int col, float v) {
+      bufB[r * lda + col] = from_f<T>(silu_f(rnd<T>(v + to_f(g0b[col]))));
+    });
+    gemm<T, MF>(bufB, g1w, nullptr, nullptr, lda, nr, H, Hh, [&](int r, int col, float v) {
+      bufA[r * lda + col] = from_f<T>(silu_f(rnd<T>(v + to_f(g1b[col]))));
+    });
+    for (int r = warp; r < nr; r += kWarps) {
+      float s = 0.0f;
+      for (int col = lane; col < Hh; col += 32) s += to_f(bufA[r * lda + col]) * to_f(g2w[col]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (lane == 0) out[r0 + r] = s + g2b;
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T, int TR>
+int launch(const void* const* ptrs, int M, int B, int N, int H, int L, int V, void* stream) {
+  const Smem lay = smem_layout<T, TR>(N, H);
+  if (lay.np > TR || lay.total > 232448) return (int)cudaErrorInvalidValue;
+  Params<T> p;
+  int i = 0;
+  p.d = static_cast<const float*>(ptrs[i++]);
+  p.c = static_cast<const float*>(ptrs[i++]);
+  p.z = static_cast<const T*>(ptrs[i++]);
+  p.tr_in = static_cast<const int*>(ptrs[i++]);
+  p.tp_in = static_cast<const int*>(ptrs[i++]);
+  p.tr_out = static_cast<const int*>(ptrs[i++]);
+  p.tp_out = static_cast<const int*>(ptrs[i++]);
+  const T** w[] = {&p.table, &p.dw0, &p.db0, &p.dw1, &p.db1, &p.c0r, &p.c0p, &p.c0b, &p.c1w,
+                   &p.c1b, &p.f1w, &p.f1b, &p.f2w, &p.f2b, &p.l1w, &p.l2w, &p.l2b, &p.ow,
+                   &p.ob, &p.g0h, &p.g0e, &p.g0b, &p.g1w, &p.g1b, &p.g2w, &p.g2b};
+  for (const T** slot : w) *slot = static_cast<const T*>(ptrs[i++]);
+  p.ea = static_cast<T*>(const_cast<void*>(ptrs[i++]));
+  p.out = static_cast<float*>(const_cast<void*>(ptrs[i++]));
+  if (i != kNumPtrs) return (int)cudaErrorInvalidValue;
+  p.M = M; p.B = B; p.N = N; p.H = H; p.L = L; p.V = V;
+  cudaError_t e = cudaFuncSetAttribute(packed_score_kernel<T, TR>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)lay.total);
+  if (e != cudaSuccess) return (int)e;
+  packed_score_kernel<T, TR>
+      <<<M * B, kThreads, lay.total, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches the score kernel on `stream`; returns the cudaError_t of the launch.
+// ptrs: d, cmask, z, tr_in, tp_in, tr_out, tp_out, the 26 weights in the
+// order of Params, the ea scratch and the output.
+int packed_score_launch(const void* const* ptrs, int M, int B, int N, int H, int L, int V,
+                        int is_bf16, void* stream) {
+  if (N <= 0 || N % 8 != 0 || H % 64 != 0 || L < 0 || M <= 0 || B <= 0 || V <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (is_bf16) return launch<__nv_bfloat16, 64>(ptrs, M, B, N, H, L, V, stream);
+  return launch<float, 32>(ptrs, M, B, N, H, L, V, stream);
+}
+
+const char* packed_score_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"
