@@ -5,18 +5,29 @@
 Phases (any failure exits non-zero):
 
 1. card: name and power limit, CUDA and nvcc versions;
-2. build: compile the port's CUDA kernels from ``tsdiff_tpu_torch/csrc``;
-3. kernels against their plain PyTorch versions at the main path's shapes:
-   the 8 trained campaign members and 100 synthetic reactions with a
-   jittered geometry, in the N=24 bucket in float32 (TF32 off) and bfloat16
-   and in the N=16 bucket in bfloat16; errors, times (CUDA events) and the
-   bound of each kernel;
-4. main path: the port's sampling CLI on 200 synthetic reactions with the 8
-   members, bf16, fused packed score, ``ld`` over the 5000-step schedule
-   walked in 625 model calls; checks that every model call went through the
-   kernel, that positions are finite and that the mean D-MAE is plausible;
-5. profile: 20 sampling steps at N=24 under torch.profiler, split into the
-   score kernel, the other kernels and the device's idle share.
+2. build: compile the port's CUDA kernels from ``tsdiff_tpu_torch/csrc``, one
+   nvcc per source, in parallel;
+3. kernels against their plain PyTorch versions at the main paths' shapes:
+   the packed score step (B1) with the 8 trained campaign members on 100
+   synthetic reactions with a jittered geometry, N=24 in float32 (TF32 off)
+   and bfloat16 and N=16 in bfloat16; the fused SchNet stack (B3's forward
+   and backward, B4) with seed106's stack weights on edge features from the
+   port's dense model, bfloat16 at the training batch (B=200) in both
+   training buckets (N=16, N=24) and float32 at B=16, N=24; errors, times
+   (CUDA events) and the bound of each;
+4. sampling main path: the port's sampling CLI on 200 synthetic reactions
+   with the 8 members, bf16, fused packed score, ``ld`` over the 5000-step
+   schedule walked in 625 model calls; checks that every model call went
+   through the kernel, that positions are finite and that the mean D-MAE is
+   plausible;
+5. sampling profile: 20 steps at N=24 under torch.profiler;
+6. training main path: the port's train CLI at full width (H=256, L=7,
+   batch 200, bf16, ``use_pallas``) for 40 iterations on a synthetic corpus;
+   checks the stack kernels' launch counts, no plain-version call, finite
+   losses and a written checkpoint, and reads the CLI's graphs/s over the
+   run; then 20 steps on one fixed batch (the loss must fall), the time per
+   step and a profile; then samples 8 reactions with the checkpoint it
+   trained.
 
 The second-to-last lines are a JSON object of per-kernel numbers and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -28,6 +39,7 @@ from __future__ import annotations
 import json
 import os
 import pickle
+import re
 import shutil
 import subprocess
 import sys
@@ -38,12 +50,15 @@ CKPT_DIR = os.path.join(ROOT, "artifacts", "seeds", "ckpts")
 # the 8 members of the 10k-reaction campaign (artifacts/campaign_10k)
 MEMBER_SEEDS = (106, 101, 104, 102, 108, 103, 109, 105)
 OUT_DIR = os.path.join(ROOT, ".scratch", "chip_smoke")  # gitignored
+TRAIN_DIR = os.path.join(ROOT, ".scratch", "chip_smoke_train")
+SOURCES = ("packed_score", "schnet_stack")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # bf16 tensor cores; f32 without them
 PEAK_BYTES = 3.35e12
 
-# kernel vs plain version, as a fraction of the output's largest magnitude:
+# kernel vs plain version, as a fraction of the output's largest magnitude,
+# for every kernel and every output (the stack's gradients included):
 # float32 only reorders float32 sums; bfloat16 rounds at the same points in
 # both, but a reordered float32 sum can flip a rounding by one bf16 ulp
 # (2^-8) and such flips propagate through the 7 blocks
@@ -96,31 +111,69 @@ def phase_build() -> None:
     from tsdiff_tpu_torch.ops import _build
 
     t0 = time.monotonic()
-    _build.build(["packed_score"])
-    print(f"[build] packed_score.cu built in {time.monotonic() - t0:.1f} s")
-    for line in _build.build_info["packed_score"]["log"].splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"[build] {line.strip()}")
+    _build.build(list(SOURCES))
+    print(f"[build] {', '.join(f'{n}.cu' for n in SOURCES)} built in "
+          f"{time.monotonic() - t0:.1f} s")
+    for name in SOURCES:
+        for line in _build.build_info[name]["log"].splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"[build] {name}: {line.strip()}")
 
 
-def load_members(dtype, device):
+def load_member(seed: int, dtype, device):
     from tsdiff_tpu_torch.config import Config
     from tsdiff_tpu_torch.convert import params_from_jax
     from tsdiff_tpu_torch.models import CondenseEncoderEpsNetwork
     from tsdiff_tpu_torch.train import load_checkpoint, select_params
 
-    members = []
-    for seed in MEMBER_SEEDS:
-        ck = load_checkpoint(os.path.join(CKPT_DIR, f"seed{seed}_best.ckpt"))
-        model = CondenseEncoderEpsNetwork.from_config(Config(ck["config"]).model, dtype=dtype)
-        model.load_state_dict(params_from_jax(select_params(ck, False)[0]))
-        members.append(model.to(device).eval())
-    return members
+    ck = load_checkpoint(os.path.join(CKPT_DIR, f"seed{seed}_best.ckpt"))
+    model = CondenseEncoderEpsNetwork.from_config(Config(ck["config"]).model, dtype=dtype)
+    model.load_state_dict(params_from_jax(select_params(ck, False)[0]))
+    return model.to(device).eval()
 
 
-def kernel_batch(n_bucket: int, seed: int):
-    """100 synthetic reactions in the ``n_bucket`` bucket, with a jittered
-    geometry, on the card."""
+def load_members(dtype, device):
+    return [load_member(seed, dtype, device) for seed in MEMBER_SEEDS]
+
+
+def time_and_bound(tag: str, kernel, plain, iters: int, cost: dict, dname: str) -> dict:
+    """Kernel and plain-version times (CUDA events, warmed up) beside the
+    bound: the larger of flop / peak rate and bytes / memory rate."""
+    ms = cuda_time_ms(kernel, iters)
+    plain_ms = cuda_time_ms(plain, 2, warmup=1)
+    t_ops = cost["flops"] / PEAK_FLOPS[dname] * 1e3
+    t_bytes = cost["bytes"] / PEAK_BYTES * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"[kernels] {tag}: {ms:.4f} ms/launch (kernel), {plain_ms:.4f} ms (plain), bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({cost['flops']:.4g} flop, {cost['bytes']:.4g} "
+          f"bytes), {cost['flops'] / ms / 1e9:.4g} TFLOP/s achieved, library_ms null (no "
+          f"single PyTorch call computes this function)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def check_close(tag: str, out, ref, dname: str) -> float:
+    """Kernel output against the plain version, within TOL of max|ref|;
+    returns the max abs error."""
+    import torch
+
+    err = (out.float() - ref.float()).abs()
+    scale = ref.float().abs().max().item()
+    e_max, e_mean = err.max().item(), err.mean().item()
+    tol_max, tol_mean = TOL[dname]
+    print(f"[kernels] {tag} {tuple(out.shape)}: max|ref| {scale:.6g} max abs err {e_max:.6g} "
+          f"(rel {e_max / scale:.3g}, tol {tol_max}) mean abs err {e_mean:.6g} (rel "
+          f"{e_mean / scale:.3g}, tol {tol_mean})")
+    if not torch.isfinite(out).all():
+        fail(f"{tag}: non-finite output")
+    if e_max > tol_max * scale or e_mean > tol_mean * scale:
+        fail(f"{tag}: kernel disagrees with the plain version")
+    return e_max
+
+
+def kernel_batch(n_bucket: int, seed: int, count: int = 100):
+    """``count`` synthetic reactions in the ``n_bucket`` bucket, with a
+    jittered geometry, on the card."""
     import numpy as np
     import torch
 
@@ -130,7 +183,7 @@ def kernel_batch(n_bucket: int, seed: int):
     rng = np.random.default_rng(seed)
     table = _bend_table()
     graphs = []
-    while len(graphs) < 100:
+    while len(graphs) < count:
         g = make_reaction(rng, table)
         if n_bucket - 8 < len(g["atom_type"]) <= n_bucket:
             graphs.append(g)
@@ -156,8 +209,9 @@ def phase_kernels() -> dict:
         model = members[0]
         pp = model.precompute_packed_pairs(batch.bond_mat, batch.node_mask)
         info = model.build_packed_pair_info(pos, batch.node_mask, pp)
-        z = torch.stack([m.node_states(batch.atom_type, batch.r_feat, batch.p_feat,
-                                       batch.node_mask) for m in members]).contiguous()
+        with torch.no_grad():
+            z = torch.stack([m.node_states(batch.atom_type, batch.r_feat, batch.p_feat,
+                                           batch.node_mask) for m in members]).contiguous()
         w = stack_params([m.kernel_weights() for m in members])
         args = (w, z, info.d_in.contiguous(), info.cmask.contiguous(),
                 pp.type_r_in, pp.type_p_in, pp.type_r_out, pp.type_p_out)
@@ -172,43 +226,126 @@ def phase_kernels() -> dict:
         out = kernel()
         ref = plain()
         torch.cuda.synchronize()
-        err = (out - ref).abs()
-        scale = ref.abs().max().item()
+        tag = f"packed_score N={n_bucket} {dname}"
+        e_max = check_close(f"{tag} out", out, ref, dname)
         eq_k = eq_transform_packed(out.mean(0), pos, info.m_eq, info.d_out)
         eq_r = eq_transform_packed(ref.mean(0), pos, info.m_eq, info.d_out)
         eq_err = (eq_k - eq_r).abs().max().item()
         eq_scale = eq_r.abs().max().item()
-        tol_max, tol_mean = TOL[dname]
-        tag = f"packed_score N={n_bucket} {dname}"
-        print(f"[kernels] {tag} out {tuple(out.shape)}: max|ref| {scale:.6g} "
-              f"max abs err {err.max().item():.6g} (rel {err.max().item() / scale:.3g}, "
-              f"tol {tol_max}) mean abs err {err.mean().item():.6g} (rel "
-              f"{err.mean().item() / scale:.3g}, tol {tol_mean}); node_eq max abs err "
-              f"{eq_err:.6g} of max|ref| {eq_scale:.6g}")
-        if not torch.isfinite(out).all():
-            fail(f"{tag}: non-finite output")
-        if err.max().item() > tol_max * scale or err.mean().item() > tol_mean * scale:
-            fail(f"{tag}: kernel disagrees with the plain version")
-        if eq_err > tol_max * eq_scale:
+        print(f"[kernels] {tag} node_eq: max abs err {eq_err:.6g} of max|ref| {eq_scale:.6g}")
+        if eq_err > TOL[dname][0] * eq_scale:
             fail(f"{tag}: node_eq disagrees with the plain version")
 
         iters = 20 if dtype == torch.bfloat16 else 3
-        ms = cuda_time_ms(kernel, iters)
-        plain_ms = cuda_time_ms(plain, 3, warmup=1)
-        cost = ps.packed_score_cost(w, z, L)
-        t_ops = cost["flops"] / PEAK_FLOPS[dname] * 1e3
-        t_bytes = cost["bytes"] / PEAK_BYTES * 1e3
-        bound_ms = max(t_ops, t_bytes)
-        bound_by = "operations" if t_ops >= t_bytes else "bytes"
-        print(f"[kernels] {tag}: {ms:.4f} ms/launch (kernel), {plain_ms:.4f} ms "
-              f"(plain), bound {bound_ms:.4f} ms by {bound_by} ({cost['flops']:.4g} flop, "
-              f"{cost['bytes']:.4g} bytes), {cost['flops'] / ms / 1e9:.4g} TFLOP/s achieved, "
-              f"library_ms null (no single PyTorch call computes this function)")
-        result[(n_bucket, dname)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                         bound_by=bound_by, max_abs_err=err.max().item())
+        timing = time_and_bound(tag, kernel, plain, iters, ps.packed_score_cost(w, z, L), dname)
+        result[(n_bucket, dname)] = dict(timing, max_abs_err=e_max)
         del members, z, w, args, out, ref
         torch.cuda.empty_cache()
     return result
+
+
+def stack_inputs(B: int, n_bucket: int, dname: str, seed: int):
+    """seed106's SchNet stack weights and the stack's inputs from the port's
+    dense model on ``B`` synthetic reactions of the ``n_bucket`` bucket,
+    prepared in ``dname`` as ``(w, h, ea, c)``, and a seeded normal
+    cotangent ``g``."""
+    import torch
+
+    from tsdiff_tpu_torch.ops import schnet_stack as ss
+
+    dtype = getattr(torch, dname)
+    model = load_member(106, dtype, torch.device("cuda"))
+    batch, pos = kernel_batch(n_bucket, seed=seed, count=B)
+    with torch.no_grad():
+        static = model.precompute_static(batch.atom_type, batch.r_feat, batch.p_feat,
+                                         batch.bond_mat, batch.node_mask)
+        edges_in, d_in, _, _ = model.build_pair_info(pos, batch.node_mask, static.pairs)
+        d_emb = model.edge_enc.d_embedding(d_in.to(dtype)[..., None])
+        edge_attr = model.edge_attr(d_emb, static.emb_r_in, static.emb_p_in)
+        cmask = model.encoder.cutoff_mask(d_in, edges_in.mask_global)
+    weights = {k: v.detach() for k, v in model.encoder.stack.weights().items()}
+    w, h, ea, c = ss.prepare_inputs(weights, static.z, edge_attr, cmask, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.randn(h.shape, generator=gen, device="cuda").to(dtype)
+    return w, h, ea, c, g
+
+
+def phase_stack_kernels() -> dict:
+    """B3's forward and backward and B4 against their plain versions: bf16 at
+    the training batch (B=200) in both of the training run's buckets, f32 at
+    B=16.  N=16 has no padded node tile rows and its pair rows fill exactly
+    four 64-row tiles, so it is a case of its own."""
+    import torch
+
+    from tsdiff_tpu_torch.ops import schnet_stack as ss
+
+    result = {}
+    for B, n_bucket, dname in ((200, 16, "bfloat16"), (200, 24, "bfloat16"),
+                               (16, 24, "float32")):
+        dtype = getattr(torch, dname)
+        w, h, ea, c, g = stack_inputs(B, n_bucket, dname, seed=700 + B + n_bucket)
+        _, N, H = h.shape
+        L = w["f1w"].shape[0]
+        tag = f"B={B} N={N} {dname}"
+        ea4, c3 = ea.reshape(B, N, N, H), c.reshape(B, N, N)
+
+        out, hs = ss.schnet_stack_fwd(w, h, ea, c)
+        ref_out, ref_hs = ss.schnet_stack_fwd_reference(w, h, ea, c)
+        torch.cuda.synchronize()
+        e_fwd = max(check_close(f"schnet_stack_fwd {tag} out", out, ref_out, dname),
+                    check_close(f"schnet_stack_fwd {tag} hs", hs, ref_hs, dname))
+        dh, dea, grads = ss.schnet_stack_bwd(w, ea, c, ref_hs, g)
+        rdh, rdea, rgrads = ss.schnet_stack_bwd_reference(w, ea, c, ref_hs, g)
+        torch.cuda.synchronize()
+        e_bwd = max([check_close(f"schnet_stack_bwd {tag} dh", dh, rdh, dname),
+                     check_close(f"schnet_stack_bwd {tag} dea", dea, rdea, dname)]
+                    + [check_close(f"schnet_stack_bwd {tag} d{k}", grads[k], rgrads[k], dname)
+                       for k in ss.W_KEYS])
+        b4 = ss.interaction_stack_pallas(w, h, ea4, c3, dtype)
+        torch.cuda.synchronize()
+        e_b4 = check_close(f"schnet_stack (B4) {tag} out", b4,
+                           ss.interaction_stack_reference(w, h, ea, c), dname)
+        del out, hs, ref_out, dh, dea, grads, rdh, rdea, rgrads, b4
+
+        bf = dtype == torch.bfloat16
+        result[(N, dname)] = {
+            "fwd": dict(time_and_bound(
+                f"schnet_stack_fwd {tag}", lambda: ss.schnet_stack_fwd(w, h, ea, c),
+                lambda: ss.schnet_stack_fwd_reference(w, h, ea, c), 10 if bf else 3,
+                ss.schnet_stack_cost(B, N, H, L, dtype, "fwd"), dname), max_abs_err=e_fwd),
+            "bwd": dict(time_and_bound(
+                f"schnet_stack_bwd {tag}", lambda: ss.schnet_stack_bwd(w, ea, c, ref_hs, g),
+                lambda: ss.schnet_stack_bwd_reference(w, ea, c, ref_hs, g), 5 if bf else 2,
+                ss.schnet_stack_cost(B, N, H, L, dtype, "bwd"), dname), max_abs_err=e_bwd),
+            "stack": dict(time_and_bound(
+                f"schnet_stack (B4) {tag}",
+                lambda: ss.interaction_stack_pallas(w, h, ea4, c3, dtype),
+                lambda: ss.interaction_stack_reference(w, h, ea, c), 10 if bf else 3,
+                ss.schnet_stack_cost(B, N, H, L, dtype, "stack"), dname), max_abs_err=e_b4),
+        }
+        del w, h, ea, c, g, ref_hs, ea4, c3
+        torch.cuda.empty_cache()
+    print("[kernels] tolerances (max, mean abs err / max|ref|): float32 (1e-4, 1e-4), only the "
+          "float32 summation order differs; bfloat16 (3e-2, 3e-3), both round to bf16 at the "
+          "same points but a reordered float32 sum can flip one rounding by a bf16 ulp (2^-8), "
+          "and such flips propagate through the 7 blocks")
+    return result
+
+
+def device_kernels(prof, steps: int) -> list[tuple[float, float, str]]:
+    """``(ms per step, launches per step, name)`` of every kernel in a
+    torch.profiler run, largest first.  Only device events count: a CPU op's
+    own device time repeats the time of the kernels it launched."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for ev in prof.key_averages():
+        dev = getattr(ev, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(ev, "self_cuda_time_total", 0.0)
+        if ev.device_type == DeviceType.CUDA and dev > 0:
+            rows.append((dev / 1e3 / steps, ev.count / steps, ev.key))
+    return sorted(rows, reverse=True)
 
 
 def phase_profile(n_steps: int = 20) -> None:
@@ -237,29 +374,20 @@ def phase_profile(n_steps: int = 20) -> None:
         dynamic_sampling(node_eq_fn, schedule, pos, batch.node_mask, settings, generator=gen)
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
-    kernel_us = other_us = 0.0
-    n_other = 0
-    for ev in prof.key_averages():
-        dev = getattr(ev, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(ev, "self_cuda_time_total", 0.0)
-        if dev <= 0:
-            continue
-        if "packed_score" in ev.key:
-            kernel_us += dev
-        else:
-            other_us += dev
-            n_other += ev.count
+    rows = device_kernels(prof, n_steps)
+    step_ms = wall_ms / n_steps
     print(f"[profile] {n_steps} ld steps, 8 members, B=100, N=24, bf16: wall {wall_ms:.3f} ms "
-          f"({wall_ms / n_steps:.4f} ms/step)")
-    if kernel_us == 0.0:
+          f"({step_ms:.4f} ms/step)")
+    kernel_ms = sum(ms for ms, _, name in rows if "packed_score" in name)
+    if kernel_ms == 0.0:
         print("[profile] the profiler shows no device time: breakdown not measured")
         return
-    busy_ms = (kernel_us + other_us) / 1e3
-    print(f"[profile] device time: packed_score kernel {kernel_us / 1e3 / n_steps:.4f} ms/step, "
-          f"other kernels {other_us / 1e3 / n_steps:.4f} ms/step ({n_other / n_steps:.1f} "
-          f"launches/step); device busy {busy_ms / wall_ms:.4f} of wall, idle "
-          f"{1 - busy_ms / wall_ms:.4f}")
+    other = [(ms, n) for ms, n, name in rows if "packed_score" not in name]
+    busy = kernel_ms + sum(ms for ms, _ in other)
+    print(f"[profile] device time: packed_score kernel {kernel_ms:.4f} ms/step, other kernels "
+          f"{sum(ms for ms, _ in other):.4f} ms/step ({sum(n for _, n in other):.1f} "
+          f"launches/step); device busy {busy / step_ms:.4f} of wall, idle "
+          f"{1 - busy / step_ms:.4f}")
 
 
 def phase_main_path() -> dict:
@@ -325,6 +453,175 @@ def phase_main_path() -> dict:
     return dict(launches=launches, wall=wall, dmae_mean=float(dmae.mean()))
 
 
+def phase_train() -> dict:
+    """The training main path at full width, then a fixed-batch descent
+    check with step times and a profile, then sampling from the checkpoint
+    this run trained."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tsdiff_tpu_torch.cli import sampling
+    from tsdiff_tpu_torch.cli import train as train_cli
+    from tsdiff_tpu_torch.config import Config
+    from tsdiff_tpu_torch.data import PaddedBatchLoader, TSDataset, save_dataset
+    from tsdiff_tpu_torch.data.synthetic import make_corpus
+    from tsdiff_tpu_torch.diffusion.objective import sample_antithetic_timesteps
+    from tsdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
+    from tsdiff_tpu_torch.models import get_model
+    from tsdiff_tpu_torch.ops import schnet_stack as ss
+    from tsdiff_tpu_torch.train import (
+        get_checkpoint_path,
+        init_train_state,
+        load_checkpoint,
+        make_optimizer,
+        make_train_step,
+    )
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    os.makedirs(TRAIN_DIR)
+    corpus = make_corpus(1200, seed=31)
+    paths = {"train": os.path.join(TRAIN_DIR, "train_data.pkl"),
+             "val": os.path.join(TRAIN_DIR, "valid_data.pkl")}
+    save_dataset(paths["train"], corpus[:1000])
+    save_dataset(paths["val"], corpus[1000:])
+    # the production model and train block (configs/train_config.yml, as the
+    # trained checkpoints embed it), with the fused stack, EMA and a short run
+    ck = load_checkpoint(os.path.join(CKPT_DIR, "seed106_best.ckpt"))
+    model_cfg = {**ck["config"]["model"], "packed_train": False, "use_pallas": True}
+    train_cfg = {**ck["config"]["train"], "seed": 0, "batch_size": 200, "val_freq": 20,
+                 "log_freq": 10, "max_iters": 40, "ema_decay": 0.999}
+    buckets = [16, 24]
+    cfg = {"model": model_cfg, "train": train_cfg, "dataset": paths,
+           "tpu": {"bucket_sizes": buckets}}
+    cfg_path = os.path.join(TRAIN_DIR, "train_config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f, indent=1)
+
+    B, iters = train_cfg["batch_size"], train_cfg["max_iters"]
+    val_batches = len(PaddedBatchLoader(TSDataset(paths["val"]), B, bucket_sizes=buckets))
+    validations = sum(1 for it in range(1, iters + 1) if it % train_cfg["val_freq"] == 0
+                      or it == iters)
+    expect_fwd, expect_bwd = iters + validations * val_batches, iters
+    ss.schnet_stack_fwd.launches = ss.schnet_stack_bwd.launches = 0
+    ss.interaction_stack_pallas.launches = 0
+    ss.schnet_stack_fwd_reference.calls = ss.schnet_stack_bwd_reference.calls = 0
+    ss.interaction_stack_reference.calls = 0
+    t0 = time.monotonic()
+    log_dir = train_cli.main([cfg_path, "--logdir", os.path.join(TRAIN_DIR, "logs"),
+                              "--dtype", "bfloat16", "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = (ss.schnet_stack_fwd.launches, ss.schnet_stack_bwd.launches)
+    b4_launches = ss.interaction_stack_pallas.launches
+    plain = (ss.schnet_stack_fwd_reference.calls, ss.schnet_stack_bwd_reference.calls,
+             ss.interaction_stack_reference.calls)
+    print(f"[train] {iters} iterations of batch {B} (buckets {buckets}), {validations} "
+          f"validations of {val_batches} batches, in {wall:.3f} s: B3 forward launches "
+          f"{launches[0]} (expected {expect_fwd}), B3 backward launches {launches[1]} (expected "
+          f"{expect_bwd}), B4 launches {b4_launches} (not on this path), plain-version calls "
+          f"{plain}")
+    if launches != (expect_fwd, expect_bwd):
+        fail(f"stack kernels launched {launches}, expected {(expect_fwd, expect_bwd)}")
+    if any(plain):
+        fail(f"the plain stack versions ran {plain} times on the training path")
+    with open(os.path.join(log_dir, "log.txt")) as f:
+        logged = re.findall(r"\[(Train|Validate)\] Iter (\d+) \| Loss (\S+)", f.read())
+    losses = [(kind, int(it), float(v)) for kind, it, v in logged]
+    print(f"[train] logged losses: {losses}")
+    if len(losses) != iters // train_cfg["log_freq"] + validations:
+        fail(f"expected {iters // train_cfg['log_freq']} train and {validations} validation "
+             f"log lines, got {len(losses)}")
+    if not all(np.isfinite(v) for _, _, v in losses):
+        fail("non-finite training or validation loss")
+    with open(os.path.join(log_dir, "log.txt")) as f:
+        tput = re.search(r"\[Train\] Throughput \| Iters (\d+)-(\d+) \| (\d+) graphs in (\S+) s "
+                         r"\| (\S+) graphs/s", f.read())
+    if tput is None:
+        fail("the train CLI logged no throughput line")
+    cli_gps = float(tput.group(5))
+    print(f"[train] CLI run, iterations {int(tput.group(1))}-{int(tput.group(2))} (all but the "
+          f"first, the loader, both buckets, validations and checkpoints included): "
+          f"{int(tput.group(3))} graphs in {float(tput.group(4)):.3f} s, {cli_gps:.4f} graphs/s")
+    ckpt_path, ckpt_it = get_checkpoint_path(os.path.join(log_dir, "checkpoints"))
+    print(f"[train] best checkpoint {os.path.relpath(ckpt_path, ROOT)} (iteration {ckpt_it})")
+
+    # descent on one fixed batch with fixed t and noise; step times; profile
+    mcfg = Config(model_cfg)
+    model = get_model(mcfg, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0))
+    model = model.to("cuda")
+    schedule = DiffusionSchedule.from_config(mcfg)
+    tx = make_optimizer(Config(train_cfg["optimizer"]), train_cfg["max_grad_norm"])
+    state = init_train_state(model, tx, ema_decay=train_cfg["ema_decay"])
+    step = make_train_step(model, tx, schedule, ema_decay=train_cfg["ema_decay"])
+    loader = PaddedBatchLoader(TSDataset(paths["train"]), B, bucket_sizes=buckets, device="cuda")
+    batch = next(b for b in loader if b.atom_type.shape[1] == 24)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    t = sample_antithetic_timesteps(gen, B, 0, len(schedule.alphas), "cuda")
+    noise = torch.randn(batch.pos.shape, generator=gen, device="cuda")
+    lr = train_cfg["optimizer"]["lr"]
+    fixed, step_s = [], []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, metrics = step(state, batch, lr, t=t, noise=noise)
+        fixed.append(float(metrics["loss"]))
+        step_s.append(time.monotonic() - t0)
+    ms = float(np.mean(step_s[1:])) * 1e3
+    first, last = float(np.mean(fixed[:5])), float(np.mean(fixed[-5:]))
+    print(f"[train] fixed batch (B={B}, N=24, bf16, use_pallas), 20 steps: losses "
+          f"{[round(v, 4) for v in fixed]}; mean of the first 5 {first:.4f}, of the last 5 "
+          f"{last:.4f}")
+    print(f"[train] per-step figure on the fixed N=24 batch: {ms:.4f} ms per train step "
+          f"(steps 2-20, host clock around a synchronised step), {B / ms * 1e3:.4f} graphs/s")
+    if not np.all(np.isfinite(fixed)) or not last < first:
+        fail("the loss did not fall on the fixed batch")
+
+    n_prof = 3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(n_prof):
+            state, metrics = step(state, batch, lr, t=t, noise=noise)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    rows = device_kernels(prof, n_prof)
+    step_ms = wall_ms / n_prof
+    fwd = sum(ms for ms, _, name in rows if "schnet_fwd_kernel" in name)
+    bwd = [(ms, name) for ms, _, name in rows if "schnet_bwd_" in name]
+    other = [(ms, n) for ms, n, name in rows if "schnet_" not in name]
+    print(f"[train] profile of {n_prof} steps: wall {step_ms:.4f} ms/step")
+    if fwd == 0.0:
+        print("[train] the profiler shows no device time: breakdown not measured")
+    else:
+        busy = fwd + sum(ms for ms, _ in bwd) + sum(ms for ms, _ in other)
+        print(f"[train] device time per step: B3 forward {fwd:.4f} ms, B3 backward "
+              f"{sum(ms for ms, _ in bwd):.4f} ms (" + ", ".join(
+                  f"{re.search(r'schnet_bwd_[a-z]+', name).group(0)} {ms:.4f}" for ms, name in bwd)
+              + f"), all other kernels {sum(ms for ms, _ in other):.4f} ms "
+              f"({sum(n for _, n in other):.1f} launches/step); device busy "
+              f"{busy / step_ms:.4f} of wall, idle {1 - busy / step_ms:.4f}")
+        for ms, n, name in [r for r in rows if "schnet_" not in r[2]][:5]:
+            print(f"[train]   other: {ms:.4f} ms/step in {n:.0f} launches: {name[:100]}")
+
+    # the checkpoint this run wrote, through the port's sampler
+    test_set = os.path.join(TRAIN_DIR, "sample_set.pkl")
+    save_dataset(test_set, make_corpus(8, seed=77))
+    save_path = sampling.main([
+        ckpt_path, "--test_set", test_set, "--save_dir", os.path.join(TRAIN_DIR, "samples"),
+        "--fused_score", "--dtype", "bfloat16", "--sampling_type", "ld", "--n_steps", "5000",
+        "--timestep_respacing", "20", "--batch_size", "8", "--device", "cuda",
+    ])
+    with open(save_path, "rb") as f:
+        samples = pickle.load(f)
+    if len(samples) != 8 or not all(np.isfinite(r["pos_gen"]).all() for r in samples):
+        fail("sampling from the trained checkpoint gave missing or non-finite positions")
+    print(f"[train] sampled {len(samples)} reactions for 20 respaced ld steps with the trained "
+          f"checkpoint: all positions finite")
+    return dict(launches=launches, b4_launches=b4_launches, wall=wall, ms_per_step=ms,
+                cli_graphs_per_s=cli_gps, final_loss=losses[-1][2])
+
+
 def main() -> None:
     try:
         import torch
@@ -341,22 +638,29 @@ def main() -> None:
     smi = phase_card()
     phase_build()
     k = phase_kernels()
+    sk = phase_stack_kernels()
     main_path = phase_main_path()
     phase_profile()
-    bf = k[(24, "bfloat16")]
-    print(json.dumps({"kernels": [{
-        "name": "packed_score",
-        "route": "cuda",
-        "source": "tsdiff_tpu_torch/csrc/packed_score.cu",
-        "replaces": "tsdiff_tpu/ops/pallas/condensed_score_packed.py:164",
-        "launches": main_path["launches"],
-        "max_abs_err": bf["max_abs_err"],
-        "ms": bf["ms"],
-        "plain_ms": bf["plain_ms"],
-        "bound_ms": bf["bound_ms"],
-        "bound_by": bf["bound_by"],
-        "library_ms": None,
-    }]}))
+    tr = phase_train()
+
+    def entry(name, source, replaces, launches, numbers):
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, **{key: numbers[key] for key in keys}, "library_ms": None}
+
+    stack_src = "tsdiff_tpu_torch/csrc/schnet_stack.cu"
+    vjp = "tsdiff_tpu/ops/pallas/schnet_stack_vjp.py"
+    bf = sk[(24, "bfloat16")]
+    print(json.dumps({"kernels": [
+        entry("packed_score", "tsdiff_tpu_torch/csrc/packed_score.cu",
+              "tsdiff_tpu/ops/pallas/condensed_score_packed.py:164", main_path["launches"],
+              k[(24, "bfloat16")]),
+        entry("schnet_stack_fwd", stack_src, f"{vjp}:44", tr["launches"][0], bf["fwd"]),
+        entry("schnet_stack_bwd", stack_src, f"{vjp}:72", tr["launches"][1], bf["bwd"]),
+        # B4 has no caller on a path in either package: the training run counts 0
+        entry("schnet_stack", stack_src, "tsdiff_tpu/ops/pallas/schnet_stack.py:53",
+              tr["b4_launches"], bf["stack"]),
+    ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,6 @@
-"""The packed score CUDA kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card: the
+packed score step (B1) and the fused SchNet stack (B3's forward and
+backward, B4).
 
 Every test here needs an NVIDIA GPU with nvcc (marker ``cuda``) and skips
 without one.  The file imports neither JAX nor the JAX package, so on a
@@ -11,7 +13,8 @@ Tolerances, as a fraction of the output's largest magnitude: float32 1e-4
 the float32 sums differs); bfloat16 3e-2 at the worst element and 3e-3 on
 average (both round to bf16 at the same points, but a different float32 sum
 order can flip a rounding by one bf16 ulp, 2^-8 relative, and such flips
-propagate through the L blocks).
+propagate through the L blocks).  The stack's outputs, its backward's
+gradients included, are held to the same tolerances.
 """
 
 import math
@@ -20,6 +23,7 @@ import pytest
 import torch
 
 from tsdiff_tpu_torch.ops import packed_score as ps
+from tsdiff_tpu_torch.ops import schnet_stack as ss
 
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 3e-3)}
 
@@ -97,3 +101,97 @@ def test_cuda_tensors_never_take_the_plain_path(cuda):
     with pytest.raises(ValueError):
         ps.packed_score(w2, z2, d2, c2, *t2, num_blocks=1)
     assert ps.packed_score_reference.calls == calls
+
+
+def stack_inputs(B, N, H, L, dtype, device, seed=0):
+    """Stack weights (flax layout) and inputs; the last 3 nodes of graph 0
+    are padding (zero mask rows and columns)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def mat(*shape):
+        return torch.randn(*shape, generator=g) / math.sqrt(shape[-2])
+
+    def vec(*shape):
+        return 0.1 * torch.randn(*shape, generator=g)
+
+    w = dict(f1w=mat(L, H, H), f1b=vec(L, H), f2w=mat(L, H, H), f2b=vec(L, H),
+             l1w=mat(L, H, H), l2w=mat(L, H, H) / N, l2b=vec(L, H), ow=mat(L, H, H), ob=vec(L, H))
+    m = torch.rand(B, N, N, generator=g) < 0.7
+    m = torch.triu(m, 1)
+    m = m | m.transpose(1, 2)
+    m[0, -3:, :] = m[0, :, -3:] = False
+    w = {k: w[k].to(device=device, dtype=dtype).contiguous() for k in ss.W_KEYS}
+    h = torch.randn(B, N, H, generator=g).to(device=device, dtype=dtype)
+    ea = torch.randn(B, N * N, H, generator=g).to(device=device, dtype=dtype)
+    c = m.reshape(B, N * N).to(device=device, dtype=dtype)
+    cot = torch.randn(B, N, H, generator=g).to(device=device, dtype=dtype)
+    return w, h, ea, c, cot
+
+
+def assert_close(name, out, ref, dtype):
+    scale = ref.float().abs().max().item()
+    err = (out.float() - ref.float()).abs()
+    print(f"{name} {dtype}: max|ref| {scale:.4g} max err {err.max().item():.3g} "
+          f"mean err {err.mean().item():.3g}")
+    tol_max, tol_mean = TOL[dtype]
+    assert torch.isfinite(out).all(), name
+    assert err.max().item() <= tol_max * scale, name
+    assert err.mean().item() <= tol_mean * scale, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("N", [8, 16, 24])
+def test_stack_forward_matches_reference(cuda, dtype, N):
+    w, h, ea, c, _ = stack_inputs(3, N, 256, 2, dtype, cuda, seed=N)
+    launches = ss.schnet_stack_fwd.launches
+    out, hs = ss.schnet_stack_fwd(w, h, ea, c)
+    torch.cuda.synchronize()
+    assert ss.schnet_stack_fwd.launches == launches + 1
+    ref_out, ref_hs = ss.schnet_stack_fwd_reference(w, h, ea, c)
+    assert_close(f"fwd out N={N}", out, ref_out, dtype)
+    assert_close(f"fwd hs N={N}", hs, ref_hs, dtype)
+    b4 = ss.interaction_stack_pallas(w, h, ea.reshape(3, N, N, -1), c.reshape(3, N, N), dtype)
+    torch.cuda.synchronize()
+    assert_close(f"B4 out N={N}", b4, ss.interaction_stack_reference(w, h, ea, c), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("N", [8, 16, 24])
+def test_stack_backward_matches_reference(cuda, dtype, N):
+    w, h, ea, c, cot = stack_inputs(3, N, 256, 2, dtype, cuda, seed=100 + N)
+    _, hs = ss.schnet_stack_fwd_reference(w, h, ea, c)
+    launches = ss.schnet_stack_bwd.launches
+    dh, dea, grads = ss.schnet_stack_bwd(w, ea, c, hs, cot)
+    torch.cuda.synchronize()
+    assert ss.schnet_stack_bwd.launches == launches + 1
+    rdh, rdea, rgrads = ss.schnet_stack_bwd_reference(w, ea, c, hs, cot)
+    assert_close(f"bwd dh N={N}", dh, rdh, dtype)
+    assert_close(f"bwd dea N={N}", dea, rdea, dtype)
+    for k in ss.W_KEYS:
+        assert_close(f"bwd d{k} N={N}", grads[k], rgrads[k], dtype)
+
+
+@pytest.mark.cuda
+def test_stack_cuda_tensors_never_take_the_plain_path(cuda):
+    """Through autograd on CUDA tensors the stack launches its kernels; a
+    shape the kernels do not take raises instead of falling back."""
+    w, h, ea, c, cot = stack_inputs(2, 8, 256, 1, torch.float32, cuda)
+    leaves = {k: v.clone().requires_grad_() for k, v in w.items()}
+    calls = (ss.schnet_stack_fwd_reference.calls, ss.schnet_stack_bwd_reference.calls,
+             ss.interaction_stack_reference.calls)
+    launches = ss.schnet_stack_fwd.launches, ss.schnet_stack_bwd.launches
+    out = ss.interaction_stack_pallas_trainable(leaves, h, ea.reshape(2, 8, 8, -1),
+                                                c.reshape(2, 8, 8), torch.bfloat16)
+    out.float().backward(cot.float())
+    torch.cuda.synchronize()
+    assert (ss.schnet_stack_fwd.launches, ss.schnet_stack_bwd.launches) == \
+        (launches[0] + 1, launches[1] + 1)
+    assert all(leaves[k].grad is not None and leaves[k].grad.dtype == torch.float32
+               for k in ss.W_KEYS)
+    w2, h2, ea2, c2, _ = stack_inputs(2, 8, 32, 1, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        ss.schnet_stack_fwd(w2, h2, ea2, c2)
+    assert calls == (ss.schnet_stack_fwd_reference.calls, ss.schnet_stack_bwd_reference.calls,
+                     ss.interaction_stack_reference.calls)

@@ -77,3 +77,30 @@ def test_dmae_matches():
     assert tdmae.calc_dmae(a, b) == jdmae.calc_dmae(a, b)
     assert tdmae.calc_dmae(a, b, perm) == jdmae.calc_dmae(a, b, perm)
     assert tdmae.calc_dmae(a, a) == 0.0
+
+
+@pytest.mark.parametrize("shuffle", [True, False])
+def test_padded_batch_loader_matches_jax(shuffle):
+    """The same seeded plan over two epochs, the same padded tail batches and
+    the same dataset indices (-1 for padding) as the JAX package's loader."""
+    graphs = synthetic.make_corpus(23, seed=4)
+    kw = dict(batch_size=4, shuffle=shuffle, seed=7, with_indices=True)
+    jl = jds.PaddedBatchLoader(jds.TSDataset(graphs), **kw)
+    tl = tds.PaddedBatchLoader(tds.TSDataset(graphs), **kw)
+    assert tl.bucket_sizes == jl.bucket_sizes
+    padded = False
+    for _ in range(2):  # each epoch draws a new permutation from the loader's rng
+        jbatches, tbatches = list(jl), list(tl)
+        assert len(tbatches) == len(jbatches) > 1
+        for (jb, ji), (tb, ti) in zip(jbatches, tbatches):
+            np.testing.assert_array_equal(ti, ji)
+            padded |= bool((ti == -1).any())
+            for name in ("atom_type", "r_feat", "p_feat", "pos", "bond_mat", "node_mask"):
+                np.testing.assert_array_equal(getattr(tb, name).numpy(),
+                                              np.asarray(getattr(jb, name)))
+    assert padded
+    loader = tds.PaddedBatchLoader(tds.TSDataset(graphs[:6]), 4)
+    n = len(loader)
+    it = tds.inf_iterator(loader)
+    shapes = [tuple(next(it).atom_type.shape) for _ in range(2 * n)]
+    assert shapes[:n] == shapes[n:]  # the second epoch follows the first

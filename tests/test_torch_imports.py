@@ -13,8 +13,9 @@ def test_port_imports_without_jax():
     import tsdiff_tpu_torch
 
     names = [m.name for m in pkgutil.walk_packages(tsdiff_tpu_torch.__path__, "tsdiff_tpu_torch.")]
-    assert "tsdiff_tpu_torch.ops.packed_score" in names
-    assert "tsdiff_tpu_torch.cli.sampling" in names
+    for name in ("ops.packed_score", "ops.schnet_stack", "cli.sampling", "cli.train",
+                 "train.trainer", "diffusion.objective", "models.schnet"):
+        assert f"tsdiff_tpu_torch.{name}" in names
     code = f"""
 import importlib, sys
 sys.modules["jax"] = None

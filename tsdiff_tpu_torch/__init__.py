@@ -6,10 +6,11 @@ reverse diffusion over atom coordinates with an ensemble of condensed-encoder
 score networks.
 
 The module layout mirrors ``tsdiff_tpu`` so every counterpart is found under
-the same name.  The package imports ``torch`` and never JAX; the hot score
-step runs through a hand-written CUDA kernel (``ops/packed_score.py`` and
-``csrc/packed_score.cu``).  Entry points default to ``device="cuda"`` and run
-on the CPU only when the caller asks for it.
+the same name.  The package imports ``torch`` and never JAX.  Sampling's
+score step and training's SchNet stack run through hand-written CUDA kernels
+(``ops/packed_score.py``, ``ops/schnet_stack.py`` and ``csrc/``).  Entry
+points default to ``device="cuda"`` and run on the CPU only when the caller
+asks for it.
 """
 
 __version__ = "0.1.0"

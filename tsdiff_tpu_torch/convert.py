@@ -1,4 +1,5 @@
-"""Weights carried across: flax parameter tree -> torch ``state_dict``.
+"""Weights carried across between a flax parameter tree and a torch
+``state_dict``, both ways (``params_from_jax``, ``params_to_jax``).
 
 The flax tree of a condensed-encoder checkpoint looks like::
 
@@ -15,6 +16,10 @@ and maps to torch names by these rules:
 * an ``embedding`` becomes the ``weight`` of an ``nn.Embedding`` (same layout);
 * every other leaf — the layer-stacked ``encoder/stack/*`` arrays — keeps its
   name and its stacked flax layout.
+
+The way back needs to know which ``weight`` belongs to an embedding: the
+modules named in ``EMBEDDINGS``; every other ``weight``/``bias`` pair is a
+linear layer's ``Dense_0`` kernel and bias.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ import numpy as np
 import torch
 
 _LAYER = re.compile(r"^layers_(\d+)$")
+#: torch modules whose ``weight`` is a flax ``embedding``
+EMBEDDINGS = ("atom_embedding", "bond_emb")
 
 
 def _leaves(tree: Mapping, prefix: tuple = ()):
@@ -64,3 +71,40 @@ def params_from_jax(params_tree: Mapping) -> dict[str, torch.Tensor]:
             raise ValueError(f"two flax leaves map to torch name {name!r}")
         out[name] = torch.from_numpy(np.array(arr))  # a writable, contiguous copy
     return out
+
+
+def flax_path(name: str) -> tuple[str, ...]:
+    """Flax leaf path of a torch parameter name (the inverse of ``torch_name``)."""
+    parts = name.split(".")
+    path = []
+    for i, p in enumerate(parts):
+        if p.isdigit() and i and parts[i - 1] == "layers":
+            path[-1] = f"layers_{p}"
+        else:
+            path.append(p)
+    if path[-1] == "weight" and path[-2] in EMBEDDINGS:
+        path[-1] = "embedding"
+    elif path[-1] == "weight":
+        path[-1:] = ["Dense_0", "kernel"]
+    elif path[-1] == "bias":
+        path[-1:] = ["Dense_0", "bias"]
+    return tuple(path)
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """Torch ``state_dict`` -> flax parameter tree ``{"params": {...}}`` of
+    float32 numpy arrays, kernels transposed back to flax ``(in, out)``; the
+    exact inverse of ``params_from_jax``."""
+    tree: dict = {}
+    for name, t in state_dict.items():
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        path = flax_path(name)
+        if path[-1] == "kernel":
+            arr = arr.T
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        if path[-1] in node:
+            raise ValueError(f"two torch names map to flax path {'/'.join(path)}")
+        node[path[-1]] = np.ascontiguousarray(arr)
+    return {"params": tree}

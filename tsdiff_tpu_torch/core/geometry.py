@@ -1,8 +1,49 @@
-"""Per-atom geometry helpers of the sampling loop."""
+"""Dense geometry: pairwise distances, the distance-score chain rule, and the
+per-atom helpers of the sampling loop.
+
+A dense entry (b, i, j) is the directed edge i -> j; every edge set is
+symmetric, so both directions are present.
+"""
 
 from __future__ import annotations
 
 import torch
+
+
+def pairwise_diff(pos: torch.Tensor) -> torch.Tensor:
+    """(B, N, 3) -> (B, N, N, 3) with diff[b, i, j] = pos[b, i] - pos[b, j]."""
+    return pos[:, :, None, :] - pos[:, None, :, :]
+
+
+def pairwise_distance(pos: torch.Tensor, emask: torch.Tensor) -> torch.Tensor:
+    """Masked pairwise distances (B, N, N).  Entries outside ``emask``
+    (the diagonal included) are 1.0, a dummy that keeps ``1/d`` finite; the
+    squared distance is floored at 1e-24 so autograd stays NaN-free."""
+    diff = pairwise_diff(pos)
+    sq = torch.sum(diff * diff, dim=-1)
+    one = torch.ones_like(sq)
+    safe_sq = torch.clamp(torch.where(emask, sq, one), min=1e-24)
+    return torch.where(emask, torch.sqrt(safe_sq), one)
+
+
+def eq_transform(
+    score_d: torch.Tensor,
+    pos: torch.Tensor,
+    emask: torch.Tensor,
+    edge_length: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Distance scores -> per-atom score vectors (B, N, 3):
+
+        score_pos[i] = sum_j m_ij (r_i - r_j)/d_ij s_ij + sum_j m_ji (r_i - r_j)/d_ji s_ji
+
+    ``score_d`` is (B, N, N) or (B, N, N, 1); padded atoms get exactly 0."""
+    if score_d.dim() == 4:
+        score_d = score_d[..., 0]
+    if edge_length is None:
+        edge_length = pairwise_distance(pos, emask)
+    dd_dr = pairwise_diff(pos) / edge_length[..., None]
+    w = emask.to(score_d.dtype) * score_d
+    return torch.sum(dd_dr * (w + w.transpose(1, 2))[..., None], dim=2)
 
 
 def center_pos(pos: torch.Tensor, node_mask: torch.Tensor) -> torch.Tensor:

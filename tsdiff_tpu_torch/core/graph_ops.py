@@ -8,7 +8,9 @@ Given condensed bond types T = r*22 + p on the 2D reaction graph:
   - the local edge set is the union of R-side and P-side edges, carrying
     separate ``type_r``/``type_p`` (0 where that side has no edge).
 
-Everything is (B, N, N) dense.  The adjacency powers run as float matmuls on
+The message-passing edge set is the local set united with a radius graph on
+the current coordinates (``radius_edge_mask``).  Everything is (B, N, N)
+dense.  The adjacency powers run as float matmuls on
 0/1 matrices (exact: every entry is an integer <= N), since CUDA has no
 integer matmul.
 """
@@ -20,6 +22,18 @@ import dataclasses
 import torch
 
 from tsdiff_tpu_torch.chem import NUM_BOND_TYPES
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphEdges:
+    """Dense edge sets of one padded batch: ``mask_global`` (local | radius)
+    is what the score network passes messages over, ``mask_local`` the
+    order-extended 2D set; ``type_r``/``type_p`` are 0 off the local set."""
+
+    mask_global: torch.Tensor  # (B, N, N) bool
+    mask_local: torch.Tensor   # (B, N, N) bool
+    type_r: torch.Tensor       # (B, N, N) int64
+    type_p: torch.Tensor       # (B, N, N) int64
 
 
 def pair_mask(node_mask: torch.Tensor) -> torch.Tensor:
@@ -93,3 +107,10 @@ def precompute_static_pairs(
     else:
         m_out, tr_out, tp_out = extend_ts_graph(bond_mat, node_mask, pred_edge_order)
     return StaticPairs(m_in, tr_in, tp_in, m_out, tr_out, tp_out)
+
+
+def radius_edge_mask(pos: torch.Tensor, node_mask: torch.Tensor, cutoff: float) -> torch.Tensor:
+    """All intra-graph pairs with distance <= cutoff, no self loops (B, N, N)."""
+    diff = pos[:, :, None, :] - pos[:, None, :, :]
+    sq = torch.sum(diff * diff, dim=-1)
+    return (sq <= cutoff * cutoff) & pair_mask(node_mask)

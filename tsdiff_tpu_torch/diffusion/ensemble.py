@@ -29,10 +29,11 @@ def make_packed_ensemble_eps_fn(members: list, batch: ReactionBatch):
     batch's device, sharing one configuration and working dtype."""
     model = members[0]
     pp = model.precompute_packed_pairs(batch.bond_mat, batch.node_mask)
-    z = torch.stack([
-        m.node_states(batch.atom_type, batch.r_feat, batch.p_feat, batch.node_mask)
-        for m in members
-    ]).contiguous()
+    with torch.no_grad():
+        z = torch.stack([
+            m.node_states(batch.atom_type, batch.r_feat, batch.p_feat, batch.node_mask)
+            for m in members
+        ]).contiguous()
     weights = stack_params([m.kernel_weights() for m in members])
 
     @torch.no_grad()

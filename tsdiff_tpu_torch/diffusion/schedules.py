@@ -47,6 +47,16 @@ def alphas_from_betas(betas: np.ndarray) -> np.ndarray:
 class DiffusionSchedule:
     betas: np.ndarray   # (T,) float32
     alphas: np.ndarray  # (T,) float32 cumulative products
+    _alphas_on: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+
+    def alphas_on(self, device):
+        """``alphas`` as a torch tensor on ``device``, copied there once."""
+        import torch
+
+        device = torch.device(device)
+        if device not in self._alphas_on:
+            self._alphas_on[device] = torch.as_tensor(self.alphas, device=device)
+        return self._alphas_on[device]
 
     @property
     def sigmas(self) -> np.ndarray:

@@ -11,22 +11,36 @@ Structure (hidden H = 256 in the trained checkpoints):
   head         re-extended at ``pred_edge_order``, then
                edge_inv = grad_dist_mlp(concat[h_i * h_j, edge_attr])
 
-Parameters carry the checkpoint's names (``tsdiff_tpu_torch.convert``).
-The sampling path runs the offset-packed score step
-(``score_step_packed``), whose pair work is the fused op
-``tsdiff_tpu_torch.ops.packed_score``.  The dense ``score_step`` and the
-training forward are not ported yet.
+Parameters carry the checkpoint's names (``tsdiff_tpu_torch.convert``) and
+stay float32; each use casts them to the working dtype.  Two paths:
+
+* training and the dense score (``forward`` = ``precompute_static`` +
+  ``score_step``): plain torch around the SchNet stack, which with
+  ``use_pallas`` is the fused CUDA op ``ops.schnet_stack`` with its own
+  backward;
+* sampling (``score_step_packed``): the offset-packed fused score step
+  ``ops.packed_score``.
+
+The Gaussian edge encoder, the fused dense score and the packed training
+forward are not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tsdiff_tpu_torch.core.graph_ops import precompute_static_pairs
+from tsdiff_tpu_torch.core.geometry import pairwise_distance
+from tsdiff_tpu_torch.core.graph_ops import (
+    GraphEdges,
+    StaticPairs,
+    precompute_static_pairs,
+    radius_edge_mask,
+)
 from tsdiff_tpu_torch.core.packed import (
     PackedPairs,
     half_last_slab_mask,
@@ -34,11 +48,14 @@ from tsdiff_tpu_torch.core.packed import (
     packed_distance,
     packed_valid_mask,
 )
-from tsdiff_tpu_torch.models.mlp import MLP
+from tsdiff_tpu_torch.models.activations import activation_loader
+from tsdiff_tpu_torch.models.edge import MLPEdgeEncoder
+from tsdiff_tpu_torch.models.init import init_params_
+from tsdiff_tpu_torch.models.mlp import MLP, linear
+from tsdiff_tpu_torch.models.schnet import SchNetEncoder
 from tsdiff_tpu_torch.ops.packed_score import extract_weights_packed, packed_score
 
 NUM_ATOM_TYPES = 100  # atomic-number embedding table size
-NUM_EDGE_TYPES = 100  # bond-type embedding table size
 
 
 class PackedPairInfo(NamedTuple):
@@ -50,46 +67,30 @@ class PackedPairInfo(NamedTuple):
     m_eq: torch.Tensor    # (B, K, N) float output mask & 0.5-last-slab
 
 
-class MLPEdgeEncoder(nn.Module):
-    """d_emb(edge_length) * bond_emb(edge_type)."""
+@dataclasses.dataclass(frozen=True)
+class StaticFeatures:
+    """Position-independent features of a batch: the node states and the
+    bond-type embeddings of both edge orders, in the working dtype."""
 
-    def __init__(self, hidden_dim: int, activation: str):
-        super().__init__()
-        self.mlp = MLP(1, [hidden_dim, hidden_dim], activation=activation)
-        self.bond_emb = nn.Embedding(NUM_EDGE_TYPES, hidden_dim)
+    z: torch.Tensor          # (B, N, H)
+    pairs: StaticPairs
+    emb_r_in: torch.Tensor   # (B, N, N, H) encoder edge order
+    emb_p_in: torch.Tensor
+    emb_r_out: torch.Tensor  # (B, N, N, H) output-head edge order
+    emb_p_out: torch.Tensor
 
 
 class EdgeCat(nn.Module):
     """2-layer fusion MLP of the concatenated R/P edge embeddings."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, activation: str = "swish"):
         super().__init__()
         self.lin0 = nn.Linear(2 * channels, channels)
         self.lin1 = nn.Linear(channels, channels)
+        self.act = activation_loader(activation)
 
-
-class InteractionStack(nn.Module):
-    """Layer-stacked SchNet interaction weights, in the checkpoint's flax
-    layout: matrices (L, in, out), biases (L, out)."""
-
-    def __init__(self, num_blocks: int, hidden: int, filters: int):
-        super().__init__()
-        L, H, F_ = num_blocks, hidden, filters
-
-        def p(*shape):
-            return nn.Parameter(torch.zeros(shape))
-
-        self.f1w, self.f1b = p(L, H, F_), p(L, F_)
-        self.f2w, self.f2b = p(L, F_, F_), p(L, F_)
-        self.l1w = p(L, H, F_)
-        self.l2w, self.l2b = p(L, F_, H), p(L, H)
-        self.ow, self.ob = p(L, H, H), p(L, H)
-
-
-class SchNetEncoder(nn.Module):
-    def __init__(self, num_blocks: int, hidden: int, filters: int):
-        super().__init__()
-        self.stack = InteractionStack(num_blocks, hidden, filters)
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(self.lin1, self.act(linear(self.lin0, x)))
 
 
 class CondenseEncoderEpsNetwork(nn.Module):
@@ -106,8 +107,15 @@ class CondenseEncoderEpsNetwork(nn.Module):
         num_convs: int = 7,
         cutoff: float = 10.0,
         smooth_conv: bool = False,
+        use_pallas: bool = False,
+        packed_train: bool = False,
         dtype: torch.dtype | None = None,
+        generator: torch.Generator | None = None,
     ):
+        """``use_pallas`` runs the SchNet stack through the fused CUDA op
+        (its plain twin on CPU tensors); ``packed_train`` is recorded for the
+        objective, which does not port it yet.  Parameters are initialised
+        from ``generator`` (``models.init``)."""
         super().__init__()
         if edge_encoder != "mlp" or smooth_conv or mlp_act != "swish" or edge_cat_act != "swish":
             raise NotImplementedError(
@@ -122,17 +130,23 @@ class CondenseEncoderEpsNetwork(nn.Module):
         self.edge_cutoff = edge_cutoff
         self.num_convs = num_convs
         self.cutoff = cutoff
+        self.use_pallas = use_pallas
+        self.packed_train = packed_train
         self.dtype = dtype or torch.float32
         half = hidden_dim // 2
         self.atom_embedding = nn.Embedding(NUM_ATOM_TYPES, half)
         self.atom_feat_embedding = nn.Linear(feat_dim, half, bias=False)
         self.edge_enc = MLPEdgeEncoder(hidden_dim, mlp_act)
-        self.edge_cat = EdgeCat(hidden_dim)
-        self.encoder = SchNetEncoder(num_convs, hidden_dim, hidden_dim)
+        self.edge_cat = EdgeCat(hidden_dim, edge_cat_act)
+        self.encoder = SchNetEncoder(
+            hidden_channels=hidden_dim, num_filters=hidden_dim, num_interactions=num_convs,
+            cutoff=cutoff, smooth=smooth_conv, use_pallas=use_pallas,
+        )
         self.grad_dist_mlp = MLP(2 * hidden_dim, [hidden_dim, hidden_dim // 2, 1], mlp_act)
+        init_params_(self, generator)
 
     @classmethod
-    def from_config(cls, config, dtype=None) -> "CondenseEncoderEpsNetwork":
+    def from_config(cls, config, dtype=None, generator=None) -> "CondenseEncoderEpsNetwork":
         """Build from a model config, as checkpoints embed it."""
         enc = config.encoder
         if enc.name != "schnet":
@@ -149,21 +163,95 @@ class CondenseEncoderEpsNetwork(nn.Module):
             num_convs=enc.num_convs,
             cutoff=enc.cutoff,
             smooth_conv=enc.smooth_conv,
+            use_pallas=config.get("use_pallas", False),
+            packed_train=config.get("packed_train", False),
             dtype=dtype,
+            generator=generator,
         )
 
-    @torch.no_grad()
     def node_states(self, atom_type, r_feat, p_feat, node_mask) -> torch.Tensor:
         """Condensed node states z = [a + af_r, af_p - af_r] (B, N, H) in the
         working dtype; position-independent.  Products accumulate in float32
         from working-dtype operands and round once."""
         dt = self.dtype
-        a_emb = self.atom_embedding.weight.to(dt)[atom_type]
+        a_emb = F.embedding(atom_type, self.atom_embedding.weight.to(dt))
         w = self.atom_feat_embedding.weight.to(dt).float()
         af_r = F.linear(r_feat.to(dt).float(), w).to(dt)
         af_p = F.linear(p_feat.to(dt).float(), w).to(dt)
         z = torch.cat([a_emb + af_r, af_p - af_r], dim=-1)
         return z * node_mask[..., None].to(dt)
+
+    # ---- dense path (training) ----
+
+    def precompute_pairs(self, bond_mat, node_mask) -> StaticPairs:
+        """Position-independent typed edge structures of both edge orders."""
+        return precompute_static_pairs(bond_mat, node_mask, self.edge_order, self.pred_edge_order)
+
+    def build_pair_info(self, pos, node_mask, static: StaticPairs):
+        """``(edges_in, d_in, edges_out, d_out)``: the static local sets united
+        with the radius graph on ``pos``, and masked distances.  The output
+        order's distances reuse the input order's (its edge set is a subset
+        of the input set united with the same radius mask)."""
+        mask_radius = radius_edge_mask(pos, node_mask, self.edge_cutoff)
+        edges_in = GraphEdges(
+            mask_global=static.mask_local_in | mask_radius,
+            mask_local=static.mask_local_in,
+            type_r=static.type_r_in,
+            type_p=static.type_p_in,
+        )
+        d_in = pairwise_distance(pos, edges_in.mask_global)
+        if self.pred_edge_order == self.edge_order:
+            return edges_in, d_in, edges_in, d_in
+        edges_out = GraphEdges(
+            mask_global=static.mask_local_out | mask_radius,
+            mask_local=static.mask_local_out,
+            type_r=static.type_r_out,
+            type_p=static.type_p_out,
+        )
+        d_out = torch.where(edges_out.mask_global, d_in, torch.ones_like(d_in))
+        return edges_in, d_in, edges_out, d_out
+
+    def precompute_static(self, atom_type, r_feat, p_feat, bond_mat, node_mask) -> StaticFeatures:
+        """All position-independent work of the dense forward."""
+        pairs = self.precompute_pairs(bond_mat, node_mask)
+        emb = self.edge_enc.bond_embedding
+        return StaticFeatures(
+            z=self.node_states(atom_type, r_feat, p_feat, node_mask),
+            pairs=pairs,
+            emb_r_in=emb(pairs.type_r_in, self.dtype),
+            emb_p_in=emb(pairs.type_p_in, self.dtype),
+            emb_r_out=emb(pairs.type_r_out, self.dtype),
+            emb_p_out=emb(pairs.type_p_out, self.dtype),
+        )
+
+    def edge_attr(self, d_emb, emb_r, emb_p) -> torch.Tensor:
+        """``edge_cat`` of the R and P edge embeddings (B, N, N, H)."""
+        combine = self.edge_enc.combine
+        return self.edge_cat(torch.cat([combine(d_emb, emb_r), combine(d_emb, emb_p)], dim=-1))
+
+    def score_step(self, pos, node_mask, static: StaticFeatures, pair_info=None):
+        """Position-dependent part of the dense forward: ``(edge_inv (B, N,
+        N, 1) float32, edges at pred_edge_order, d_out)``.  The distance MLP
+        runs once on the encoder-order distances and is shared with the
+        output stage."""
+        dt = self.dtype
+        if pair_info is None:
+            pair_info = self.build_pair_info(pos, node_mask, static.pairs)
+        edges_in, d_in, edges_out, d_out = pair_info
+        d_emb = self.edge_enc.d_embedding(d_in.to(dt)[..., None])
+        ea = self.edge_attr(d_emb, static.emb_r_in, static.emb_p_in)
+        node_attr = self.encoder(static.z, ea, d_in, edges_in.mask_global, dt)
+        if self.pred_edge_order != self.edge_order:
+            ea = self.edge_attr(d_emb, static.emb_r_out, static.emb_p_out)
+        h_pair = torch.cat([node_attr[:, :, None, :] * node_attr[:, None, :, :], ea], dim=-1)
+        return self.grad_dist_mlp(h_pair).float(), edges_out, d_out
+
+    def forward(self, atom_type, r_feat, p_feat, pos, bond_mat, node_mask):
+        """Score-network forward: ``precompute_static`` then ``score_step``."""
+        static = self.precompute_static(atom_type, r_feat, p_feat, bond_mat, node_mask)
+        return self.score_step(pos, node_mask, static)
+
+    # ---- offset-packed path (sampling) ----
 
     def precompute_packed_pairs(self, bond_mat, node_mask) -> PackedPairs:
         """Offset-packed typed pair structures; member-invariant, once per batch."""

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds).  The
 library goes to ``tsdiff_tpu_torch/_build/<name>-<hash>/``, keyed by a hash
-of the source and the flags, so an edited source is rebuilt and an unchanged
-one is reused.  Several sources build in parallel, one ``nvcc`` each.
+of the source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source is rebuilt and an unchanged one is reused.  Several sources build in
+parallel, one ``nvcc`` each.
 
 Nothing here runs at import time; without ``nvcc`` a build raises.
 """
@@ -12,6 +13,7 @@ Nothing here runs at import time; without ``nvcc`` a build raises.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -43,8 +45,12 @@ def find_nvcc() -> str:
 
 def _paths(name: str) -> tuple[str, str]:
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # the source and every shared header it may include
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     out_dir = os.path.join(BUILD_ROOT, f"{name}-{digest}")
     return src, os.path.join(out_dir, f"lib{name}.so")
 

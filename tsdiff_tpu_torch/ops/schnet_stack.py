@@ -1,0 +1,365 @@
+"""Fused SchNet interaction stack: CUDA kernels, plain twins and autograd.
+
+Replaces the TPU kernels ``tsdiff_tpu/ops/pallas/schnet_stack_vjp.py::
+interaction_stack_pallas_trainable`` (forward ``_fwd_kernel``, backward
+``_bwd_kernel``) and ``tsdiff_tpu/ops/pallas/schnet_stack.py::
+interaction_stack_pallas`` (``_stack_kernel``, the forward without the saved
+block inputs).  Per block l, on the pair rows p = i*N + j of each graph:
+
+    w   = rnd(rnd(ssp(rnd(ea f1w + f1b)) f2w + f2b) * c)
+    xh  = rnd(h l1w);   agg[j] = rnd(sum_i rnd(w[i*N+j] * xh[i]))
+    h  += rnd(ssp(rnd(agg l2w + l2b)) ow + ob)
+
+rnd() rounds to the working type; products accumulate in float32.  The
+backward recomputes each block's pair filter in reverse (ssp' = sigmoid) and
+returns dh, dea and the nine weight gradients summed over graphs, all
+float32, with the TPU kernel's casts of dagg, da2, ds1 and da1.
+
+* ``schnet_stack_fwd_reference`` / ``schnet_stack_bwd_reference`` /
+  ``interaction_stack_reference``: the plain PyTorch versions, at the TPU
+  kernel's rounding points.  The backward is an explicit port of
+  ``_bwd_kernel``, not autograd.
+* ``schnet_stack_fwd`` / ``schnet_stack_bwd`` / ``interaction_stack_pallas``:
+  the wrappers.  CPU tensors take the plain version; CUDA tensors launch
+  ``csrc/schnet_stack.cu`` (built at first use) or raise.  Each wrapper's
+  ``launches`` counts its kernel launches (one per call; the backward's call
+  runs 4 kernels per block) and each plain version's ``calls`` its calls.
+* ``InteractionStackFn``: the autograd function of the training path
+  (``interaction_stack_pallas_trainable``).
+
+Layouts at these functions are the JAX package's: weights ``(L, in, out)``
+and biases ``(L, out)``; ``ea (B, P, E)``, ``c (B, P)`` and ``h (B, N, H)``
+in the working type, ``P = N*N``.
+
+What bounds the kernels on an H100 at the training shapes (B=200, N=24,
+H=F=E=256, L=7, bf16): the forward is 2.25e11 flop of matrix products
+(the TPU kernel's own estimate, ``schnet_stack.py:129``), 0.23 ms at 989
+TFLOP/s, against 59 MB of ``ea``; the backward is 6.7e11 flop, 0.68 ms,
+against ~180 MB.  Both are bound by the tensor cores (``schnet_stack_cost``).
+The design (one CTA per graph, pair tiles streamed from L2, a deterministic
+split-K reduction for the weight gradients) is described in the source.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+#: the stack's weights, in the order the kernels and the gradients take them
+W_KEYS = ("f1w", "f1b", "f2w", "f2b", "l1w", "l2w", "l2b", "ow", "ob")
+_MATS = ("f1w", "f2w", "l1w", "l2w", "ow")
+_LIB = "schnet_stack"
+_LOG2 = 0.6931471805599453
+#: rows per split of the weight-gradient reduction (pair rows, node rows)
+PAIR_ROWS_PER_SPLIT = 2048
+NODE_ROWS_PER_SPLIT = 512
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    """The kernel library, built at first use, with its C signatures declared."""
+    from tsdiff_tpu_torch.ops import _build
+
+    lib = _build.load(_LIB)
+    ptrs = ctypes.POINTER(ctypes.c_void_p)
+    lib.schnet_stack_fwd_launch.argtypes = [ptrs, *[ctypes.c_int] * 6, ctypes.c_void_p]
+    lib.schnet_stack_fwd_launch.restype = ctypes.c_int
+    lib.schnet_stack_bwd_launch.argtypes = [ptrs, *[ctypes.c_int] * 7, ctypes.c_void_p]
+    lib.schnet_stack_bwd_launch.restype = ctypes.c_int
+    lib.schnet_stack_error_string.argtypes = [ctypes.c_int]
+    lib.schnet_stack_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+
+
+def _ssp(x: torch.Tensor) -> torch.Tensor:
+    """Shifted softplus evaluated in float32, rounded to x's type."""
+    xf = x.float()
+    return (torch.clamp(xf, min=0.0) + torch.log1p(torch.exp(-xf.abs())) - _LOG2).to(x.dtype)
+
+
+def _dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a (..., in) @ w (in, out) with float32 accumulation."""
+    return torch.matmul(a.float(), w.float())
+
+
+def _xty(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Sum over all rows of all graphs of x^T y, float32: (in, out)."""
+    return _dot(x.reshape(-1, x.shape[-1]).t(), y.reshape(-1, y.shape[-1]))
+
+
+def _block_filter(w: dict, l: int, ea: torch.Tensor, c: torch.Tensor):
+    """Block l's pair filter: (a1 f32, s1, w) with w = rnd(rnd(a2) * c)."""
+    dt = ea.dtype
+    a1 = _dot(ea, w["f1w"][l]) + w["f1b"][l].float()
+    s1 = _ssp(a1.to(dt))
+    a2 = _dot(s1, w["f2w"][l]) + w["f2b"][l].float()
+    return a1, s1, a2.to(dt) * c[..., None]
+
+
+def _aggregate(wv: torch.Tensor, xh: torch.Tensor) -> torch.Tensor:
+    """agg[j] = rnd(sum_i rnd(w[i*N+j] * xh[i])): (B, N, F)."""
+    B, N, F = xh.shape
+    w3 = wv.reshape(B, N, N, F)
+    return (w3 * xh[:, :, None, :]).float().sum(1).to(xh.dtype)
+
+
+def _forward_plain(w: dict, h: torch.Tensor, ea: torch.Tensor, c: torch.Tensor, store_hs: bool):
+    dt = h.dtype
+    L = w["f1w"].shape[0]
+    hs = []
+    for l in range(L):
+        if store_hs:
+            hs.append(h)
+        _, _, wv = _block_filter(w, l, ea, c)
+        xh = _dot(h, w["l1w"][l]).to(dt)
+        agg = _aggregate(wv, xh)
+        conv = (_dot(agg, w["l2w"][l]) + w["l2b"][l].float()).to(dt)
+        h = h + (_dot(_ssp(conv), w["ow"][l]) + w["ob"][l].float()).to(dt)
+    return h, (torch.stack(hs, dim=1) if store_hs else None)
+
+
+def schnet_stack_fwd_reference(w: dict, h: torch.Tensor, ea: torch.Tensor, c: torch.Tensor):
+    """Plain forward: ``(out (B, N, H), hs (B, L, N, H))`` in h's type, ``hs``
+    holding each block's input."""
+    schnet_stack_fwd_reference.calls += 1
+    return _forward_plain(w, h, ea, c, store_hs=True)
+
+
+def interaction_stack_reference(w: dict, h: torch.Tensor, ea: torch.Tensor, c: torch.Tensor):
+    """Plain forward without the saved block inputs: ``out (B, N, H)``."""
+    interaction_stack_reference.calls += 1
+    return _forward_plain(w, h, ea, c, store_hs=False)[0]
+
+
+def schnet_stack_bwd_reference(w: dict, ea: torch.Tensor, c: torch.Tensor, hs: torch.Tensor,
+                               g: torch.Tensor):
+    """Plain backward, an explicit port of ``_bwd_kernel``: ``(dh (B, N, H),
+    dea (B, P, E), grads)``, all float32, ``grads`` keyed by ``W_KEYS`` in
+    the weights' shapes and summed over graphs."""
+    schnet_stack_bwd_reference.calls += 1
+    dt = ea.dtype
+    B, L, N, H = hs.shape
+    F = w["f1w"].shape[-1]
+    g = g.float()
+    dea = torch.zeros(ea.shape, dtype=torch.float32, device=ea.device)
+    grads = {k: torch.zeros(w[k].shape, dtype=torch.float32, device=ea.device) for k in W_KEYS}
+    cc = c[..., None]
+    for l in reversed(range(L)):
+        h_l = hs[:, l]
+        a1, s1, wv = _block_filter(w, l, ea, c)
+        xh = _dot(h_l, w["l1w"][l]).to(dt)
+        agg = _aggregate(wv, xh)
+        a3 = _dot(agg, w["l2w"][l]) + w["l2b"][l].float()
+        s3 = _ssp(a3.to(dt))
+
+        gd = g.to(dt)
+        grads["ow"][l] = _xty(s3, gd)
+        grads["ob"][l] = g.sum((0, 1))
+        da3 = _dot(gd, w["ow"][l].t()) * torch.sigmoid(a3)
+        grads["l2w"][l] = _xty(agg, da3.to(dt))
+        grads["l2b"][l] = da3.sum((0, 1))
+        dagg = _dot(da3.to(dt), w["l2w"][l].t()).to(dt)             # (B, N, F)
+
+        w3 = wv.reshape(B, N, N, F)
+        dw3 = xh[:, :, None, :] * dagg[:, None, :, :]               # [i, j] = xh[i] dagg[j]
+        dxh = (w3 * dagg[:, None, :, :]).float().sum(2).to(dt)      # sum over targets j
+        grads["l1w"][l] = _xty(h_l, dxh)
+        dh_from_xh = _dot(dxh, w["l1w"][l].t())
+
+        da2 = dw3.reshape(B, N * N, F) * cc
+        grads["f2w"][l] = _xty(s1, da2)
+        grads["f2b"][l] = da2.float().sum((0, 1))
+        ds1 = _dot(da2, w["f2w"][l].t()).to(dt)
+        da1 = ds1 * torch.sigmoid(a1).to(dt)
+        grads["f1w"][l] = _xty(ea, da1)
+        grads["f1b"][l] = da1.float().sum((0, 1))
+        dea = dea + _dot(da1, w["f1w"][l].t())
+        g = g + dh_from_xh
+    return g, dea, grads
+
+
+schnet_stack_fwd_reference.calls = 0
+schnet_stack_bwd_reference.calls = 0
+interaction_stack_reference.calls = 0
+
+
+def schnet_stack_cost(B: int, N: int, H: int, L: int, dtype: torch.dtype, kind: str) -> dict:
+    """Work of one call of ``kind`` "fwd" (B3's forward), "stack" (B4) or
+    "bwd" (B3's backward), for its bound (E = F = H, P = N*N).
+
+    Forward flop: the TPU kernel's estimate (``schnet_stack.py:129-132``),
+    ``2*B*L*(P*E*F + P*F*F + N*H*F + N*F*H + N*H*H)``.  Backward flop, from
+    ``_bwd_kernel``'s body: 4 recomputed products (a1: P*E*F, a2: P*F*F,
+    xh: N*H*F, a3: N*F*H), 4 pair-row products (df2w and ds1: P*F*F; df1w
+    and dea: P*E*F) and 6 node products (dow and ds3: N*H*H; dl2w and dagg:
+    N*F*H; dl1w and dh: N*H*F), i.e. ``2*B*L*(3*P*E*F + 3*P*F*F + 3*N*H*F +
+    3*N*F*H + 2*N*H*H)``.  The elementwise aggregation products are not
+    counted.  Bytes: every input read once and every output written once."""
+    P, E = N * N, H
+    t = torch.finfo(dtype).bits // 8
+    weights = L * (5 * H * H + 4 * H) * t
+    if kind == "bwd":
+        flops = 2 * B * L * (3 * P * E * H + 3 * P * H * H + 3 * N * H * H + 3 * N * H * H
+                             + 2 * N * H * H)
+        nbytes = (B * P * (E + 1) + B * L * N * H + B * N * H) * t + weights \
+            + (B * N * H + B * P * E + L * (5 * H * H + 4 * H)) * 4
+    else:
+        flops = 2 * B * L * (P * E * H + P * H * H + 3 * N * H * H)
+        hs = B * L * N * H if kind == "fwd" else 0
+        nbytes = (B * P * (E + 1) + B * N * H) * t + weights + (B * N * H + hs) * t
+    return {"flops": flops, "bytes": nbytes}
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+
+
+def _check(w: dict, ea: torch.Tensor, c: torch.Tensor, nodes: torch.Tensor, name: str):
+    """Shapes, types and devices the kernels take; returns (B, N, H, L)."""
+    dt = ea.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: the working type must be float32 or bfloat16, got {dt}")
+    B, N, H = nodes.shape[0], nodes.shape[-2], nodes.shape[-1]
+    L = w["f1w"].shape[0]
+    if N % 8 or H % 64 or H > 256:
+        raise ValueError(f"{name}: the CUDA kernels need N % 8 == 0 and H a multiple of 64 "
+                         f"up to 256, got N={N}, H={H}")
+    want = {"ea": (ea, (B, N * N, H)), "c": (c, (B, N * N))}
+    for k in W_KEYS:
+        want[k] = (w[k], (L, H, H) if k in _MATS else (L, H))
+    for k, (t, shape) in want.items():
+        if tuple(t.shape) != shape or t.dtype != dt or t.device != nodes.device:
+            raise ValueError(f"{name}: {k} must be a {dt} {shape} tensor on {nodes.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if nodes.dtype != dt:
+        raise ValueError(f"{name}: node tensors must be {dt}, got {nodes.dtype}")
+    return B, N, H, L
+
+
+def _launch(fn_name: str, tensors: list, *ints):
+    lib = _kernel_lib()
+    for t in tensors:
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{fn_name}: every tensor must be contiguous")
+    ptrs = (ctypes.c_void_p * len(tensors))(*[0 if t is None else t.data_ptr() for t in tensors])
+    dev = tensors[0].device
+    with torch.cuda.device(dev):
+        err = getattr(lib, fn_name)(ptrs, *ints, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        msg = lib.schnet_stack_error_string(err).decode()
+        raise RuntimeError(f"{fn_name} failed ({err}: {msg}) at B, N, H, L = {ints[:4]}")
+
+
+def _fwd_cuda(w: dict, h: torch.Tensor, ea: torch.Tensor, c: torch.Tensor, store_hs: bool):
+    B, N, H, L = _check(w, ea, c, h, "schnet_stack forward")
+    out = torch.empty_like(h)
+    hs = torch.empty((B, L, N, H), dtype=h.dtype, device=h.device) if store_hs else None
+    wt = [w[k].transpose(1, 2).contiguous() if k in _MATS else w[k] for k in W_KEYS]
+    _launch("schnet_stack_fwd_launch", [ea, c, h, *wt, out, hs],
+            B, N, H, L, int(h.dtype == torch.bfloat16), int(store_hs))
+    return out, hs
+
+
+def schnet_stack_fwd(w: dict, h: torch.Tensor, ea: torch.Tensor, c: torch.Tensor):
+    """B3's forward: ``(out, hs)``.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel on the current stream, or raise."""
+    if h.device.type == "cpu":
+        return schnet_stack_fwd_reference(w, h, ea, c)
+    out = _fwd_cuda(w, h, ea, c, store_hs=True)
+    schnet_stack_fwd.launches += 1
+    return out
+
+
+def schnet_stack_bwd(w: dict, ea: torch.Tensor, c: torch.Tensor, hs: torch.Tensor,
+                     g: torch.Tensor):
+    """B3's backward: ``(dh, dea, grads)`` as ``schnet_stack_bwd_reference``.
+    CPU tensors take the plain version; CUDA tensors run the kernels on the
+    current stream, or raise."""
+    if hs.device.type == "cpu":
+        return schnet_stack_bwd_reference(w, ea, c, hs, g)
+    B, N, H, L = _check(w, ea, c, hs[:, 0], "schnet_stack backward")
+    if tuple(g.shape) != (B, N, H):
+        raise ValueError(f"schnet_stack backward: g must be ({B}, {N}, {H}), got {tuple(g.shape)}")
+    dev, dt = ea.device, ea.dtype
+    f32 = dict(dtype=torch.float32, device=dev)
+    P = N * N
+    dh = g.float().contiguous().clone()
+    dea = torch.zeros((B, P, H), **f32)
+    grads = {k: torch.empty(w[k].shape, **f32) for k in W_KEYS}
+    pair = [torch.empty((B * P, H), dtype=dt, device=dev) for _ in range(5)]
+    node = [torch.empty((B * N, H), dtype=dt, device=dev) for _ in range(6)]
+    bias = torch.empty((4, B, H), **f32)
+    splits = 2 * math.ceil(B * P / PAIR_ROWS_PER_SPLIT) + 3 * math.ceil(B * N / NODE_ROWS_PER_SPLIT)
+    part = torch.empty((splits, H, H), **f32)
+    fwd_layout = [w[k].transpose(1, 2).contiguous() for k in ("f1w", "f2w", "l1w", "l2w")]
+    tensors = [ea, c, hs, dh, dea, *fwd_layout,
+               *(w[k] for k in ("f1w", "f2w", "l1w", "l2w", "ow", "f1b", "f2b", "l2b")),
+               *(grads[k] for k in W_KEYS), *pair, *node, bias, part]
+    _launch("schnet_stack_bwd_launch", tensors, B, N, H, L, int(dt == torch.bfloat16),
+            PAIR_ROWS_PER_SPLIT, NODE_ROWS_PER_SPLIT)
+    schnet_stack_bwd.launches += 1
+    return dh, dea, grads
+
+
+def prepare_inputs(weights: dict, h, edge_attr, cmask, dtype):
+    """The JAX-package call's casts: weights, ea (B, P, E), c (B, P) and h in
+    ``dtype``, contiguous."""
+    B, N, _, E = edge_attr.shape
+    w = {k: weights[k].to(dtype).contiguous() for k in W_KEYS}
+    ea = edge_attr.reshape(B, N * N, E).to(dtype).contiguous()
+    c = cmask.reshape(B, N * N).to(dtype).contiguous()
+    return w, h.to(dtype).contiguous(), ea, c
+
+
+def interaction_stack_pallas(weights: dict, h: torch.Tensor, edge_attr: torch.Tensor,
+                             cmask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """B4: the forward-only stack, ``(B, N, H)`` in ``dtype``, from the JAX
+    package's arguments (``edge_attr (B, N, N, E)``, ``cmask (B, N, N)``).
+    CPU tensors take the plain version; CUDA tensors launch the kernel built
+    without the ``hs`` store, or raise."""
+    w, h, ea, c = prepare_inputs(weights, h, edge_attr, cmask, dtype)
+    if h.device.type == "cpu":
+        return interaction_stack_reference(w, h, ea, c)
+    out, _ = _fwd_cuda(w, h, ea, c, store_hs=False)
+    interaction_stack_pallas.launches += 1
+    return out
+
+
+schnet_stack_fwd.launches = 0
+schnet_stack_bwd.launches = 0
+interaction_stack_pallas.launches = 0
+
+
+class InteractionStackFn(torch.autograd.Function):
+    """B3 as an autograd function: the forward kernel saves the block inputs
+    ``hs``; the backward kernels recompute from them.  Gradients come back in
+    the inputs' types, as ``_bwd_rule`` casts them; ``cmask`` gets none."""
+
+    @staticmethod
+    def forward(ctx, f1w, f1b, f2w, f2b, l1w, l2w, l2b, ow, ob, h, edge_attr, cmask, dtype):
+        weights = dict(zip(W_KEYS, (f1w, f1b, f2w, f2b, l1w, l2w, l2b, ow, ob)))
+        w, hv, ea, c = prepare_inputs(weights, h, edge_attr, cmask, dtype)
+        out, hs = schnet_stack_fwd(w, hv, ea, c)
+        ctx.save_for_backward(*(w[k] for k in W_KEYS), ea, c, hs)
+        ctx.meta = (h.dtype, edge_attr.shape, edge_attr.dtype, [weights[k].dtype for k in W_KEYS])
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        *ws, ea, c, hs = ctx.saved_tensors
+        h_dtype, ea_shape, ea_dtype, w_dtypes = ctx.meta
+        w = dict(zip(W_KEYS, ws))
+        dh, dea, grads = schnet_stack_bwd(w, ea, c, hs, g.to(ea.dtype).contiguous())
+        dws = [grads[k].to(dt) for k, dt in zip(W_KEYS, w_dtypes)]
+        return (*dws, dh.to(h_dtype), dea.reshape(ea_shape).to(ea_dtype), None, None)
+
+
+def interaction_stack_pallas_trainable(weights: dict, h: torch.Tensor, edge_attr: torch.Tensor,
+                                       cmask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """B3: the differentiable fused stack, ``(B, N, H)`` in ``dtype``."""
+    return InteractionStackFn.apply(*(weights[k] for k in W_KEYS), h, edge_attr, cmask, dtype)

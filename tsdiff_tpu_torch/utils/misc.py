@@ -1,10 +1,13 @@
-"""Infra utilities: device resolution and logging."""
+"""Infra utilities: device resolution, seeding, log directories, logging."""
 
 from __future__ import annotations
 
 import logging
 import os
+import random
+import time
 
+import numpy as np
 import torch
 
 
@@ -24,19 +27,50 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
 
 
 def get_logger(name: str, log_dir: str | None = None) -> logging.Logger:
-    """Console + optional file logger."""
+    """Console + optional file logger.  A later call with another ``log_dir``
+    (a second run in the same process) moves the file handler there."""
     logger = logging.getLogger(name)
     logger.setLevel(logging.DEBUG)
-    if logger.handlers:
-        return logger
     formatter = logging.Formatter("[%(asctime)s::%(name)s::%(levelname)s] %(message)s")
-    sh = logging.StreamHandler()
-    sh.setLevel(logging.INFO)
-    sh.setFormatter(formatter)
-    logger.addHandler(sh)
-    if log_dir is not None:
-        fh = logging.FileHandler(os.path.join(log_dir, "log.txt"))
+    if not any(type(h) is logging.StreamHandler for h in logger.handlers):
+        sh = logging.StreamHandler()
+        sh.setLevel(logging.INFO)
+        sh.setFormatter(formatter)
+        logger.addHandler(sh)
+    if log_dir is None:
+        return logger
+    path = os.path.abspath(os.path.join(log_dir, "log.txt"))
+    for h in [h for h in logger.handlers if isinstance(h, logging.FileHandler)]:
+        if h.baseFilename != path:
+            logger.removeHandler(h)
+            h.close()
+    if not any(isinstance(h, logging.FileHandler) for h in logger.handlers):
+        fh = logging.FileHandler(path)
         fh.setLevel(logging.DEBUG)
         fh.setFormatter(formatter)
         logger.addHandler(fh)
     return logger
+
+
+def seed_all(seed: int) -> None:
+    """Seed Python, numpy and torch's global generators."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+
+def get_new_log_dir(root: str = "./logs", prefix: str = "", tag: str = "") -> str:
+    """A new timestamped run directory under ``root``."""
+    fn = time.strftime("%Y_%m_%d__%H_%M_%S", time.localtime())
+    if prefix:
+        fn = f"{prefix}_{fn}"
+    if tag:
+        fn = f"{fn}_{tag}"
+    log_dir = os.path.join(root, fn)
+    os.makedirs(log_dir, exist_ok=True)
+    return log_dir
+
+
+def count_parameters(model: torch.nn.Module) -> int:
+    """Number of scalars in a module's parameters."""
+    return sum(t.numel() for t in model.parameters())
