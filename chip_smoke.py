@@ -10,7 +10,10 @@ Phases (any failure exits non-zero):
 3. kernels against their plain PyTorch versions at the main paths' shapes:
    the packed score step (B1) with the 8 trained campaign members on 100
    synthetic reactions with a jittered geometry, N=24 in float32 (TF32 off)
-   and bfloat16 and N=16 in bfloat16; the fused SchNet stack (B3's forward
+   and bfloat16 and N=16 in bfloat16, and on the same inputs in bfloat16 its
+   int8 variant (B5); the dense fused score step (B2) with seed106 on 100
+   reactions, N=24 in float32 and bfloat16 and N=16 in bfloat16, every
+   output element; the fused SchNet stack (B3's forward
    and backward, B4) with seed106's stack weights on edge features from the
    port's dense model, bfloat16 at the training batch (B=200) in both
    training buckets (N=16, N=24) and float32 at B=16, N=24; errors, times
@@ -51,10 +54,11 @@ CKPT_DIR = os.path.join(ROOT, "artifacts", "seeds", "ckpts")
 MEMBER_SEEDS = (106, 101, 104, 102, 108, 103, 109, 105)
 OUT_DIR = os.path.join(ROOT, ".scratch", "chip_smoke")  # gitignored
 TRAIN_DIR = os.path.join(ROOT, ".scratch", "chip_smoke_train")
-SOURCES = ("packed_score", "schnet_stack")
+SOURCES = ("packed_score", "schnet_stack", "condensed_score", "packed_score_int8")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # bf16 tensor cores; f32 without them
+PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
 
 # kernel vs plain version, as a fraction of the output's largest magnitude,
@@ -63,11 +67,27 @@ PEAK_BYTES = 3.35e12
 # both, but a reordered float32 sum can flip a rounding by one bf16 ulp
 # (2^-8) and such flips propagate through the 7 blocks
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (3e-2, 3e-3)}  # (max, mean)
+# the int8 kernel in bf16: its int32 sums are exact on both sides, but an
+# activation that a flipped bf16 rounding moves across a tie of its row's
+# quantization flips that int8 code by one, 1/127 of the row's maximum: two
+# bf16 ulps (2^-8) of it where the flipped rounding itself moved it by one.
+# So twice the bf16 tolerance
+TOL_INT8 = (6e-2, 6e-3)
 # mean D-MAE of the main path: the JAX package measured 0.4365 for `ld` at
 # 625 respaced steps (4 members, artifacts/respacing_curve.json) and 0.4465
 # at 5000 steps (8 members, artifacts/campaign_10k); over 200 reactions the
 # mean's standard error is ~0.03, and a broken score gives D-MAE > 1
 DMAE_BOUND = 0.6
+# the dense path samples 100 reactions of the N=24 bucket alone (17-24 atoms).
+# On those every path of the port scores 0.78-0.79 (the 8-member packed
+# ensemble and the unfused model on the same reactions and noise, which
+# phase 7 runs and prints beside the fused run), so the bound there is 1.0 and
+# the check that carries the weight is the agreement with the unfused run
+DMAE_BOUND_N24 = 1.0
+DMAE_FUSED_DELTA = 0.03
+# the int8 run against the bf16 run on the same reactions and seeds: within
+# the mean's standard error (the JAX package's gate is "within noise")
+DMAE_INT8_DELTA = 0.03
 
 
 def fail(msg: str) -> None:
@@ -120,14 +140,15 @@ def phase_build() -> None:
                 print(f"[build] {name}: {line.strip()}")
 
 
-def load_member(seed: int, dtype, device):
+def load_member(seed: int, dtype, device, **model_overrides):
     from tsdiff_tpu_torch.config import Config
     from tsdiff_tpu_torch.convert import params_from_jax
     from tsdiff_tpu_torch.models import CondenseEncoderEpsNetwork
     from tsdiff_tpu_torch.train import load_checkpoint, select_params
 
     ck = load_checkpoint(os.path.join(CKPT_DIR, f"seed{seed}_best.ckpt"))
-    model = CondenseEncoderEpsNetwork.from_config(Config(ck["config"]).model, dtype=dtype)
+    cfg = Config({**ck["config"]["model"], **model_overrides})
+    model = CondenseEncoderEpsNetwork.from_config(cfg, dtype=dtype)
     model.load_state_dict(params_from_jax(select_params(ck, False)[0]))
     return model.to(device).eval()
 
@@ -138,29 +159,32 @@ def load_members(dtype, device):
 
 def time_and_bound(tag: str, kernel, plain, iters: int, cost: dict, dname: str) -> dict:
     """Kernel and plain-version times (CUDA events, warmed up) beside the
-    bound: the larger of flop / peak rate and bytes / memory rate."""
+    bound: the larger of operations / peak rate (working-type flop and, where
+    the kernel has them, int8 operations, each at its own rate, summed) and
+    bytes / memory rate."""
     ms = cuda_time_ms(kernel, iters)
     plain_ms = cuda_time_ms(plain, 2, warmup=1)
-    t_ops = cost["flops"] / PEAK_FLOPS[dname] * 1e3
+    t_ops = (cost["flops"] / PEAK_FLOPS[dname] + cost.get("int8_ops", 0) / PEAK_INT8) * 1e3
     t_bytes = cost["bytes"] / PEAK_BYTES * 1e3
     bound_ms = max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     print(f"[kernels] {tag}: {ms:.4f} ms/launch (kernel), {plain_ms:.4f} ms (plain), bound "
-          f"{bound_ms:.4f} ms by {bound_by} ({cost['flops']:.4g} flop, {cost['bytes']:.4g} "
-          f"bytes), {cost['flops'] / ms / 1e9:.4g} TFLOP/s achieved, library_ms null (no "
-          f"single PyTorch call computes this function)")
+          f"{bound_ms:.4f} ms by {bound_by} ({cost['flops']:.4g} flop, "
+          f"{cost.get('int8_ops', 0):.4g} int8 operations, {cost['bytes']:.4g} bytes), "
+          f"{(cost['flops'] + cost.get('int8_ops', 0)) / ms / 1e9:.4g} T operations/s achieved, "
+          f"library_ms null (no single PyTorch call computes this function)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
-def check_close(tag: str, out, ref, dname: str) -> float:
-    """Kernel output against the plain version, within TOL of max|ref|;
-    returns the max abs error."""
+def check_close(tag: str, out, ref, dname: str, tol=None) -> float:
+    """Kernel output against the plain version, within ``tol`` (default
+    TOL[dname]) of max|ref|; returns the max abs error."""
     import torch
 
     err = (out.float() - ref.float()).abs()
     scale = ref.float().abs().max().item()
     e_max, e_mean = err.max().item(), err.mean().item()
-    tol_max, tol_mean = TOL[dname]
+    tol_max, tol_mean = tol or TOL[dname]
     print(f"[kernels] {tag} {tuple(out.shape)}: max|ref| {scale:.6g} max abs err {e_max:.6g} "
           f"(rel {e_max / scale:.3g}, tol {tol_max}) mean abs err {e_mean:.6g} (rel "
           f"{e_mean / scale:.3g}, tol {tol_mean})")
@@ -199,6 +223,7 @@ def phase_kernels() -> dict:
     from tsdiff_tpu_torch.core.packed import eq_transform_packed
     from tsdiff_tpu_torch.diffusion.ensemble import stack_params
     from tsdiff_tpu_torch.ops import packed_score as ps
+    from tsdiff_tpu_torch.ops import packed_score_int8 as p8
 
     result = {}
     # the main path runs bf16 at the N=16 and N=24 buckets; N=24 also in f32
@@ -239,7 +264,72 @@ def phase_kernels() -> dict:
         iters = 20 if dtype == torch.bfloat16 else 3
         timing = time_and_bound(tag, kernel, plain, iters, ps.packed_score_cost(w, z, L), dname)
         result[(n_bucket, dname)] = dict(timing, max_abs_err=e_max)
-        del members, z, w, args, out, ref
+        del w, args, out, ref
+
+        if dtype == torch.bfloat16:   # B5 runs in bf16 only on the int8 path
+            w8 = stack_params([m.kernel_weights_int8() for m in members])
+            args8 = (w8, z, info.d_in.contiguous(), info.cmask.contiguous(),
+                     pp.type_r_in, pp.type_p_in, pp.type_r_out, pp.type_p_out)
+
+            def kernel8():
+                return p8.packed_score_int8(*args8, num_blocks=L)
+
+            def plain8():
+                return p8.packed_score_int8_reference(*args8, num_blocks=L)
+
+            out8, ref8 = kernel8(), plain8()
+            torch.cuda.synchronize()
+            tag = f"packed_score_int8 N={n_bucket} {dname}"
+            e_max = check_close(f"{tag} out", out8, ref8, dname, tol=TOL_INT8)
+            timing = time_and_bound(tag, kernel8, plain8, 20,
+                                    p8.packed_score_int8_cost(w8, z, L), dname)
+            result[("int8", n_bucket, dname)] = dict(timing, max_abs_err=e_max)
+            del w8, args8, out8, ref8
+        del members, z
+        torch.cuda.empty_cache()
+    return result
+
+
+def phase_dense_kernels() -> dict:
+    """B2 against its plain version, every output element: seed106 on 100
+    reactions with a jittered geometry, N=24 in float32 and bfloat16 and N=16
+    in bfloat16."""
+    import torch
+
+    from tsdiff_tpu_torch.ops import condensed_score as cs
+
+    result = {}
+    for n_bucket, dname in ((24, "float32"), (24, "bfloat16"), (16, "bfloat16")):
+        dtype = getattr(torch, dname)
+        batch, pos = kernel_batch(n_bucket, seed=4321 + n_bucket)
+        model = load_member(106, dtype, torch.device("cuda"))
+        with torch.no_grad():
+            static = model.precompute_static(batch.atom_type, batch.r_feat, batch.p_feat,
+                                             batch.bond_mat, batch.node_mask)
+            edges_in, d_in, _, _ = model.build_pair_info(pos, batch.node_mask, static.pairs)
+        cmask = ((d_in <= model.cutoff) & edges_in.mask_global).float()
+        w = model.fused_weights()
+        args = (w, static.z.contiguous(), d_in.contiguous(), cmask, static.emb_r_in,
+                static.emb_p_in, static.emb_r_out, static.emb_p_out)
+        L = model.num_convs
+
+        def kernel():
+            return cs.condensed_score(*args, num_blocks=L)
+
+        def plain():
+            return cs.condensed_score_reference(*args, num_blocks=L)
+
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        tag = f"condensed_score N={n_bucket} {dname}"
+        e_max = check_close(f"{tag} out", out, ref, dname)
+        on_edges = edges_in.mask_global
+        print(f"[kernels] {tag}: {int(on_edges.sum())} of {on_edges.numel()} pairs are edges; "
+              f"max abs err on edges {(out - ref)[..., 0][on_edges].abs().max().item():.6g}")
+        timing = time_and_bound(tag, kernel, plain, 20 if dtype == torch.bfloat16 else 3,
+                                cs.condensed_score_cost(w, static.z, L), dname)
+        result[(n_bucket, dname)] = dict(timing, max_abs_err=e_max)
+        del model, static, w, args, out, ref
         torch.cuda.empty_cache()
     return result
 
@@ -328,7 +418,9 @@ def phase_stack_kernels() -> dict:
     print("[kernels] tolerances (max, mean abs err / max|ref|): float32 (1e-4, 1e-4), only the "
           "float32 summation order differs; bfloat16 (3e-2, 3e-3), both round to bf16 at the "
           "same points but a reordered float32 sum can flip one rounding by a bf16 ulp (2^-8), "
-          "and such flips propagate through the 7 blocks")
+          "and such flips propagate through the 7 blocks; the int8 kernel in bfloat16 (6e-2, "
+          "6e-3), as a flipped rounding can flip an int8 code, 1/127 of its row's maximum or "
+          "two bf16 ulps of it")
     return result
 
 
@@ -390,7 +482,10 @@ def phase_profile(n_steps: int = 20) -> None:
           f"{1 - busy / step_ms:.4f}")
 
 
-def phase_main_path() -> dict:
+def phase_main_path(quant: str = "none") -> dict:
+    """The sampling CLI on 200 synthetic reactions with the 8 members, bf16,
+    fused packed score, ``ld`` over the 5000-step schedule in 625 model
+    calls; with ``quant="int8"`` the same run through the int8 kernel."""
     import numpy as np
 
     from tsdiff_tpu_torch.cli import sampling
@@ -401,8 +496,10 @@ def phase_main_path() -> dict:
     from tsdiff_tpu_torch.eval.dmae import calc_dmae
     from tsdiff_tpu_torch.config import Config
     from tsdiff_tpu_torch.ops import packed_score as ps
+    from tsdiff_tpu_torch.ops import packed_score_int8 as p8
     from tsdiff_tpu_torch.train import load_checkpoint
 
+    tag = "main" if quant == "none" else f"main {quant}"
     shutil.rmtree(OUT_DIR, ignore_errors=True)
     os.makedirs(OUT_DIR)
     test_set = os.path.join(OUT_DIR, "test_data.pkl")
@@ -413,14 +510,17 @@ def phase_main_path() -> dict:
         "--test_set", test_set, "--save_dir", OUT_DIR, "--dtype", "bfloat16",
         "--fused_score", "--sort_by_size", "--sampling_type", "ld",
         "--n_steps", str(n_steps), "--timestep_respacing", str(respacing),
-        "--batch_size", str(batch_size), "--device", "cuda",
+        "--batch_size", str(batch_size), "--device", "cuda", "--quant", quant,
     ]
-    ps.packed_score.launches = 0
-    ps.packed_score_reference.calls = 0
+    ps.packed_score.launches = p8.packed_score_int8.launches = 0
+    ps.packed_score_reference.calls = p8.packed_score_int8_reference.calls = 0
     t0 = time.monotonic()
     save_path = sampling.main(argv)
     wall = time.monotonic() - t0
-    launches, plain_calls = ps.packed_score.launches, ps.packed_score_reference.calls
+    on_path, other = ((ps.packed_score, p8.packed_score_int8) if quant == "none"
+                      else (p8.packed_score_int8, ps.packed_score))
+    launches, other_launches = on_path.launches, other.launches
+    plain_calls = ps.packed_score_reference.calls + p8.packed_score_int8_reference.calls
 
     with open(save_path, "rb") as f:
         results = pickle.load(f)
@@ -431,11 +531,14 @@ def phase_main_path() -> dict:
     ).a)
     attempts = [results[i]["sampling_attempts"] for i in range(0, len(results), batch_size)]
     expected = steps * sum(attempts)
-    print(f"[main] {len(results)} samples in {len(attempts)} batches, attempts {attempts}, "
-          f"{steps} model calls per run: kernel launches {launches} (expected {expected}), "
+    print(f"[{tag}] {len(results)} samples in {len(attempts)} batches, attempts {attempts}, "
+          f"{steps} model calls per run: {on_path.__name__} launches {launches} (expected "
+          f"{expected}), {other.__name__} launches {other_launches} (expected 0), "
           f"plain-version calls {plain_calls}")
     if launches != expected:
         fail(f"kernel launched {launches} times, expected {expected}")
+    if other_launches != 0:
+        fail(f"{other.__name__} launched {other_launches} times on the {tag} path")
     if plain_calls != 0:
         fail(f"the plain version ran {plain_calls} times on the main path")
     if len(results) != 200:
@@ -445,11 +548,93 @@ def phase_main_path() -> dict:
             fail("non-finite or misshaped pos_gen")
     dmae = np.array([calc_dmae(r["pos"], r["pos_gen"]) for r in results])
     model_calls = steps * sum(attempts)
-    print(f"[main] wall {wall:.3f} s, {wall / model_calls * 1e3:.4f} ms per sampling step "
+    print(f"[{tag}] wall {wall:.3f} s, {wall / model_calls * 1e3:.4f} ms per sampling step "
           f"(8 members, batch <= {batch_size}), {len(results) / wall:.4f} samples/s; "
           f"D-MAE mean {dmae.mean():.4f} median {np.median(dmae):.4f} (bound {DMAE_BOUND})")
+    sizes = np.array([len(r["atom_type"]) for r in results])
+    print(f"[{tag}] D-MAE mean by size: " + ", ".join(
+        f"{name} {dmae[sel].mean():.4f} ({int(sel.sum())} reactions)"
+        for name, sel in (("up to 16 atoms", sizes <= 16), ("17-24 atoms", sizes > 16))
+        if sel.any()))
     if not dmae.mean() < DMAE_BOUND:
         fail(f"mean D-MAE {dmae.mean():.4f} >= {DMAE_BOUND}")
+    return dict(launches=launches, wall=wall, dmae_mean=float(dmae.mean()))
+
+
+def phase_dense_path() -> dict:
+    """The dense single-model sampling path: seed106 with ``fused_score``
+    through ``make_score_fn`` and ``dynamic_sampling`` on 100 synthetic
+    reactions of the N=24 bucket, bf16, ``ld`` over the 5000-step schedule in
+    625 model calls, each one launch of the dense score kernel."""
+    import numpy as np
+    import torch
+
+    from tsdiff_tpu_torch.config import Config
+    from tsdiff_tpu_torch.diffusion.ensemble import make_packed_ensemble_eps_fn, make_score_fn
+    from tsdiff_tpu_torch.diffusion.sampler import (
+        SamplingSettings,
+        dynamic_sampling,
+        final_frame_scale,
+    )
+    from tsdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
+    from tsdiff_tpu_torch.eval.dmae import calc_dmae
+    from tsdiff_tpu_torch.ops import condensed_score as cs
+    from tsdiff_tpu_torch.train import load_checkpoint
+
+    batch, _ = kernel_batch(24, seed=555)
+    dev = torch.device("cuda")
+    model = load_member(106, torch.bfloat16, dev, fused_score=True)
+    cfg = Config(load_checkpoint(os.path.join(CKPT_DIR, "seed106_best.ckpt"))["config"]).model
+    schedule = DiffusionSchedule.from_config(cfg)
+    settings = SamplingSettings(sampling_type="ld", n_steps=5000, timestep_respacing=625)
+    ref, mask = batch.pos.cpu().numpy(), batch.node_mask.cpu().numpy()
+
+    def sample(make_fn):
+        """(D-MAE per reaction, wall s) of one run from the same start and noise."""
+        gen = torch.Generator(device="cuda").manual_seed(2022)
+        pos_init = torch.randn(batch.pos.shape, generator=gen, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        res = dynamic_sampling(make_fn(), schedule, pos_init, batch.node_mask, settings,
+                               generator=gen)
+        nan = bool(res.nan_detected.item())
+        wall = time.monotonic() - t0
+        pos = (res.pos * final_frame_scale(schedule, settings)).cpu().numpy()
+        if nan or pos.shape != tuple(batch.pos.shape) or not np.isfinite(pos).all():
+            fail("non-finite or misshaped positions on the dense path")
+        return np.array([calc_dmae(ref[b][mask[b]], pos[b][mask[b]])
+                         for b in range(len(pos))]), wall
+
+    cs.condensed_score.launches = 0
+    cs.condensed_score_reference.calls = 0
+    dmae, wall = sample(lambda: make_score_fn(model, batch))
+    launches, plain_calls = cs.condensed_score.launches, cs.condensed_score_reference.calls
+    print(f"[dense] 100 samples, 1 model, B=100, N=24, bf16: condensed_score launches "
+          f"{launches} (expected 625), plain-version calls {plain_calls}")
+    if launches != 625:
+        fail(f"the dense score kernel launched {launches} times, expected 625")
+    if plain_calls != 0:
+        fail(f"the plain version ran {plain_calls} times on the dense path")
+    print(f"[dense] wall {wall:.3f} s, {wall / launches * 1e3:.4f} ms per sampling step, "
+          f"{len(dmae) / wall:.4f} samples/s; D-MAE mean {dmae.mean():.4f} median "
+          f"{np.median(dmae):.4f} (bound {DMAE_BOUND_N24})")
+    if not dmae.mean() < DMAE_BOUND_N24:
+        fail(f"mean D-MAE {dmae.mean():.4f} >= {DMAE_BOUND_N24} on the dense path")
+
+    # the same reactions, start and noise through the model's unfused torch
+    # path, and through the 8-member packed ensemble as this bucket's yardstick
+    unfused = load_member(106, torch.bfloat16, dev)
+    dmae_u, wall_u = sample(lambda: make_score_fn(unfused, batch))
+    members = load_members(torch.bfloat16, dev)
+    dmae_e, wall_e = sample(lambda: make_packed_ensemble_eps_fn(members, batch))
+    delta = abs(dmae.mean() - dmae_u.mean())
+    print(f"[dense] same reactions and noise: unfused torch path D-MAE mean {dmae_u.mean():.4f} "
+          f"median {np.median(dmae_u):.4f} in {wall_u:.3f} s (|difference| of the means "
+          f"{delta:.4f}, limit {DMAE_FUSED_DELTA}; correlation per reaction "
+          f"{np.corrcoef(dmae, dmae_u)[0, 1]:.4f}); 8-member packed ensemble D-MAE mean "
+          f"{dmae_e.mean():.4f} median {np.median(dmae_e):.4f} in {wall_e:.3f} s")
+    if not delta <= DMAE_FUSED_DELTA:
+        fail(f"the fused dense run's mean D-MAE differs from the unfused run's by {delta:.4f}")
     return dict(launches=launches, wall=wall, dmae_mean=float(dmae.mean()))
 
 
@@ -638,10 +823,19 @@ def main() -> None:
     smi = phase_card()
     phase_build()
     k = phase_kernels()
+    dk = phase_dense_kernels()
     sk = phase_stack_kernels()
     main_path = phase_main_path()
     phase_profile()
     tr = phase_train()
+    dense_path = phase_dense_path()
+    int8_path = phase_main_path(quant="int8")
+    delta = abs(int8_path["dmae_mean"] - main_path["dmae_mean"])
+    print(f"[main int8] D-MAE mean {int8_path['dmae_mean']:.4f} against {main_path['dmae_mean']:.4f} "
+          f"in bf16 on the same reactions and seeds: |difference| {delta:.4f} (limit "
+          f"{DMAE_INT8_DELTA}); {int8_path['wall']:.3f} s against {main_path['wall']:.3f} s")
+    if not delta <= DMAE_INT8_DELTA:
+        fail(f"the int8 run's mean D-MAE differs from the bf16 run's by {delta:.4f}")
 
     def entry(name, source, replaces, launches, numbers):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -655,11 +849,17 @@ def main() -> None:
         entry("packed_score", "tsdiff_tpu_torch/csrc/packed_score.cu",
               "tsdiff_tpu/ops/pallas/condensed_score_packed.py:164", main_path["launches"],
               k[(24, "bfloat16")]),
+        entry("condensed_score", "tsdiff_tpu_torch/csrc/condensed_score.cu",
+              "tsdiff_tpu/ops/pallas/condensed_score.py:152", dense_path["launches"],
+              dk[(24, "bfloat16")]),
         entry("schnet_stack_fwd", stack_src, f"{vjp}:44", tr["launches"][0], bf["fwd"]),
         entry("schnet_stack_bwd", stack_src, f"{vjp}:72", tr["launches"][1], bf["bwd"]),
         # B4 has no caller on a path in either package: the training run counts 0
         entry("schnet_stack", stack_src, "tsdiff_tpu/ops/pallas/schnet_stack.py:53",
               tr["b4_launches"], bf["stack"]),
+        entry("packed_score_int8", "tsdiff_tpu_torch/csrc/packed_score_int8.cu",
+              "tsdiff_tpu/ops/pallas/condensed_score_packed_int8.py:188", int8_path["launches"],
+              k[("int8", 24, "bfloat16")]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """The port's sampling CLI on the CPU (``--device cpu``), end to end on a tiny
 checkpoint and a tiny .pkl test set: result pickles of the right shapes, the
-NaN-retry bookkeeping, resume, and clear errors for what is not ported."""
+NaN-retry bookkeeping, resume, the dense ensemble without ``--fused_score``,
+``--quant int8``, and clear errors for what is not ported."""
 
 import os
 import pickle
@@ -12,6 +13,8 @@ import torch
 
 from tsdiff_tpu_torch.cli import sampling
 from tsdiff_tpu_torch.data.dataset import save_dataset
+from tsdiff_tpu_torch.ops import packed_score as ps
+from tsdiff_tpu_torch.ops import packed_score_int8 as p8
 
 from test_condensenc import MODEL_CFG
 from test_torch_common import small_setup
@@ -36,12 +39,17 @@ def inputs(tmp_path_factory):
     return ckpts, test_set, graphs
 
 
-def run(inputs, save_dir, *extra):
+def run(inputs, save_dir, *extra, fused=True):
     ckpts, test_set, _ = inputs
     return sampling.main(ckpts + [
         "--test_set", test_set, "--save_dir", str(save_dir), "--n_steps", "6",
-        "--batch_size", "2", "--fused_score", "--device", "cpu", "--sort_by_size", *extra,
-    ])
+        "--batch_size", "2", "--device", "cpu", "--sort_by_size", *extra,
+    ] + (["--fused_score"] if fused else []))
+
+
+def load(path):
+    with open(path, "rb") as f:
+        return pickle.load(f)
 
 
 def test_cli_writes_samples(inputs, tmp_path):
@@ -75,8 +83,35 @@ def test_cli_rejects_what_is_not_ported(inputs, tmp_path):
     base = ckpts + ["--save_dir", str(tmp_path), "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="not yet ported"):
         sampling.main(base + ["--test_set", "reactions.txt", "--fused_score"])
-    with pytest.raises(NotImplementedError, match="--fused_score"):
-        sampling.main(base + ["--test_set", test_set])
+    with pytest.raises(ValueError, match="--fused_score"):
+        sampling.main(base + ["--test_set", test_set, "--quant", "int8"])
+
+
+def test_cli_without_fused_score_runs_the_dense_ensemble(inputs, tmp_path):
+    """No packed kernel op is called, and with the same seeds the samples
+    agree with the packed run's (same scores up to float32 summation order,
+    over 6 steps)."""
+    calls = ps.packed_score_reference.calls, p8.packed_score_int8_reference.calls
+    dense = load(run(inputs, tmp_path / "dense", fused=False))
+    assert (ps.packed_score_reference.calls, p8.packed_score_int8_reference.calls) == calls
+    packed = load(run(inputs, tmp_path / "packed"))
+    assert ps.packed_score_reference.calls > calls[0]
+    assert [r["smiles"] for r in dense] == [r["smiles"] for r in packed]
+    for a, b in zip(dense, packed):
+        assert a["pos_gen"].shape == (len(a["atom_type"]), 3) and a["sampling_attempts"] == 1
+        np.testing.assert_allclose(a["pos_gen"], b["pos_gen"], rtol=1e-4, atol=1e-5)
+
+
+def test_cli_quant_int8_runs_the_int8_op(inputs, tmp_path):
+    calls = ps.packed_score_reference.calls, p8.packed_score_int8_reference.calls
+    results = load(run(inputs, tmp_path, "--quant", "int8"))
+    # 2 batches (2 + 1 reactions) of 6 steps, one op call per step for both members
+    assert p8.packed_score_int8_reference.calls == calls[1] + 12
+    assert ps.packed_score_reference.calls == calls[0]
+    assert sorted(r["smiles"] for r in results) == ["g0", "g1", "g2"]
+    for r in results:
+        assert r["pos_gen"].shape == (len(r["atom_type"]), 3)
+        assert np.isfinite(r["pos_gen"]).all() and r["sampling_attempts"] == 1
 
 
 def test_cli_cuda_default_raises_without_a_card(inputs, tmp_path):

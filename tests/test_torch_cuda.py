@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-packed score step (B1) and the fused SchNet stack (B3's forward and
-backward, B4).
+packed score step (B1) and its int8 variant (B5), the dense score step (B2)
+and the fused SchNet stack (B3's forward and backward, B4).
 
 Every test here needs an NVIDIA GPU with nvcc (marker ``cuda``) and skips
 without one.  The file imports neither JAX nor the JAX package, so on a
@@ -14,7 +14,14 @@ the float32 sums differs); bfloat16 3e-2 at the worst element and 3e-3 on
 average (both round to bf16 at the same points, but a different float32 sum
 order can flip a rounding by one bf16 ulp, 2^-8 relative, and such flips
 propagate through the L blocks).  The stack's outputs, its backward's
-gradients included, are held to the same tolerances.
+gradients included, are held to the same tolerances.  The int8 kernel's
+int32 sums are exact in the kernel and in the plain version, but an activation
+that a reordered float32 sum moves by one ulp across a rounding tie of its
+row's quantization flips that int8 code by one, 1/127 of the row's maximum,
+two bf16 ulps of it.  So in bfloat16 the int8 kernel is held to twice the
+bfloat16 tolerance; in float32 a flipped code is far above the float32
+tolerance, and the int8 kernel is held to 1e-2 at the worst element and 1e-3 on
+average: a handful of flipped codes among the ~1e5 of a call (``TOL_INT8``).
 """
 
 import math
@@ -22,10 +29,13 @@ import math
 import pytest
 import torch
 
+from tsdiff_tpu_torch.ops import condensed_score as cs
 from tsdiff_tpu_torch.ops import packed_score as ps
+from tsdiff_tpu_torch.ops import packed_score_int8 as p8
 from tsdiff_tpu_torch.ops import schnet_stack as ss
 
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 3e-3)}
+TOL_INT8 = {torch.float32: (1e-2, 1e-3), torch.bfloat16: (6e-2, 6e-3)}
 
 
 @pytest.fixture
@@ -103,6 +113,114 @@ def test_cuda_tensors_never_take_the_plain_path(cuda):
     assert ps.packed_score_reference.calls == calls
 
 
+def quantized(w32: dict, dtype) -> dict:
+    """Stacked (M, ...) float32 kernel weights -> the int8 op's weights: per
+    member and tensor (per layer for f1w, f2w) codes and scales, the rest in
+    ``dtype``."""
+    out = {k: v.to(dtype).contiguous() for k, v in w32.items() if k not in p8.QUANTIZED}
+    scales = []
+    for k in p8.SCALED:
+        q, s = zip(*(p8._quant_tensor(t, per_layer=False) for t in w32[k]))
+        out[k] = torch.stack(q).contiguous()
+        scales.append(torch.stack(s))
+    out["scales"] = torch.stack(scales, dim=1).contiguous()            # (M, 8)
+    for k in ("f1w", "f2w"):
+        q, s = zip(*(p8._quant_tensor(t, per_layer=True) for t in w32[k]))
+        out[k], out[k + "_s"] = torch.stack(q).contiguous(), torch.stack(s).contiguous()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("N", [8, 16, 24])
+def test_int8_kernel_matches_reference(cuda, dtype, N):
+    M, B, H, L = 2, 3, 256, 2
+    w32, z, d, cmask, types = random_inputs(M, B, N, H, L, torch.float32, cuda, seed=N)
+    w = quantized(w32, dtype)
+    z = z.to(dtype)
+    launches = p8.packed_score_int8.launches, ps.packed_score.launches
+    out = p8.packed_score_int8(w, z, d, cmask, *types, num_blocks=L)
+    torch.cuda.synchronize()
+    assert p8.packed_score_int8.launches == launches[0] + 1
+    assert ps.packed_score.launches == launches[1]
+    ref = p8.packed_score_int8_reference(w, z, d, cmask, *types, num_blocks=L)
+    assert_close(f"int8 N={N}", out, ref, dtype, tol=TOL_INT8[dtype])
+    # quantization changes the numbers, by a few percent on these random weights
+    full = ps.packed_score_reference({k: v.to(dtype) for k, v in w32.items()}, z, d, cmask,
+                                     *types, num_blocks=L)
+    rel = ((out - full).norm() / full.norm()).item()
+    print(f"int8 N={N} {dtype}: relative L2 to the unquantized plain version {rel:.3g}")
+    assert 0 < rel < 0.1
+
+
+@pytest.mark.cuda
+def test_int8_cuda_tensors_never_take_the_plain_path(cuda):
+    w32, z, d, cmask, types = random_inputs(1, 2, 8, 256, 1, torch.float32, cuda)
+    w = quantized(w32, torch.bfloat16)
+    calls, launches = p8.packed_score_int8_reference.calls, p8.packed_score_int8.launches
+    p8.packed_score_int8(w, z.to(torch.bfloat16), d, cmask, *types, num_blocks=1)
+    assert p8.packed_score_int8.launches == launches + 1
+    assert p8.packed_score_int8_reference.calls == calls
+    # unquantized weights, or a width the kernel does not take, raise
+    with pytest.raises(ValueError):
+        p8.packed_score_int8({**w, "dw1": w32["dw1"].to(torch.bfloat16)}, z.to(torch.bfloat16),
+                             d, cmask, *types, num_blocks=1)
+    w2, z2, d2, c2, t2 = random_inputs(1, 2, 8, 32, 1, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        p8.packed_score_int8(quantized(w2, torch.bfloat16), z2.to(torch.bfloat16), d2, c2, *t2,
+                             num_blocks=1)
+    assert p8.packed_score_int8_reference.calls == calls
+    assert p8.packed_score_int8.launches == launches + 1
+
+
+def dense_inputs(B, N, H, L, dtype, device, seed=0):
+    """One model's dense score inputs; the last 3 nodes of graph 0 are padding
+    (zero node states, zero mask rows and columns, dummy distance 1)."""
+    w, z, _, _, _ = random_inputs(1, B, N, H, L, dtype, device, seed=seed)
+    w = {k: w[k][0].contiguous() for k in cs.W_ORDER}
+    g = torch.Generator().manual_seed(seed + 1)
+    m = torch.triu(torch.rand(B, N, N, generator=g) < 0.7, 1)
+    m = m | m.transpose(1, 2)
+    m[0, -3:, :] = m[0, :, -3:] = False
+    d = torch.where(m, 0.8 + 4 * torch.rand(B, N, N, generator=g), torch.ones(B, N, N))
+    z = z[0].clone()
+    z[0, -3:] = 0
+    embs = [torch.randn(B, N, N, H, generator=g).to(device=device, dtype=dtype) for _ in range(4)]
+    return w, z.contiguous(), d.to(device), m.float().to(device), embs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("N", [8, 16, 24])
+def test_dense_kernel_matches_reference(cuda, dtype, N):
+    B, H, L = 3, 256, 2
+    w, z, d, cmask, embs = dense_inputs(B, N, H, L, dtype, cuda, seed=N)
+    launches = cs.condensed_score.launches
+    out = cs.condensed_score(w, z, d, cmask, *embs, num_blocks=L)
+    torch.cuda.synchronize()
+    assert cs.condensed_score.launches == launches + 1
+    assert out.shape == (B, N, N, 1) and out.dtype == torch.float32
+    ref = cs.condensed_score_reference(w, z, d, cmask, *embs, num_blocks=L)
+    assert_close(f"dense N={N}", out, ref, dtype)      # every element, off-edge ones too
+
+
+@pytest.mark.cuda
+def test_dense_cuda_tensors_never_take_the_plain_path(cuda):
+    w, z, d, cmask, embs = dense_inputs(2, 8, 256, 1, torch.bfloat16, cuda)
+    calls, launches = cs.condensed_score_reference.calls, cs.condensed_score.launches
+    cs.condensed_score(w, z, d, cmask, *embs, num_blocks=1)
+    assert cs.condensed_score.launches == launches + 1
+    assert cs.condensed_score_reference.calls == calls
+    # a width the kernel does not take, or embeddings in another type, raise
+    w2, z2, d2, c2, e2 = dense_inputs(2, 8, 32, 1, torch.bfloat16, cuda)
+    with pytest.raises(ValueError):
+        cs.condensed_score(w2, z2, d2, c2, *e2, num_blocks=1)
+    with pytest.raises(ValueError):
+        cs.condensed_score(w, z, d, cmask, *[e.float() for e in embs], num_blocks=1)
+    assert cs.condensed_score_reference.calls == calls
+    assert cs.condensed_score.launches == launches + 1
+
+
 def stack_inputs(B, N, H, L, dtype, device, seed=0):
     """Stack weights (flax layout) and inputs; the last 3 nodes of graph 0
     are padding (zero mask rows and columns)."""
@@ -128,12 +246,12 @@ def stack_inputs(B, N, H, L, dtype, device, seed=0):
     return w, h, ea, c, cot
 
 
-def assert_close(name, out, ref, dtype):
+def assert_close(name, out, ref, dtype, tol=None):
     scale = ref.float().abs().max().item()
     err = (out.float() - ref.float()).abs()
     print(f"{name} {dtype}: max|ref| {scale:.4g} max err {err.max().item():.3g} "
           f"mean err {err.mean().item():.3g}")
-    tol_max, tol_mean = TOL[dtype]
+    tol_max, tol_mean = tol or TOL[dtype]
     assert torch.isfinite(out).all(), name
     assert err.max().item() <= tol_max * scale, name
     assert err.mean().item() <= tol_mean * scale, name

@@ -13,7 +13,8 @@ def test_port_imports_without_jax():
     import tsdiff_tpu_torch
 
     names = [m.name for m in pkgutil.walk_packages(tsdiff_tpu_torch.__path__, "tsdiff_tpu_torch.")]
-    for name in ("ops.packed_score", "ops.schnet_stack", "cli.sampling", "cli.train",
+    for name in ("ops.packed_score", "ops.schnet_stack", "ops.condensed_score",
+                 "ops.packed_score_int8", "cli.sampling", "cli.train",
                  "train.trainer", "diffusion.objective", "models.schnet"):
         assert f"tsdiff_tpu_torch.{name}" in names
     code = f"""

@@ -112,8 +112,12 @@ def test_dynamic_sampling_matches_jax(ensemble, rule, respacing):
     assert out.nan_detected.dtype == torch.bool and out.nan_detected.dim() == 0
     close(out.pos, res.pos)
     # the score moves the result well beyond the tolerance
+    def zero_node_eq(pos):
+        return torch.zeros_like(pos)
+
+    zero_node_eq.returns_node_eq = True
     no_score = tsampler.dynamic_sampling(
-        torch.zeros_like, DiffusionSchedule.from_config(TConfig(MODEL_CFG)),
+        zero_node_eq, DiffusionSchedule.from_config(TConfig(MODEL_CFG)),
         torch.from_numpy(np.array(pos_init)), tb.node_mask,
         tsampler.SamplingSettings(**kw), noise=torch.from_numpy(noise),
     )

@@ -2,21 +2,24 @@
 
 Usage:
     python -m tsdiff_tpu_torch.cli.sampling CKPT [CKPT ...] --test_set X.pkl \
-        --save_dir OUT --fused_score [--dtype bfloat16 --sampling_type ld \
-        --n_steps 5000 --timestep_respacing 625 --device cuda ...]
+        --save_dir OUT [--fused_score [--quant int8] --dtype bfloat16 \
+        --sampling_type ld --n_steps 5000 --timestep_respacing 625 \
+        --device cuda ...]
 
 Loads N checkpoints (the model is rebuilt from the embedded config), reads a
 ``tsdiff_tpu.v1`` .pkl test set, batches it with optional per-reaction
 repetition (each batch padded to a row tier and a node bucket), runs the
-packed ensemble reverse diffusion, retries a batch at clip 20 if NaNs
+ensemble reverse diffusion (the dense ensemble in torch ops, or with
+``--fused_score`` the offset-packed score kernel, whose pair-row products
+``--quant int8`` runs in int8), retries a batch at clip 20 if NaNs
 appear, rescales the final frame, and pickles incremental
 (``samples_not_all.pkl``) and final (``samples_all.pkl``) results.  Each
 result records ``sampling_attempts``, the number of sampling runs its batch
 took.
 
 Runs on CUDA unless ``--device cpu`` is given.  Not ported yet: .txt and
-raw-SMARTS test sets (they need RDKit featurisation), the dense score path
-(``--fused_score`` is required), multi-device meshes and int8 scores.
+raw-SMARTS test sets (they need RDKit featurisation) and multi-device
+meshes.
 """
 
 from __future__ import annotations
@@ -71,8 +74,12 @@ def parse_args(argv=None):
     parser.add_argument("--use_ema", action="store_true", default=False,
                         help="use EMA weights from checkpoints when present")
     parser.add_argument("--fused_score", action="store_true", default=False,
-                        help="offset-packed fused score kernel (required: the dense path "
-                             "is not ported yet)")
+                        help="offset-packed fused score kernel, one launch per step for all "
+                             "members (fastest with --dtype bfloat16); without it, the dense "
+                             "ensemble in torch ops")
+    parser.add_argument("--quant", type=str, default="none", choices=["none", "int8"],
+                        help="with --fused_score: int8 pair-row products (per-row dynamic "
+                             "activation scales, per-tensor weight scales)")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     return parser.parse_args(argv)
 
@@ -89,6 +96,10 @@ def _load_members(args, device, dtype, logger):
         cfg = Config(ck["config"]).model
         if cfg.get("network", "condensenc") != "condensenc":
             raise NotImplementedError(f"{path}: network {cfg.network} is not ported yet")
+        if args.fused_score:
+            cfg.fused_score = True
+        if args.quant != "none":
+            cfg.score_quant = args.quant
         if model_cfg is None:
             model_cfg = cfg
         params, used_ema = select_params(ck, args.use_ema)
@@ -105,7 +116,7 @@ def main(argv=None) -> str:
 
     from tsdiff_tpu_torch.core.graph import from_numpy_graphs
     from tsdiff_tpu_torch.data.dataset import default_buckets, load_dataset, pick_bucket, tier_ladder
-    from tsdiff_tpu_torch.diffusion.ensemble import make_packed_ensemble_eps_fn
+    from tsdiff_tpu_torch.diffusion.ensemble import make_ensemble_score_fn
     from tsdiff_tpu_torch.diffusion.sampler import (
         SamplingSettings,
         dynamic_sampling,
@@ -116,10 +127,8 @@ def main(argv=None) -> str:
     from tsdiff_tpu_torch.utils.misc import get_logger, resolve_device
 
     device = resolve_device(args.device)
-    if not args.fused_score:
-        raise NotImplementedError(
-            "the dense score path is not ported yet; pass --fused_score"
-        )
+    if args.quant != "none" and not args.fused_score:
+        raise ValueError("--quant requires --fused_score")
     if not args.test_set.endswith((".pkl", ".pck")):
         raise NotImplementedError(
             "only .pkl test sets are ported; .txt and raw-SMARTS test sets need RDKit "
@@ -193,8 +202,8 @@ def main(argv=None) -> str:
             gen.manual_seed(args.seed + len(results))
             pos_init = torch.randn((len(gpad), n_pad, 3), generator=gen, device=device)
         gen.manual_seed(args.seed * 7919 + len(results))
-        node_eq_fn = make_packed_ensemble_eps_fn(members, batch)
-        res = dynamic_sampling(node_eq_fn, schedule, pos_init, batch.node_mask, settings,
+        score_fn = make_ensemble_score_fn(members, batch)
+        res = dynamic_sampling(score_fn, schedule, pos_init, batch.node_mask, settings,
                                generator=gen)
         return res, settings
 

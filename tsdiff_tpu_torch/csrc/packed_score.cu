@@ -38,17 +38,15 @@
 // at that bound: no TMA, no wgmma, no warp specialisation, and each weight
 // matrix is re-read from L2 once per row tile.
 
-#include "tile_mma.cuh"
+#include "graph_block.cuh"
 
 namespace {
 
 using tile::from_f;
 using tile::gemm;
 using tile::kThreads;
-using tile::kWarps;
 using tile::rnd;
 using tile::silu_f;
-using tile::ssp_f;
 using tile::to_f;
 
 constexpr int kNumPtrs = 35;
@@ -220,61 +218,12 @@ __global__ void __launch_bounds__(kThreads, 1) packed_score_kernel(Params<T> p) 
   }
 
   // 2. interaction blocks
-  constexpr int kVec = 16 / sizeof(T);
-  for (int l = 0; l < L; ++l) {
-    const size_t wo = (size_t)l * HH, bo = (size_t)l * H;
-    gemm<T, MF>(h_s, l1w + wo, nullptr, nullptr, lda, NP, H, H, [&](int r, int col, float v) {
-      xh_s[r * lda + col] = r < N ? from_f<T>(v) : from_f<T>(0.0f);
-    });
-    for (int idx = tid; idx < N * H; idx += kThreads) agg[idx] = 0.0f;
-    for (int r0 = 0; r0 < R; r0 += TR) {
-      const int nr = min(TR, R - r0);
-      for (int r = tid; r < nr; r += kThreads) c_s[r] = rnd<T>(c_g[r0 + r]);
-      for (int idx = tid; idx < nr * H / kVec; idx += kThreads) {
-        const int r = idx / (H / kVec), cv = idx % (H / kVec);
-        *reinterpret_cast<uint4*>(bufA + r * lda + cv * kVec) =
-            *reinterpret_cast<const uint4*>(ea_g + (size_t)(r0 + r) * H + cv * kVec);
-      }
-      __syncthreads();
-      gemm<T, MF>(bufA, f1w + wo, nullptr, nullptr, lda, nr, H, H, [&](int r, int col, float v) {
-        bufB[r * lda + col] = from_f<T>(ssp_f(rnd<T>(v + to_f(f1b[bo + col]))));
-      });
-      gemm<T, MF>(bufB, f2w + wo, nullptr, nullptr, lda, nr, H, H, [&](int r, int col, float v) {
-        bufA[r * lda + col] = from_f<T>(rnd<T>(v + to_f(f2b[bo + col])) * c_s[r]);
-      });
-      // each thread owns feature columns: no two threads touch one agg entry
-      for (int col = tid; col < H; col += kThreads) {
-        for (int r = 0; r < nr; ++r) {
-          const int pr = r0 + r, k = pr / N + 1, i = pr - (k - 1) * N;
-          const int j = i + k < N ? i + k : i + k - N;
-          const float w = to_f(bufA[r * lda + col]);
-          agg[j * H + col] += rnd<T>(w * to_f(xh_s[i * lda + col]));
-          agg[i * H + col] += rnd<T>(w * to_f(xh_s[j * lda + col]));
-        }
-      }
-      __syncthreads();
-    }
-    // node update: h += ow ssp(l2w agg + l2b) + ob
-    T* t_s = bufA;
-    for (int idx = tid; idx < NP * H; idx += kThreads) {
-      const int r = idx / H, col = idx % H;
-      t_s[r * lda + col] = r < N ? from_f<T>(agg[r * H + col]) : from_f<T>(0.0f);
-    }
-    __syncthreads();
-    gemm<T, MF>(t_s, l2w + wo, nullptr, nullptr, lda, NP, H, H, [&](int r, int col, float v) {
-      xh_s[r * lda + col] =
-          r < N ? from_f<T>(ssp_f(rnd<T>(v + to_f(l2b[bo + col])))) : from_f<T>(0.0f);
-    });
-    gemm<T, MF>(xh_s, ow + wo, nullptr, nullptr, lda, NP, H, H, [&](int r, int col, float v) {
-      if (r < N) {
-        const float y = rnd<T>(v + to_f(ob[bo + col]));
-        h_s[r * lda + col] = from_f<T>(to_f(h_s[r * lda + col]) + y);
-      }
-    });
-  }
+  const blk::BlockWeights<T> stack = {f1w, f1b, f2w, f2b, l1w, l2w, l2b, ow, ob};
+  for (int l = 0; l < L; ++l)
+    blk::interaction_block<T, TR, true>(bufA, bufB, h_s, xh_s, agg, c_s, ea_g, c_g,
+                                        stack.at(l, H), lda, NP, N, R, H);
 
   // 3. head on [h_i * h_j, ea_out] with the output-order edge features
-  const int warp = tid / 32, lane = tid % 32;
   float* out = p.out + (size_t)mb * R;
   for (int r0 = 0; r0 < R; r0 += TR) {
     const int nr = min(TR, R - r0);
@@ -293,14 +242,7 @@ __global__ void __launch_bounds__(kThreads, 1) packed_score_kernel(Params<T> p) 
     gemm<T, MF>(bufB, g1w, nullptr, nullptr, lda, nr, H, Hh, [&](int r, int col, float v) {
       bufA[r * lda + col] = from_f<T>(silu_f(rnd<T>(v + to_f(g1b[col]))));
     });
-    for (int r = warp; r < nr; r += kWarps) {
-      float s = 0.0f;
-      for (int col = lane; col < Hh; col += 32) s += to_f(bufA[r * lda + col]) * to_f(g2w[col]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (lane == 0) out[r0 + r] = s + g2b;
-    }
-    __syncthreads();
+    blk::head_dot(bufA, lda, g2w, g2b, out + r0, nr, Hh);
   }
 }
 

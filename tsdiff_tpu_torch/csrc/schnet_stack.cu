@@ -55,10 +55,14 @@
 // factors round-trip through global memory, and the f32 path (which exists
 // to check the kernels against the plain version) runs FMA loops.
 
-#include "tile_mma.cuh"
+#include "graph_block.cuh"
 
 namespace {
 
+using blk::aggregate;
+using blk::load_nodes;
+using blk::load_tile;
+using blk::store_nodes;
 using tile::from_f;
 using tile::gemm;
 using tile::kThreads;
@@ -95,47 +99,6 @@ __host__ __device__ inline Smem smem_layout(int N, int H, int nodes) {
   return s;
 }
 
-// nr rows of H values (global, row stride H) -> shared (row stride lda)
-template <typename T>
-__device__ __forceinline__ void load_tile(T* dst, int lda, const T* src, int nr, int H) {
-  constexpr int kVec = 16 / sizeof(T);
-  for (int idx = threadIdx.x; idx < nr * H / kVec; idx += kThreads) {
-    const int r = idx / (H / kVec), cv = idx % (H / kVec);
-    *reinterpret_cast<uint4*>(dst + r * lda + cv * kVec) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * H + cv * kVec);
-  }
-}
-
-// N node rows (global) -> shared NP rows, the pad rows zero
-template <typename T>
-__device__ __forceinline__ void load_nodes(T* dst, int lda, const T* src, int N, int NP, int H) {
-  for (int idx = threadIdx.x; idx < NP * H; idx += kThreads) {
-    const int r = idx / H, col = idx % H;
-    dst[r * lda + col] = r < N ? src[(size_t)r * H + col] : from_f<T>(0.0f);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void store_nodes(T* dst, const T* src, int lda, int N, int H) {
-  for (int idx = threadIdx.x; idx < N * H; idx += kThreads) {
-    const int r = idx / H, col = idx % H;
-    dst[(size_t)r * H + col] = src[r * lda + col];
-  }
-}
-
-// agg[j] += rnd(w[p] * xh[i]) over the tile's pair rows p = i*N + j.  Every
-// thread owns feature columns: no two threads touch one entry.
-template <typename T>
-__device__ __forceinline__ void aggregate(float* agg, const T* w, const T* xh, int lda, int r0,
-                                          int nr, int N, int H) {
-  for (int col = threadIdx.x; col < H; col += kThreads) {
-    for (int r = 0; r < nr; ++r) {
-      const int pr = r0 + r, i = pr / N, j = pr - i * N;
-      agg[j * H + col] += rnd<T>(to_f(w[r * lda + col]) * to_f(xh[i * lda + col]));
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Forward
 
@@ -161,7 +124,6 @@ struct FwdParams {
 
 template <typename T, int TR, bool kStoreHs>
 __global__ void __launch_bounds__(kThreads, 1) schnet_fwd_kernel(FwdParams<T> p) {
-  constexpr int MF = TR / 16;
   extern __shared__ __align__(16) unsigned char smem[];
   const int N = p.N, H = p.H, L = p.L, P = N * N;
   const Smem lay = smem_layout<T, TR>(N, H, 2);
@@ -173,52 +135,17 @@ __global__ void __launch_bounds__(kThreads, 1) schnet_fwd_kernel(FwdParams<T> p)
   float* agg = reinterpret_cast<float*>(smem + 2 * lay.tile + 2 * lay.node);
   float* c_s = agg + N * H;
 
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const size_t HH = (size_t)H * H;
+  const int b = blockIdx.x;
   const T* ea_g = p.ea + (size_t)b * P * H;
   const T* c_g = p.c + (size_t)b * P;
-  const T *f1w = p.f1w, *f1b = p.f1b, *f2w = p.f2w, *f2b = p.f2b, *l1w = p.l1w;
-  const T *l2w = p.l2w, *l2b = p.l2b, *ow = p.ow, *ob = p.ob;
+  const blk::BlockWeights<T> w = {p.f1w, p.f1b, p.f2w, p.f2b, p.l1w, p.l2w, p.l2b, p.ow, p.ob};
 
   load_nodes(h_s, lda, p.h + (size_t)b * N * H, N, NP, H);
   __syncthreads();
   for (int l = 0; l < L; ++l) {
-    const size_t wo = l * HH, bo = (size_t)l * H;
     if (kStoreHs) store_nodes(p.hs + ((size_t)b * L + l) * N * H, h_s, lda, N, H);
-    gemm<T, MF>(h_s, l1w + wo, nullptr, nullptr, lda, NP, H, H, [&](int r, int col, float v) {
-      xh_s[r * lda + col] = r < N ? from_f<T>(v) : from_f<T>(0.0f);
-    });
-    for (int idx = tid; idx < N * H; idx += kThreads) agg[idx] = 0.0f;
-    for (int r0 = 0; r0 < P; r0 += TR) {
-      const int nr = min(TR, P - r0);
-      for (int r = tid; r < nr; r += kThreads) c_s[r] = to_f(c_g[r0 + r]);
-      load_tile(bufA, lda, ea_g + (size_t)r0 * H, nr, H);
-      __syncthreads();
-      gemm<T, MF>(bufA, f1w + wo, nullptr, nullptr, lda, nr, H, H, [&](int r, int col, float v) {
-        bufB[r * lda + col] = from_f<T>(ssp_f(rnd<T>(v + to_f(f1b[bo + col]))));
-      });
-      gemm<T, MF>(bufB, f2w + wo, nullptr, nullptr, lda, nr, H, H, [&](int r, int col, float v) {
-        bufA[r * lda + col] = from_f<T>(rnd<T>(v + to_f(f2b[bo + col])) * c_s[r]);
-      });
-      aggregate(agg, bufA, xh_s, lda, r0, nr, N, H);
-      __syncthreads();
-    }
-    // h += rnd(ssp(rnd(rnd(agg) l2w + l2b)) ow + ob)
-    for (int idx = tid; idx < NP * H; idx += kThreads) {
-      const int r = idx / H, col = idx % H;
-      bufA[r * lda + col] = r < N ? from_f<T>(agg[r * H + col]) : from_f<T>(0.0f);
-    }
-    __syncthreads();
-    gemm<T, MF>(bufA, l2w + wo, nullptr, nullptr, lda, NP, H, H, [&](int r, int col, float v) {
-      xh_s[r * lda + col] =
-          r < N ? from_f<T>(ssp_f(rnd<T>(v + to_f(l2b[bo + col])))) : from_f<T>(0.0f);
-    });
-    gemm<T, MF>(xh_s, ow + wo, nullptr, nullptr, lda, NP, H, H, [&](int r, int col, float v) {
-      if (r < N) {
-        const float y = rnd<T>(v + to_f(ob[bo + col]));
-        h_s[r * lda + col] = from_f<T>(to_f(h_s[r * lda + col]) + y);
-      }
-    });
+    blk::interaction_block<T, TR, false>(bufA, bufB, h_s, xh_s, agg, c_s, ea_g, c_g, w.at(l, H),
+                                         lda, NP, N, P, H);
   }
   store_nodes(p.out + (size_t)b * N * H, h_s, lda, N, H);
 }

@@ -11,8 +11,10 @@ batches.
    atoms.
 
 The timesteps and the noise come from a ``torch.Generator``, or are passed
-in (``t``, ``noise``), so a test can feed the JAX package's own draws.  The
-offset-packed training forward (``packed_train``) is not ported yet.
+in (``t``, ``noise``), so a test can feed the JAX package's own draws.  A
+``fused_score`` model takes its unfused path here: the fused score kernel is
+inference-only.  The offset-packed training forward (``packed_train``) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -61,9 +63,12 @@ def diffusion_loss(
     node_mask_f = batch.node_mask[..., None].to(pos.dtype)
     pos_perturbed = (pos + noise.to(dev) * torch.sqrt(1.0 - a) / torch.sqrt(a)) * node_mask_f
 
+    # the fused score kernel has no gradient, so a sampling configuration
+    # with fused_score trains through the unfused path
+    unfused = {"fused": False} if getattr(model, "fused_score", False) else {}
     edge_inv, edges, d_perturbed = model(
         batch.atom_type, batch.r_feat, batch.p_feat, pos_perturbed, batch.bond_mat,
-        batch.node_mask,
+        batch.node_mask, **unfused,
     )
     emask = edges.mask_global
     node_eq = eq_transform(edge_inv, pos_perturbed, emask, d_perturbed)

@@ -27,10 +27,13 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from tsdiff_tpu_torch.core.geometry import center_pos, clip_norm
+from tsdiff_tpu_torch.core.geometry import center_pos, clip_norm, eq_transform
 from tsdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
 
-#: node_eq_fn(pos) -> per-atom score vectors (B, N, 3), before clip_norm
+#: score_fn(pos) -> (edge_inv (B, N, N, 1), emask (B, N, N), edge_length (B, N, N))
+ScoreFn = Callable[[torch.Tensor], tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+#: node_eq_fn(pos) -> per-atom score vectors (B, N, 3), before clip_norm;
+#: marked with the attribute ``returns_node_eq = True``
 NodeEqFn = Callable[[torch.Tensor], torch.Tensor]
 
 
@@ -172,7 +175,7 @@ def initial_position(
 
 @torch.no_grad()
 def dynamic_sampling(
-    node_eq_fn: NodeEqFn,
+    score_fn: ScoreFn | NodeEqFn,
     schedule: DiffusionSchedule,
     pos_init: torch.Tensor,    # (B, N, 3) float32
     node_mask: torch.Tensor,   # (B, N) bool
@@ -183,9 +186,12 @@ def dynamic_sampling(
 ) -> SampleResult:
     """Run the reverse-diffusion loop; returns scaled-frame coordinates.
 
-    ``node_eq_fn`` maps coordinates to per-atom scores (the packed ensemble
-    of ``diffusion/ensemble.py``).  Step noise comes from ``noise`` when given
-    (tests feed another implementation's stream), else from ``generator``.
+    ``score_fn`` holds the (possibly ensembled) score network
+    (``diffusion/ensemble.py``).  A dense one maps coordinates to ``(edge_inv,
+    emask, edge_length)`` and is chain-ruled here with ``eq_transform``; one
+    marked ``returns_node_eq`` (the packed ensemble) has already chain-ruled
+    to per-atom scores.  Step noise comes from ``noise`` when given (tests
+    feed another implementation's stream), else from ``generator``.
     """
     coeffs = build_step_coeffs(schedule, settings)
     n_walk = len(coeffs.a)
@@ -195,8 +201,14 @@ def dynamic_sampling(
     pos = pos * node_mask[..., None].to(pos.dtype)
     nan_flag = torch.zeros((), dtype=torch.bool, device=pos.device)
     traj = [] if settings.save_traj else None
+    returns_node_eq = getattr(score_fn, "returns_node_eq", False)
     for k in range(n_walk):
-        eps_pos = clip_norm(node_eq_fn(pos), limit=settings.clip)
+        if returns_node_eq:
+            node_eq = score_fn(pos)
+        else:
+            edge_inv, emask, d = score_fn(pos)
+            node_eq = eq_transform(edge_inv, pos, emask, d)
+        eps_pos = clip_norm(node_eq, limit=settings.clip)
         step_noise = (
             noise[k] if noise is not None
             else torch.randn(pos.shape, generator=generator, device=pos.device)

@@ -17,12 +17,13 @@ stay float32; each use casts them to the working dtype.  Two paths:
 * training and the dense score (``forward`` = ``precompute_static`` +
   ``score_step``): plain torch around the SchNet stack, which with
   ``use_pallas`` is the fused CUDA op ``ops.schnet_stack`` with its own
-  backward;
+  backward; with ``fused_score`` the whole of ``score_step`` after the
+  distances and masks is the inference-only fused op ``ops.condensed_score``;
 * sampling (``score_step_packed``): the offset-packed fused score step
-  ``ops.packed_score``.
+  ``ops.packed_score``, or with ``score_quant="int8"`` its quantized variant
+  ``ops.packed_score_int8``.
 
-The Gaussian edge encoder, the fused dense score and the packed training
-forward are not ported yet.
+The Gaussian edge encoder and the packed training forward are not ported yet.
 """
 
 from __future__ import annotations
@@ -53,7 +54,13 @@ from tsdiff_tpu_torch.models.edge import MLPEdgeEncoder
 from tsdiff_tpu_torch.models.init import init_params_
 from tsdiff_tpu_torch.models.mlp import MLP, linear
 from tsdiff_tpu_torch.models.schnet import SchNetEncoder
+from tsdiff_tpu_torch.ops.condensed_score import condensed_score, extract_weights
 from tsdiff_tpu_torch.ops.packed_score import extract_weights_packed, packed_score
+from tsdiff_tpu_torch.ops.packed_score_int8 import (
+    cast_unquantized,
+    extract_weights_packed_int8,
+    packed_score_int8,
+)
 
 NUM_ATOM_TYPES = 100  # atomic-number embedding table size
 
@@ -78,6 +85,9 @@ class StaticFeatures:
     emb_p_in: torch.Tensor
     emb_r_out: torch.Tensor  # (B, N, N, H) output-head edge order
     emb_p_out: torch.Tensor
+    #: the fused dense score's weights in the working dtype (``fused_score``
+    #: models only): extracted once per batch, not once per step
+    fused_weights: dict | None = None
 
 
 class EdgeCat(nn.Module):
@@ -108,14 +118,19 @@ class CondenseEncoderEpsNetwork(nn.Module):
         cutoff: float = 10.0,
         smooth_conv: bool = False,
         use_pallas: bool = False,
+        fused_score: bool = False,
         packed_train: bool = False,
+        score_quant: str | None = None,
         dtype: torch.dtype | None = None,
         generator: torch.Generator | None = None,
     ):
         """``use_pallas`` runs the SchNet stack through the fused CUDA op
-        (its plain twin on CPU tensors); ``packed_train`` is recorded for the
-        objective, which does not port it yet.  Parameters are initialised
-        from ``generator`` (``models.init``)."""
+        (its plain twin on CPU tensors); ``fused_score`` runs ``score_step``
+        through the inference-only fused dense score op and makes an ensemble
+        take the packed path; ``score_quant="int8"`` picks the packed path's
+        int8 op; ``packed_train`` is recorded for the objective, which does
+        not port it yet.  Parameters are initialised from ``generator``
+        (``models.init``)."""
         super().__init__()
         if edge_encoder != "mlp" or smooth_conv or mlp_act != "swish" or edge_cat_act != "swish":
             raise NotImplementedError(
@@ -131,7 +146,9 @@ class CondenseEncoderEpsNetwork(nn.Module):
         self.num_convs = num_convs
         self.cutoff = cutoff
         self.use_pallas = use_pallas
+        self.fused_score = fused_score
         self.packed_train = packed_train
+        self.score_quant = score_quant
         self.dtype = dtype or torch.float32
         half = hidden_dim // 2
         self.atom_embedding = nn.Embedding(NUM_ATOM_TYPES, half)
@@ -164,7 +181,9 @@ class CondenseEncoderEpsNetwork(nn.Module):
             cutoff=enc.cutoff,
             smooth_conv=enc.smooth_conv,
             use_pallas=config.get("use_pallas", False),
+            fused_score=config.get("fused_score", False),
             packed_train=config.get("packed_train", False),
+            score_quant=config.get("score_quant", None),
             dtype=dtype,
             generator=generator,
         )
@@ -222,22 +241,49 @@ class CondenseEncoderEpsNetwork(nn.Module):
             emb_p_in=emb(pairs.type_p_in, self.dtype),
             emb_r_out=emb(pairs.type_r_out, self.dtype),
             emb_p_out=emb(pairs.type_p_out, self.dtype),
+            fused_weights=self.fused_weights() if self.fused_score else None,
         )
+
+    def fused_weights(self) -> dict[str, torch.Tensor]:
+        """The fused dense score's weights in the working dtype."""
+        w = extract_weights(self.state_dict())
+        return {k: v.to(self.dtype).contiguous() for k, v in w.items()}
 
     def edge_attr(self, d_emb, emb_r, emb_p) -> torch.Tensor:
         """``edge_cat`` of the R and P edge embeddings (B, N, N, H)."""
         combine = self.edge_enc.combine
         return self.edge_cat(torch.cat([combine(d_emb, emb_r), combine(d_emb, emb_p)], dim=-1))
 
-    def score_step(self, pos, node_mask, static: StaticFeatures, pair_info=None):
+    def score_step(self, pos, node_mask, static: StaticFeatures, pair_info=None,
+                   fused: bool | None = None):
         """Position-dependent part of the dense forward: ``(edge_inv (B, N,
         N, 1) float32, edges at pred_edge_order, d_out)``.  The distance MLP
         runs once on the encoder-order distances and is shared with the
-        output stage."""
+        output stage.  ``fused`` (default: the model's ``fused_score``) runs
+        everything after the distances and masks in the fused dense score op,
+        which has no gradient; its off-edge entries differ from the unfused
+        path's and are masked by every caller."""
         dt = self.dtype
         if pair_info is None:
             pair_info = self.build_pair_info(pos, node_mask, static.pairs)
         edges_in, d_in, edges_out, d_out = pair_info
+
+        if self.fused_score if fused is None else fused:
+            if torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters()):
+                raise NotImplementedError(
+                    "fused_score=True uses the inference-only fused score kernel, which "
+                    "has no gradient. Training/get_loss must run the unfused path: call "
+                    "under torch.no_grad() for inference, or construct the model with "
+                    "fused_score=False (tsdiff_tpu_torch.diffusion.objective."
+                    "diffusion_loss takes the unfused path automatically)."
+                )
+            cmask = ((d_in <= self.cutoff) & edges_in.mask_global).to(torch.float32)
+            edge_inv = condensed_score(
+                static.fused_weights or self.fused_weights(), static.z.contiguous(),
+                d_in.contiguous(), cmask, static.emb_r_in, static.emb_p_in,
+                static.emb_r_out, static.emb_p_out, num_blocks=self.num_convs,
+            )
+            return edge_inv, edges_out, d_out
         d_emb = self.edge_enc.d_embedding(d_in.to(dt)[..., None])
         ea = self.edge_attr(d_emb, static.emb_r_in, static.emb_p_in)
         node_attr = self.encoder(static.z, ea, d_in, edges_in.mask_global, dt)
@@ -246,10 +292,11 @@ class CondenseEncoderEpsNetwork(nn.Module):
         h_pair = torch.cat([node_attr[:, :, None, :] * node_attr[:, None, :, :], ea], dim=-1)
         return self.grad_dist_mlp(h_pair).float(), edges_out, d_out
 
-    def forward(self, atom_type, r_feat, p_feat, pos, bond_mat, node_mask):
+    def forward(self, atom_type, r_feat, p_feat, pos, bond_mat, node_mask,
+                fused: bool | None = None):
         """Score-network forward: ``precompute_static`` then ``score_step``."""
         static = self.precompute_static(atom_type, r_feat, p_feat, bond_mat, node_mask)
-        return self.score_step(pos, node_mask, static)
+        return self.score_step(pos, node_mask, static, fused=fused)
 
     # ---- offset-packed path (sampling) ----
 
@@ -280,10 +327,24 @@ class CondenseEncoderEpsNetwork(nn.Module):
         m_eq = mask_out.to(torch.float32) * half
         return PackedPairInfo(d_in=d_in, cmask=cmask, d_out=d_out, m_eq=m_eq)
 
+    def packed_score_op(self):
+        """``(op, weights)`` of the packed score step: the op this model's
+        ``score_quant`` picks and this member's weights for it."""
+        if self.score_quant == "int8":
+            return packed_score_int8, self.kernel_weights_int8()
+        if self.score_quant is not None:
+            raise ValueError(f"unknown score_quant {self.score_quant!r}")
+        return packed_score, self.kernel_weights()
+
     def kernel_weights(self) -> dict[str, torch.Tensor]:
         """This member's score-kernel weights in the working dtype."""
         w = extract_weights_packed(self.state_dict())
         return {k: v.to(self.dtype).contiguous() for k, v in w.items()}
+
+    def kernel_weights_int8(self) -> dict[str, torch.Tensor]:
+        """This member's int8 score-kernel weights: codes and scales from the
+        float32 parameters, the unquantized rest in the working dtype."""
+        return cast_unquantized(extract_weights_packed_int8(self.state_dict()), self.dtype)
 
     @torch.no_grad()
     def score_step_packed(self, pos, node_mask, z, pp: PackedPairs, pair_info=None):
@@ -291,8 +352,9 @@ class CondenseEncoderEpsNetwork(nn.Module):
         with ``core.packed.eq_transform_packed(out, pos, info.m_eq, info.d_out)``."""
         if pair_info is None:
             pair_info = self.build_packed_pair_info(pos, node_mask, pp)
-        w = {k: v[None] for k, v in self.kernel_weights().items()}
-        out = packed_score(
+        op, weights = self.packed_score_op()
+        w = {k: v[None] for k, v in weights.items()}
+        out = op(
             w, z[None].contiguous(), pair_info.d_in.contiguous(), pair_info.cmask.contiguous(),
             pp.type_r_in, pp.type_p_in, pp.type_r_out, pp.type_p_out,
             num_blocks=self.num_convs,

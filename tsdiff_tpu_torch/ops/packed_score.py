@@ -35,13 +35,13 @@ import ctypes
 
 import torch
 
+from tsdiff_tpu_torch.ops.condensed_score import W_ORDER as _DENSE_ORDER
+from tsdiff_tpu_torch.ops.condensed_score import extract_weights
+from tsdiff_tpu_torch.ops.condensed_score import silu as _silu
+from tsdiff_tpu_torch.ops.schnet_stack import ssp
+
 #: kernel weight names, in the order the CUDA entry point takes them
-W_ORDER = (
-    "table", "dw0", "db0", "dw1", "db1",
-    "c0r", "c0p", "c0b", "c1w", "c1b",
-    "f1w", "f1b", "f2w", "f2b", "l1w", "l2w", "l2b", "ow", "ob",
-    "g0h", "g0e", "g0b", "g1w", "g1b", "g2w", "g2b",
-)
+W_ORDER = ("table", *_DENSE_ORDER)
 
 _LIB = "packed_score"
 
@@ -62,44 +62,12 @@ def _kernel_lib() -> ctypes.CDLL:
 
 def extract_weights_packed(state_dict: dict) -> dict[str, torch.Tensor]:
     """One member's kernel weights from a condensed-encoder ``state_dict``:
-    matrices in (out, in) layout (the layer stacks transposed from their
-    flax (L, in, out) layout), biases as vectors, the bond embedding table as
-    it is (no padding: the kernel reads rows)."""
-    sd = state_dict
-    H = sd["edge_cat.lin1.weight"].shape[0]
-    c0w = sd["edge_cat.lin0.weight"]            # (H, 2H)
-    g0w = sd["grad_dist_mlp.layers.0.weight"]   # (H, 2H)
-    st = {k: sd[f"encoder.stack.{k}"] for k in ("f1w", "f1b", "f2w", "f2b", "l1w", "l2w", "l2b", "ow", "ob")}
-    w = dict(
-        table=sd["edge_enc.bond_emb.weight"],
-        dw0=sd["edge_enc.mlp.layers.0.weight"].reshape(-1),
-        db0=sd["edge_enc.mlp.layers.0.bias"],
-        dw1=sd["edge_enc.mlp.layers.1.weight"],
-        db1=sd["edge_enc.mlp.layers.1.bias"],
-        c0r=c0w[:, :H], c0p=c0w[:, H:], c0b=sd["edge_cat.lin0.bias"],
-        c1w=sd["edge_cat.lin1.weight"], c1b=sd["edge_cat.lin1.bias"],
-        f1w=st["f1w"].transpose(-1, -2), f1b=st["f1b"],
-        f2w=st["f2w"].transpose(-1, -2), f2b=st["f2b"],
-        l1w=st["l1w"].transpose(-1, -2),
-        l2w=st["l2w"].transpose(-1, -2), l2b=st["l2b"],
-        ow=st["ow"].transpose(-1, -2), ob=st["ob"],
-        g0h=g0w[:, :H], g0e=g0w[:, H:], g0b=sd["grad_dist_mlp.layers.0.bias"],
-        g1w=sd["grad_dist_mlp.layers.1.weight"], g1b=sd["grad_dist_mlp.layers.1.bias"],
-        g2w=sd["grad_dist_mlp.layers.2.weight"].reshape(-1),
-        g2b=sd["grad_dist_mlp.layers.2.bias"],
-    )
-    return {k: w[k].detach().contiguous() for k in W_ORDER}
-
-
-def _silu(x: torch.Tensor) -> torch.Tensor:
-    xf = x.float()
-    return (xf * torch.sigmoid(xf)).to(x.dtype)
-
-
-def _ssp(x: torch.Tensor) -> torch.Tensor:
-    xf = x.float()
-    out = torch.clamp(xf, min=0.0) + torch.log1p(torch.exp(-xf.abs())) - 0.6931471805599453
-    return out.to(x.dtype)
+    the dense score kernel's extraction (matrices in (out, in) layout, biases
+    as vectors) plus the bond embedding table as it is (no padding: the
+    kernel reads rows)."""
+    w = extract_weights(state_dict)
+    w["table"] = state_dict["edge_enc.bond_emb.weight"].detach().contiguous()
+    return {k: w[k] for k in W_ORDER}
 
 
 def packed_score_reference(
@@ -144,7 +112,7 @@ def packed_score_reference(
 
     ea = edge_cat(type_r_in, type_p_in)
     for l in range(num_blocks):
-        f = _ssp((dot(ea, w["f1w"][:, l]) + row(w["f1b"][:, l], 3).float()).to(dt))
+        f = ssp((dot(ea, w["f1w"][:, l]) + row(w["f1b"][:, l], 3).float()).to(dt))
         f = (dot(f, w["f2w"][:, l]) + row(w["f2b"][:, l], 3).float()).to(dt) * c
         xh = dot(h, w["l1w"][:, l]).to(dt)         # (M, B, N, F)
         agg = torch.zeros(xh.shape, dtype=torch.float32, device=xh.device)
@@ -153,7 +121,7 @@ def packed_score_reference(
             agg = agg + torch.roll(fk * xh, k, dims=2).float()
             agg = agg + (fk * torch.roll(xh, -k, dims=2)).float()
         conv = (dot(agg.to(dt), w["l2w"][:, l]) + row(w["l2b"][:, l], 2).float()).to(dt)
-        h = h + (dot(_ssp(conv), w["ow"][:, l]) + row(w["ob"][:, l], 2).float()).to(dt)
+        h = h + (dot(ssp(conv), w["ow"][:, l]) + row(w["ob"][:, l], 2).float()).to(dt)
 
     ea_out = edge_cat(type_r_out, type_p_out)
     hh = torch.stack([h * torch.roll(h, -k, dims=2) for k in range(1, K + 1)], dim=2)

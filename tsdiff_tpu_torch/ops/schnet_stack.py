@@ -76,7 +76,7 @@ def _kernel_lib() -> ctypes.CDLL:
 # Plain versions
 
 
-def _ssp(x: torch.Tensor) -> torch.Tensor:
+def ssp(x: torch.Tensor) -> torch.Tensor:
     """Shifted softplus evaluated in float32, rounded to x's type."""
     xf = x.float()
     return (torch.clamp(xf, min=0.0) + torch.log1p(torch.exp(-xf.abs())) - _LOG2).to(x.dtype)
@@ -96,7 +96,7 @@ def _block_filter(w: dict, l: int, ea: torch.Tensor, c: torch.Tensor):
     """Block l's pair filter: (a1 f32, s1, w) with w = rnd(rnd(a2) * c)."""
     dt = ea.dtype
     a1 = _dot(ea, w["f1w"][l]) + w["f1b"][l].float()
-    s1 = _ssp(a1.to(dt))
+    s1 = ssp(a1.to(dt))
     a2 = _dot(s1, w["f2w"][l]) + w["f2b"][l].float()
     return a1, s1, a2.to(dt) * c[..., None]
 
@@ -108,7 +108,9 @@ def _aggregate(wv: torch.Tensor, xh: torch.Tensor) -> torch.Tensor:
     return (w3 * xh[:, :, None, :]).float().sum(1).to(xh.dtype)
 
 
-def _forward_plain(w: dict, h: torch.Tensor, ea: torch.Tensor, c: torch.Tensor, store_hs: bool):
+def forward_plain(w: dict, h: torch.Tensor, ea: torch.Tensor, c: torch.Tensor, store_hs: bool):
+    """The stack's plain forward, ``(out, hs or None)``; the dense score's
+    plain version (``ops.condensed_score``) runs its blocks through it too."""
     dt = h.dtype
     L = w["f1w"].shape[0]
     hs = []
@@ -119,7 +121,7 @@ def _forward_plain(w: dict, h: torch.Tensor, ea: torch.Tensor, c: torch.Tensor, 
         xh = _dot(h, w["l1w"][l]).to(dt)
         agg = _aggregate(wv, xh)
         conv = (_dot(agg, w["l2w"][l]) + w["l2b"][l].float()).to(dt)
-        h = h + (_dot(_ssp(conv), w["ow"][l]) + w["ob"][l].float()).to(dt)
+        h = h + (_dot(ssp(conv), w["ow"][l]) + w["ob"][l].float()).to(dt)
     return h, (torch.stack(hs, dim=1) if store_hs else None)
 
 
@@ -127,13 +129,13 @@ def schnet_stack_fwd_reference(w: dict, h: torch.Tensor, ea: torch.Tensor, c: to
     """Plain forward: ``(out (B, N, H), hs (B, L, N, H))`` in h's type, ``hs``
     holding each block's input."""
     schnet_stack_fwd_reference.calls += 1
-    return _forward_plain(w, h, ea, c, store_hs=True)
+    return forward_plain(w, h, ea, c, store_hs=True)
 
 
 def interaction_stack_reference(w: dict, h: torch.Tensor, ea: torch.Tensor, c: torch.Tensor):
     """Plain forward without the saved block inputs: ``out (B, N, H)``."""
     interaction_stack_reference.calls += 1
-    return _forward_plain(w, h, ea, c, store_hs=False)[0]
+    return forward_plain(w, h, ea, c, store_hs=False)[0]
 
 
 def schnet_stack_bwd_reference(w: dict, ea: torch.Tensor, c: torch.Tensor, hs: torch.Tensor,
@@ -155,7 +157,7 @@ def schnet_stack_bwd_reference(w: dict, ea: torch.Tensor, c: torch.Tensor, hs: t
         xh = _dot(h_l, w["l1w"][l]).to(dt)
         agg = _aggregate(wv, xh)
         a3 = _dot(agg, w["l2w"][l]) + w["l2b"][l].float()
-        s3 = _ssp(a3.to(dt))
+        s3 = ssp(a3.to(dt))
 
         gd = g.to(dt)
         grads["ow"][l] = _xty(s3, gd)
