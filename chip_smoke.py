@@ -6,23 +6,28 @@ Phases (any failure exits non-zero):
 
 1. card: name and power limit, CUDA and nvcc versions;
 2. build: compile the port's CUDA kernels from ``tsdiff_tpu_torch/csrc``, one
-   nvcc per source, in parallel;
+   nvcc per source, in parallel; registers, spills and shared memory of every
+   kernel from the ``ptxas`` log;
 3. kernels against their plain PyTorch versions at the main paths' shapes:
-   the packed score step (B1) with the 8 trained campaign members on 100
-   synthetic reactions with a jittered geometry, N=24 in float32 (TF32 off)
-   and bfloat16 and N=16 in bfloat16, and on the same inputs in bfloat16 its
-   int8 variant (B5); the dense fused score step (B2) with seed106 on 100
-   reactions, N=24 in float32 and bfloat16 and N=16 in bfloat16, every
-   output element; the fused SchNet stack (B3's forward
-   and backward, B4) with seed106's stack weights on edge features from the
+   the tile product of the warp-specialised kernels alone against a matrix
+   product; the packed score step (B1) with the 8 trained campaign members on
+   100 synthetic reactions with a jittered geometry, N=24 in float32 (TF32
+   off, the ``mma.sync`` kernel) and bfloat16 and N=16 in bfloat16 (the
+   warp-specialised ``wgmma`` kernel: two launches bitwise equal, its own
+   launch counter, its L2 weight bytes per launch), and on the same inputs in
+   bfloat16 its int8 variant (B5: the same checks, and its tile product
+   against an integer matrix product); the dense fused score step (B2) with
+   seed106 on 100 reactions, N=24 in float32 and bfloat16 and N=16 in
+   bfloat16, every output element; the fused SchNet stack (B3's forward and
+   backward, B4) with seed106's stack weights on edge features from the
    port's dense model, bfloat16 at the training batch (B=200) in both
    training buckets (N=16, N=24) and float32 at B=16, N=24; errors, times
    (CUDA events) and the bound of each;
 4. sampling main path: the port's sampling CLI on 200 synthetic reactions
    with the 8 members, bf16, fused packed score, ``ld`` over the 5000-step
    schedule walked in 625 model calls; checks that every model call went
-   through the kernel, that positions are finite and that the mean D-MAE is
-   plausible;
+   through the warp-specialised kernel, that positions are finite and that
+   the mean D-MAE is plausible;
 5. sampling profile: 20 steps at N=24 under torch.profiler;
 6. training main path: the port's train CLI at full width (H=256, L=7,
    batch 200, bf16, ``use_pallas``) for 40 iterations on a synthetic corpus;
@@ -30,7 +35,14 @@ Phases (any failure exits non-zero):
    losses and a written checkpoint, and reads the CLI's graphs/s over the
    run; then 20 steps on one fixed batch (the loss must fall), the time per
    step and a profile; then samples 8 reactions with the checkpoint it
-   trained.
+   trained;
+7. dense sampling path: seed106 with ``fused_score`` through ``make_score_fn``
+   and ``dynamic_sampling`` on 100 reactions of the N=24 bucket, 625 launches
+   of the dense score kernel (B2), against the unfused torch path and the
+   8-member packed ensemble on the same reactions and noise;
+8. int8 sampling path: phase 4 with ``--quant int8``: every model call one
+   launch of the warp-specialised int8 kernel (B5), none of B1, D-MAE within
+   noise of phase 4.
 
 The second-to-last lines are a JSON object of per-kernel numbers and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -134,10 +146,24 @@ def phase_build() -> None:
     _build.build(list(SOURCES))
     print(f"[build] {', '.join(f'{n}.cu' for n in SOURCES)} built in "
           f"{time.monotonic() - t0:.1f} s")
+    spills = 0
     for name in SOURCES:
+        # ptxas -v: "Compiling entry function '<mangled>'", then its stack and
+        # spill line, then "Used N registers, ..."
+        kernel, stack = "?", "0 bytes spill stores"
         for line in _build.build_info[name]["log"].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"[build] {name}: {line.strip()}")
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                short = re.search(r"\d+(packed_score\w*?kernel|tile_product\w*?kernel|schnet_\w*?kernel|"
+                                  r"condensed_score\w*?kernel)(I\w+?)?E", m.group(1))
+                kernel = (short.group(1) + (short.group(2) or "")) if short else m.group(1)[-60:]
+            elif "bytes spill" in line:
+                stack = line.strip()
+            elif "Used" in line and "registers" in line:
+                spills += int(re.search(r"(\d+) bytes spill stores", stack).group(1))
+                print(f"[build] {name}: {kernel}: {line.strip().replace('ptxas info    : ', '')}; "
+                      f"{stack}")
+    print(f"[build] spill stores over all kernels: {spills} bytes")
 
 
 def load_member(seed: int, dtype, device, **model_overrides):
@@ -226,6 +252,31 @@ def phase_kernels() -> dict:
     from tsdiff_tpu_torch.ops import packed_score_int8 as p8
 
     result = {}
+    # the warp-specialised kernels' tile product alone: 64 x 256 by the arranged
+    # 256 x 256 weight through the ring, A from shared memory and from
+    # registers, against a float32 matrix product (bf16 products are exact in
+    # float32: only the order of the 256-term sums differs)
+    gen = torch.Generator().manual_seed(3)
+    a = torch.randn(64, 256, generator=gen).to("cuda", torch.bfloat16)
+    wt = (torch.randn(256, 256, generator=gen) / 16).to("cuda", torch.bfloat16)
+    prod = ps.tile_product_selftest(a, wt)
+    torch.cuda.synchronize()
+    want = a.float() @ wt.float().T
+    for i, name in enumerate(("A from shared memory", "A from registers")):
+        err = (prod[i] - want).abs().max().item()
+        print(f"[kernels] tile product, {name}: max abs err {err:.3g} of max|ref| "
+              f"{want.abs().max().item():.4g} (tol 1e-4 of it)")
+        if not err <= 1e-4 * want.abs().max().item():
+            fail(f"the tile product ({name}) disagrees with the matrix product")
+    # the same for the int8 kernel's tile product, against an integer matrix product: exact
+    a8 = torch.randint(-127, 128, (64, 256), generator=gen, dtype=torch.int8).to("cuda")
+    w8t = torch.randint(-127, 128, (256, 256), generator=gen, dtype=torch.int8).to("cuda")
+    prod8 = p8.tile_product_selftest_int8(a8, w8t)
+    torch.cuda.synchronize()
+    exact = torch.equal(prod8, (a8.double() @ w8t.double().T).to(torch.int32))
+    print(f"[kernels] int8 tile product: equal to the integer matrix product: {exact}")
+    if not exact:
+        fail("the int8 tile product disagrees with the integer matrix product")
     # the main path runs bf16 at the N=16 and N=24 buckets; N=24 also in f32
     for n_bucket, dname in ((24, "float32"), (24, "bfloat16"), (16, "bfloat16")):
         dtype = getattr(torch, dname)
@@ -248,10 +299,25 @@ def phase_kernels() -> dict:
         def plain():
             return ps.packed_score_reference(*args, num_blocks=L)
 
+        wg_before = ps.packed_score.wg_launches
         out = kernel()
+        again = kernel()
         ref = plain()
         torch.cuda.synchronize()
         tag = f"packed_score N={n_bucket} {dname}"
+        # bf16 takes the warp-specialised kernel, f32 the mma.sync kernel
+        took_wg = ps.packed_score.wg_launches - wg_before
+        M, B = z.shape[:2]
+        print(f"[kernels] {tag}: {took_wg} of 2 launches took the warp-specialised kernel; two "
+              f"launches bitwise equal: {torch.equal(out, again)}; L2 weight bytes per launch "
+              f"{ps.wg_l2_weight_bytes(M, B, n_bucket, L):.4g} (warp-specialised, "
+              f"{len(ps.wg_schedule(n_bucket, L))} stages of {ps.STAGE_BYTES} bytes per CTA) "
+              f"against {ps.mma_sync_l2_weight_bytes(M, B, n_bucket, L):.4g} (mma.sync)")
+        if took_wg != (2 if dtype == torch.bfloat16 else 0):
+            fail(f"{tag}: {took_wg} launches of the warp-specialised kernel")
+        if not torch.equal(out, again):
+            fail(f"{tag}: two launches on the same inputs differ")
+        del again
         e_max = check_close(f"{tag} out", out, ref, dname)
         eq_k = eq_transform_packed(out.mean(0), pos, info.m_eq, info.d_out)
         eq_r = eq_transform_packed(ref.mean(0), pos, info.m_eq, info.d_out)
@@ -277,9 +343,21 @@ def phase_kernels() -> dict:
             def plain8():
                 return p8.packed_score_int8_reference(*args8, num_blocks=L)
 
-            out8, ref8 = kernel8(), plain8()
+            wg_before = p8.packed_score_int8.wg_launches
+            out8, again8, ref8 = kernel8(), kernel8(), plain8()
             torch.cuda.synchronize()
             tag = f"packed_score_int8 N={n_bucket} {dname}"
+            took_wg = p8.packed_score_int8.wg_launches - wg_before
+            print(f"[kernels] {tag}: {took_wg} of 2 launches took the warp-specialised kernel; two "
+                  f"launches bitwise equal: {torch.equal(out8, again8)}; L2 weight bytes per launch "
+                  f"{p8.wg_l2_weight_bytes_int8(M, B, n_bucket, L):.4g} (warp-specialised, "
+                  f"{len(p8.wg_schedule_int8(n_bucket, L))} stages of {ps.STAGE_BYTES} bytes per "
+                  f"CTA) against {p8.mma_sync_l2_weight_bytes_int8(M, B, n_bucket, L):.4g} (mma.sync)")
+            if took_wg != 2:
+                fail(f"{tag}: {took_wg} launches of the warp-specialised kernel")
+            if not torch.equal(out8, again8):
+                fail(f"{tag}: two launches on the same inputs differ")
+            del again8
             e_max = check_close(f"{tag} out", out8, ref8, dname, tol=TOL_INT8)
             timing = time_and_bound(tag, kernel8, plain8, 20,
                                     p8.packed_score_int8_cost(w8, z, L), dname)
@@ -458,7 +536,10 @@ def phase_profile(n_steps: int = 20) -> None:
     schedule = DiffusionSchedule.from_config(cfg)
     settings = SamplingSettings(n_steps=n_steps)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    from tsdiff_tpu_torch.ops import packed_score as ps
+
     node_eq_fn = make_packed_ensemble_eps_fn(members, batch)
+    ps.packed_score.launches = ps.packed_score.wg_launches = 0
     dynamic_sampling(node_eq_fn, schedule, pos, batch.node_mask, settings, generator=gen)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -469,7 +550,10 @@ def phase_profile(n_steps: int = 20) -> None:
     rows = device_kernels(prof, n_steps)
     step_ms = wall_ms / n_steps
     print(f"[profile] {n_steps} ld steps, 8 members, B=100, N=24, bf16: wall {wall_ms:.3f} ms "
-          f"({step_ms:.4f} ms/step)")
+          f"({step_ms:.4f} ms/step); packed_score launches {ps.packed_score.launches}, of them "
+          f"warp-specialised {ps.packed_score.wg_launches} (expected {2 * n_steps} each)")
+    if (ps.packed_score.launches, ps.packed_score.wg_launches) != (2 * n_steps, 2 * n_steps):
+        fail("the profiled steps did not all take the warp-specialised kernel")
     kernel_ms = sum(ms for ms, _, name in rows if "packed_score" in name)
     if kernel_ms == 0.0:
         print("[profile] the profiler shows no device time: breakdown not measured")
@@ -512,7 +596,8 @@ def phase_main_path(quant: str = "none") -> dict:
         "--n_steps", str(n_steps), "--timestep_respacing", str(respacing),
         "--batch_size", str(batch_size), "--device", "cuda", "--quant", quant,
     ]
-    ps.packed_score.launches = p8.packed_score_int8.launches = 0
+    ps.packed_score.launches = ps.packed_score.wg_launches = 0
+    p8.packed_score_int8.launches = p8.packed_score_int8.wg_launches = 0
     ps.packed_score_reference.calls = p8.packed_score_int8_reference.calls = 0
     t0 = time.monotonic()
     save_path = sampling.main(argv)
@@ -537,6 +622,12 @@ def phase_main_path(quant: str = "none") -> dict:
           f"plain-version calls {plain_calls}")
     if launches != expected:
         fail(f"kernel launched {launches} times, expected {expected}")
+    # every launch of the path is the warp-specialised kernel's, none the mma.sync bf16 one's
+    wg = on_path.wg_launches
+    print(f"[{tag}] launches of the warp-specialised {on_path.__name__} kernel: {wg} (expected "
+          f"{expected}; of the mma.sync bf16 kernel: {launches - wg}, expected 0)")
+    if wg != expected:
+        fail(f"{wg} of {launches} {on_path.__name__} launches were warp-specialised")
     if other_launches != 0:
         fail(f"{other.__name__} launched {other_launches} times on the {tag} path")
     if plain_calls != 0:

@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-packed score step (B1) and its int8 variant (B5), the dense score step (B2)
-and the fused SchNet stack (B3's forward and backward, B4).
+packed score step (B1) and its int8 variant (B5): for each the warp-specialised wgmma kernel
+in bfloat16, the mma.sync kernel in float32 and the tile product of the
+former alone, the dense score step (B2) and the fused SchNet stack
+(B3's forward and backward, B4).
 
 Every test here needs an NVIDIA GPU with nvcc (marker ``cuda``) and skips
 without one.  The file imports neither JAX nor the JAX package, so on a
@@ -68,6 +70,8 @@ def random_inputs(M, B, N, H, L, dtype, device, seed=0, V=100):
         g1w=mat(M, H // 2, H), g1b=vec(M, H // 2), g2w=mat(M, H // 2), g2b=vec(M, 1),
     )
     w = {k: w[k].to(device=device, dtype=dtype).contiguous() for k in ps.W_ORDER}
+    if dtype == torch.bfloat16 and H == 256:
+        w = ps.with_wg_image(w)     # what the model's kernel_weights() adds
     z = torch.randn(M, B, N, H, generator=g).to(device=device, dtype=dtype)
     d = (0.8 + 4 * torch.rand(B, K, N, generator=g)).to(device)
     cmask = (torch.rand(B, K, N, generator=g) < 0.8).float()
@@ -78,15 +82,36 @@ def random_inputs(M, B, N, H, L, dtype, device, seed=0, V=100):
 
 
 @pytest.mark.cuda
+def test_tile_product_selftest(cuda):
+    """The warp-specialised kernels' tile product alone: 64 x 256 by the
+    arranged 256 x 256 weight through the shared-memory ring, A from shared
+    memory and from registers, against a float32 matrix product (an oracle
+    here, never a call of the port).  bf16 products are exact in float32;
+    only the order of the 256-term float32 sums differs."""
+    g = torch.Generator().manual_seed(3)
+    a = torch.randn(64, 256, generator=g).to(cuda, torch.bfloat16)
+    w = (torch.randn(256, 256, generator=g) / 16).to(cuda, torch.bfloat16)
+    out = ps.tile_product_selftest(a, w)
+    torch.cuda.synchronize()
+    ref = a.float() @ w.float().T
+    for i, name in enumerate(("A from shared memory", "A from registers")):
+        err = (out[i] - ref).abs().max().item()
+        print(f"tile product, {name}: max err {err:.3g} of {ref.abs().max().item():.3g}")
+        assert err <= 1e-4 * ref.abs().max().item(), name
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("N", [8, 16, 24])
 def test_kernel_matches_reference(cuda, dtype, N):
     M, B, H, L = 2, 3, 256, 2
     w, z, d, cmask, types = random_inputs(M, B, N, H, L, dtype, cuda, seed=N)
-    launches = ps.packed_score.launches
+    launches, wg_launches = ps.packed_score.launches, ps.packed_score.wg_launches
     out = ps.packed_score(w, z, d, cmask, *types, num_blocks=L)
     torch.cuda.synchronize()
     assert ps.packed_score.launches == launches + 1
+    # bf16 takes the warp-specialised kernel, f32 the mma.sync kernel
+    assert ps.packed_score.wg_launches == wg_launches + int(dtype == torch.bfloat16)
     ref = ps.packed_score_reference(w, z, d, cmask, *types, num_blocks=L)
     scale = ref.abs().max().item()
     err = (out - ref).abs()
@@ -96,6 +121,71 @@ def test_kernel_matches_reference(cuda, dtype, N):
     assert torch.isfinite(out).all()
     assert err.max().item() <= tol_max * scale
     assert err.mean().item() <= tol_mean * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [8, 16, 24])
+@pytest.mark.parametrize("M,B", [(1, 3), (2, 4), (1, 1)], ids=["M1-B3", "M2-B4", "M1-B1"])
+def test_wg_kernel_shapes_zero_mask_and_repeat(cuda, M, B, N):
+    """The warp-specialised bf16 kernel at one and two members, odd and even
+    graph counts, with a whole offset slab of ``cmask`` zero (those rows add
+    nothing to the aggregation): against the plain version, and two launches
+    bitwise equal (no atomics, fixed summation order)."""
+    H, L = 256, 3
+    w, z, d, cmask, types = random_inputs(M, B, N, H, L, torch.bfloat16, cuda, seed=7 * N + B)
+    cmask[:, N // 4] = 0.0
+    cmask[0] = 0.0                      # graph 0: no edge at all
+    before = ps.packed_score.wg_launches
+    out = ps.packed_score(w, z, d, cmask, *types, num_blocks=L)
+    again = ps.packed_score(w, z, d, cmask, *types, num_blocks=L)
+    torch.cuda.synchronize()
+    assert ps.packed_score.wg_launches == before + 2
+    assert torch.equal(out, again)
+    ref = ps.packed_score_reference(w, z, d, cmask, *types, num_blocks=L)
+    assert_close(f"wg M={M} B={B} N={N}", out, ref, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_wg_kernel_needs_the_arranged_weights(cuda):
+    """Without ``weights[WG_IMAGE]`` the bf16 H=256 shape raises: it does not
+    give way to the mma.sync kernel or to the plain version."""
+    w, z, d, cmask, types = random_inputs(1, 2, 8, 256, 1, torch.bfloat16, cuda)
+    bare = {k: v for k, v in w.items() if k != ps.WG_IMAGE}
+    calls, launches = ps.packed_score_reference.calls, ps.packed_score.launches
+    with pytest.raises(ValueError):
+        ps.packed_score(bare, z, d, cmask, *types, num_blocks=1)
+    assert (ps.packed_score_reference.calls, ps.packed_score.launches) == (calls, launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [8, 16, 24])
+@pytest.mark.parametrize("M,B", [(1, 3), (2, 4), (1, 1)], ids=["M1-B3", "M2-B4", "M1-B1"])
+def test_int8_wg_kernel_shapes_zero_mask_and_repeat(cuda, M, B, N):
+    """The warp-specialised int8 kernel as ``test_wg_kernel_shapes_zero_mask_and_repeat``."""
+    H, L = 256, 3
+    w32, z, d, cmask, types = random_inputs(M, B, N, H, L, torch.float32, cuda, seed=7 * N + B)
+    w, zb = quantized(w32, torch.bfloat16), z.to(torch.bfloat16)
+    cmask[:, N // 4] = 0.0
+    cmask[0] = 0.0
+    before = p8.packed_score_int8.wg_launches
+    out = p8.packed_score_int8(w, zb, d, cmask, *types, num_blocks=L)
+    again = p8.packed_score_int8(w, zb, d, cmask, *types, num_blocks=L)
+    torch.cuda.synchronize()
+    assert p8.packed_score_int8.wg_launches == before + 2
+    assert torch.equal(out, again)
+    ref = p8.packed_score_int8_reference(w, zb, d, cmask, *types, num_blocks=L)
+    assert_close(f"int8 wg M={M} B={B} N={N}", out, ref, torch.bfloat16, tol=TOL_INT8[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_int8_wg_kernel_needs_the_arranged_weights(cuda):
+    w32, z, d, cmask, types = random_inputs(1, 2, 8, 256, 1, torch.float32, cuda)
+    w = quantized(w32, torch.bfloat16)
+    bare = {k: v for k, v in w.items() if k != p8.WG_IMAGE8}
+    calls, launches = p8.packed_score_int8_reference.calls, p8.packed_score_int8.launches
+    with pytest.raises(ValueError):
+        p8.packed_score_int8(bare, z.to(torch.bfloat16), d, cmask, *types, num_blocks=1)
+    assert (p8.packed_score_int8_reference.calls, p8.packed_score_int8.launches) == (calls, launches)
 
 
 @pytest.mark.cuda
@@ -127,7 +217,22 @@ def quantized(w32: dict, dtype) -> dict:
     for k in ("f1w", "f2w"):
         q, s = zip(*(p8._quant_tensor(t, per_layer=True) for t in w32[k]))
         out[k], out[k + "_s"] = torch.stack(q).contiguous(), torch.stack(s).contiguous()
+    if dtype == torch.bfloat16 and out["dw1"].shape[-1] == 256:
+        out = p8.with_wg_images_int8(out)    # what the model's kernel_weights_int8() adds
     return out
+
+
+@pytest.mark.cuda
+def test_int8_tile_product_selftest(cuda):
+    """The int8 tile product alone: 64 x 256 codes by the arranged 256 x 256
+    codes through the ring, against an integer matrix product: exact."""
+    g = torch.Generator().manual_seed(4)
+    a = torch.randint(-127, 128, (64, 256), generator=g, dtype=torch.int8).to(cuda)
+    w = torch.randint(-127, 128, (256, 256), generator=g, dtype=torch.int8).to(cuda)
+    out = p8.tile_product_selftest_int8(a, w)
+    torch.cuda.synchronize()
+    ref = (a.double() @ w.double().T).to(torch.int32)
+    assert torch.equal(out, ref)
 
 
 @pytest.mark.cuda
@@ -139,10 +244,12 @@ def test_int8_kernel_matches_reference(cuda, dtype, N):
     w = quantized(w32, dtype)
     z = z.to(dtype)
     launches = p8.packed_score_int8.launches, ps.packed_score.launches
+    wg_before = p8.packed_score_int8.wg_launches
     out = p8.packed_score_int8(w, z, d, cmask, *types, num_blocks=L)
     torch.cuda.synchronize()
     assert p8.packed_score_int8.launches == launches[0] + 1
     assert ps.packed_score.launches == launches[1]
+    assert p8.packed_score_int8.wg_launches == wg_before + int(dtype == torch.bfloat16)
     ref = p8.packed_score_int8_reference(w, z, d, cmask, *types, num_blocks=L)
     assert_close(f"int8 N={N}", out, ref, dtype, tol=TOL_INT8[dtype])
     # quantization changes the numbers, by a few percent on these random weights

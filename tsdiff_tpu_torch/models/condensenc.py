@@ -55,11 +55,16 @@ from tsdiff_tpu_torch.models.init import init_params_
 from tsdiff_tpu_torch.models.mlp import MLP, linear
 from tsdiff_tpu_torch.models.schnet import SchNetEncoder
 from tsdiff_tpu_torch.ops.condensed_score import condensed_score, extract_weights
-from tsdiff_tpu_torch.ops.packed_score import extract_weights_packed, packed_score
+from tsdiff_tpu_torch.ops.packed_score import (
+    extract_weights_packed,
+    packed_score,
+    with_wg_image,
+)
 from tsdiff_tpu_torch.ops.packed_score_int8 import (
     cast_unquantized,
     extract_weights_packed_int8,
     packed_score_int8,
+    with_wg_images_int8,
 )
 
 NUM_ATOM_TYPES = 100  # atomic-number embedding table size
@@ -337,14 +342,24 @@ class CondenseEncoderEpsNetwork(nn.Module):
         return packed_score, self.kernel_weights()
 
     def kernel_weights(self) -> dict[str, torch.Tensor]:
-        """This member's score-kernel weights in the working dtype."""
+        """This member's score-kernel weights in the working dtype, with the
+        matrices arranged once more as the warp-specialised kernel's tile
+        images (``WG_IMAGE``) where a kernel takes them: bfloat16 at H = 256."""
         w = extract_weights_packed(self.state_dict())
-        return {k: v.to(self.dtype).contiguous() for k, v in w.items()}
+        w = {k: v.to(self.dtype).contiguous() for k, v in w.items()}
+        if self.dtype == torch.bfloat16 and w["dw1"].shape[-1] == 256:
+            w = with_wg_image(w)
+        return w
 
     def kernel_weights_int8(self) -> dict[str, torch.Tensor]:
         """This member's int8 score-kernel weights: codes and scales from the
-        float32 parameters, the unquantized rest in the working dtype."""
-        return cast_unquantized(extract_weights_packed_int8(self.state_dict()), self.dtype)
+        float32 parameters, the unquantized rest in the working dtype, and
+        where a kernel takes them (bfloat16 at H = 256) the matrices arranged
+        once more as the warp-specialised kernel's tile images."""
+        w = cast_unquantized(extract_weights_packed_int8(self.state_dict()), self.dtype)
+        if self.dtype == torch.bfloat16 and w["dw1"].shape[-1] == 256:
+            w = with_wg_images_int8(w)
+        return w
 
     @torch.no_grad()
     def score_step_packed(self, pos, node_mask, z, pp: PackedPairs, pair_info=None):

@@ -28,6 +28,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+#: appended to NVCC_FLAGS by build() and hashed with them: set before the first
+#: build of a process (ops/wg_profile.py sets ("-DWG_PROFILE",))
+extra_flags: tuple[str, ...] = ()
+
 _loaded: dict[str, ctypes.CDLL] = {}
 #: per library: {"seconds": build time (0.0 when reused), "log": nvcc output}
 build_info: dict[str, dict] = {}
@@ -45,7 +49,7 @@ def find_nvcc() -> str:
 
 def _paths(name: str) -> tuple[str, str]:
     src = os.path.join(CSRC, f"{name}.cu")
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *extra_flags)).encode())
     # the source and every shared header it may include
     for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(path, "rb") as f:
@@ -66,7 +70,7 @@ def build(names: list[str]) -> None:
             continue
         os.makedirs(os.path.dirname(so), exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+        cmd = [find_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", tmp, src]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         pending.append((name, so, tmp, proc, time.monotonic()))
     errors = []

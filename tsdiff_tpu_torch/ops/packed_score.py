@@ -15,7 +15,8 @@ the head MLP 2H->H->H/2->1 on ``[h_i * h_j, ea_out]``.  Output: packed
   silu and ssp; products w*xh rounded before their f32 sum).
 * ``packed_score`` — the wrapper: for CPU tensors it takes the plain
   version; for CUDA tensors it launches ``csrc/packed_score.cu`` (built at
-  first use) or raises.  ``packed_score.launches`` counts kernel launches and
+  first use) or raises.  ``packed_score.launches`` counts kernel launches,
+  ``packed_score.wg_launches`` those of the warp-specialised kernel, and
   ``packed_score_reference.calls`` counts plain-version calls.
 
 What bounds the kernel on an H100 at the main path's shapes (M=8 members,
@@ -23,10 +24,19 @@ B=100 graphs, N=24, H=F=256, L=7, bf16): the work counted as in
 ``condensed_score_packed.py:222-228`` minus its one-hot term (4*128*H per
 row, a row read here) is ~7.6e11 flop per launch against ~56 MB of inputs
 and outputs (mostly the members' weights), so the tensor-core rate bounds
-it: ~0.77 ms at 989 TFLOP/s, against ~17 us for the bytes at 3.35 TB/s.  The design keeps node states
-and the aggregation in shared memory (one CTA per member and graph), runs
-the bf16 products on the tensor cores (mma.sync) and streams the weights
-from L2; see the source's header for what it leaves to later work.
+it: ~0.77 ms at 989 TFLOP/s, against ~17 us for the bytes at 3.35 TB/s.
+
+Two kernels live in ``csrc/packed_score.cu``.  bfloat16 at H = 256 and
+N <= 24 takes the warp-specialised one (``csrc/wg_pipeline.cuh``): a
+producer warp streams weight stages through a shared-memory ring with bulk
+asynchronous copies, two consumer warpgroups run ``wgmma`` on one 64-row tile
+each, so a stage read from L2 serves 128 pair rows (``wg_l2_weight_bytes``
+against ``mma_sync_l2_weight_bytes``).  It reads the matrices from
+``weights[WG_IMAGE]``, the copy ``arrange_weights`` makes once, in exactly the
+swizzled image ``wgmma`` reads.  float32, other widths and larger N take the
+first port's ``mma.sync`` kernel, by the explicit branch in
+``packed_score_launch``.  See the source's header for the design and what the
+card said about it.
 """
 
 from __future__ import annotations
@@ -55,6 +65,10 @@ def _kernel_lib() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_void_p), *[ctypes.c_int] * 7, ctypes.c_void_p,
     ]
     lib.packed_score_launch.restype = ctypes.c_int
+    lib.packed_score_uses_wg.argtypes = [ctypes.c_int] * 3
+    lib.packed_score_uses_wg.restype = ctypes.c_int
+    lib.packed_score_tile_selftest.argtypes = [ctypes.c_void_p] * 4
+    lib.packed_score_tile_selftest.restype = ctypes.c_int
     lib.packed_score_error_string.argtypes = [ctypes.c_int]
     lib.packed_score_error_string.restype = ctypes.c_char_p
     return lib
@@ -68,6 +82,168 @@ def extract_weights_packed(state_dict: dict) -> dict[str, torch.Tensor]:
     w = extract_weights(state_dict)
     w["table"] = state_dict["edge_enc.bond_emb.weight"].detach().contiguous()
     return {k: w[k] for k in W_ORDER}
+
+
+# ---------------------------------------------------------------------------
+# The warp-specialised kernel's weight image and static schedule.
+
+#: rows of a pair-row tile
+TILE_ROWS = 64
+#: output columns (weight rows) of one stage of the kernel's shared-memory ring
+STAGE_COLS = 32
+#: bytes of one weight stage: STAGE_COLS rows of K = 256 bf16 values
+STAGE_BYTES = 16384
+#: the arranged entry of a weight dictionary
+WG_IMAGE = "wg_image"
+#: matrices of the image, in the order ``csrc/packed_score.cu::WImage`` reads
+#: them; the layer-stacked ones hold their L layers one after another
+IMAGE_ORDER = ("dw1", "c0r", "c0p", "c1w", "f1w", "f2w", "l1w", "l2w", "ow", "g0h", "g0e", "g1w")
+
+
+def _swizzle_index(block_rows: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    rows = torch.arange(block_rows, device=device)[:, None]
+    return rows, torch.arange(8, device=device)[None, :] ^ (rows % 8)
+
+
+def tile_image(w: torch.Tensor, block_rows: int = STAGE_COLS) -> torch.Tensor:
+    """``w (..., rows, K)`` in the image ``wgmma`` reads from shared memory,
+    flattened to ``(..., rows * K)``: blocks of ``block_rows`` rows (a weight
+    stage's 32, or an activation tile's 64), each block its atoms one after
+    another, an atom being ``block_rows`` rows of 128 bytes (K elements
+    ``[kc*A, (kc+1)*A)``, ``A = 128 / itemsize``) in which the 16-byte unit
+    ``u`` of row ``r`` sits at unit ``u ^ (r % 8)``: the 128-byte swizzle."""
+    atom, unit = 128 // w.element_size(), 16 // w.element_size()
+    *lead, rows, K = w.shape
+    if rows % block_rows or block_rows % 8 or K % atom:
+        raise ValueError(f"tile_image needs rows % {block_rows} == 0 and K % {atom} == 0, "
+                         f"got {rows}, {K}")
+    x = w.reshape(*lead, rows // block_rows, block_rows, K // atom, 8, unit)
+    x = x.movedim(-3, -4)                       # (..., block, atom, row, unit index, element)
+    r, u = _swizzle_index(block_rows, w.device)
+    return x[..., r, u, :].reshape(*lead, rows * K).contiguous()
+
+
+def tile_image_inverse(img: torch.Tensor, rows: int, K: int,
+                       block_rows: int = STAGE_COLS) -> torch.Tensor:
+    """``(..., rows, K)`` back from ``tile_image``'s ``(..., rows * K)``."""
+    atom, unit = 128 // img.element_size(), 16 // img.element_size()
+    lead = img.shape[:-1]
+    x = img.reshape(*lead, rows // block_rows, K // atom, block_rows, 8, unit)
+    r, u = _swizzle_index(block_rows, img.device)
+    x = x[..., r, u, :]                         # the XOR is its own inverse
+    return x.movedim(-4, -3).reshape(*lead, rows, K).contiguous()
+
+
+def arrange_weights(weights: dict) -> torch.Tensor:
+    """The matrices of ``IMAGE_ORDER`` as one flat tensor of tile images, in
+    the weights' type: what the kernel's producer copies, 16 KB a stage, into
+    its shared-memory ring.  Works on one member's weights or on stacked
+    ``(M, ...)`` ones (the leading dimensions of ``dw1`` stay).  Made once, when
+    the weight dictionary is built; the plain version never reads it."""
+    lead = weights["dw1"].dim() - 2
+    return torch.cat([tile_image(weights[k]).flatten(lead) for k in IMAGE_ORDER], dim=-1)
+
+
+def split_image(image: torch.Tensor, num_blocks: int, H: int = 256) -> dict[str, torch.Tensor]:
+    """The matrices back from ``arrange_weights``'s tensor: its inverse."""
+    out, pos, L = {}, 0, num_blocks
+    for k in IMAGE_ORDER:
+        shape = (H // 2, H) if k == "g1w" else (L, H, H) if k in ("f1w", "f2w", "l1w", "l2w", "ow") \
+            else (H, H)
+        n = int(torch.tensor(shape).prod())
+        flat = image[..., pos:pos + n].reshape(*image.shape[:-1], *shape[:-2], shape[-2] * shape[-1])
+        out[k] = tile_image_inverse(flat, shape[-2], shape[-1])
+        pos += n
+    return out
+
+
+def with_wg_image(weights: dict) -> dict[str, torch.Tensor]:
+    """``weights`` with the arranged entry ``WG_IMAGE`` added."""
+    return {**weights, WG_IMAGE: arrange_weights(weights)}
+
+
+def packed_row_pairs(N: int) -> torch.Tensor:
+    """``(R, 2)`` int64: the atoms ``(i, j)`` of every packed pair row
+    ``p = (k-1)*N + i``, ``j = (i + k) % N``, as the kernel tabulates them once
+    per CTA (no division per row afterwards)."""
+    p = torch.arange((N // 2) * N)
+    k, i = p // N + 1, p % N
+    return torch.stack([i, torch.where(i + k < N, i + k, i + k - N)], dim=1)
+
+
+def aggregate_by_node(w: torch.Tensor, xh: torch.Tensor) -> torch.Tensor:
+    """The kernel's symmetric aggregation, stated per receiving node:
+    ``agg[n] = sum_k rnd(w[k, n] * xh[(n+k) % N]) + rnd(w[k, n-k] * xh[(n-k) % N])``
+    for ``w (K, N, F)`` and ``xh (N, F)`` in the working type, products rounded
+    to it, summed in float32.  Equal to the plain version's roll sums up to
+    the order of the float32 additions."""
+    K, N, _ = w.shape
+    n = torch.arange(N)
+    agg = torch.zeros(xh.shape, dtype=torch.float32)
+    for k in range(1, K + 1):
+        agg = agg + (w[k - 1] * xh[(n + k) % N]).float()
+        agg = agg + (w[k - 1][(n - k) % N] * xh[(n - k) % N]).float()
+    return agg
+
+
+def wg_schedule(N: int, num_blocks: int) -> list[tuple[str, int, int]]:
+    """The static schedule of weight stages every CTA of the warp-specialised
+    kernel walks, producer and consumers alike: ``(matrix, layer, 32-column
+    block)`` per stage.  A stage feeds two 64-row tiles, one per consumer
+    warpgroup, so the R = (N/2)*N pair rows take ``ceil(ceil(R/64) / 2)`` tile
+    pairs; the node products run through the same ring."""
+    pairs = (-(-((N // 2) * N) // TILE_ROWS) + 1) // 2
+    blocks = range(256 // STAGE_COLS)
+    edge_cat = ([("dw1", 0, c) for c in blocks]
+                + [(k, 0, c) for c in blocks for k in ("c0r", "c0p")]
+                + [("c1w", 0, c) for c in blocks])
+    sched = edge_cat * pairs
+    for l in range(num_blocks):
+        sched += [("l1w", l, c) for c in blocks]
+        sched += [(k, l, c) for k in ("f1w", "f2w") for c in blocks] * pairs
+        sched += [(k, l, c) for k in ("l2w", "ow") for c in blocks]
+    head = (edge_cat + [(k, 0, c) for c in blocks for k in ("g0h", "g0e")]
+            + [("g1w", 0, c) for c in range(128 // STAGE_COLS)])
+    return sched + head * pairs
+
+
+def wg_l2_weight_bytes(M: int, B: int, N: int, num_blocks: int) -> int:
+    """Weight bytes one launch of the warp-specialised kernel reads from L2:
+    one 16 KB stage per schedule entry and CTA."""
+    return M * B * len(wg_schedule(N, num_blocks)) * STAGE_BYTES
+
+
+def mma_sync_l2_weight_bytes(M: int, B: int, N: int, num_blocks: int, H: int = 256,
+                             itemsize: int = 2) -> int:
+    """The same for the ``mma.sync`` kernel, which reads every matrix once
+    per 64-row tile: per tile 8 matrices of ``edge_cat`` (twice: encoder and
+    output order), 2 per block and the head's 2.5, and 3 node products per
+    block."""
+    tiles = -(-((N // 2) * N) // TILE_ROWS)
+    per_cta = tiles * (8 + 2 * num_blocks + 2.5) + 3 * num_blocks
+    return int(M * B * per_cta * H * H * itemsize)
+
+
+def tile_product_selftest(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The kernel's tile product alone, on the card: ``(2, 64, 256)`` float32
+    ``a @ w.T`` for ``a (64, 256)`` and ``w (256, 256)`` in bfloat16, through
+    the shared-memory ring with ``a`` from shared memory (index 0) and from
+    registers (index 1).  For tests; the port never calls it."""
+    if a.shape != (64, 256) or w.shape != (256, 256) or a.dtype != torch.bfloat16 \
+            or w.dtype != torch.bfloat16 or a.device.type != "cuda" or w.device != a.device:
+        raise ValueError("tile_product_selftest takes CUDA bfloat16 (64, 256) and (256, 256)")
+    lib = _kernel_lib()
+    img = tile_image(w.contiguous())
+    out = torch.empty((2, 64, 256), dtype=torch.float32, device=a.device)
+    a = a.contiguous()
+    with torch.cuda.device(a.device):
+        err = lib.packed_score_tile_selftest(
+            a.data_ptr(), img.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"tile self-test launch failed ({err}: "
+                           f"{lib.packed_score_error_string(err).decode()})")
+    return out
 
 
 def packed_score_reference(
@@ -138,7 +314,9 @@ packed_score_reference.calls = 0
 def packed_score_cost(weights: dict, z: torch.Tensor, num_blocks: int) -> dict:
     """Work of one call, for its bound: the flop of the matrix products
     (counted as the TPU kernel's cost estimate, minus its one-hot embedding
-    term) and the bytes of its inputs read once and its output written once."""
+    term) and the bytes of its inputs read once and its output written once
+    (the arranged copies of the matrices, the ``wg_image*`` entries, are not a
+    second input: they are left out)."""
     M, B, N, H = z.shape
     R, F, L = (N // 2) * N, H, num_blocks
     flops = 2 * M * B * R * (
@@ -147,7 +325,8 @@ def packed_score_cost(weights: dict, z: torch.Tensor, num_blocks: int) -> dict:
     nbytes = (
         6 * B * R * 4                       # d, cmask, 4 type tensors
         + z.numel() * z.element_size()
-        + sum(t.numel() * t.element_size() for t in weights.values())
+        + sum(t.numel() * t.element_size() for k, t in weights.items()
+              if not k.startswith(WG_IMAGE))
         + M * B * R * 4                     # output
     )
     return {"flops": flops, "bytes": nbytes}
@@ -186,6 +365,19 @@ def _check_cuda_args(weights, z, d, cmask, types, num_blocks):
     return M, B, N, H, L, V
 
 
+def _check_image(weights, M, L, H, z) -> torch.Tensor:
+    image = weights.get(WG_IMAGE)
+    n = (13 + 10 * L) * (H * H // 2)
+    if image is None:
+        raise ValueError(f"this shape takes the warp-specialised kernel, which needs the "
+                         f"arranged weights[{WG_IMAGE!r}] (with_wg_image)")
+    if tuple(image.shape) != (M, n) or image.dtype != z.dtype or not image.is_contiguous() \
+            or image.device != z.device:
+        raise ValueError(f"weights[{WG_IMAGE!r}] must be a contiguous {z.dtype} {(M, n)} tensor "
+                         f"on {z.device}, got {image.dtype} {tuple(image.shape)} on {image.device}")
+    return image
+
+
 def packed_score(
     weights: dict,
     z: torch.Tensor,
@@ -198,8 +390,17 @@ def packed_score(
     num_blocks: int,
 ) -> torch.Tensor:
     """Packed ``edge_inv`` (M, B, K, N) float32 for M members.  CPU tensors
-    take ``packed_score_reference``; CUDA tensors launch the kernel on the
-    current stream, or raise."""
+    take ``packed_score_reference``; CUDA tensors launch a kernel on the
+    current stream, or raise.
+
+    Which kernel is decided by the shape alone, in ``packed_score_launch``:
+    bfloat16 at H = 256 with N <= 24 (what its shared memory holds) takes the
+    warp-specialised ``wgmma`` kernel, which needs the arranged entry
+    ``weights[WG_IMAGE]`` (``with_wg_image``) and raises without it; float32,
+    other widths and larger N take the ``mma.sync`` kernel.  Neither gives
+    way to the other, or to the plain version, when it fails.
+    ``packed_score.launches`` counts all launches, ``packed_score.wg_launches``
+    those of the warp-specialised kernel."""
     types = (type_r_in, type_p_in, type_r_out, type_p_out)
     if z.device.type == "cpu":
         return packed_score_reference(weights, z, d, cmask, *types, num_blocks)
@@ -208,10 +409,19 @@ def packed_score(
     M, B, N, H, L, V = _check_cuda_args(weights, z, d, cmask, types, num_blocks)
     lib = _kernel_lib()
     K = N // 2
+    use_wg = bool(lib.packed_score_uses_wg(N, H, int(z.dtype == torch.bfloat16)))
     out = torch.empty((M, B, K, N), dtype=torch.float32, device=z.device)
-    ea = torch.empty((M * B, K * N, H), dtype=z.dtype, device=z.device)
-    tensors = [d, cmask, z, *types, *(weights[k] for k in W_ORDER), ea, out]
-    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    if use_wg:
+        image = _check_image(weights, M, L, H, z)
+        # the kernel's own scratch: ea as 64-row tile images
+        ea = torch.empty((M * B, -(-(K * N) // TILE_ROWS), TILE_ROWS * H), dtype=z.dtype,
+                         device=z.device)
+    else:
+        image = None
+        ea = torch.empty((M * B, K * N, H), dtype=z.dtype, device=z.device)
+    tensors = [d, cmask, z, *types, *(weights[k] for k in W_ORDER), image, ea, out]
+    ptrs = (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors])
     stream = torch.cuda.current_stream(z.device).cuda_stream
     with torch.cuda.device(z.device):
         err = lib.packed_score_launch(
@@ -224,7 +434,9 @@ def packed_score(
             f"dtype={z.dtype}"
         )
     packed_score.launches += 1
+    packed_score.wg_launches += int(use_wg)
     return out
 
 
 packed_score.launches = 0
+packed_score.wg_launches = 0

@@ -21,7 +21,13 @@ pair rows, with
 ``packed_score_int8_reference`` is the plain PyTorch version,
 ``packed_score_int8`` the wrapper (CPU tensors take the plain version; CUDA
 tensors launch ``csrc/packed_score_int8.cu``, built at first use, or raise);
-``.calls`` and ``.launches`` count them.
+``.calls`` and ``.launches`` count them.  As in ``ops.packed_score`` the
+source holds two kernels: bfloat16 at H = 256 and N <= 24 takes the
+warp-specialised ``wgmma`` one (s8 products from a shared-memory ring of
+weight stages, the quantization in the producing product's epilogue), which
+reads the matrices from the arranged entries ``WG_IMAGE8`` and ``WG_IMAGE``
+(``with_wg_images_int8``); float32 and every other shape take the first
+port's ``mma.sync`` kernel.  ``.wg_launches`` counts the former's launches.
 
 What bounds the kernel on an H100 at the main path's shapes (M=8, B=100,
 N=24, H=F=256, L=7, bf16): 7.1e11 int8 operations in the pair-row products,
@@ -37,7 +43,17 @@ import ctypes
 import torch
 
 from tsdiff_tpu_torch.ops.condensed_score import silu as _silu
-from tsdiff_tpu_torch.ops.packed_score import W_ORDER, extract_weights_packed, packed_score_cost
+from tsdiff_tpu_torch.ops.packed_score import (
+    STAGE_BYTES,
+    TILE_ROWS,
+    W_ORDER,
+    WG_IMAGE,
+    extract_weights_packed,
+    packed_score_cost,
+    tile_image,
+    tile_image_inverse,
+    wg_schedule,
+)
 from tsdiff_tpu_torch.ops.schnet_stack import ssp
 
 #: per-tensor-quantized weights, in the order of their scales in ``scales``
@@ -46,6 +62,13 @@ SCALED = ("dw1", "c0r", "c0p", "c1w", "g0h", "g0e", "g1w", "table")
 QUANTIZED = (*SCALED, "f1w", "f2w")
 #: the float32 scale tensors, in the order the CUDA entry point takes them
 SCALE_KEYS = ("scales", "f1w_s", "f2w_s")
+#: the arranged entries of a weight dictionary: the int8 matrices' tile images
+#: (``WG_IMAGE8``) and the node products' working-type ones (``WG_IMAGE``)
+WG_IMAGE8 = "wg_image8"
+#: matrices of the two images, in the order ``csrc/packed_score_int8.cu::WImage8``
+#: reads them; the layer-stacked ones hold their L layers one after another
+IMAGE8_ORDER = ("dw1", "c0r", "c0p", "c1w", "f1w", "f2w", "g0h", "g0e", "g1w")
+NODE_IMAGE_ORDER = ("l1w", "l2w", "ow")
 
 _LIB = "packed_score_int8"
 
@@ -59,6 +82,10 @@ def _kernel_lib() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_void_p), *[ctypes.c_int] * 7, ctypes.c_void_p,
     ]
     lib.packed_score_int8_launch.restype = ctypes.c_int
+    lib.packed_score_int8_uses_wg.argtypes = [ctypes.c_int] * 3
+    lib.packed_score_int8_uses_wg.restype = ctypes.c_int
+    lib.packed_score_int8_tile_selftest.argtypes = [ctypes.c_void_p] * 4
+    lib.packed_score_int8_tile_selftest.restype = ctypes.c_int
     lib.packed_score_int8_error_string.argtypes = [ctypes.c_int]
     lib.packed_score_int8_error_string.restype = ctypes.c_char_p
     return lib
@@ -94,8 +121,89 @@ def extract_weights_packed_int8(state_dict: dict) -> dict[str, torch.Tensor]:
 def cast_unquantized(weights: dict, dtype: torch.dtype) -> dict[str, torch.Tensor]:
     """The weights with every entry that is not int8 codes or a scale cast to
     the working dtype."""
-    keep = set(QUANTIZED) | set(SCALE_KEYS)
+    keep = set(QUANTIZED) | set(SCALE_KEYS) | {WG_IMAGE8}
     return {k: v if k in keep else v.to(dtype).contiguous() for k, v in weights.items()}
+
+
+def arrange_weights_int8(weights: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(int8 image, working-type image)`` of int8 kernel weights, one member's
+    or stacked: the codes of ``IMAGE8_ORDER`` and the node matrices of
+    ``NODE_IMAGE_ORDER`` as tile images (``ops.packed_score.tile_image``, 32-row
+    blocks; an int8 ring stage is two of them, 64 output columns), each flat.
+    Made once, when the weight dictionary is built."""
+    lead = weights["dw1"].dim() - 2
+    cat = lambda keys: torch.cat([tile_image(weights[k]).flatten(lead) for k in keys], dim=-1)
+    return cat(IMAGE8_ORDER), cat(NODE_IMAGE_ORDER)
+
+
+def split_images_int8(image8: torch.Tensor, image: torch.Tensor, num_blocks: int,
+                      H: int = 256) -> dict[str, torch.Tensor]:
+    """The matrices back from ``arrange_weights_int8``'s tensors: its inverse."""
+    out, L = {}, num_blocks
+    for img, keys in ((image8, IMAGE8_ORDER), (image, NODE_IMAGE_ORDER)):
+        pos = 0
+        for k in keys:
+            shape = (H // 2, H) if k == "g1w" else (H, H) if k in SCALED else (L, H, H)
+            n = 1
+            for v in shape:
+                n *= v
+            flat = img[..., pos:pos + n].reshape(*img.shape[:-1], *shape[:-2], shape[-2] * shape[-1])
+            out[k] = tile_image_inverse(flat, shape[-2], shape[-1])
+            pos += n
+    return out
+
+
+def with_wg_images_int8(weights: dict) -> dict[str, torch.Tensor]:
+    """``weights`` with the arranged entries ``WG_IMAGE8`` and ``WG_IMAGE`` added."""
+    image8, image = arrange_weights_int8(weights)
+    return {**weights, WG_IMAGE8: image8, WG_IMAGE: image}
+
+
+def wg_schedule_int8(N: int, num_blocks: int) -> list[tuple[str, int, int]]:
+    """The static schedule of 16 KB weight stages of the warp-specialised int8
+    kernel: ``ops.packed_score.wg_schedule`` with the int8 matrices in stages
+    of 64 output columns (half as many stages) and the node matrices, in the
+    working type, in stages of 32."""
+    sched = []
+    for name, l, c in wg_schedule(N, num_blocks):
+        if name in NODE_IMAGE_ORDER:
+            sched.append((name, l, c))
+        elif c % 2 == 0:
+            sched.append((name, l, c // 2))
+    return sched
+
+
+def wg_l2_weight_bytes_int8(M: int, B: int, N: int, num_blocks: int) -> int:
+    """Weight bytes one launch of the warp-specialised int8 kernel reads from L2."""
+    return M * B * len(wg_schedule_int8(N, num_blocks)) * STAGE_BYTES
+
+
+def mma_sync_l2_weight_bytes_int8(M: int, B: int, N: int, num_blocks: int, H: int = 256) -> int:
+    """The same for the ``mma.sync`` int8 kernel: every matrix once per 64-row
+    tile, the pair-row ones in one byte an element, the node ones in two."""
+    tiles = -(-((N // 2) * N) // TILE_ROWS)
+    return int(M * B * H * H * (tiles * (8 + 2 * num_blocks + 2.5) + 2 * 3 * num_blocks))
+
+
+def tile_product_selftest_int8(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The int8 kernel's tile product alone, on the card: ``(64, 256)`` int32
+    ``a @ w.T`` for int8 ``a (64, 256)`` and ``w (256, 256)``, through the
+    shared-memory ring.  For tests; the port never calls it."""
+    if a.shape != (64, 256) or w.shape != (256, 256) or a.dtype != torch.int8 \
+            or w.dtype != torch.int8 or a.device.type != "cuda" or w.device != a.device:
+        raise ValueError("tile_product_selftest_int8 takes CUDA int8 (64, 256) and (256, 256)")
+    lib = _kernel_lib()
+    img = tile_image(w.contiguous())
+    out = torch.empty((64, 256), dtype=torch.int32, device=a.device)
+    a = a.contiguous()
+    with torch.cuda.device(a.device):
+        err = lib.packed_score_int8_tile_selftest(
+            a.data_ptr(), img.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"int8 tile self-test launch failed ({err}: "
+                           f"{lib.packed_score_int8_error_string(err).decode()})")
+    return out
 
 
 def _q8_rows(x: torch.Tensor):
@@ -230,6 +338,20 @@ def _check_cuda_args(weights, z, d, cmask, types, num_blocks):
     return M, B, N, H, L, V
 
 
+def _check_images(weights, M, L, H, z) -> tuple[torch.Tensor, torch.Tensor]:
+    want = ((WG_IMAGE8, torch.int8, (13 + 4 * L) * (H * H // 2)), (WG_IMAGE, z.dtype, 3 * L * H * H))
+    for key, dtype, n in want:
+        t = weights.get(key)
+        if t is None:
+            raise ValueError(f"this shape takes the warp-specialised kernel, which needs the "
+                             f"arranged weights[{key!r}] (with_wg_images_int8)")
+        if tuple(t.shape) != (M, n) or t.dtype != dtype or not t.is_contiguous() \
+                or t.device != z.device:
+            raise ValueError(f"weights[{key!r}] must be a contiguous {dtype} {(M, n)} tensor on "
+                             f"{z.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    return weights[WG_IMAGE8], weights[WG_IMAGE]
+
+
 def packed_score_int8(
     weights: dict,
     z: torch.Tensor,
@@ -243,7 +365,15 @@ def packed_score_int8(
 ) -> torch.Tensor:
     """Packed ``edge_inv`` (M, B, K, N) float32 for M members with int8
     pair-row products.  CPU tensors take ``packed_score_int8_reference``; CUDA
-    tensors launch the kernel on the current stream, or raise."""
+    tensors launch a kernel on the current stream, or raise.
+
+    Which kernel is decided by the shape alone, in ``packed_score_int8_launch``:
+    bfloat16 at H = 256 with N <= 24 takes the warp-specialised ``wgmma``
+    kernel, which needs the arranged entries ``weights[WG_IMAGE8]`` and
+    ``weights[WG_IMAGE]`` (``with_wg_images_int8``) and raises without them;
+    float32, other widths and larger N take the ``mma.sync`` kernel.  Neither
+    gives way to the other, or to the plain version, when it fails.
+    ``.launches`` counts all launches, ``.wg_launches`` the warp-specialised."""
     types = (type_r_in, type_p_in, type_r_out, type_p_out)
     if z.device.type == "cpu":
         return packed_score_int8_reference(weights, z, d, cmask, *types, num_blocks)
@@ -252,12 +382,19 @@ def packed_score_int8(
     M, B, N, H, L, V = _check_cuda_args(weights, z, d, cmask, types, num_blocks)
     lib = _kernel_lib()
     R = (N // 2) * N
+    use_wg = bool(lib.packed_score_int8_uses_wg(N, H, int(z.dtype == torch.bfloat16)))
     out = torch.empty((M, B, N // 2, N), dtype=torch.float32, device=z.device)
+    if use_wg:
+        images = _check_images(weights, M, L, H, z)
+        R = -(-R // TILE_ROWS) * TILE_ROWS       # the kernel's own scratch: 64-row tiles
+    else:
+        images = (None, None)
     ea_q = torch.empty((M * B, R, H), dtype=torch.int8, device=z.device)
     ea_s = torch.empty((M * B, R), dtype=torch.float32, device=z.device)
     tensors = [d, cmask, z, *types, *(weights[k] for k in SCALE_KEYS),
-               *(weights[k] for k in W_ORDER), ea_q, ea_s, out]
-    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+               *(weights[k] for k in W_ORDER), *images, ea_q, ea_s, out]
+    ptrs = (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors])
     stream = torch.cuda.current_stream(z.device).cuda_stream
     with torch.cuda.device(z.device):
         err = lib.packed_score_int8_launch(
@@ -270,7 +407,9 @@ def packed_score_int8(
             f"H={H} dtype={z.dtype}"
         )
     packed_score_int8.launches += 1
+    packed_score_int8.wg_launches += int(use_wg)
     return out
 
 
 packed_score_int8.launches = 0
+packed_score_int8.wg_launches = 0

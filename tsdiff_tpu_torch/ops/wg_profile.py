@@ -1,0 +1,125 @@
+"""Where the time of the warp-specialised score kernels goes, on the card:
+
+    python -m tsdiff_tpu_torch.ops.wg_profile [N]
+
+Builds ``csrc/packed_score.cu`` and ``csrc/packed_score_int8.cu`` with
+``-DWG_PROFILE`` (into their own build directories), launches each once at the
+main path's shapes (M=8 members, B=100 graphs, H=256, L=7, bfloat16, N=24
+unless given) on seeded random weights and inputs, and prints the ``clock64``
+cycles one lane of consumer warpgroup 0 of CTA 0 spent in each part of the
+kernel, as a share of its whole time.  The two consumer warpgroups run in
+step, so this is close to the CTA's own time line.  A barrier inside the node
+products or the aggregation counts in both slots.  The machine these kernels
+are measured on runs no profiler; this is its stand-in.  The slots are
+``csrc/wg_pipeline.cuh::Prof``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import subprocess
+import sys
+
+import torch
+
+SLOTS = ("ring waits", "wgmma dispatch", "wgmma waits", "epilogues", "barriers", "ea tile waits",
+         "aggregation", "node products", "stores of kept results", "first layer",
+         "quantization", "whole consumer")
+
+
+def random_case(M, B, N, H, L, seed, device, V=100):
+    """Seeded float32 weights in ``ops.packed_score.W_ORDER`` layout and inputs."""
+    from tsdiff_tpu_torch.ops import packed_score as ps
+
+    g = torch.Generator().manual_seed(seed)
+    K = N // 2
+    mat = lambda *shape: torch.randn(*shape, generator=g) / math.sqrt(shape[-1])
+    vec = lambda *shape: 0.1 * torch.randn(*shape, generator=g)
+    w = dict(
+        table=torch.randn(M, V, H, generator=g), dw0=torch.randn(M, H, generator=g),
+        db0=vec(M, H), dw1=mat(M, H, H), db1=vec(M, H), c0r=mat(M, H, H), c0p=mat(M, H, H),
+        c0b=vec(M, H), c1w=mat(M, H, H), c1b=vec(M, H), f1w=mat(M, L, H, H), f1b=vec(M, L, H),
+        f2w=mat(M, L, H, H), f2b=vec(M, L, H), l1w=mat(M, L, H, H), l2w=mat(M, L, H, H) / N,
+        l2b=vec(M, L, H), ow=mat(M, L, H, H), ob=vec(M, L, H), g0h=mat(M, H, H),
+        g0e=mat(M, H, H), g0b=vec(M, H), g1w=mat(M, H // 2, H), g1b=vec(M, H // 2),
+        g2w=mat(M, H // 2), g2b=vec(M, 1),
+    )
+    w = {k: w[k].to(device).contiguous() for k in ps.W_ORDER}
+    z = torch.randn(M, B, N, H, generator=g).to(device, torch.bfloat16)
+    d = (0.8 + 4 * torch.rand(B, K, N, generator=g)).to(device)
+    cmask = (torch.rand(B, K, N, generator=g) < 0.8).float().to(device)
+    types = [torch.randint(0, 26, (B, K, N), generator=g, dtype=torch.int32).to(device)
+             for _ in range(4)]
+    return w, z, d, cmask, types
+
+
+def quantize_stacked(w32: dict) -> dict:
+    """Stacked float32 weights as the int8 op's bfloat16 weights, images included."""
+    from tsdiff_tpu_torch.ops import packed_score_int8 as p8
+
+    out = {k: v.to(torch.bfloat16).contiguous() for k, v in w32.items() if k not in p8.QUANTIZED}
+    scales = []
+    for k in p8.SCALED:
+        q, s = zip(*(p8._quant_tensor(t, per_layer=False) for t in w32[k]))
+        out[k] = torch.stack(q).contiguous()
+        scales.append(torch.stack(s))
+    out["scales"] = torch.stack(scales, dim=1).contiguous()
+    for k in ("f1w", "f2w"):
+        q, s = zip(*(p8._quant_tensor(t, per_layer=True) for t in w32[k]))
+        out[k], out[k + "_s"] = torch.stack(q).contiguous(), torch.stack(s).contiguous()
+    return p8.with_wg_images_int8(out)
+
+
+def read_profile(lib, entry: str, launch) -> list[int]:
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
+    fn.restype = ctypes.c_int
+    buf = (ctypes.c_ulonglong * len(SLOTS))()
+    launch()                       # warm-up
+    torch.cuda.synchronize()
+    if fn(buf, 1) != 0:
+        raise RuntimeError(f"{entry}: reset failed")
+    launch()
+    torch.cuda.synchronize()
+    if fn(buf, 0) != 0:
+        raise RuntimeError(f"{entry}: read failed")
+    return list(buf)
+
+
+def main(argv: list[str]) -> None:
+    if not torch.cuda.is_available():
+        sys.exit("wg_profile needs an NVIDIA GPU (CUDA is not available)")
+    from tsdiff_tpu_torch.ops import _build
+    from tsdiff_tpu_torch.ops import packed_score as ps
+    from tsdiff_tpu_torch.ops import packed_score_int8 as p8
+
+    N = int(argv[0]) if argv else 24
+    M, B, H, L = 8, 100, 256, 7
+    _build.extra_flags = ("-DWG_PROFILE",)
+    _build.build(["packed_score", "packed_score_int8"])
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(f"card: {smi}; M={M} B={B} N={N} H={H} L={L} bfloat16")
+    dev = torch.device("cuda")
+    w32, z, d, cmask, types = random_case(M, B, N, H, L, seed=N, device=dev)
+    wb = ps.with_wg_image({k: v.to(torch.bfloat16).contiguous() for k, v in w32.items()})
+    w8 = quantize_stacked(w32)
+    cases = (
+        ("packed_score (B1)", ps._kernel_lib(), "packed_score_profile",
+         lambda: ps.packed_score(wb, z, d, cmask, *types, num_blocks=L)),
+        ("packed_score_int8 (B5)", p8._kernel_lib(), "packed_score_int8_profile",
+         lambda: p8.packed_score_int8(w8, z, d, cmask, *types, num_blocks=L)),
+    )
+    for name, lib, entry, launch in cases:
+        cycles = read_profile(lib, entry, launch)
+        total = cycles[-1]
+        print(f"{name}: {total} cycles of one consumer lane of CTA 0")
+        for slot, c in zip(SLOTS[:-1], cycles[:-1]):
+            print(f"  {slot:24s} {c:10d}  {c / total:.4f}")
+        print(f"  {'not attributed':24s} {total - sum(cycles[:-1]):10d}  "
+              f"{1 - sum(cycles[:-1]) / total:.4f}")
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
