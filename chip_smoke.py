@@ -4,10 +4,13 @@
 
 Phases (any failure exits non-zero):
 
-1. card: name and power limit, CUDA and nvcc versions;
+1. card: name and power limit, SM clock and temperature, CUDA and nvcc
+   versions;
 2. build: compile the port's CUDA kernels from ``tsdiff_tpu_torch/csrc``, one
-   nvcc per source, in parallel; registers, spills and shared memory of every
-   kernel from the ``ptxas`` log;
+   nvcc per source, in parallel, cached libraries removed first so that the
+   time is the build's; registers, spills and shared memory of every kernel
+   from the ``ptxas`` log; fails if the dense score's warp-specialised kernel
+   spills;
 3. kernels against their plain PyTorch versions at the main paths' shapes:
    the tile product of the warp-specialised kernels alone against a matrix
    product; the packed score step (B1) with the 8 trained campaign members on
@@ -17,17 +20,22 @@ Phases (any failure exits non-zero):
    launch counter, its L2 weight bytes per launch), and on the same inputs in
    bfloat16 its int8 variant (B5: the same checks, and its tile product
    against an integer matrix product); the dense fused score step (B2) with
-   seed106 on 100 reactions, N=24 in float32 and bfloat16 and N=16 in
-   bfloat16, every output element; the fused SchNet stack (B3's forward and
+   seed106 on 100 reactions, N=24 in float32 (the ``mma.sync`` kernel) and
+   bfloat16 and N=16 in bfloat16 (the warp-specialised ``wgmma`` kernel: two
+   launches bitwise equal, its own launch counter), every output element;
+   the fused SchNet stack (B3's forward and
    backward, B4) with seed106's stack weights on edge features from the
    port's dense model, bfloat16 at the training batch (B=200) in both
    training buckets (N=16, N=24) and float32 at B=16, N=24; errors, times
-   (CUDA events) and the bound of each;
+   (CUDA events: the median and the minimum of five timings of 20 launches,
+   with the SM clock and temperature before and after) and the bound of each;
 4. sampling main path: the port's sampling CLI on 200 synthetic reactions
    with the 8 members, bf16, fused packed score, ``ld`` over the 5000-step
    schedule walked in 625 model calls; checks that every model call went
    through the warp-specialised kernel, that positions are finite and that
-   the mean D-MAE is plausible;
+   the mean D-MAE is plausible; prints the D-MAE with identity matching (the
+   gated figure) and matched over each graph's automorphisms (the reference
+   metric, never above it);
 5. sampling profile: 20 steps at N=24 under torch.profiler;
 6. training main path: the port's train CLI at full width (H=256, L=7,
    batch 200, bf16, ``use_pallas``) for 40 iterations on a synthetic corpus;
@@ -38,8 +46,9 @@ Phases (any failure exits non-zero):
    trained;
 7. dense sampling path: seed106 with ``fused_score`` through ``make_score_fn``
    and ``dynamic_sampling`` on 100 reactions of the N=24 bucket, 625 launches
-   of the dense score kernel (B2), against the unfused torch path and the
-   8-member packed ensemble on the same reactions and noise;
+   of the dense score kernel (B2), all of its warp-specialised kernel, against
+   the unfused torch path and the 8-member packed ensemble on the same
+   reactions and noise; both D-MAE figures as in phase 4;
 8. int8 sampling path: phase 4 with ``--quant int8``: every model call one
    launch of the warp-specialised int8 kernel (B5), none of B1, D-MAE within
    noise of phase 4.
@@ -72,6 +81,8 @@ SOURCES = ("packed_score", "schnet_stack", "condensed_score", "packed_score_int8
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # bf16 tensor cores; f32 without them
 PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
+# launches per timing of a kernel; cuda_time_ms takes five such timings
+TIMING_ITERS = 20
 
 # kernel vs plain version, as a fraction of the output's largest magnitude,
 # for every kernel and every output (the stack's gradients included):
@@ -111,19 +122,32 @@ def sh(cmd: list[str]) -> str:
     return subprocess.run(cmd, check=True, capture_output=True, text=True).stdout.strip()
 
 
-def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
+def cuda_time_ms(fn, iters: int, repeats: int = 5, warmup: int = 2) -> tuple[float, float]:
+    """``(median, minimum)`` over ``repeats`` timings of ``iters`` launches
+    each (CUDA events, after ``warmup`` launches), in ms per launch.  One mean
+    of 20 launches spread 9 % between two runs on the same card and code."""
+    import numpy as np
     import torch
 
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return float(np.median(times)), float(min(times))
+
+
+def smi_clocks(tag: str) -> None:
+    """The card's SM clock and temperature now, beside the timings."""
+    print(f"[{tag}] SM clock, temperature: "
+          f"{sh(['nvidia-smi', '--query-gpu=clocks.sm,temperature.gpu', '--format=csv,noheader'])}")
 
 
 def phase_card() -> str:
@@ -136,17 +160,27 @@ def phase_card() -> str:
     from tsdiff_tpu_torch.ops import _build
 
     print(f"[card] {sh([_build.find_nvcc(), '--version']).splitlines()[-1]}")
+    smi_clocks("card")
     return smi.splitlines()[0]
 
 
 def phase_build() -> None:
+    """Build every kernel library from the sources: cached libraries of
+    these sources are removed first, so the time printed is nvcc's.  Fails if
+    the dense score's warp-specialised kernel spills."""
+    import glob
+
     from tsdiff_tpu_torch.ops import _build
 
+    for name in SOURCES:
+        for old in glob.glob(os.path.join(_build.BUILD_ROOT, f"{name}-*")):
+            shutil.rmtree(old)
     t0 = time.monotonic()
     _build.build(list(SOURCES))
     print(f"[build] {', '.join(f'{n}.cu' for n in SOURCES)} built in "
-          f"{time.monotonic() - t0:.1f} s")
-    spills = 0
+          f"{time.monotonic() - t0:.1f} s, one nvcc each in parallel (" + ", ".join(
+              f"{n} {_build.build_info[n]['seconds']:.1f} s" for n in SOURCES) + ")")
+    spills, wg_dense_spills = 0, None
     for name in SOURCES:
         # ptxas -v: "Compiling entry function '<mangled>'", then its stack and
         # spill line, then "Used N registers, ..."
@@ -160,10 +194,16 @@ def phase_build() -> None:
             elif "bytes spill" in line:
                 stack = line.strip()
             elif "Used" in line and "registers" in line:
-                spills += int(re.search(r"(\d+) bytes spill stores", stack).group(1))
+                n_spill = int(re.search(r"(\d+) bytes spill stores", stack).group(1))
+                spills += n_spill
+                if kernel == "condensed_score_wg_kernel":
+                    wg_dense_spills = n_spill
                 print(f"[build] {name}: {kernel}: {line.strip().replace('ptxas info    : ', '')}; "
                       f"{stack}")
-    print(f"[build] spill stores over all kernels: {spills} bytes")
+    print(f"[build] spill stores over all kernels: {spills} bytes; of the dense score's "
+          f"warp-specialised kernel: {wg_dense_spills} bytes (must be 0)")
+    if wg_dense_spills != 0:
+        fail(f"condensed_score_wg_kernel spills {wg_dense_spills} bytes (or was not found)")
 
 
 def load_member(seed: int, dtype, device, **model_overrides):
@@ -183,23 +223,25 @@ def load_members(dtype, device):
     return [load_member(seed, dtype, device) for seed in MEMBER_SEEDS]
 
 
-def time_and_bound(tag: str, kernel, plain, iters: int, cost: dict, dname: str) -> dict:
-    """Kernel and plain-version times (CUDA events, warmed up) beside the
-    bound: the larger of operations / peak rate (working-type flop and, where
-    the kernel has them, int8 operations, each at its own rate, summed) and
-    bytes / memory rate."""
-    ms = cuda_time_ms(kernel, iters)
-    plain_ms = cuda_time_ms(plain, 2, warmup=1)
+def time_and_bound(tag: str, kernel, plain, cost: dict, dname: str) -> dict:
+    """Kernel and plain-version times (CUDA events, warmed up; the median and
+    the minimum of five timings) beside the bound: the larger of operations /
+    peak rate (working-type flop and, where the kernel has them, int8
+    operations, each at its own rate, summed) and bytes / memory rate."""
+    ms, ms_min = cuda_time_ms(kernel, TIMING_ITERS)
+    plain_ms, plain_min = cuda_time_ms(plain, 2, warmup=1)
     t_ops = (cost["flops"] / PEAK_FLOPS[dname] + cost.get("int8_ops", 0) / PEAK_INT8) * 1e3
     t_bytes = cost["bytes"] / PEAK_BYTES * 1e3
     bound_ms = max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"[kernels] {tag}: {ms:.4f} ms/launch (kernel), {plain_ms:.4f} ms (plain), bound "
+    print(f"[kernels] {tag}: {ms:.4f} ms/launch (kernel, median of 5 timings of {TIMING_ITERS} "
+          f"launches; minimum {ms_min:.4f}), {plain_ms:.4f} ms (plain, median; minimum "
+          f"{plain_min:.4f}), bound "
           f"{bound_ms:.4f} ms by {bound_by} ({cost['flops']:.4g} flop, "
           f"{cost.get('int8_ops', 0):.4g} int8 operations, {cost['bytes']:.4g} bytes), "
           f"{(cost['flops'] + cost.get('int8_ops', 0)) / ms / 1e9:.4g} T operations/s achieved, "
           f"library_ms null (no single PyTorch call computes this function)")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return dict(ms=ms, ms_min=ms_min, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def check_close(tag: str, out, ref, dname: str, tol=None) -> float:
@@ -251,6 +293,7 @@ def phase_kernels() -> dict:
     from tsdiff_tpu_torch.ops import packed_score as ps
     from tsdiff_tpu_torch.ops import packed_score_int8 as p8
 
+    smi_clocks("kernels")
     result = {}
     # the warp-specialised kernels' tile product alone: 64 x 256 by the arranged
     # 256 x 256 weight through the ring, A from shared memory and from
@@ -327,8 +370,7 @@ def phase_kernels() -> dict:
         if eq_err > TOL[dname][0] * eq_scale:
             fail(f"{tag}: node_eq disagrees with the plain version")
 
-        iters = 20 if dtype == torch.bfloat16 else 3
-        timing = time_and_bound(tag, kernel, plain, iters, ps.packed_score_cost(w, z, L), dname)
+        timing = time_and_bound(tag, kernel, plain, ps.packed_score_cost(w, z, L), dname)
         result[(n_bucket, dname)] = dict(timing, max_abs_err=e_max)
         del w, args, out, ref
 
@@ -359,7 +401,7 @@ def phase_kernels() -> dict:
                 fail(f"{tag}: two launches on the same inputs differ")
             del again8
             e_max = check_close(f"{tag} out", out8, ref8, dname, tol=TOL_INT8)
-            timing = time_and_bound(tag, kernel8, plain8, 20,
+            timing = time_and_bound(tag, kernel8, plain8,
                                     p8.packed_score_int8_cost(w8, z, L), dname)
             result[("int8", n_bucket, dname)] = dict(timing, max_abs_err=e_max)
             del w8, args8, out8, ref8
@@ -370,8 +412,9 @@ def phase_kernels() -> dict:
 
 def phase_dense_kernels() -> dict:
     """B2 against its plain version, every output element: seed106 on 100
-    reactions with a jittered geometry, N=24 in float32 and bfloat16 and N=16
-    in bfloat16."""
+    reactions with a jittered geometry, N=24 in float32 (the mma.sync kernel)
+    and bfloat16 and N=16 in bfloat16 (the warp-specialised wgmma kernel: two
+    launches bitwise equal, its own launch counter)."""
     import torch
 
     from tsdiff_tpu_torch.ops import condensed_score as cs
@@ -397,14 +440,27 @@ def phase_dense_kernels() -> dict:
         def plain():
             return cs.condensed_score_reference(*args, num_blocks=L)
 
-        out, ref = kernel(), plain()
+        wg_before = cs.condensed_score.wg_launches
+        out, again, ref = kernel(), kernel(), plain()
         torch.cuda.synchronize()
         tag = f"condensed_score N={n_bucket} {dname}"
+        # bf16 takes the warp-specialised kernel, f32 the mma.sync kernel
+        took_wg = cs.condensed_score.wg_launches - wg_before
+        print(f"[kernels] {tag}: {took_wg} of 2 launches took the warp-specialised kernel; two "
+              f"launches bitwise equal: {torch.equal(out, again)}; L2 weight bytes per launch "
+              f"{cs.wg_dense_l2_weight_bytes(len(out), n_bucket, L):.4g} (warp-specialised, "
+              f"{len(cs.dense_schedule(n_bucket, L))} stages of {cs.STAGE_BYTES} bytes per CTA) "
+              f"against {cs.mma_sync_dense_l2_weight_bytes(len(out), n_bucket, L):.4g} (mma.sync)")
+        if took_wg != (2 if dtype == torch.bfloat16 else 0):
+            fail(f"{tag}: {took_wg} launches of the warp-specialised kernel")
+        if not torch.equal(out, again):
+            fail(f"{tag}: two launches on the same inputs differ")
+        del again
         e_max = check_close(f"{tag} out", out, ref, dname)
         on_edges = edges_in.mask_global
         print(f"[kernels] {tag}: {int(on_edges.sum())} of {on_edges.numel()} pairs are edges; "
               f"max abs err on edges {(out - ref)[..., 0][on_edges].abs().max().item():.6g}")
-        timing = time_and_bound(tag, kernel, plain, 20 if dtype == torch.bfloat16 else 3,
+        timing = time_and_bound(tag, kernel, plain,
                                 cs.condensed_score_cost(w, static.z, L), dname)
         result[(n_bucket, dname)] = dict(timing, max_abs_err=e_max)
         del model, static, w, args, out, ref
@@ -475,20 +531,19 @@ def phase_stack_kernels() -> dict:
                            ss.interaction_stack_reference(w, h, ea, c), dname)
         del out, hs, ref_out, dh, dea, grads, rdh, rdea, rgrads, b4
 
-        bf = dtype == torch.bfloat16
         result[(N, dname)] = {
             "fwd": dict(time_and_bound(
                 f"schnet_stack_fwd {tag}", lambda: ss.schnet_stack_fwd(w, h, ea, c),
-                lambda: ss.schnet_stack_fwd_reference(w, h, ea, c), 10 if bf else 3,
+                lambda: ss.schnet_stack_fwd_reference(w, h, ea, c),
                 ss.schnet_stack_cost(B, N, H, L, dtype, "fwd"), dname), max_abs_err=e_fwd),
             "bwd": dict(time_and_bound(
                 f"schnet_stack_bwd {tag}", lambda: ss.schnet_stack_bwd(w, ea, c, ref_hs, g),
-                lambda: ss.schnet_stack_bwd_reference(w, ea, c, ref_hs, g), 5 if bf else 2,
+                lambda: ss.schnet_stack_bwd_reference(w, ea, c, ref_hs, g),
                 ss.schnet_stack_cost(B, N, H, L, dtype, "bwd"), dname), max_abs_err=e_bwd),
             "stack": dict(time_and_bound(
                 f"schnet_stack (B4) {tag}",
                 lambda: ss.interaction_stack_pallas(w, h, ea4, c3, dtype),
-                lambda: ss.interaction_stack_reference(w, h, ea, c), 10 if bf else 3,
+                lambda: ss.interaction_stack_reference(w, h, ea, c),
                 ss.schnet_stack_cost(B, N, H, L, dtype, "stack"), dname), max_abs_err=e_b4),
         }
         del w, h, ea, c, g, ref_hs, ea4, c3
@@ -499,6 +554,7 @@ def phase_stack_kernels() -> dict:
           "and such flips propagate through the 7 blocks; the int8 kernel in bfloat16 (6e-2, "
           "6e-3), as a flipped rounding can flip an int8 code, 1/127 of its row's maximum or "
           "two bf16 ulps of it")
+    smi_clocks("kernels")
     return result
 
 
@@ -577,7 +633,7 @@ def phase_main_path(quant: str = "none") -> dict:
     from tsdiff_tpu_torch.data.synthetic import make_corpus
     from tsdiff_tpu_torch.diffusion.sampler import SamplingSettings, build_step_coeffs
     from tsdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
-    from tsdiff_tpu_torch.eval.dmae import calc_dmae
+    from tsdiff_tpu_torch.eval.dmae import calc_dmae, dmae_for_graph
     from tsdiff_tpu_torch.config import Config
     from tsdiff_tpu_torch.ops import packed_score as ps
     from tsdiff_tpu_torch.ops import packed_score_int8 as p8
@@ -638,10 +694,13 @@ def phase_main_path(quant: str = "none") -> dict:
         if r["pos_gen"].shape != (len(r["atom_type"]), 3) or not np.isfinite(r["pos_gen"]).all():
             fail("non-finite or misshaped pos_gen")
     dmae = np.array([calc_dmae(r["pos"], r["pos_gen"]) for r in results])
+    matched = np.array([dmae_for_graph(r, r["pos_gen"]) for r in results])
     model_calls = steps * sum(attempts)
     print(f"[{tag}] wall {wall:.3f} s, {wall / model_calls * 1e3:.4f} ms per sampling step "
           f"(8 members, batch <= {batch_size}), {len(results) / wall:.4f} samples/s; "
-          f"D-MAE mean {dmae.mean():.4f} median {np.median(dmae):.4f} (bound {DMAE_BOUND})")
+          f"D-MAE mean {dmae.mean():.4f} median {np.median(dmae):.4f} (identity matching, "
+          f"bound {DMAE_BOUND}); automorphism-matched D-MAE mean {matched.mean():.4f} median "
+          f"{np.median(matched):.4f}")
     sizes = np.array([len(r["atom_type"]) for r in results])
     print(f"[{tag}] D-MAE mean by size: " + ", ".join(
         f"{name} {dmae[sel].mean():.4f} ({int(sel.sum())} reactions)"
@@ -668,7 +727,7 @@ def phase_dense_path() -> dict:
         final_frame_scale,
     )
     from tsdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
-    from tsdiff_tpu_torch.eval.dmae import calc_dmae
+    from tsdiff_tpu_torch.eval.dmae import calc_dmae, get_min_dmae_match, graph_automorphisms
     from tsdiff_tpu_torch.ops import condensed_score as cs
     from tsdiff_tpu_torch.train import load_checkpoint
 
@@ -679,9 +738,13 @@ def phase_dense_path() -> dict:
     schedule = DiffusionSchedule.from_config(cfg)
     settings = SamplingSettings(sampling_type="ld", n_steps=5000, timestep_respacing=625)
     ref, mask = batch.pos.cpu().numpy(), batch.node_mask.cpu().numpy()
+    atoms = [np.nonzero(m)[0] for m in mask]
+    bond, types = batch.bond_mat.cpu().numpy(), batch.atom_type.cpu().numpy()
+    autos = [graph_automorphisms(bond[b][np.ix_(a, a)], types[b][a]) for b, a in enumerate(atoms)]
 
     def sample(make_fn):
-        """(D-MAE per reaction, wall s) of one run from the same start and noise."""
+        """(D-MAE per reaction, automorphism-matched D-MAE per reaction, wall
+        s) of one run from the same start and noise."""
         gen = torch.Generator(device="cuda").manual_seed(2022)
         pos_init = torch.randn(batch.pos.shape, generator=gen, device="cuda")
         torch.cuda.synchronize()
@@ -693,37 +756,45 @@ def phase_dense_path() -> dict:
         pos = (res.pos * final_frame_scale(schedule, settings)).cpu().numpy()
         if nan or pos.shape != tuple(batch.pos.shape) or not np.isfinite(pos).all():
             fail("non-finite or misshaped positions on the dense path")
-        return np.array([calc_dmae(ref[b][mask[b]], pos[b][mask[b]])
-                         for b in range(len(pos))]), wall
+        ident = np.array([calc_dmae(ref[b][a], pos[b][a]) for b, a in enumerate(atoms)])
+        matched = np.array([get_min_dmae_match(ref[b][a], pos[b][a], autos[b])[0]
+                            for b, a in enumerate(atoms)])
+        return ident, matched, wall
 
-    cs.condensed_score.launches = 0
+    cs.condensed_score.launches = cs.condensed_score.wg_launches = 0
     cs.condensed_score_reference.calls = 0
-    dmae, wall = sample(lambda: make_score_fn(model, batch))
+    dmae, dmae_m, wall = sample(lambda: make_score_fn(model, batch))
     launches, plain_calls = cs.condensed_score.launches, cs.condensed_score_reference.calls
+    wg = cs.condensed_score.wg_launches
     print(f"[dense] 100 samples, 1 model, B=100, N=24, bf16: condensed_score launches "
-          f"{launches} (expected 625), plain-version calls {plain_calls}")
-    if launches != 625:
-        fail(f"the dense score kernel launched {launches} times, expected 625")
+          f"{launches} (expected 625), of them warp-specialised {wg} (expected 625), "
+          f"plain-version calls {plain_calls}")
+    if launches != 625 or wg != 625:
+        fail(f"the dense score kernel launched {launches} times, {wg} of them warp-specialised, "
+             f"expected 625 and 625")
     if plain_calls != 0:
         fail(f"the plain version ran {plain_calls} times on the dense path")
     print(f"[dense] wall {wall:.3f} s, {wall / launches * 1e3:.4f} ms per sampling step, "
           f"{len(dmae) / wall:.4f} samples/s; D-MAE mean {dmae.mean():.4f} median "
-          f"{np.median(dmae):.4f} (bound {DMAE_BOUND_N24})")
+          f"{np.median(dmae):.4f} (identity matching, bound {DMAE_BOUND_N24}); "
+          f"automorphism-matched D-MAE mean {dmae_m.mean():.4f} median {np.median(dmae_m):.4f}")
     if not dmae.mean() < DMAE_BOUND_N24:
         fail(f"mean D-MAE {dmae.mean():.4f} >= {DMAE_BOUND_N24} on the dense path")
 
     # the same reactions, start and noise through the model's unfused torch
     # path, and through the 8-member packed ensemble as this bucket's yardstick
     unfused = load_member(106, torch.bfloat16, dev)
-    dmae_u, wall_u = sample(lambda: make_score_fn(unfused, batch))
+    dmae_u, dmae_um, wall_u = sample(lambda: make_score_fn(unfused, batch))
     members = load_members(torch.bfloat16, dev)
-    dmae_e, wall_e = sample(lambda: make_packed_ensemble_eps_fn(members, batch))
+    dmae_e, dmae_em, wall_e = sample(lambda: make_packed_ensemble_eps_fn(members, batch))
     delta = abs(dmae.mean() - dmae_u.mean())
     print(f"[dense] same reactions and noise: unfused torch path D-MAE mean {dmae_u.mean():.4f} "
           f"median {np.median(dmae_u):.4f} in {wall_u:.3f} s (|difference| of the means "
           f"{delta:.4f}, limit {DMAE_FUSED_DELTA}; correlation per reaction "
           f"{np.corrcoef(dmae, dmae_u)[0, 1]:.4f}); 8-member packed ensemble D-MAE mean "
-          f"{dmae_e.mean():.4f} median {np.median(dmae_e):.4f} in {wall_e:.3f} s")
+          f"{dmae_e.mean():.4f} median {np.median(dmae_e):.4f} in {wall_e:.3f} s; "
+          f"automorphism-matched means: unfused {dmae_um.mean():.4f}, ensemble "
+          f"{dmae_em.mean():.4f}")
     if not delta <= DMAE_FUSED_DELTA:
         fail(f"the fused dense run's mean D-MAE differs from the unfused run's by {delta:.4f}")
     return dict(launches=launches, wall=wall, dmae_mean=float(dmae.mean()))

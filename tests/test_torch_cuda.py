@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
 packed score step (B1) and its int8 variant (B5): for each the warp-specialised wgmma kernel
 in bfloat16, the mma.sync kernel in float32 and the tile product of the
-former alone, the dense score step (B2) and the fused SchNet stack
+former alone; the dense score step (B2): its warp-specialised wgmma kernel in
+bfloat16 and its mma.sync kernel in float32; and the fused SchNet stack
 (B3's forward and backward, B4).
 
 Every test here needs an NVIDIA GPU with nvcc (marker ``cuda``) and skips
@@ -285,6 +286,8 @@ def dense_inputs(B, N, H, L, dtype, device, seed=0):
     (zero node states, zero mask rows and columns, dummy distance 1)."""
     w, z, _, _, _ = random_inputs(1, B, N, H, L, dtype, device, seed=seed)
     w = {k: w[k][0].contiguous() for k in cs.W_ORDER}
+    if dtype == torch.bfloat16 and H == 256:
+        w = cs.with_wg_image(w)     # what the model's fused_weights() adds
     g = torch.Generator().manual_seed(seed + 1)
     m = torch.triu(torch.rand(B, N, N, generator=g) < 0.7, 1)
     m = m | m.transpose(1, 2)
@@ -302,10 +305,12 @@ def dense_inputs(B, N, H, L, dtype, device, seed=0):
 def test_dense_kernel_matches_reference(cuda, dtype, N):
     B, H, L = 3, 256, 2
     w, z, d, cmask, embs = dense_inputs(B, N, H, L, dtype, cuda, seed=N)
-    launches = cs.condensed_score.launches
+    launches, wg_launches = cs.condensed_score.launches, cs.condensed_score.wg_launches
     out = cs.condensed_score(w, z, d, cmask, *embs, num_blocks=L)
     torch.cuda.synchronize()
     assert cs.condensed_score.launches == launches + 1
+    # bf16 takes the warp-specialised kernel, f32 the mma.sync kernel
+    assert cs.condensed_score.wg_launches == wg_launches + int(dtype == torch.bfloat16)
     assert out.shape == (B, N, N, 1) and out.dtype == torch.float32
     ref = cs.condensed_score_reference(w, z, d, cmask, *embs, num_blocks=L)
     assert_close(f"dense N={N}", out, ref, dtype)      # every element, off-edge ones too
@@ -326,6 +331,50 @@ def test_dense_cuda_tensors_never_take_the_plain_path(cuda):
         cs.condensed_score(w, z, d, cmask, *[e.float() for e in embs], num_blocks=1)
     assert cs.condensed_score_reference.calls == calls
     assert cs.condensed_score.launches == launches + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [8, 16, 24])
+@pytest.mark.parametrize("B", [1, 3, 100])
+def test_dense_wg_kernel_shapes_zero_mask_and_repeat(cuda, B, N):
+    """The warp-specialised bf16 dense kernel at one, three and the dense
+    path's 100 graphs, with a source node's whole row of ``cmask`` zero in
+    every graph (its rows add nothing to the aggregation) and graph 0 without
+    any edge: against the plain version on every element, two launches
+    bitwise equal (no atomics, fixed summation order), both counted as the
+    warp-specialised kernel's."""
+    H, L = 256, 2
+    w, z, d, cmask, embs = dense_inputs(B, N, H, L, torch.bfloat16, cuda, seed=5 * N + B)
+    cmask[:, 1, :] = 0.0
+    cmask[0] = 0.0
+    before, wg_before = cs.condensed_score.launches, cs.condensed_score.wg_launches
+    out = cs.condensed_score(w, z, d, cmask, *embs, num_blocks=L)
+    again = cs.condensed_score(w, z, d, cmask, *embs, num_blocks=L)
+    torch.cuda.synchronize()
+    assert cs.condensed_score.launches == before + 2
+    assert cs.condensed_score.wg_launches == wg_before + 2
+    assert torch.equal(out, again)
+    ref = cs.condensed_score_reference(w, z, d, cmask, *embs, num_blocks=L)
+    assert_close(f"dense wg B={B} N={N}", out, ref, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_dense_wg_kernel_needs_the_arranged_weights(cuda):
+    """Without ``weights[WG_IMAGE]`` the bf16 H=256 shape raises: it does not
+    give way to the mma.sync kernel or to the plain version; a wrong image
+    raises too."""
+    w, z, d, cmask, embs = dense_inputs(2, 8, 256, 1, torch.bfloat16, cuda)
+    bare = {k: v for k, v in w.items() if k != cs.WG_IMAGE}
+    calls = cs.condensed_score_reference.calls
+    launches, wg_launches = cs.condensed_score.launches, cs.condensed_score.wg_launches
+    with pytest.raises(ValueError):
+        cs.condensed_score(bare, z, d, cmask, *embs, num_blocks=1)
+    with pytest.raises(ValueError):
+        cs.condensed_score({**w, cs.WG_IMAGE: w[cs.WG_IMAGE][:-8]}, z, d, cmask, *embs,
+                           num_blocks=1)
+    assert cs.condensed_score_reference.calls == calls
+    assert (cs.condensed_score.launches, cs.condensed_score.wg_launches) == \
+        (launches, wg_launches)
 
 
 def stack_inputs(B, N, H, L, dtype, device, seed=0):

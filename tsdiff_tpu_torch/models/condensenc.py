@@ -250,9 +250,14 @@ class CondenseEncoderEpsNetwork(nn.Module):
         )
 
     def fused_weights(self) -> dict[str, torch.Tensor]:
-        """The fused dense score's weights in the working dtype."""
+        """The fused dense score's weights in the working dtype, with the
+        matrices arranged once more as the warp-specialised kernel's tile
+        images (``WG_IMAGE``) where a kernel takes them: bfloat16 at H = 256."""
         w = extract_weights(self.state_dict())
-        return {k: v.to(self.dtype).contiguous() for k, v in w.items()}
+        w = {k: v.to(self.dtype).contiguous() for k, v in w.items()}
+        if self.dtype == torch.bfloat16 and w["dw1"].shape[-1] == 256:
+            w = with_wg_image(w)
+        return w
 
     def edge_attr(self, d_emb, emb_r, emb_p) -> torch.Tensor:
         """``edge_cat`` of the R and P edge embeddings (B, N, N, H)."""

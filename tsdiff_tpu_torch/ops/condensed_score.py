@@ -18,16 +18,27 @@ dummy distance 1.0 with ``cmask`` 0) and masked by the caller.
   products w*xh rounded before their float32 sum.
 * ``condensed_score`` — the wrapper: CPU tensors take the plain version; CUDA
   tensors launch ``csrc/condensed_score.cu`` (built at first use) or raise.
-  ``condensed_score.launches`` counts kernel launches and
+  ``condensed_score.launches`` counts kernel launches,
+  ``condensed_score.wg_launches`` those of the warp-specialised kernel, and
   ``condensed_score_reference.calls`` plain-version calls.
 
 What bounds the kernel on an H100 at the dense path's shapes (B=100, N=24,
 H=256, L=7, bf16): 1.84e11 flop counted from the kernel body
 (``condensed_score_cost``), 0.19 ms at 989 TFLOP/s, against ~125 MB of inputs,
-mostly the four embedding tensors, 0.04 ms at 3.35 TB/s: the tensor cores.  The
-design (one CTA per graph, ``ea`` in a global scratch streamed by 64-row
-tiles, the embeddings read once into the ``de * emb`` product) is described
-in the source.
+mostly the four embedding tensors, 0.04 ms at 3.35 TB/s: the tensor cores.
+
+Two kernels live in ``csrc/condensed_score.cu``.  bfloat16 at H = 256 and
+N <= 24 takes the warp-specialised ``wgmma`` one (``csrc/wg_pipeline.cuh``,
+as the packed score kernel): it reads the matrices from ``weights[WG_IMAGE]``,
+the tile images ``with_wg_image`` makes once (the packed kernel's image of
+the same matrices), and raises without them.  float32 and other shapes take
+the first port's ``mma.sync`` kernel, by the explicit branch in
+``condensed_score_launch``.  ``condensed_score.wg_launches`` counts the
+former's launches.  The host side of the ``wgmma`` kernel is stated here for
+the tests: its dense row table (``dense_row_pairs``), its static schedule of
+weight stages (``dense_schedule``) with its L2 weight bytes, and its
+fixed-order aggregation (``aggregate_dense_by_node``).  The design is in the
+source's header.
 """
 
 from __future__ import annotations
@@ -46,6 +57,15 @@ W_ORDER = (
     "g0h", "g0e", "g0b", "g1w", "g1b", "g2w", "g2b",
 )
 _STACK_MATS = ("f1w", "f2w", "l1w", "l2w", "ow")
+# The warp-specialised score kernels (this one and ops/packed_score.py's):
+#: the arranged entry of a weight dictionary
+WG_IMAGE = "wg_image"
+#: rows of a pair-row tile
+TILE_ROWS = 64
+#: output columns (weight rows) of one stage of the kernels' shared-memory ring
+STAGE_COLS = 32
+#: bytes of one weight stage: STAGE_COLS rows of K = 256 bf16 values
+STAGE_BYTES = 16384
 
 _LIB = "condensed_score"
 
@@ -59,6 +79,8 @@ def _kernel_lib() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_void_p), *[ctypes.c_int] * 5, ctypes.c_void_p,
     ]
     lib.condensed_score_launch.restype = ctypes.c_int
+    lib.condensed_score_uses_wg.argtypes = [ctypes.c_int] * 3
+    lib.condensed_score_uses_wg.restype = ctypes.c_int
     lib.condensed_score_error_string.argtypes = [ctypes.c_int]
     lib.condensed_score_error_string.restype = ctypes.c_char_p
     return lib
@@ -94,6 +116,93 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     """x * sigmoid(x) evaluated in float32, rounded to x's type."""
     xf = x.float()
     return (xf * torch.sigmoid(xf)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The warp-specialised kernel's host side.
+
+
+def with_wg_image(weights: dict) -> dict[str, torch.Tensor]:
+    """``weights`` with the arranged entry ``WG_IMAGE``: the matrices of
+    ``ops.packed_score.IMAGE_ORDER`` as the tile images a warp-specialised
+    kernel's producer copies into its shared-memory ring
+    (``ops.packed_score.arrange_weights``).  The dense and the packed kernels
+    read the same image; the bond table is not part of it."""
+    from tsdiff_tpu_torch.ops.packed_score import arrange_weights
+
+    return {**weights, WG_IMAGE: arrange_weights(weights)}
+
+
+def stage_schedule(tile_pairs: int, num_blocks: int) -> list[tuple[str, int, int]]:
+    """The static schedule of weight stages every CTA of a warp-specialised
+    score kernel walks, producer and consumers alike: ``(matrix, layer,
+    32-column block)`` per stage, for ``tile_pairs`` pairs of 64-row tiles (a
+    stage feeds both tiles of a pair, one per consumer warpgroup).  Per tile
+    pair the encoder-order ``edge_cat`` (dw1; c0r and c0p stage by stage;
+    c1w), per block the node product l1w, f1w and f2w per tile pair, the
+    node products l2w and ow, and per tile pair the head (``edge_cat``; g0h
+    and g0e stage by stage; half a g1w)."""
+    blocks = range(256 // STAGE_COLS)
+    edge_cat = ([("dw1", 0, c) for c in blocks]
+                + [(k, 0, c) for c in blocks for k in ("c0r", "c0p")]
+                + [("c1w", 0, c) for c in blocks])
+    sched = edge_cat * tile_pairs
+    for l in range(num_blocks):
+        sched += [("l1w", l, c) for c in blocks]
+        sched += [(k, l, c) for k in ("f1w", "f2w") for c in blocks] * tile_pairs
+        sched += [(k, l, c) for k in ("l2w", "ow") for c in blocks]
+    head = (edge_cat + [(k, 0, c) for c in blocks for k in ("g0h", "g0e")]
+            + [("g1w", 0, c) for c in range(128 // STAGE_COLS)])
+    return sched + head * tile_pairs
+
+
+def dense_tile_pairs(N: int) -> int:
+    """Tile pairs of one graph's P = N*N dense pair rows (N % 8 == 0 makes P
+    a multiple of 64: every tile is full, and only an odd tile count leaves
+    the second warpgroup of the last pair idle)."""
+    return (-(-(N * N) // TILE_ROWS) + 1) // 2
+
+
+def dense_schedule(N: int, num_blocks: int) -> list[tuple[str, int, int]]:
+    """The ``wgmma`` dense kernel's schedule of weight stages per CTA."""
+    return stage_schedule(dense_tile_pairs(N), num_blocks)
+
+
+def wg_dense_l2_weight_bytes(B: int, N: int, num_blocks: int) -> int:
+    """Weight bytes one launch of the ``wgmma`` kernel reads from L2: one
+    16 KB stage per schedule entry and CTA (one CTA per graph)."""
+    return B * len(dense_schedule(N, num_blocks)) * STAGE_BYTES
+
+
+def mma_sync_dense_l2_weight_bytes(B: int, N: int, num_blocks: int, H: int = 256,
+                                   itemsize: int = 2) -> int:
+    """The same for the ``mma.sync`` kernel, which reads every matrix once
+    per 64-row tile: per tile 8 matrices of ``edge_cat`` (encoder and output
+    order), 2 per block and the head's 2.5, and 3 node products per block."""
+    tiles = -(-(N * N) // TILE_ROWS)
+    return int(B * (tiles * (8 + 2 * num_blocks + 2.5) + 3 * num_blocks) * H * H * itemsize)
+
+
+def dense_row_pairs(N: int) -> torch.Tensor:
+    """``(N*N, 2)`` int64: the atoms ``(i, j)`` of every dense pair row
+    ``p = i*N + j``, as the kernel tabulates them once per CTA (no division
+    per row afterwards)."""
+    p = torch.arange(N * N)
+    return torch.stack([p // N, p % N], dim=1)
+
+
+def aggregate_dense_by_node(w: torch.Tensor, xh: torch.Tensor) -> torch.Tensor:
+    """The kernel's dense aggregation, stated per receiving node in its
+    order: ``agg[j] = sum_i rnd(w[i*N + j] * xh[i])``, sources ``i``
+    ascending, for ``w (N*N, F)`` and ``xh (N, F)`` in the working type,
+    products rounded to it, summed in float32.  Equal to the plain
+    version's sum up to the order of the float32 additions."""
+    N = xh.shape[0]
+    w3 = w.reshape(N, N, -1)
+    agg = torch.zeros(xh.shape, dtype=torch.float32)
+    for i in range(N):
+        agg = agg + (w3[i] * xh[i]).float()
+    return agg
 
 
 def condensed_score_reference(
@@ -151,7 +260,8 @@ def condensed_score_cost(weights: dict, z: torch.Tensor, num_blocks: int) -> dic
     (the distance MLP's second layer and two ``edge_cat`` stages of three
     each), per block two pair-row and three node products, and the head's
     2H->H and H->H/2 layers.  Bytes: every input read once, the output written
-    once."""
+    once (the arranged copy of the matrices, ``WG_IMAGE``, is not a second
+    input)."""
     B, N, H = z.shape
     P, L = N * N, num_blocks
     flops = 2 * B * (7 * P * H * H + L * (2 * P * H * H + 3 * N * H * H)
@@ -161,7 +271,7 @@ def condensed_score_cost(weights: dict, z: torch.Tensor, num_blocks: int) -> dic
         2 * B * P * 4                       # d, cmask
         + B * N * H * t                     # z
         + 4 * B * P * H * t                 # the four embedding tensors
-        + sum(v.numel() * v.element_size() for v in weights.values())
+        + sum(v.numel() * v.element_size() for k, v in weights.items() if k != WG_IMAGE)
         + B * P * 4                         # output
     )
     return {"flops": flops, "bytes": nbytes}
@@ -194,6 +304,19 @@ def _check_cuda_args(weights, z, d, cmask, embs, num_blocks):
     return B, N, H, L
 
 
+def _check_image(weights, L, H, z) -> torch.Tensor:
+    image = weights.get(WG_IMAGE)
+    n = (13 + 10 * L) * (H * H // 2)
+    if image is None:
+        raise ValueError(f"this shape takes the warp-specialised kernel, which needs the "
+                         f"arranged weights[{WG_IMAGE!r}] (with_wg_image)")
+    if tuple(image.shape) != (n,) or image.dtype != z.dtype or not image.is_contiguous() \
+            or image.device != z.device:
+        raise ValueError(f"weights[{WG_IMAGE!r}] must be a contiguous {z.dtype} ({n},) tensor "
+                         f"on {z.device}, got {image.dtype} {tuple(image.shape)} on {image.device}")
+    return image
+
+
 def condensed_score(
     weights: dict,
     z: torch.Tensor,
@@ -206,8 +329,14 @@ def condensed_score(
     num_blocks: int,
 ) -> torch.Tensor:
     """``edge_inv`` (B, N, N, 1) float32 of one model.  CPU tensors take
-    ``condensed_score_reference``; CUDA tensors launch the kernel on the
-    current stream, or raise."""
+    ``condensed_score_reference``; CUDA tensors launch a kernel on the
+    current stream, or raise.
+
+    Which kernel is decided by the shape alone, in ``condensed_score_launch``:
+    bfloat16 at H = 256 with N <= 24 takes the warp-specialised ``wgmma``
+    kernel, which needs ``weights[WG_IMAGE]`` (``with_wg_image``) and raises
+    without it; float32 and other shapes take the ``mma.sync`` kernel.
+    Neither gives way to the other, or to the plain version, when it fails."""
     embs = (emb_r_in, emb_p_in, emb_r_out, emb_p_out)
     if z.device.type == "cpu":
         return condensed_score_reference(weights, z, d, cmask, *embs, num_blocks)
@@ -215,10 +344,21 @@ def condensed_score(
         raise ValueError(f"condensed_score runs on CPU or CUDA tensors, got {z.device}")
     B, N, H, L = _check_cuda_args(weights, z, d, cmask, embs, num_blocks)
     lib = _kernel_lib()
+    use_wg = bool(lib.condensed_score_uses_wg(N, H, int(z.dtype == torch.bfloat16)))
     out = torch.empty((B, N, N, 1), dtype=torch.float32, device=z.device)
-    ea = torch.empty((B, N * N, H), dtype=z.dtype, device=z.device)
-    tensors = [d, cmask, z, *embs, *(weights[k] for k in W_ORDER), ea, out]
-    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    if use_wg:
+        image = _check_image(weights, L, H, z)
+        # the kernel's own scratch: per graph ea as 64-row tile images, then one
+        # tile image per consumer warpgroup for results kept while a product
+        # still reads their tile
+        ea = torch.empty((B, N * N // TILE_ROWS + 2, TILE_ROWS * H), dtype=z.dtype,
+                         device=z.device)
+    else:
+        image = None
+        ea = torch.empty((B, N * N, H), dtype=z.dtype, device=z.device)
+    tensors = [d, cmask, z, *embs, *(weights[k] for k in W_ORDER), image, ea, out]
+    ptrs = (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors])
     stream = torch.cuda.current_stream(z.device).cuda_stream
     with torch.cuda.device(z.device):
         err = lib.condensed_score_launch(ptrs, B, N, H, L, int(z.dtype == torch.bfloat16), stream)
@@ -229,7 +369,9 @@ def condensed_score(
             f"dtype={z.dtype}"
         )
     condensed_score.launches += 1
+    condensed_score.wg_launches += int(use_wg)
     return out
 
 
 condensed_score.launches = 0
+condensed_score.wg_launches = 0

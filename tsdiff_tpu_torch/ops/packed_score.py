@@ -46,7 +46,15 @@ import ctypes
 import torch
 
 from tsdiff_tpu_torch.ops.condensed_score import W_ORDER as _DENSE_ORDER
-from tsdiff_tpu_torch.ops.condensed_score import extract_weights
+from tsdiff_tpu_torch.ops.condensed_score import (  # the names shared with the dense kernel
+    STAGE_BYTES,
+    STAGE_COLS,
+    TILE_ROWS,
+    WG_IMAGE,
+    extract_weights,
+    stage_schedule,
+    with_wg_image,
+)
 from tsdiff_tpu_torch.ops.condensed_score import silu as _silu
 from tsdiff_tpu_torch.ops.schnet_stack import ssp
 
@@ -87,14 +95,6 @@ def extract_weights_packed(state_dict: dict) -> dict[str, torch.Tensor]:
 # ---------------------------------------------------------------------------
 # The warp-specialised kernel's weight image and static schedule.
 
-#: rows of a pair-row tile
-TILE_ROWS = 64
-#: output columns (weight rows) of one stage of the kernel's shared-memory ring
-STAGE_COLS = 32
-#: bytes of one weight stage: STAGE_COLS rows of K = 256 bf16 values
-STAGE_BYTES = 16384
-#: the arranged entry of a weight dictionary
-WG_IMAGE = "wg_image"
 #: matrices of the image, in the order ``csrc/packed_score.cu::WImage`` reads
 #: them; the layer-stacked ones hold their L layers one after another
 IMAGE_ORDER = ("dw1", "c0r", "c0p", "c1w", "f1w", "f2w", "l1w", "l2w", "ow", "g0h", "g0e", "g1w")
@@ -157,11 +157,6 @@ def split_image(image: torch.Tensor, num_blocks: int, H: int = 256) -> dict[str,
     return out
 
 
-def with_wg_image(weights: dict) -> dict[str, torch.Tensor]:
-    """``weights`` with the arranged entry ``WG_IMAGE`` added."""
-    return {**weights, WG_IMAGE: arrange_weights(weights)}
-
-
 def packed_row_pairs(N: int) -> torch.Tensor:
     """``(R, 2)`` int64: the atoms ``(i, j)`` of every packed pair row
     ``p = (k-1)*N + i``, ``j = (i + k) % N``, as the kernel tabulates them once
@@ -189,22 +184,11 @@ def aggregate_by_node(w: torch.Tensor, xh: torch.Tensor) -> torch.Tensor:
 def wg_schedule(N: int, num_blocks: int) -> list[tuple[str, int, int]]:
     """The static schedule of weight stages every CTA of the warp-specialised
     kernel walks, producer and consumers alike: ``(matrix, layer, 32-column
-    block)`` per stage.  A stage feeds two 64-row tiles, one per consumer
-    warpgroup, so the R = (N/2)*N pair rows take ``ceil(ceil(R/64) / 2)`` tile
-    pairs; the node products run through the same ring."""
-    pairs = (-(-((N // 2) * N) // TILE_ROWS) + 1) // 2
-    blocks = range(256 // STAGE_COLS)
-    edge_cat = ([("dw1", 0, c) for c in blocks]
-                + [(k, 0, c) for c in blocks for k in ("c0r", "c0p")]
-                + [("c1w", 0, c) for c in blocks])
-    sched = edge_cat * pairs
-    for l in range(num_blocks):
-        sched += [("l1w", l, c) for c in blocks]
-        sched += [(k, l, c) for k in ("f1w", "f2w") for c in blocks] * pairs
-        sched += [(k, l, c) for k in ("l2w", "ow") for c in blocks]
-    head = (edge_cat + [(k, 0, c) for c in blocks for k in ("g0h", "g0e")]
-            + [("g1w", 0, c) for c in range(128 // STAGE_COLS)])
-    return sched + head * pairs
+    block)`` per stage (``ops.condensed_score.stage_schedule``).  A stage
+    feeds two 64-row tiles, one per consumer warpgroup, so the R = (N/2)*N
+    pair rows take ``ceil(ceil(R/64) / 2)`` tile pairs; the node products run
+    through the same ring."""
+    return stage_schedule((-(-((N // 2) * N) // TILE_ROWS) + 1) // 2, num_blocks)
 
 
 def wg_l2_weight_bytes(M: int, B: int, N: int, num_blocks: int) -> int:

@@ -2,16 +2,20 @@
 
     python -m tsdiff_tpu_torch.ops.wg_profile [N]
 
-Builds ``csrc/packed_score.cu`` and ``csrc/packed_score_int8.cu`` with
-``-DWG_PROFILE`` (into their own build directories), launches each once at the
-main path's shapes (M=8 members, B=100 graphs, H=256, L=7, bfloat16, N=24
-unless given) on seeded random weights and inputs, and prints the ``clock64``
+Builds ``csrc/packed_score.cu``, ``csrc/packed_score_int8.cu`` and
+``csrc/condensed_score.cu`` with ``-DWG_PROFILE`` (into their own build
+directories), launches each warp-specialised kernel once at its path's shapes
+(the packed kernels B1 and B5 at M=8 members, B=100 graphs; the dense kernel
+B2 at B=100 graphs, one model; H=256, L=7, bfloat16, N=24 unless given) on
+seeded random weights and inputs, and prints the ``clock64``
 cycles one lane of consumer warpgroup 0 of CTA 0 spent in each part of the
 kernel, as a share of its whole time.  The two consumer warpgroups run in
 step, so this is close to the CTA's own time line.  A barrier inside the node
 products or the aggregation counts in both slots.  The machine these kernels
 are measured on runs no profiler; this is its stand-in.  The slots are
-``csrc/wg_pipeline.cuh::Prof``.
+``csrc/wg_pipeline.cuh::Prof``; in B2 "stores of kept results" is the wait
+for the bulk copy that brings a kept tile back from its global scratch, and
+"node products" includes the head's ``h_i * h_j``.
 """
 
 from __future__ import annotations
@@ -54,6 +58,21 @@ def random_case(M, B, N, H, L, seed, device, V=100):
     return w, z, d, cmask, types
 
 
+def dense_case(B, N, H, L, seed, device):
+    """Seeded bfloat16 dense-kernel weights (image included) and inputs: a
+    random symmetric edge set, distances on it, four embedding tensors."""
+    from tsdiff_tpu_torch.ops import condensed_score as cs
+
+    w32, z, _, _, _ = random_case(1, B, N, H, L, seed, device)
+    w = cs.with_wg_image({k: w32[k][0].to(torch.bfloat16).contiguous() for k in cs.W_ORDER})
+    g = torch.Generator().manual_seed(seed + 1)
+    m = torch.triu(torch.rand(B, N, N, generator=g) < 0.7, 1)
+    m = m | m.transpose(1, 2)
+    d = torch.where(m, 0.8 + 4 * torch.rand(B, N, N, generator=g), torch.ones(B, N, N))
+    embs = [torch.randn(B, N, N, H, generator=g).to(device, torch.bfloat16) for _ in range(4)]
+    return w, z[0].contiguous(), d.to(device), m.float().to(device), embs
+
+
 def quantize_stacked(w32: dict) -> dict:
     """Stacked float32 weights as the int8 op's bfloat16 weights, images included."""
     from tsdiff_tpu_torch.ops import packed_score_int8 as p8
@@ -91,13 +110,14 @@ def main(argv: list[str]) -> None:
     if not torch.cuda.is_available():
         sys.exit("wg_profile needs an NVIDIA GPU (CUDA is not available)")
     from tsdiff_tpu_torch.ops import _build
+    from tsdiff_tpu_torch.ops import condensed_score as cs
     from tsdiff_tpu_torch.ops import packed_score as ps
     from tsdiff_tpu_torch.ops import packed_score_int8 as p8
 
     N = int(argv[0]) if argv else 24
     M, B, H, L = 8, 100, 256, 7
     _build.extra_flags = ("-DWG_PROFILE",)
-    _build.build(["packed_score", "packed_score_int8"])
+    _build.build(["packed_score", "packed_score_int8", "condensed_score"])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(f"card: {smi}; M={M} B={B} N={N} H={H} L={L} bfloat16")
@@ -105,15 +125,20 @@ def main(argv: list[str]) -> None:
     w32, z, d, cmask, types = random_case(M, B, N, H, L, seed=N, device=dev)
     wb = ps.with_wg_image({k: v.to(torch.bfloat16).contiguous() for k, v in w32.items()})
     w8 = quantize_stacked(w32)
+    wd, zd, dd, cd, embs = dense_case(B, N, H, L, seed=N + 1, device=dev)
     cases = (
         ("packed_score (B1)", ps._kernel_lib(), "packed_score_profile",
          lambda: ps.packed_score(wb, z, d, cmask, *types, num_blocks=L)),
         ("packed_score_int8 (B5)", p8._kernel_lib(), "packed_score_int8_profile",
          lambda: p8.packed_score_int8(w8, z, d, cmask, *types, num_blocks=L)),
+        ("condensed_score (B2), one model", cs._kernel_lib(), "condensed_score_profile",
+         lambda: cs.condensed_score(wd, zd, dd, cd, *embs, num_blocks=L)),
     )
     for name, lib, entry, launch in cases:
         cycles = read_profile(lib, entry, launch)
         total = cycles[-1]
+        if total == 0:
+            raise RuntimeError(f"{name}: no cycles recorded (did the warp-specialised kernel run?)")
         print(f"{name}: {total} cycles of one consumer lane of CTA 0")
         for slot, c in zip(SLOTS[:-1], cycles[:-1]):
             print(f"  {slot:24s} {c:10d}  {c / total:.4f}")
