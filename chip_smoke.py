@@ -10,7 +10,8 @@ Phases (any failure exits non-zero):
    nvcc per source, in parallel, cached libraries removed first so that the
    time is the build's; registers, spills and shared memory of every kernel
    from the ``ptxas`` log; fails if the dense score's warp-specialised kernel
-   spills;
+   or B3 backward's ``wgmma`` row kernel spills, or if ptxas serializes the
+   latter's ``wgmma`` (C7512/C7520);
 3. kernels against their plain PyTorch versions at the main paths' shapes:
    the tile product of the warp-specialised kernels alone against a matrix
    product; the packed score step (B1) with the 8 trained campaign members on
@@ -26,7 +27,10 @@ Phases (any failure exits non-zero):
    the fused SchNet stack (B3's forward and
    backward, B4) with seed106's stack weights on edge features from the
    port's dense model, bfloat16 at the training batch (B=200) in both
-   training buckets (N=16, N=24) and float32 at B=16, N=24; errors, times
+   training buckets (N=16, N=24) and float32 at B=16, N=24, the backward's
+   two bf16 calls bitwise equal and through its ``wgmma`` row kernel (float32
+   through none), with its time split under torch.profiler into the row
+   kernel and the weight-gradient kernels beside their bounds; errors, times
    (CUDA events: the median and the minimum of five timings of 20 launches,
    with the SM clock and temperature before and after) and the bound of each;
 4. sampling main path: the port's sampling CLI on 200 synthetic reactions
@@ -39,7 +43,8 @@ Phases (any failure exits non-zero):
 5. sampling profile: 20 steps at N=24 under torch.profiler;
 6. training main path: the port's train CLI at full width (H=256, L=7,
    batch 200, bf16, ``use_pallas``) for 40 iterations on a synthetic corpus;
-   checks the stack kernels' launch counts, no plain-version call, finite
+   checks the stack kernels' launch counts (every backward call through the
+   ``wgmma`` row kernel), no plain-version call, finite
    losses and a written checkpoint, and reads the CLI's graphs/s over the
    run; then 20 steps on one fixed batch (the loss must fall), the time per
    step and a profile; then samples 8 reactions with the checkpoint it
@@ -180,7 +185,7 @@ def phase_build() -> None:
     print(f"[build] {', '.join(f'{n}.cu' for n in SOURCES)} built in "
           f"{time.monotonic() - t0:.1f} s, one nvcc each in parallel (" + ", ".join(
               f"{n} {_build.build_info[n]['seconds']:.1f} s" for n in SOURCES) + ")")
-    spills, wg_dense_spills = 0, None
+    spills, wg_dense_spills, wg_rows_spills = 0, None, None
     for name in SOURCES:
         # ptxas -v: "Compiling entry function '<mangled>'", then its stack and
         # spill line, then "Used N registers, ..."
@@ -198,12 +203,24 @@ def phase_build() -> None:
                 spills += n_spill
                 if kernel == "condensed_score_wg_kernel":
                     wg_dense_spills = n_spill
+                if kernel == "schnet_bwd_rows_wg_kernel":
+                    wg_rows_spills = n_spill
                 print(f"[build] {name}: {kernel}: {line.strip().replace('ptxas info    : ', '')}; "
                       f"{stack}")
     print(f"[build] spill stores over all kernels: {spills} bytes; of the dense score's "
-          f"warp-specialised kernel: {wg_dense_spills} bytes (must be 0)")
+          f"warp-specialised kernel: {wg_dense_spills} bytes, of B3 backward's wgmma row kernel: "
+          f"{wg_rows_spills} bytes (both must be 0)")
     if wg_dense_spills != 0:
         fail(f"condensed_score_wg_kernel spills {wg_dense_spills} bytes (or was not found)")
+    if wg_rows_spills != 0:
+        fail(f"schnet_bwd_rows_wg_kernel spills {wg_rows_spills} bytes (or was not found)")
+    # ptxas says C7512 / C7520 where it serializes a kernel's wgmma
+    serialized = [line.strip() for line in _build.build_info["schnet_stack"]["log"].splitlines()
+                  if re.search(r"C75(12|20)", line)]
+    print(f"[build] schnet_stack: {len(serialized)} wgmma serialization lines (C7512/C7520)"
+          + "".join(f"\n[build]   {line[:200]}" for line in serialized))
+    if any("schnet_bwd_rows_wg_kernel" in line for line in serialized):
+        fail("ptxas serializes the wgmma of schnet_bwd_rows_wg_kernel")
 
 
 def load_member(seed: int, dtype, device, **model_overrides):
@@ -494,6 +511,46 @@ def stack_inputs(B: int, n_bucket: int, dname: str, seed: int):
     return w, h, ea, c, g
 
 
+def bwd_split(tag: str, call, B: int, N: int, H: int, L: int, dtype, n_calls: int = 3) -> dict:
+    """B3 backward's time per call by kernel under torch.profiler (device
+    events), its row kernel and its weight-gradient kernels beside their
+    bounds, and the host-side arrangement (the weight image, ea's tile
+    images) as the rest of the call's device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tsdiff_tpu_torch.ops import schnet_stack as ss
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_calls):
+            call()
+        torch.cuda.synchronize()
+    rows = device_kernels(prof, n_calls)
+    part = {"rows": sum(ms for ms, _, name in rows if "schnet_bwd_rows" in name),
+            "xty": sum(ms for ms, _, name in rows if "schnet_bwd_xty" in name
+                       or "schnet_bwd_reduce" in name),
+            "sum": sum(ms for ms, _, name in rows if "schnet_bwd_sum" in name),
+            "other": sum(ms for ms, _, name in rows if "schnet_bwd_" not in name)}
+    if part["rows"] == 0.0:
+        print(f"[kernels] schnet_stack_bwd {tag}: the profiler shows no device time: split not "
+              f"measured")
+        return part
+    out = []
+    for kind, key in (("bwd_rows", "rows"), ("bwd_xty", "xty")):
+        cost = ss.schnet_stack_cost(B, N, H, L, dtype, kind)
+        t_ops, t_bytes = cost["flops"] / PEAK_FLOPS["bfloat16"] * 1e3, cost["bytes"] / PEAK_BYTES * 1e3
+        out.append(f"{key} {part[key]:.4f} ms (bound {max(t_ops, t_bytes):.4f} by "
+                   f"{'operations' if t_ops >= t_bytes else 'bytes'}: {cost['flops']:.4g} flop in "
+                   f"{t_ops:.4f} ms, {cost['bytes']:.4g} bytes in {t_bytes:.4f} ms)")
+    print(f"[kernels] schnet_stack_bwd {tag} per call under torch.profiler: " + "; ".join(out)
+          + f"; bias sums {part['sum']:.4f} ms; other device time (zeroing, the weight image and "
+          f"ea's tile images, casts) {part['other']:.4f} ms; kernels: " + ", ".join(
+              f"{name[:40]} {ms:.4f} ms x{n:.0f}" for ms, n, name in rows[:6]))
+    return part
+
+
 def phase_stack_kernels() -> dict:
     """B3's forward and backward and B4 against their plain versions: bf16 at
     the training batch (B=200) in both of the training run's buckets, f32 at
@@ -518,9 +575,22 @@ def phase_stack_kernels() -> dict:
         torch.cuda.synchronize()
         e_fwd = max(check_close(f"schnet_stack_fwd {tag} out", out, ref_out, dname),
                     check_close(f"schnet_stack_fwd {tag} hs", hs, ref_hs, dname))
+        wg_before = ss.schnet_stack_bwd.wg_launches
         dh, dea, grads = ss.schnet_stack_bwd(w, ea, c, ref_hs, g)
+        again = ss.schnet_stack_bwd(w, ea, c, ref_hs, g)
         rdh, rdea, rgrads = ss.schnet_stack_bwd_reference(w, ea, c, ref_hs, g)
         torch.cuda.synchronize()
+        # bf16 takes the wgmma row kernel, f32 the mma.sync one
+        took_wg = ss.schnet_stack_bwd.wg_launches - wg_before
+        same = (torch.equal(dh, again[0]) and torch.equal(dea, again[1])
+                and all(torch.equal(grads[k], again[2][k]) for k in ss.W_KEYS))
+        print(f"[kernels] schnet_stack_bwd {tag}: {took_wg} of 2 calls took the wgmma row kernel; "
+              f"two calls bitwise equal in dh, dea and the nine gradients: {same}")
+        if took_wg != (2 if dtype == torch.bfloat16 else 0):
+            fail(f"schnet_stack_bwd {tag}: {took_wg} calls took the wgmma row kernel")
+        if not same:
+            fail(f"schnet_stack_bwd {tag}: two calls on the same inputs differ")
+        del again
         e_bwd = max([check_close(f"schnet_stack_bwd {tag} dh", dh, rdh, dname),
                      check_close(f"schnet_stack_bwd {tag} dea", dea, rdea, dname)]
                     + [check_close(f"schnet_stack_bwd {tag} d{k}", grads[k], rgrads[k], dname)
@@ -546,6 +616,9 @@ def phase_stack_kernels() -> dict:
                 lambda: ss.interaction_stack_reference(w, h, ea, c),
                 ss.schnet_stack_cost(B, N, H, L, dtype, "stack"), dname), max_abs_err=e_b4),
         }
+        if dtype == torch.bfloat16:
+            result[(N, dname)]["bwd_split"] = bwd_split(
+                tag, lambda: ss.schnet_stack_bwd(w, ea, c, ref_hs, g), B, N, H, L, dtype)
         del w, h, ea, c, g, ref_hs, ea4, c3
         torch.cuda.empty_cache()
     print("[kernels] tolerances (max, mean abs err / max|ref|): float32 (1e-4, 1e-4), only the "
@@ -851,7 +924,7 @@ def phase_train() -> dict:
                       or it == iters)
     expect_fwd, expect_bwd = iters + validations * val_batches, iters
     ss.schnet_stack_fwd.launches = ss.schnet_stack_bwd.launches = 0
-    ss.interaction_stack_pallas.launches = 0
+    ss.schnet_stack_bwd.wg_launches = ss.interaction_stack_pallas.launches = 0
     ss.schnet_stack_fwd_reference.calls = ss.schnet_stack_bwd_reference.calls = 0
     ss.interaction_stack_reference.calls = 0
     t0 = time.monotonic()
@@ -860,16 +933,20 @@ def phase_train() -> dict:
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = (ss.schnet_stack_fwd.launches, ss.schnet_stack_bwd.launches)
+    bwd_wg = ss.schnet_stack_bwd.wg_launches
     b4_launches = ss.interaction_stack_pallas.launches
     plain = (ss.schnet_stack_fwd_reference.calls, ss.schnet_stack_bwd_reference.calls,
              ss.interaction_stack_reference.calls)
     print(f"[train] {iters} iterations of batch {B} (buckets {buckets}), {validations} "
           f"validations of {val_batches} batches, in {wall:.3f} s: B3 forward launches "
           f"{launches[0]} (expected {expect_fwd}), B3 backward launches {launches[1]} (expected "
+          f"{expect_bwd}), of them through the wgmma row kernel {bwd_wg} (expected "
           f"{expect_bwd}), B4 launches {b4_launches} (not on this path), plain-version calls "
           f"{plain}")
     if launches != (expect_fwd, expect_bwd):
         fail(f"stack kernels launched {launches}, expected {(expect_fwd, expect_bwd)}")
+    if bwd_wg != expect_bwd:
+        fail(f"{bwd_wg} of {launches[1]} B3 backward calls took the wgmma row kernel")
     if any(plain):
         fail(f"the plain stack versions ran {plain} times on the training path")
     with open(os.path.join(log_dir, "log.txt")) as f:
@@ -944,7 +1021,8 @@ def phase_train() -> dict:
         busy = fwd + sum(ms for ms, _ in bwd) + sum(ms for ms, _ in other)
         print(f"[train] device time per step: B3 forward {fwd:.4f} ms, B3 backward "
               f"{sum(ms for ms, _ in bwd):.4f} ms (" + ", ".join(
-                  f"{re.search(r'schnet_bwd_[a-z]+', name).group(0)} {ms:.4f}" for ms, name in bwd)
+                  f"{re.search(r'schnet_bwd_[a-z]+(_wg)?', name).group(0)} {ms:.4f}"
+                  for ms, name in bwd)
               + f"), all other kernels {sum(ms for ms, _ in other):.4f} ms "
               f"({sum(n for _, n in other):.1f} launches/step); device busy "
               f"{busy / step_ms:.4f} of wall, idle {1 - busy / step_ms:.4f}")

@@ -3,7 +3,8 @@ packed score step (B1) and its int8 variant (B5): for each the warp-specialised 
 in bfloat16, the mma.sync kernel in float32 and the tile product of the
 former alone; the dense score step (B2): its warp-specialised wgmma kernel in
 bfloat16 and its mma.sync kernel in float32; and the fused SchNet stack
-(B3's forward and backward, B4).
+(B3's forward and backward, B4; the backward's wgmma row kernel in bfloat16
+and its mma.sync one in float32).
 
 Every test here needs an NVIDIA GPU with nvcc (marker ``cuda``) and skips
 without one.  The file imports neither JAX nor the JAX package, so on a
@@ -436,15 +437,72 @@ def test_stack_forward_matches_reference(cuda, dtype, N):
 def test_stack_backward_matches_reference(cuda, dtype, N):
     w, h, ea, c, cot = stack_inputs(3, N, 256, 2, dtype, cuda, seed=100 + N)
     _, hs = ss.schnet_stack_fwd_reference(w, h, ea, c)
-    launches = ss.schnet_stack_bwd.launches
+    launches, wg_launches = ss.schnet_stack_bwd.launches, ss.schnet_stack_bwd.wg_launches
     dh, dea, grads = ss.schnet_stack_bwd(w, ea, c, hs, cot)
     torch.cuda.synchronize()
     assert ss.schnet_stack_bwd.launches == launches + 1
+    # bf16 takes the wgmma row kernel, f32 the mma.sync one
+    assert ss.schnet_stack_bwd.wg_launches == wg_launches + int(dtype == torch.bfloat16)
     rdh, rdea, rgrads = ss.schnet_stack_bwd_reference(w, ea, c, hs, cot)
     assert_close(f"bwd dh N={N}", dh, rdh, dtype)
     assert_close(f"bwd dea N={N}", dea, rdea, dtype)
     for k in ss.W_KEYS:
         assert_close(f"bwd d{k} N={N}", grads[k], rgrads[k], dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [8, 16, 24])
+@pytest.mark.parametrize("B", [1, 3, 200])
+def test_stack_bwd_wg_kernel_shapes_zero_mask_and_repeat(cuda, B, N):
+    """The wgmma row kernel at one, three and the training batch's 200
+    graphs, with a source node's whole row of the cutoff mask zero in every
+    graph and graph 0 without any edge: two launches bitwise equal in dh, dea
+    and all nine gradients (no atomics, fixed summation orders), both counted
+    as the wgmma kernel's, and both against the plain version."""
+    L = 2
+    w, h, ea, c, cot = stack_inputs(B, N, 256, L, torch.bfloat16, cuda, seed=7 * N + B)
+    c = c.reshape(B, N, N).clone()
+    c[:, 1, :] = 0
+    c[0] = 0
+    c = c.reshape(B, N * N).contiguous()
+    _, hs = ss.schnet_stack_fwd_reference(w, h, ea, c)
+    before, wg_before = ss.schnet_stack_bwd.launches, ss.schnet_stack_bwd.wg_launches
+    first = ss.schnet_stack_bwd(w, ea, c, hs, cot)
+    again = ss.schnet_stack_bwd(w, ea, c, hs, cot)
+    torch.cuda.synchronize()
+    assert ss.schnet_stack_bwd.launches == before + 2
+    assert ss.schnet_stack_bwd.wg_launches == wg_before + 2
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+    for k in ss.W_KEYS:
+        assert torch.equal(first[2][k], again[2][k]), k
+    rdh, rdea, rgrads = ss.schnet_stack_bwd_reference(w, ea, c, hs, cot)
+    assert_close(f"bwd wg dh B={B} N={N}", first[0], rdh, torch.bfloat16)
+    assert_close(f"bwd wg dea B={B} N={N}", first[1], rdea, torch.bfloat16)
+    for k in ss.W_KEYS:
+        assert_close(f"bwd wg d{k} B={B} N={N}", first[2][k], rgrads[k], torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_stack_bwd_wg_kernel_needs_the_arranged_weights(cuda):
+    """A misshaped or mistyped weight image raises before any launch: the
+    wgmma row kernel does not give way to the mma.sync kernel or to the plain
+    version; the image the wrapper makes itself gives the same result as one
+    passed in."""
+    w, h, ea, c, cot = stack_inputs(2, 8, 256, 1, torch.bfloat16, cuda)
+    _, hs = ss.schnet_stack_fwd_reference(w, h, ea, c)
+    image = ss.arrange_stack_bwd_weights(w)
+    calls = ss.schnet_stack_bwd_reference.calls
+    launches, wg_launches = ss.schnet_stack_bwd.launches, ss.schnet_stack_bwd.wg_launches
+    for bad in (image[:-8], image.float(), torch.cat([image, image])):
+        with pytest.raises(ValueError):
+            ss.schnet_stack_bwd(w, ea, c, hs, cot, image=bad)
+    assert ss.schnet_stack_bwd_reference.calls == calls
+    assert (ss.schnet_stack_bwd.launches, ss.schnet_stack_bwd.wg_launches) == \
+        (launches, wg_launches)
+    given = ss.schnet_stack_bwd(w, ea, c, hs, cot, image=image)
+    made = ss.schnet_stack_bwd(w, ea, c, hs, cot)
+    torch.cuda.synchronize()
+    assert torch.equal(given[0], made[0]) and torch.equal(given[1], made[1])
 
 
 @pytest.mark.cuda

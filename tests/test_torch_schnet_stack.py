@@ -135,3 +135,12 @@ def test_cost_counts():
     assert abs(fwd["flops"] / 2.25e11 - 1) < 0.01
     assert abs(bwd["flops"] / 6.7e11 - 1) < 0.01
     assert ss.schnet_stack_cost(200, 24, 256, 7, torch.bfloat16, "stack")["bytes"] < fwd["bytes"]
+    # the backward's row kernels and weight-gradient kernels share its flop
+    rows = ss.schnet_stack_cost(200, 24, 256, 7, torch.bfloat16, "bwd_rows")
+    xty = ss.schnet_stack_cost(200, 24, 256, 7, torch.bfloat16, "bwd_xty")
+    assert rows["flops"] == 2 * 200 * 7 * (4 * P * H * H + 5 * 24 * H * H)
+    assert abs(rows["flops"] / 4.45e11 - 1) < 0.01 and abs(xty["flops"] / 2.25e11 - 1) < 0.01
+    assert rows["flops"] + xty["flops"] == bwd["flops"]
+    # both write or read the per-block scratch between them, which the whole
+    # backward's count does not see
+    assert rows["bytes"] > bwd["bytes"] and xty["bytes"] > bwd["bytes"]

@@ -32,11 +32,14 @@
 //     sources needs no atomics and is deterministic.  The template flag
 //     kStoreHs compiles the store of the block inputs hs in (B3) or out (B4).
 //   * Backward, one round per block l, from L-1 down to 0:
-//     - schnet_bwd_rows_kernel, one CTA per graph: recomputes block l,
-//       updates the f32 cotangent g (B, N, H) and the f32 dea (B, P, E) in
-//       place (each graph's rows belong to one CTA), and writes the per-row
-//       factors of the weight gradients to scratch in T, plus per-graph f32
-//       column sums for the four bias gradients;
+//     - the row kernel, one CTA per graph: recomputes block l, updates the
+//       f32 cotangent g (B, N, H) and the f32 dea (B, P, E) in place (each
+//       graph's rows belong to one CTA), and writes the per-row factors of
+//       the weight gradients to scratch in T, plus per-graph f32 column sums
+//       for the four bias gradients.  bf16 at H = 256 and N <= 24 takes
+//       schnet_bwd_rows_wg_kernel (wgmma on csrc/wg_pipeline.cuh, below);
+//       f32 and other shapes take schnet_bwd_rows_kernel (mma.sync), by the
+//       explicit branch in launch_bwd;
 //     - schnet_bwd_sum_kernel sums the bias partials over graphs;
 //     - schnet_bwd_xty_kernel is a split-K X^T Y over all rows of all graphs
 //       for the five weight gradients of block l (f32 accumulation), and
@@ -54,8 +57,55 @@
 // TMA, weights re-read from L2 once per row tile, the backward's per-row
 // factors round-trip through global memory, and the f32 path (which exists
 // to check the kernels against the plain version) runs FMA loops.
+//
+// The row kernel on Hopper, schnet_bwd_rows_wg_kernel (bf16, H = F = E =
+// 256, N <= 24, N % 8 == 0 so that P = N*N fills whole 64-row tiles).  Its
+// own products are 2*B*(2*P*H^2 + 2*P*H^2 + 5*N*H^2) flop per block: at the
+// training shapes 4.45e11 over the 7 blocks, 0.45 ms at 989 TFLOP/s
+// (ops/schnet_stack.py::schnet_stack_cost, "bwd_rows").  The design is the
+// dense score kernel's (csrc/condensed_score.cu):
+//   * the grid.  One CTA per graph: at B = 200 that is 200 CTAs on 132 SMs,
+//     1.52 waves, 5 tile pairs per CTA and pass at N = 24.  A two-CTA
+//     cluster per graph (400 CTAs, 3.03 waves of 3 and 2 tile pairs, agg,
+//     dxh and dagg exchanged through distributed shared memory) makes 4
+//     waves of 3 pairs = 12 pair units against 2 waves of 5 = 10, plus the
+//     exchange; persistent CTAs (132, each walking 1.52 graphs) leave the
+//     same 2 waves' worth on the busiest SM.  One CTA per graph is the least.
+//   * a producer warp walks the static schedule of weight stages
+//     (ops/schnet_stack.py::stack_bwd_schedule) through the 3-stage ring from
+//     the image of the block's nine matrices (arrange_stack_bwd_weights,
+//     made on the host per backward call: forward products read f1w^T,
+//     f2w^T, l1w^T, l2w^T, the transposed ones ow, l2w, f2w, f1w, l1w as
+//     they are, so every product has a weight matrix as its B operand and
+//     runs on wg::mma_stage_bf16 unchanged), and it fetches the ea tile
+//     images (tile_image(ea, 64), made once per backward call) into tile A.
+//   * pass 1, per tile pair: a1 = ea f1w + f1b -> s1 (tile B, global),
+//     rnd(sigmoid(a1)) (global sg1); a2 = s1 f2w + f2b -> w = rnd(rnd(a2) c)
+//     (tile A, global); agg[j] += rnd(w[i*N+j] xh[i]), i ascending.
+//   * node stage, the two warpgroups on alternate 32-column stages: a3 =
+//     rnd(agg) l2w + l2b -> s3, sigmoid(a3); da3 = (rnd(g) ow^T) sigmoid(a3);
+//     dagg = rnd(rnd(da3) l2w^T).  The B tiles and warpgroup 0's A tile hold
+//     the node images; h's slot takes dagg, the f32 agg buffer takes in turn
+//     agg, sigmoid(a3), da3 and dxh.
+//   * pass 2, per tile pair: one bulk copy brings the tile's w rows (row
+//     major, as pass 1 stored them) into tile B; the consumers build the
+//     da2 = rnd(rnd(xh[i] dagg[j]) c) tile image in tile A and store it;
+//     dxh[i] += rnd(w[i*N+j] dagg[j]), j ascending, pair after pair (the
+//     two warpgroups take alternate source nodes: no atomics, bitwise
+//     repeatable); ds1 = da2 f2w^T -> da1 = rnd(rnd(ds1) sg1) (tile B,
+//     global); dea[p] += da1 f1w^T, an f32 read-modify-write of the graph's
+//     own rows.  w, sg1 and dea of the next tile pair are put into L2 ahead.
+//   * end: g += rnd(dxh) l1w^T.  Column sums for the bias gradients in a
+//     fixed order: per thread over its tiles' rows, warpgroup 0's plus
+//     warpgroup 1's.
+//   Global stores go at constant offsets from per-tile row bases; warp
+//   indices come from __shfl_sync (ptxas serializes wgmma under a branch it
+//   takes for divergent); every mbarrier wait is bounded.
+
+#include <type_traits>
 
 #include "graph_block.cuh"
+#include "wg_pipeline.cuh"
 
 namespace {
 
@@ -72,7 +122,7 @@ using tile::ssp_f;
 using tile::to_f;
 
 constexpr int kFwdPtrs = 14;
-constexpr int kBwdPtrs = 39;
+constexpr int kBwdPtrs = 41;
 constexpr int kJobs = 5;          // weight-gradient products per block
 constexpr int kXtyTile = 64;      // output tile edge of one X^T Y CTA
 constexpr int kXtyRows = 32;      // rows staged per step
@@ -346,6 +396,541 @@ __global__ void __launch_bounds__(kThreads, 1) schnet_bwd_rows_kernel(BwdParams<
   });
 }
 
+// ---------------------------------------------------------------------------
+// The row kernel on the warp-specialised pipeline (bf16, H = 256, N <= 24)
+
+using wgb::act_ssp;
+using wgb::bf16;
+using wgb::GraphSmem;
+using wgb::kH;
+using wgb::kHH;
+using wgb::kStageElems;
+using wgb::kStagesPerMat;
+using wgb::kTileElems;
+using wgb::ld2;
+using wgb::ld_shared32;
+using wgb::rb;
+using wgb::st_shared32;
+using wg::img_off;
+using wg::pack_bf16;
+using wg::unpack_bf16;
+
+// The nine matrices of a block in the arranged image, in the order the
+// producer walks them (ops/schnet_stack.py::STACK_BWD_ORDER): the forward
+// products' B operands are the transposed (out, in) matrices, the backward's
+// the (in, out) matrices as they are.
+enum StackMat { kL1wT, kF1wT, kF2wT, kL2wT, kOw, kL2w, kF2w, kF1w, kL1w, kStackMats };
+
+// Shared memory, offsets from a 1024-byte aligned base: h as a node tile
+// image (later dagg as N plain rows, then rnd(dxh) as a node image), xh as N
+// plain rows, the tiles A0, B0, A1, B1, the f32 node buffer (agg, then
+// sigmoid(a3), da3, dxh), and six mbarriers beside the ring's: per
+// warpgroup the ea tile (full, empty) and the w tile of pass 2 (full).  At
+// N = 24 the ring has 3 stages.
+__host__ __device__ inline GraphSmem stack_bwd_layout(int N) {
+  GraphSmem s;
+  s.node_stride = N * 128;
+  s.h = 0;
+  s.xh = 4 * s.node_stride;
+  s.tiles = 8 * s.node_stride;
+  s.agg = s.tiles + 4 * wg::kTileBytes;
+  s.tab = s.agg + N * kH * 4;  // no table
+  s.bars = s.tab;
+  s.ring = (s.bars + 8 * (2 * wg::kMaxStages + 6) + 1023) / 1024 * 1024;
+  const uint32_t room =
+      s.ring + 1024 < wgb::kMaxSmem ? (uint32_t)wgb::kMaxSmem - 1024 - s.ring : 0;
+  s.stages = room / wg::kStageBytes < wg::kMaxStages ? room / wg::kStageBytes : wg::kMaxStages;
+  s.total = s.ring + s.stages * wg::kStageBytes + 1024;  // and the slack of the alignment
+  return s;
+}
+
+bool bwd_wg_takes(int N, int H, int is_bf16) {
+  return is_bf16 && H == kH && N > 0 && N % 8 == 0 && N <= 24 && stack_bwd_layout(N).stages >= 3;
+}
+
+// global -> L2, `bytes` a multiple of 16, 16-byte aligned
+__device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ float act_sigmoid(float x) { return __fdividef(1.0f, 1.0f + __expf(-x)); }
+__device__ __forceinline__ void st_global32(bf16* p, uint32_t v) {
+  *reinterpret_cast<uint32_t*>(p) = v;
+}
+// two bf16 values this kernel wrote earlier (through L2, not the read-only path)
+__device__ __forceinline__ float2 ld_cg2(const bf16* p) {
+  return unpack_bf16(__ldcg(reinterpret_cast<const unsigned int*>(p)));
+}
+// the product of two packed bf16 pairs rounded once to bf16, as float2
+__device__ __forceinline__ float2 mul_bf16x2(uint32_t a, uint32_t b) {
+  return __bfloat1622float2(__hmul2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+                                    *reinterpret_cast<const __nv_bfloat162*>(&b)));
+}
+__device__ __forceinline__ void add2(float2& s, float2 v) {
+  s.x += v.x;
+  s.y += v.y;
+}
+
+// The dense aggregation of tile pair tp's rows (csrc/condensed_score.cu's):
+// the w tiles in the A tiles of the two warpgroups, a warpgroup half the
+// receiving nodes j, a thread two feature columns of four nodes at a time;
+// every node sums its N sources in ascending i.  (The caller has put a
+// barrier of the consumers before and puts one after.)
+__device__ __forceinline__ void aggregate_dense_pair(unsigned char* sm, const GraphSmem& lay,
+                                                     float* agg, int tp, int w, int ct, int N,
+                                                     int P) {
+  const int pr0 = 128 * tp, nrows = min(P, pr0 + 128) - pr0;
+  const int i_lo = pr0 / N, i_hi = (pr0 + nrows - 1) / N, half = N / 2;
+  const uint32_t w_col = lay.tiles + (ct >> 5) * wg::kAtomBytes + (ct & 3) * 4;
+  const uint32_t w_unit = (ct >> 2) & 7, x_col = lay.xh + 4 * ct;
+  for (int n0 = w * half; n0 < (w + 1) * half; n0 += 4) {
+    float2 v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      v[u] = *reinterpret_cast<const float2*>(agg + (n0 + u) * kH + 2 * ct);
+    for (int i = i_lo; i <= i_hi; ++i) {
+      const uint32_t x2 = ld_shared32(sm, x_col + i * (2 * kH));
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int pr = i * N + n0 + u;
+        const bool in = (unsigned)(pr - pr0) < (unsigned)nrows;
+        const uint32_t q = in ? pr - pr0 : 0;  // row q & 63 of warpgroup q >> 6's tile A
+        const uint32_t wraw = ld_shared32(sm, w_col + (q >> 6) * (2 * wg::kTileBytes) +
+                                                  (q & 63) * 128 + (((q & 7) ^ w_unit) << 4));
+        add2(v[u], mul_bf16x2(in ? wraw : 0u, x2));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      *reinterpret_cast<float2*>(agg + (n0 + u) * kH + 2 * ct) = v[u];
+  }
+}
+
+// dxh[i] += rnd(w[i*N+j] * dagg[j]) over the rows i*N+j of tile pair tp, j
+// ascending.  The w rows sit as plain 512-byte rows in the B tiles of the two
+// warpgroups, dagg as N plain rows in h's slot.  Warpgroup w takes the pair's
+// sources i_lo + w, i_lo + w + 2, ..., a thread two feature columns; pairs
+// come in order, so every source sums its N targets in ascending j, the same
+// f32 sums in every run.  (The caller has put a barrier of the consumers
+// before, once both w tiles have arrived, and puts one after.)
+__device__ __forceinline__ void dxh_pair(unsigned char* sm, const GraphSmem& lay, float* dxh,
+                                         int tp, int w, int ct, int N, int P) {
+  const int pr0 = 128 * tp, nrows = min(P, pr0 + 128) - pr0;
+  const int i_lo = pr0 / N, i_hi = (pr0 + nrows - 1) / N;
+  const uint32_t w_col = lay.tiles + wg::kTileBytes + 4 * ct, d_col = lay.h + 4 * ct;
+  for (int i = i_lo + w; i <= i_hi; i += 2) {
+    float2 v = *reinterpret_cast<const float2*>(dxh + i * kH + 2 * ct);
+    const int j_lo = max(0, pr0 - i * N), j_hi = min(N - 1, pr0 + nrows - 1 - i * N);
+    for (int j = j_lo; j <= j_hi; ++j) {
+      const uint32_t q = i * N + j - pr0;  // row q & 63 of warpgroup q >> 6's tile B
+      add2(v, mul_bf16x2(ld_shared32(sm, w_col + (q >> 6) * (2 * wg::kTileBytes) + (q & 63) * 512),
+                         ld_shared32(sm, d_col + j * (2 * kH))));
+    }
+    *reinterpret_cast<float2*>(dxh + i * kH + 2 * ct) = v;
+  }
+}
+
+__global__ void __launch_bounds__(wg::kThreads, 1)
+schnet_bwd_rows_wg_kernel(BwdParams<bf16> p, const bf16* __restrict__ wimg,
+                          const bf16* __restrict__ ea_img) {
+  extern __shared__ unsigned char smem_raw[];
+  const int N = p.N, P = N * N, B = p.B, l = p.l, ntiles = P / 64, npairs = (ntiles + 1) / 2;
+  const GraphSmem lay = stack_bwd_layout(N);
+  const uint32_t raw = wg::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  const uint32_t full = base + lay.bars, empty = full + 8 * wg::kMaxStages;
+  const uint32_t afull = empty + 8 * wg::kMaxStages, aempty = afull + 16, wfull = aempty + 16;
+  float* agg = reinterpret_cast<float*>(sm + lay.agg);
+  const uint32_t ns = lay.node_stride;
+
+  const int b = blockIdx.x, tid = threadIdx.x;
+  // warp-uniform by construction, and known to the compiler as such: wgmma
+  // under a branch it takes for divergent is serialized
+  const int warp_idx = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const size_t prow = (size_t)b * P, nrow = (size_t)b * N;  // the graph's first pair / node row
+  const bf16* wl = wimg + (size_t)l * kStackMats * kHH;     // block l's nine matrices
+
+  // barriers; the block input h_l as a node tile image, and to hl
+  if (tid == 0) {
+    wg::ring_init(full, empty, lay.stages);
+    for (int w = 0; w < 2; ++w) {
+      wg::mbar_init(afull + 8 * w, 1);
+      wg::mbar_init(aempty + 8 * w, 1);
+      wg::mbar_init(wfull + 8 * w, 1);
+    }
+    wg::mbar_init_fence();
+  }
+  const bf16* h_g = p.hs + ((size_t)b * p.L + l) * N * kH;
+  for (int idx = tid; idx < N * 32; idx += wg::kThreads) {
+    const int row = idx >> 5, unit = idx & 31;
+    const uint4 v = *reinterpret_cast<const uint4*>(h_g + (size_t)row * kH + unit * 8);
+    *reinterpret_cast<uint4*>(sm + lay.h + img_off<2>(row, unit * 8, ns)) = v;
+    *reinterpret_cast<uint4*>(p.hl + (nrow + row) * kH + unit * 8) = v;
+  }
+  wg::fence_async_shared();
+  __syncthreads();
+
+  if (warp_idx >= wg::kConsumers / 32) {
+    // ===== producer: the static schedule of weight stages and ea tiles =====
+    wg::reg_dealloc<wg::kRegsProducer>();
+    if (tid == wg::kConsumers) {
+      wg::Ring ring{full, empty, base + lay.ring, lay.stages};
+      auto fill_mat = [&](int m) {
+        for (int c = 0; c < kStagesPerMat; ++c) ring.fill(wl + (size_t)m * kHH + c * kStageElems);
+      };
+      const bf16* ea_g = ea_img + prow * kH;  // the graph's P / 64 tile images
+      fill_mat(kL1wT);
+      uint32_t aphase = 0;  // bit w: the parity warpgroup w's tile A was last waited on
+      for (int tp = 0; tp < npairs; ++tp) {
+        for (int w = 0; w < 2; ++w) {
+          const int ti = 2 * tp + w;
+          if (ti >= ntiles) continue;
+          wg::mbar_wait(aempty + 8 * w, ((aphase >> w) & 1) ^ 1);
+          aphase ^= 1u << w;
+          wg::mbar_expect_tx(afull + 8 * w, wg::kTileBytes);
+          wg::bulk_load(base + lay.tiles + 2 * w * wg::kTileBytes, ea_g + (size_t)ti * kTileElems,
+                        wg::kTileBytes, afull + 8 * w);
+        }
+        fill_mat(kF1wT);
+        fill_mat(kF2wT);
+      }
+      fill_mat(kL2wT);
+      fill_mat(kOw);
+      fill_mat(kL2w);
+      for (int tp = 0; tp < npairs; ++tp) {
+        fill_mat(kF2w);
+        fill_mat(kF1w);
+      }
+      fill_mat(kL1w);
+    }
+    return;
+  }
+
+  // ===== consumers: one 64-row tile of each tile pair per warpgroup =====
+  wg::reg_alloc<wg::kRegsConsumer>();
+  WG_T_BEGIN(t_consumer);
+  wg::Ring ring{full, empty, base + lay.ring, lay.stages};
+  const int w = warp_idx >> 2, ct = tid & 127, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r_lo = ((ct >> 5) << 4) + g, r_hi = r_lo + 8;
+  const bool elected = ct == 0;
+  const int bar_wg = wgb::kBarWg0 + w;
+  const uint32_t ta_off = lay.tiles + 2 * w * wg::kTileBytes, tb_off = ta_off + wg::kTileBytes;
+  const uint32_t tile_a = base + ta_off, tile_b = base + tb_off;
+  const bf16* c_g = p.c + prow;
+  float* g_g = p.g + nrow * kH;
+  const size_t bo = (size_t)l * kH;
+  const bf16 *f1b = p.f1b + bo, *f2b = p.f2b + bo, *l2b = p.l2b + bo;
+  uint32_t hold[64];  // product_bf16's kept registers: unused here (kKeep false)
+  // after generic stores into a tile: visible to wgmma, in every warp
+  auto publish = [&]() {
+    wg::fence_async_shared();
+    wg::bar_sync(bar_wg, 128);
+  };
+  auto consumers_sync = [&]() { wg::bar_sync(wgb::kBarConsumers, wg::kConsumers); };
+  // this thread's first element of a tile's pair rows (row r_lo, column 2t):
+  // the epilogues store at constant offsets from it
+  auto row_base = [&](int r0, bool active) {
+    return (prow + (active ? r0 : 0) + r_lo) * kH + 2 * t;
+  };
+  // this warpgroup's rows of tile ti in w, sg1 and dea into L2 (one thread)
+  auto prefetch_rows = [&](int ti) {
+    if (elected && ti < ntiles) {
+      const size_t o = (prow + (size_t)ti * 64) * kH;
+      prefetch_l2(p.w + o, wg::kTileBytes);
+      prefetch_l2(p.sg1 + o, wg::kTileBytes);
+      prefetch_l2(p.dea + o, wg::kTileBytes);
+      prefetch_l2(p.dea + o + kTileElems / 2, wg::kTileBytes);
+    }
+  };
+
+  // xh = rnd(h_l l1w) as N plain rows; agg = 0
+  WG_T(wg::kProfNodeProducts, wgb::block_begin(ring, sm, base, lay, agg, w, tid, r_lo, t, N));
+
+  // ----- pass 1: the filter of every pair tile and the aggregation -----
+  uint32_t afp = 0;
+  for (int tp = 0; tp < npairs; ++tp) {
+    const int ti = 2 * tp + w, r0 = ti * 64;
+    const bool active = ti < ntiles;
+    float c_lo = 0.0f, c_hi = 0.0f;
+    const size_t o_lo = row_base(r0, active);
+    bf16 *s1_lo = p.s1 + o_lo, *sg_lo = p.sg1 + o_lo, *w_lo = p.w + o_lo;
+    if (active) {
+      c_lo = __bfloat162float(c_g[r0 + r_lo]);
+      c_hi = __bfloat162float(c_g[r0 + r_hi]);
+      WG_T(wg::kProfTileWait, wg::mbar_wait(afull + 8 * w, afp));
+      afp ^= 1;
+    }
+    // a1 = ea f1w + f1b: s1 = rnd(ssp(rnd(a1))) into tile B and to global,
+    // rnd(sigmoid(a1)) to global
+    wg::product_bf16<kStagesPerMat, false, false>(
+        ring, active, tile_a, 0, wg::kAtomBytes, hold,
+        [&](int c, float (&acc)[16], uint32_t (&)[8]) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int col = 32 * c + 8 * j;
+            const float2 bias = ld2(f1b, col + 2 * t);
+            const float a00 = acc[4 * j] + bias.x, a01 = acc[4 * j + 1] + bias.y;
+            const float a10 = acc[4 * j + 2] + bias.x, a11 = acc[4 * j + 3] + bias.y;
+            const uint32_t slo = pack_bf16(act_ssp(rb(a00)), act_ssp(rb(a01)));
+            const uint32_t shi = pack_bf16(act_ssp(rb(a10)), act_ssp(rb(a11)));
+            st_shared32(sm, tb_off + img_off<2>(r_lo, col + 2 * t), slo);
+            st_shared32(sm, tb_off + img_off<2>(r_hi, col + 2 * t), shi);
+            st_global32(s1_lo + col, slo);
+            st_global32(s1_lo + 8 * kH + col, shi);
+            st_global32(sg_lo + col, pack_bf16(act_sigmoid(a00), act_sigmoid(a01)));
+            st_global32(sg_lo + 8 * kH + col, pack_bf16(act_sigmoid(a10), act_sigmoid(a11)));
+          }
+        });
+    if (active) publish();  // s1 visible to wgmma; every warp's reads of tile A have ended
+    // w = rnd(rnd(s1 f2w + f2b) * c) into tile A and to global
+    wg::product_bf16<kStagesPerMat, false, false>(
+        ring, active, tile_b, 0, wg::kAtomBytes, hold,
+        [&](int c, float (&acc)[16], uint32_t (&)[8]) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int col = 32 * c + 8 * j;
+            const float2 bias = ld2(f2b, col + 2 * t);
+            const uint32_t lo = pack_bf16(rb(acc[4 * j] + bias.x) * c_lo,
+                                          rb(acc[4 * j + 1] + bias.y) * c_lo);
+            const uint32_t hi = pack_bf16(rb(acc[4 * j + 2] + bias.x) * c_hi,
+                                          rb(acc[4 * j + 3] + bias.y) * c_hi);
+            st_shared32(sm, ta_off + img_off<2>(r_lo, col + 2 * t), lo);
+            st_shared32(sm, ta_off + img_off<2>(r_hi, col + 2 * t), hi);
+            st_global32(w_lo + col, lo);
+            st_global32(w_lo + 8 * kH + col, hi);
+          }
+        });
+    consumers_sync();  // both w tiles are written
+    WG_T(wg::kProfAggregate, aggregate_dense_pair(sm, lay, agg, tp, w, ct, N, P));
+    // the w tiles are read, agg is whole; the generic stores into tile A are
+    // ordered before the bulk copy that refills it
+    wg::fence_async_shared();
+    consumers_sync();
+    if (active && elected) wg::mbar_arrive(aempty + 8 * w);  // tile A takes the next ea tile
+  }
+
+  // ----- node stage -----
+  // the pass-1 scratch stores are ordered before pass 2's bulk copies of w
+  wg::fence_async_all();
+  WG_T_BEGIN(t_node);
+  const uint32_t agg_img = lay.tiles + wg::kTileBytes;     // warpgroup 0's tile B
+  const uint32_t gd_img = lay.tiles + 3 * wg::kTileBytes;  // warpgroup 1's tile B
+  const uint32_t da3_img = lay.tiles;                      // warpgroup 0's tile A
+  for (int idx = tid; idx < N * (kH / 2); idx += wg::kConsumers) {
+    const int row = idx >> 7, col = 2 * (idx & 127);
+    const float2 a = *reinterpret_cast<const float2*>(agg + row * kH + col);
+    const float2 gv = *reinterpret_cast<const float2*>(g_g + row * kH + col);
+    const uint32_t ap = pack_bf16(a.x, a.y), gp = pack_bf16(gv.x, gv.y);
+    st_shared32(sm, agg_img + img_off<2>(row, col, ns), ap);
+    st_shared32(sm, gd_img + img_off<2>(row, col, ns), gp);
+    st_global32(p.agg + (nrow + row) * kH + col, ap);
+    st_global32(p.gd + (nrow + row) * kH + col, gp);
+  }
+  if (tid < kH) {
+    float s = 0.0f;
+    for (int r = 0; r < N; ++r) s += g_g[r * kH + tid];
+    p.bias[(3 * (size_t)B + b) * kH + tid] = s;  // dob
+  }
+  wg::fence_async_shared();
+  consumers_sync();
+  // a3 = rnd(agg) l2w + l2b: s3 to global, sigmoid(a3) into the f32 buffer
+  bf16* s3_g = p.s3 + nrow * kH + 2 * t;
+  wgb::node_product(ring, w, base + agg_img, ns, [&](int c, float (&acc)[16]) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = 32 * c + 8 * j;
+      const float2 bias = ld2(l2b, col + 2 * t);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = h ? r_hi : r_lo;
+        if (r < N) {
+          const float a0 = acc[4 * j + 2 * h] + bias.x, a1 = acc[4 * j + 2 * h + 1] + bias.y;
+          st_global32(s3_g + r * kH + col, pack_bf16(act_ssp(rb(a0)), act_ssp(rb(a1))));
+          *reinterpret_cast<float2*>(agg + r * kH + col + 2 * t) =
+              make_float2(act_sigmoid(a0), act_sigmoid(a1));
+        }
+      }
+    }
+  });
+  consumers_sync();
+  // da3 = (rnd(g) ow^T) sigmoid(a3): f32 in the buffer, rnd(da3) to global
+  // and into a node image
+  bf16* da3_g = p.da3 + nrow * kH + 2 * t;
+  wgb::node_product(ring, w, base + gd_img, ns, [&](int c, float (&acc)[16]) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = 32 * c + 8 * j;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = h ? r_hi : r_lo;
+        if (r < N) {
+          float2* q = reinterpret_cast<float2*>(agg + r * kH + col + 2 * t);
+          const float2 s = *q;
+          const float2 d = make_float2(acc[4 * j + 2 * h] * s.x, acc[4 * j + 2 * h + 1] * s.y);
+          *q = d;
+          const uint32_t pk = pack_bf16(d.x, d.y);
+          st_global32(da3_g + r * kH + col, pk);
+          st_shared32(sm, da3_img + img_off<2>(r, col + 2 * t, ns), pk);
+        }
+      }
+    }
+  });
+  wg::fence_async_shared();
+  consumers_sync();
+  if (tid < kH) {
+    float s = 0.0f;
+    for (int r = 0; r < N; ++r) s += agg[r * kH + tid];
+    p.bias[(2 * (size_t)B + b) * kH + tid] = s;  // dl2b
+  }
+  // dagg = rnd(rnd(da3) l2w^T) as N plain rows in h's slot
+  wgb::node_product(ring, w, base + da3_img, ns, [&](int c, float (&acc)[16]) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = 32 * c + 8 * j + 2 * t;
+      if (r_lo < N)
+        st_shared32(sm, lay.h + (r_lo * kH + col) * 2, pack_bf16(acc[4 * j], acc[4 * j + 1]));
+      if (r_hi < N)
+        st_shared32(sm, lay.h + (r_hi * kH + col) * 2,
+                    pack_bf16(acc[4 * j + 2], acc[4 * j + 3]));
+    }
+  });
+  consumers_sync();  // dagg whole; the dl2b sums have read the buffer
+  for (int idx = tid; idx < N * kH / 4; idx += wg::kConsumers)
+    reinterpret_cast<float4*>(agg)[idx] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // now dxh
+  consumers_sync();
+  WG_T_END(wg::kProfNodeProducts, t_node);
+
+  // ----- pass 2: da2, dxh, da1, dea -----
+  float2 sum_da1 = make_float2(0.0f, 0.0f), sum_da2 = make_float2(0.0f, 0.0f);
+  uint32_t wfp = 0;
+  prefetch_rows(w);
+  for (int tp = 0; tp < npairs; ++tp) {
+    const int ti = 2 * tp + w, r0 = ti * 64;
+    const bool active = ti < ntiles;
+    const size_t o_lo = row_base(r0, active);
+    // tile B is free (every warp's products of the last pair have ended, and
+    // its generic stores are fenced): the tile's w rows into it
+    wg::fence_async_shared();
+    wg::bar_sync(bar_wg, 128);
+    if (active && elected) {
+      wg::mbar_expect_tx(wfull + 8 * w, wg::kTileBytes);
+      wg::bulk_load(tile_b, p.w + (prow + r0) * kH, wg::kTileBytes, wfull + 8 * w);
+    }
+    prefetch_rows(ti + 2);
+    // da2 = rnd(rnd(xh[i] dagg[j]) c) into tile A and to global: a thread
+    // two columns of the 64 rows; their column sums
+    if (active) {
+      WG_T_BEGIN(t_da2);
+      bf16* da2_g = p.da2 + (prow + r0) * kH + 2 * ct;
+      int i = r0 / N, j = r0 - i * N;
+      for (int r = 0; r < 64; ++r) {
+        const float cr = __bfloat162float(c_g[r0 + r]);
+        const float2 x = mul_bf16x2(ld_shared32(sm, lay.xh + i * (2 * kH) + 4 * ct),
+                                    ld_shared32(sm, lay.h + j * (2 * kH) + 4 * ct));
+        const uint32_t d = pack_bf16(x.x * cr, x.y * cr);
+        st_shared32(sm, ta_off + img_off<2>(r, 2 * ct), d);
+        st_global32(da2_g + r * kH, d);
+        add2(sum_da2, unpack_bf16(d));
+        if (++j == N) {
+          j = 0;
+          ++i;
+        }
+      }
+      WG_T_END(wg::kProfFirstLayer, t_da2);
+    }
+    wg::fence_async_shared();
+    consumers_sync();  // da2 tiles written
+    for (int v = 0; v < 2; ++v)  // both tiles' w rows have arrived
+      if (2 * tp + v < ntiles) WG_T(wg::kProfTileWait, wg::mbar_wait(wfull + 8 * v, wfp));
+    wfp ^= 1;
+    WG_T(wg::kProfAggregate, dxh_pair(sm, lay, agg, tp, w, ct, N, P));
+    consumers_sync();  // the w rows are read: tile B takes da1
+    // ds1 = da2 f2w^T -> da1 = rnd(rnd(ds1) * sg1) into tile B and to global
+    const bf16* sg_lo = p.sg1 + o_lo;
+    bf16* da1_lo = p.da1 + o_lo;
+    wg::product_bf16<kStagesPerMat, false, false>(
+        ring, active, tile_a, 0, wg::kAtomBytes, hold,
+        [&](int c, float (&acc)[16], uint32_t (&)[8]) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int col = 32 * c + 8 * j;
+            const float2 sl = ld_cg2(sg_lo + col), sh = ld_cg2(sg_lo + 8 * kH + col);
+            const uint32_t lo = pack_bf16(rb(acc[4 * j]) * sl.x, rb(acc[4 * j + 1]) * sl.y);
+            const uint32_t hi = pack_bf16(rb(acc[4 * j + 2]) * sh.x, rb(acc[4 * j + 3]) * sh.y);
+            st_shared32(sm, tb_off + img_off<2>(r_lo, col + 2 * t), lo);
+            st_shared32(sm, tb_off + img_off<2>(r_hi, col + 2 * t), hi);
+            st_global32(da1_lo + col, lo);
+            st_global32(da1_lo + 8 * kH + col, hi);
+          }
+        });
+    if (active) {
+      publish();  // da1 visible to wgmma
+      WG_T_BEGIN(t_da1);
+      for (int r = 0; r < 64; ++r)
+        add2(sum_da1, unpack_bf16(ld_shared32(sm, tb_off + img_off<2>(r, 2 * ct))));
+      WG_T_END(wg::kProfFirstLayer, t_da1);
+    }
+    // dea += da1 f1w^T, the graph's own f32 rows
+    float* dea_lo = p.dea + o_lo;
+    wg::product_bf16<kStagesPerMat, false, false>(
+        ring, active, tile_b, 0, wg::kAtomBytes, hold,
+        [&](int c, float (&acc)[16], uint32_t (&)[8]) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float2* qlo = reinterpret_cast<float2*>(dea_lo + 32 * c + 8 * j);
+            float2* qhi = reinterpret_cast<float2*>(dea_lo + 8 * kH + 32 * c + 8 * j);
+            const float2 vlo = __ldcg(qlo), vhi = __ldcg(qhi);
+            *qlo = make_float2(vlo.x + acc[4 * j], vlo.y + acc[4 * j + 1]);
+            *qhi = make_float2(vhi.x + acc[4 * j + 2], vhi.y + acc[4 * j + 3]);
+          }
+        });
+  }
+  consumers_sync();  // dxh is whole, every product of pass 2 has ended
+
+  // df1b, df2b: warpgroup 1's column sums, then warpgroup 0's added to them
+  float2* b1 = reinterpret_cast<float2*>(p.bias + ((size_t)0 * B + b) * kH + 2 * ct);
+  float2* b2 = reinterpret_cast<float2*>(p.bias + ((size_t)1 * B + b) * kH + 2 * ct);
+  if (w == 1) {
+    *b1 = sum_da1;
+    *b2 = sum_da2;
+  }
+  // rnd(dxh) to global and as a node image in h's slot (dagg has been read)
+  for (int idx = tid; idx < N * (kH / 2); idx += wg::kConsumers) {
+    const int row = idx >> 7, col = 2 * (idx & 127);
+    const float2 v = *reinterpret_cast<const float2*>(agg + row * kH + col);
+    const uint32_t pk = pack_bf16(v.x, v.y);
+    st_shared32(sm, lay.h + img_off<2>(row, col, ns), pk);
+    st_global32(p.dxh + (nrow + row) * kH + col, pk);
+  }
+  wg::fence_async_shared();
+  consumers_sync();
+  if (w == 0) {
+    const float2 o1 = *b1, o2 = *b2;
+    *b1 = make_float2(sum_da1.x + o1.x, sum_da1.y + o1.y);
+    *b2 = make_float2(sum_da2.x + o2.x, sum_da2.y + o2.y);
+  }
+  // g += rnd(dxh) l1w^T: the lin1 path into h_l (the residual path is g itself)
+  auto add_dh = [&](int c, float (&acc)[16]) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = 32 * c + 8 * j + 2 * t;
+      if (r_lo < N) {
+        float2* q = reinterpret_cast<float2*>(g_g + r_lo * kH + col);
+        const float2 v = *q;
+        *q = make_float2(v.x + acc[4 * j], v.y + acc[4 * j + 1]);
+      }
+      if (r_hi < N) {
+        float2* q = reinterpret_cast<float2*>(g_g + r_hi * kH + col);
+        const float2 v = *q;
+        *q = make_float2(v.x + acc[4 * j + 2], v.y + acc[4 * j + 3]);
+      }
+    }
+  };
+  WG_T(wg::kProfNodeProducts, wgb::node_product(ring, w, base + lay.h, ns, add_dh));
+  WG_T_END(wg::kProfTotal, t_consumer);
+}
+
 struct BiasOut {
   float* out[4];  // df1b, df2b, dl2b, dob, each (L, H)
 };
@@ -579,10 +1164,24 @@ int launch_bwd(const void* const* ptrs, int B, int N, int H, int L, int pair_row
   p.bias = f32(37);
   float* part = f32(38);
   p.B = B; p.N = N; p.H = H; p.L = L;
+  // the wgmma row kernel's arranged weights and ea tile images
+  const bf16* wimg = static_cast<const bf16*>(ptrs[39]);
+  const bf16* ea_img = static_cast<const bf16*>(ptrs[40]);
 
-  cudaError_t e = cudaFuncSetAttribute(schnet_bwd_rows_kernel<T, TR>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)lay.total);
+  // bf16 at H = 256, N <= 24 takes the wgmma row kernel, everything else the
+  // mma.sync one; neither gives way to the other
+  const bool use_wg = bwd_wg_takes(N, H, std::is_same<T, bf16>::value);
+  const GraphSmem wlay = stack_bwd_layout(N);
+  cudaError_t e;
+  if (use_wg) {
+    if (wimg == nullptr || ea_img == nullptr || wlay.total > wgb::kMaxSmem)
+      return (int)cudaErrorInvalidValue;
+    e = cudaFuncSetAttribute(schnet_bwd_rows_wg_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wlay.total);
+  } else {
+    e = cudaFuncSetAttribute(schnet_bwd_rows_kernel<T, TR>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
+  }
   if (e != cudaSuccess) return (int)e;
 
   const size_t HH = (size_t)H * H;
@@ -595,7 +1194,14 @@ int launch_bwd(const void* const* ptrs, int B, int N, int H, int L, int pair_row
 
   for (int l = L - 1; l >= 0; --l) {
     p.l = l;
-    schnet_bwd_rows_kernel<T, TR><<<B, kThreads, lay.total, st>>>(p);
+    if constexpr (std::is_same<T, bf16>::value) {
+      if (use_wg)
+        schnet_bwd_rows_wg_kernel<<<B, wg::kThreads, wlay.total, st>>>(p, wimg, ea_img);
+      else
+        schnet_bwd_rows_kernel<T, TR><<<B, kThreads, lay.total, st>>>(p);
+    } else {
+      schnet_bwd_rows_kernel<T, TR><<<B, kThreads, lay.total, st>>>(p);
+    }
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     schnet_bwd_sum_kernel<<<4, kThreads, 0, st>>>(p.bias, bias_out, B, H, l);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
@@ -630,6 +1236,8 @@ bool bad_shape(int B, int N, int H, int L) {
 
 }  // namespace
 
+WG_PROFILE_ENTRY(schnet_stack_profile)
+
 extern "C" {
 
 // Forward of the stack on `stream`; returns the cudaError_t of the launch.
@@ -654,7 +1262,10 @@ int schnet_stack_fwd_launch(const void* const* ptrs, int B, int N, int H, int L,
 // gradients f1w f1b f2w f2b l1w l2w l2b ow ob; pair scratch s1 sg1 w da2 da1
 // (B*N*N, H); node scratch hl dxh agg da3 s3 gd (B*N, H); the (4, B, H) f32
 // bias partials; the f32 split-K partials, (2 * ceil(B*N*N / pair_rows_per_split)
-// + 3 * ceil(B*N / node_rows_per_split)) * H * H.
+// + 3 * ceil(B*N / node_rows_per_split)) * H * H; then, where
+// schnet_stack_bwd_uses_wg says 1 (null otherwise), the arranged bf16 weight
+// image (L * 9 * H * H, ops/schnet_stack.py::arrange_stack_bwd_weights) and
+// ea as 64-row tile images (B, N*N*H).
 int schnet_stack_bwd_launch(const void* const* ptrs, int B, int N, int H, int L, int is_bf16,
                             int pair_rows_per_split, int node_rows_per_split, void* stream) {
   if (bad_shape(B, N, H, L)) return (int)cudaErrorInvalidValue;
@@ -663,6 +1274,12 @@ int schnet_stack_bwd_launch(const void* const* ptrs, int B, int N, int H, int L,
                                          node_rows_per_split, stream);
   return launch_bwd<float, 32>(ptrs, B, N, H, L, pair_rows_per_split, node_rows_per_split,
                                stream);
+}
+
+// 1 where schnet_stack_bwd_launch takes the wgmma row kernel (bf16, H = 256,
+// N % 8 == 0, N <= 24), 0 where it takes the mma.sync one.
+int schnet_stack_bwd_uses_wg(int N, int H, int is_bf16) {
+  return bwd_wg_takes(N, H, is_bf16) ? 1 : 0;
 }
 
 const char* schnet_stack_error_string(int code) {

@@ -67,7 +67,8 @@ for (n, dn), v in m.phase_dense_kernels().items():
 names = {"fwd": "B3 forward", "bwd": "B3 backward", "stack": "B4"}
 for (n, dn), parts in m.phase_stack_kernels().items():
     for part, v in parts.items():
-        rows[f"{names[part]} N={n} {dn}"] = v
+        if part in names:  # not the backward's profiled split
+            rows[f"{names[part]} N={n} {dn}"] = v
 print("''' + _MARK + r'''" + json.dumps(
     {k: {"ms": v["ms"], "max_abs_err": v["max_abs_err"]} for k, v in rows.items()}))
 '''

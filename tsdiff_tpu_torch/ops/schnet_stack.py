@@ -38,6 +38,15 @@ TFLOP/s, against 59 MB of ``ea``; the backward is 6.7e11 flop, 0.68 ms,
 against ~180 MB.  Both are bound by the tensor cores (``schnet_stack_cost``).
 The design (one CTA per graph, pair tiles streamed from L2, a deterministic
 split-K reduction for the weight gradients) is described in the source.
+
+The backward's per-graph row kernel has two versions, chosen by the shape
+alone in ``schnet_stack_bwd_launch``: bfloat16 at H = 256 with N <= 24 takes
+the ``wgmma`` kernel on ``csrc/wg_pipeline.cuh`` (``schnet_stack_bwd.wg_launches``
+counts those calls), everything else the first port's ``mma.sync`` kernel.
+The former's host side is here for the tests: the image of each block's nine
+weight matrices (``arrange_stack_bwd_weights``, made on every backward
+call), the static schedule of weight stages
+(``stack_bwd_schedule``) and the order of its pass-2 sum (``dxh_by_source``).
 """
 
 from __future__ import annotations
@@ -55,6 +64,11 @@ _LOG2 = 0.6931471805599453
 #: rows per split of the weight-gradient reduction (pair rows, node rows)
 PAIR_ROWS_PER_SPLIT = 2048
 NODE_ROWS_PER_SPLIT = 512
+#: the nine matrices of a block in the ``wgmma`` row kernel's image, in the
+#: order its producer walks them (``csrc/schnet_stack.cu::StackMat``): "_t"
+#: marks a matrix transposed to (out, in), the B operand of a forward product
+#: X W; the others stay (in, out), the B operand of a backward product Y W^T
+STACK_BWD_ORDER = ("l1w_t", "f1w_t", "f2w_t", "l2w_t", "ow", "l2w", "f2w", "f1w", "l1w")
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -67,6 +81,8 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.schnet_stack_fwd_launch.restype = ctypes.c_int
     lib.schnet_stack_bwd_launch.argtypes = [ptrs, *[ctypes.c_int] * 7, ctypes.c_void_p]
     lib.schnet_stack_bwd_launch.restype = ctypes.c_int
+    lib.schnet_stack_bwd_uses_wg.argtypes = [ctypes.c_int] * 3
+    lib.schnet_stack_bwd_uses_wg.restype = ctypes.c_int
     lib.schnet_stack_error_string.argtypes = [ctypes.c_int]
     lib.schnet_stack_error_string.restype = ctypes.c_char_p
     return lib
@@ -190,9 +206,64 @@ schnet_stack_bwd_reference.calls = 0
 interaction_stack_reference.calls = 0
 
 
+# ---------------------------------------------------------------------------
+# The wgmma row kernel's host side
+
+
+def arrange_stack_bwd_weights(w: dict) -> torch.Tensor:
+    """The nine matrices of every block, in ``STACK_BWD_ORDER``, as one flat
+    tensor of tile images in the weights' type, block after block: what the
+    ``wgmma`` row kernel's producer copies, 16 KB a stage, into its ring.
+    The training weights change every step, so the backward arranges them on
+    every call."""
+    from tsdiff_tpu_torch.ops.packed_score import tile_image
+
+    mats = [w[k[:-2]].transpose(-1, -2) if k.endswith("_t") else w[k] for k in STACK_BWD_ORDER]
+    return tile_image(torch.stack(mats, dim=1)).reshape(-1)   # (L, 9, H*H) flat
+
+
+def stack_bwd_schedule(N: int) -> list[tuple[str, int]]:
+    """The static schedule of weight stages every CTA of the ``wgmma`` row
+    kernel walks in one launch (one block), producer and consumers alike:
+    ``(matrix, 32-column block)`` per stage.  The node product xh; per tile
+    pair a1 and a2 (pass 1); the node products a3, ds3 and dagg; per tile
+    pair ds1 and dea (pass 2); the node product dh."""
+    from tsdiff_tpu_torch.ops.condensed_score import STAGE_COLS, dense_tile_pairs
+
+    blocks = range(256 // STAGE_COLS)
+    pairs = dense_tile_pairs(N)
+
+    def mat(*keys):
+        return [(k, c) for k in keys for c in blocks]
+
+    return (mat("l1w_t") + mat("f1w_t", "f2w_t") * pairs + mat("l2w_t", "ow", "l2w")
+            + mat("f2w", "f1w") * pairs + mat("l1w"))
+
+
+def dxh_by_source(wv: torch.Tensor, dagg: torch.Tensor) -> torch.Tensor:
+    """The ``wgmma`` row kernel's pass-2 sum, in its order: for ``wv (N*N,
+    F)`` and ``dagg (N, F)`` of one graph in the working type, ``dxh[i] =
+    sum_j rnd(wv[i*N+j] * dagg[j])`` in float32, tile pair after tile pair,
+    and inside a pair each source's targets ``j`` ascending.  Equal to the
+    plain version's sum up to the order of the float32 additions."""
+    from tsdiff_tpu_torch.ops.condensed_score import TILE_ROWS, dense_tile_pairs
+
+    N, F = dagg.shape
+    P = N * N
+    dxh = torch.zeros((N, F), dtype=torch.float32)
+    for tp in range(dense_tile_pairs(N)):
+        pr0 = 2 * TILE_ROWS * tp
+        for pr in range(pr0, min(P, pr0 + 2 * TILE_ROWS)):
+            i, j = divmod(pr, N)
+            dxh[i] += (wv[pr] * dagg[j]).float()
+    return dxh
+
+
 def schnet_stack_cost(B: int, N: int, H: int, L: int, dtype: torch.dtype, kind: str) -> dict:
     """Work of one call of ``kind`` "fwd" (B3's forward), "stack" (B4) or
-    "bwd" (B3's backward), for its bound (E = F = H, P = N*N).
+    "bwd" (B3's backward), for its bound (E = F = H, P = N*N); "bwd_rows"
+    and "bwd_xty" split the backward into its row kernels and its
+    weight-gradient kernels.
 
     Forward flop: the TPU kernel's estimate (``schnet_stack.py:129-132``),
     ``2*B*L*(P*E*F + P*F*F + N*H*F + N*F*H + N*H*H)``.  Backward flop, from
@@ -201,10 +272,29 @@ def schnet_stack_cost(B: int, N: int, H: int, L: int, dtype: torch.dtype, kind: 
     and dea: P*E*F) and 6 node products (dow and ds3: N*H*H; dl2w and dagg:
     N*F*H; dl1w and dh: N*H*F), i.e. ``2*B*L*(3*P*E*F + 3*P*F*F + 3*N*H*F +
     3*N*F*H + 2*N*H*H)``.  The elementwise aggregation products are not
-    counted.  Bytes: every input read once and every output written once."""
+    counted.  Bytes: every input read once and every output written once.
+
+    The row kernels' share: the 4 recomputed products and ds3, dagg, ds1,
+    dea and dh, ``2*B*L*(2*P*E*F + 2*P*F*F + 5*N*H*H)``; their outputs are dh,
+    dea and, per block, the scratch the weight-gradient kernels read (5 pair
+    and 6 node tensors in the working type) with the bias partials.  The
+    weight-gradient kernels' share: the 5 products ``X^T Y``,
+    ``2*B*L*(P*E*F + P*F*F + 3*N*H*H)``, reading their ten operands once per
+    block and writing the nine gradients."""
     P, E = N * N, H
     t = torch.finfo(dtype).bits // 8
     weights = L * (5 * H * H + 4 * H) * t
+    scratch = L * (5 * B * P * H + 6 * B * N * H) * t
+    grads = L * (5 * H * H + 4 * H) * 4
+    if kind == "bwd_rows":
+        flops = 2 * B * L * (2 * P * E * H + 2 * P * H * H + 5 * N * H * H)
+        nbytes = (B * P * (E + 1) + B * L * N * H) * t + B * N * H * 4 + weights \
+            + (B * N * H + B * P * E) * 4 + scratch + L * 4 * B * H * 4
+        return {"flops": flops, "bytes": nbytes}
+    if kind == "bwd_xty":
+        flops = 2 * B * L * (P * E * H + P * H * H + 3 * N * H * H)
+        # per block: X = ea, s1, hl, agg, s3 and Y = da1, da2, dxh, da3, gd
+        return {"flops": flops, "bytes": L * (4 * B * P * H + 6 * B * N * H) * t + grads}
     if kind == "bwd":
         flops = 2 * B * L * (3 * P * E * H + 3 * P * H * H + 3 * N * H * H + 3 * N * H * H
                              + 2 * N * H * H)
@@ -277,17 +367,45 @@ def schnet_stack_fwd(w: dict, h: torch.Tensor, ea: torch.Tensor, c: torch.Tensor
     return out
 
 
+def _check_stack_image(image: torch.Tensor, L: int, H: int, ea: torch.Tensor) -> None:
+    n = L * len(STACK_BWD_ORDER) * H * H
+    if tuple(image.shape) != (n,) or image.dtype != ea.dtype or not image.is_contiguous() \
+            or image.device != ea.device:
+        raise ValueError(f"schnet_stack backward: the arranged weights must be a contiguous "
+                         f"{ea.dtype} ({n},) tensor on {ea.device} (arrange_stack_bwd_weights), "
+                         f"got {image.dtype} {tuple(image.shape)} on {image.device}")
+
+
 def schnet_stack_bwd(w: dict, ea: torch.Tensor, c: torch.Tensor, hs: torch.Tensor,
-                     g: torch.Tensor):
+                     g: torch.Tensor, image: torch.Tensor | None = None):
     """B3's backward: ``(dh, dea, grads)`` as ``schnet_stack_bwd_reference``.
     CPU tensors take the plain version; CUDA tensors run the kernels on the
-    current stream, or raise."""
+    current stream, or raise.
+
+    Which row kernel is decided by the shape alone, in the library: bfloat16
+    at H = 256 with N <= 24 takes the ``wgmma`` one (``.wg_launches`` counts
+    those calls), which reads the weights as ``arrange_stack_bwd_weights``
+    lays them out (made here unless ``image`` is given; a misshaped one
+    raises) and ``ea`` as 64-row tile images (made here, once for all
+    blocks); float32 and other shapes take the ``mma.sync`` one.  Neither
+    gives way to the other, or to the plain version."""
     if hs.device.type == "cpu":
         return schnet_stack_bwd_reference(w, ea, c, hs, g)
     B, N, H, L = _check(w, ea, c, hs[:, 0], "schnet_stack backward")
     if tuple(g.shape) != (B, N, H):
         raise ValueError(f"schnet_stack backward: g must be ({B}, {N}, {H}), got {tuple(g.shape)}")
     dev, dt = ea.device, ea.dtype
+    use_wg = bool(_kernel_lib().schnet_stack_bwd_uses_wg(N, H, int(dt == torch.bfloat16)))
+    ea_img = None
+    if use_wg:
+        from tsdiff_tpu_torch.ops.condensed_score import TILE_ROWS
+        from tsdiff_tpu_torch.ops.packed_score import tile_image
+
+        image = arrange_stack_bwd_weights(w) if image is None else image
+        _check_stack_image(image, L, H, ea)
+        ea_img = tile_image(ea, TILE_ROWS)
+    else:
+        image = None
     f32 = dict(dtype=torch.float32, device=dev)
     P = N * N
     dh = g.float().contiguous().clone()
@@ -301,10 +419,11 @@ def schnet_stack_bwd(w: dict, ea: torch.Tensor, c: torch.Tensor, hs: torch.Tenso
     fwd_layout = [w[k].transpose(1, 2).contiguous() for k in ("f1w", "f2w", "l1w", "l2w")]
     tensors = [ea, c, hs, dh, dea, *fwd_layout,
                *(w[k] for k in ("f1w", "f2w", "l1w", "l2w", "ow", "f1b", "f2b", "l2b")),
-               *(grads[k] for k in W_KEYS), *pair, *node, bias, part]
+               *(grads[k] for k in W_KEYS), *pair, *node, bias, part, image, ea_img]
     _launch("schnet_stack_bwd_launch", tensors, B, N, H, L, int(dt == torch.bfloat16),
             PAIR_ROWS_PER_SPLIT, NODE_ROWS_PER_SPLIT)
     schnet_stack_bwd.launches += 1
+    schnet_stack_bwd.wg_launches += int(use_wg)
     return dh, dea, grads
 
 
@@ -334,6 +453,7 @@ def interaction_stack_pallas(weights: dict, h: torch.Tensor, edge_attr: torch.Te
 
 schnet_stack_fwd.launches = 0
 schnet_stack_bwd.launches = 0
+schnet_stack_bwd.wg_launches = 0
 interaction_stack_pallas.launches = 0
 
 

@@ -2,12 +2,14 @@
 
     python -m tsdiff_tpu_torch.ops.wg_profile [N]
 
-Builds ``csrc/packed_score.cu``, ``csrc/packed_score_int8.cu`` and
-``csrc/condensed_score.cu`` with ``-DWG_PROFILE`` (into their own build
-directories), launches each warp-specialised kernel once at its path's shapes
-(the packed kernels B1 and B5 at M=8 members, B=100 graphs; the dense kernel
-B2 at B=100 graphs, one model; H=256, L=7, bfloat16, N=24 unless given) on
-seeded random weights and inputs, and prints the ``clock64``
+Builds ``csrc/packed_score.cu``, ``csrc/packed_score_int8.cu``,
+``csrc/condensed_score.cu`` and ``csrc/schnet_stack.cu`` with ``-DWG_PROFILE``
+(into their own build directories), launches each warp-specialised kernel
+once at its path's shapes (the packed kernels B1 and B5 at M=8 members, B=100
+graphs; the dense kernel B2 at B=100 graphs, one model; B3 backward's
+``wgmma`` row kernel through one backward call at the training batch,
+B=200, so its 7 launches, one per block, add up; H=256, L=7, bfloat16, N=24
+unless given) on seeded random weights and inputs, and prints the ``clock64``
 cycles one lane of consumer warpgroup 0 of CTA 0 spent in each part of the
 kernel, as a share of its whole time.  The two consumer warpgroups run in
 step, so this is close to the CTA's own time line.  A barrier inside the node
@@ -15,7 +17,11 @@ products or the aggregation counts in both slots.  The machine these kernels
 are measured on runs no profiler; this is its stand-in.  The slots are
 ``csrc/wg_pipeline.cuh::Prof``; in B2 "stores of kept results" is the wait
 for the bulk copy that brings a kept tile back from its global scratch, and
-"node products" includes the head's ``h_i * h_j``.
+"node products" includes the head's ``h_i * h_j``.  In B3's row kernel
+"ea tile waits" also holds pass 2's waits for the w tiles, "aggregation" also
+pass 2's dxh sums, "node products" the whole node stage between the passes
+(with its barriers), and "first layer" the da2 tile build and da1's column
+sums.
 """
 
 from __future__ import annotations
@@ -73,6 +79,26 @@ def dense_case(B, N, H, L, seed, device):
     return w, z[0].contiguous(), d.to(device), m.float().to(device), embs
 
 
+def stack_case(B, N, H, L, seed, device):
+    """Seeded bfloat16 stack weights (flax layout), edge features, a cutoff
+    mask, the block inputs of the plain forward and a cotangent."""
+    from tsdiff_tpu_torch.ops import schnet_stack as ss
+
+    g = torch.Generator().manual_seed(seed)
+    mat = lambda *shape: torch.randn(*shape, generator=g) / math.sqrt(shape[-2])
+    vec = lambda *shape: 0.1 * torch.randn(*shape, generator=g)
+    w = dict(f1w=mat(L, H, H), f1b=vec(L, H), f2w=mat(L, H, H), f2b=vec(L, H),
+             l1w=mat(L, H, H), l2w=mat(L, H, H) / N, l2b=vec(L, H), ow=mat(L, H, H),
+             ob=vec(L, H))
+    w = {k: w[k].to(device, torch.bfloat16).contiguous() for k in ss.W_KEYS}
+    h = torch.randn(B, N, H, generator=g).to(device, torch.bfloat16)
+    ea = torch.randn(B, N * N, H, generator=g).to(device, torch.bfloat16)
+    c = (torch.rand(B, N * N, generator=g) < 0.7).to(device, torch.bfloat16)
+    cot = torch.randn(B, N, H, generator=g).to(device, torch.bfloat16)
+    _, hs = ss.schnet_stack_fwd_reference(w, h, ea, c)
+    return w, ea, c, hs, cot
+
+
 def quantize_stacked(w32: dict) -> dict:
     """Stacked float32 weights as the int8 op's bfloat16 weights, images included."""
     from tsdiff_tpu_torch.ops import packed_score_int8 as p8
@@ -113,11 +139,12 @@ def main(argv: list[str]) -> None:
     from tsdiff_tpu_torch.ops import condensed_score as cs
     from tsdiff_tpu_torch.ops import packed_score as ps
     from tsdiff_tpu_torch.ops import packed_score_int8 as p8
+    from tsdiff_tpu_torch.ops import schnet_stack as ss
 
     N = int(argv[0]) if argv else 24
     M, B, H, L = 8, 100, 256, 7
     _build.extra_flags = ("-DWG_PROFILE",)
-    _build.build(["packed_score", "packed_score_int8", "condensed_score"])
+    _build.build(["packed_score", "packed_score_int8", "condensed_score", "schnet_stack"])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(f"card: {smi}; M={M} B={B} N={N} H={H} L={L} bfloat16")
@@ -126,6 +153,7 @@ def main(argv: list[str]) -> None:
     wb = ps.with_wg_image({k: v.to(torch.bfloat16).contiguous() for k, v in w32.items()})
     w8 = quantize_stacked(w32)
     wd, zd, dd, cd, embs = dense_case(B, N, H, L, seed=N + 1, device=dev)
+    stack_args = stack_case(200, N, H, L, seed=N + 2, device=dev)
     cases = (
         ("packed_score (B1)", ps._kernel_lib(), "packed_score_profile",
          lambda: ps.packed_score(wb, z, d, cmask, *types, num_blocks=L)),
@@ -133,6 +161,8 @@ def main(argv: list[str]) -> None:
          lambda: p8.packed_score_int8(w8, z, d, cmask, *types, num_blocks=L)),
         ("condensed_score (B2), one model", cs._kernel_lib(), "condensed_score_profile",
          lambda: cs.condensed_score(wd, zd, dd, cd, *embs, num_blocks=L)),
+        ("schnet_bwd_rows_wg_kernel (B3 backward), B=200, its 7 launches",
+         ss._kernel_lib(), "schnet_stack_profile", lambda: ss.schnet_stack_bwd(*stack_args)),
     )
     for name, lib, entry, launch in cases:
         cycles = read_profile(lib, entry, launch)
