@@ -9,9 +9,10 @@ Phases (any failure exits non-zero):
 2. build: compile the port's CUDA kernels from ``tsdiff_tpu_torch/csrc``, one
    nvcc per source, in parallel, cached libraries removed first so that the
    time is the build's; registers, spills and shared memory of every kernel
-   from the ``ptxas`` log; fails if the dense score's warp-specialised kernel
-   or B3 backward's ``wgmma`` row kernel spills, or if ptxas serializes the
-   latter's ``wgmma`` (C7512/C7520);
+   from the ``ptxas`` log; fails if the dense score's warp-specialised kernel,
+   B3's ``wgmma`` forward (both builds: B3 and B4) or B3 backward's ``wgmma``
+   row kernel spills, or if ptxas serializes the ``wgmma`` of either stack
+   kernel (C7512/C7520);
 3. kernels against their plain PyTorch versions at the main paths' shapes:
    the tile product of the warp-specialised kernels alone against a matrix
    product; the packed score step (B1) with the 8 trained campaign members on
@@ -27,10 +28,14 @@ Phases (any failure exits non-zero):
    the fused SchNet stack (B3's forward and
    backward, B4) with seed106's stack weights on edge features from the
    port's dense model, bfloat16 at the training batch (B=200) in both
-   training buckets (N=16, N=24) and float32 at B=16, N=24, the backward's
-   two bf16 calls bitwise equal and through its ``wgmma`` row kernel (float32
-   through none), with its time split under torch.profiler into the row
-   kernel and the weight-gradient kernels beside their bounds; errors, times
+   training buckets (N=16, N=24) and float32 at B=16, N=24: in bf16 the
+   forward and B4 through their ``wgmma`` kernel, fed the weight image and
+   ``ea``'s tile images as a train step makes them (their own counters, two
+   launches bitwise equal, B4 equal to B3's output), the backward's calls
+   bitwise equal, also fed those, and through its ``wgmma`` row kernel
+   (float32 through none: ``mma.sync``), with the backward's time split under
+   torch.profiler into the row kernel and the weight-gradient kernels beside
+   their bounds; errors, times
    (CUDA events: the median and the minimum of five timings of 20 launches,
    with the SM clock and temperature before and after) and the bound of each;
 4. sampling main path: the port's sampling CLI on 200 synthetic reactions
@@ -43,8 +48,10 @@ Phases (any failure exits non-zero):
 5. sampling profile: 20 steps at N=24 under torch.profiler;
 6. training main path: the port's train CLI at full width (H=256, L=7,
    batch 200, bf16, ``use_pallas``) for 40 iterations on a synthetic corpus;
-   checks the stack kernels' launch counts (every backward call through the
-   ``wgmma`` row kernel), no plain-version call, finite
+   checks the stack kernels' launch counts (every forward call through the
+   ``wgmma`` forward, every backward call through the ``wgmma`` row kernel,
+   the weight image and ``ea``'s tile images made once per forward and reused
+   by the backward), no plain-version call, finite
    losses and a written checkpoint, and reads the CLI's graphs/s over the
    run; then 20 steps on one fixed batch (the loss must fall), the time per
    step and a profile; then samples 8 reactions with the checkpoint it
@@ -185,7 +192,7 @@ def phase_build() -> None:
     print(f"[build] {', '.join(f'{n}.cu' for n in SOURCES)} built in "
           f"{time.monotonic() - t0:.1f} s, one nvcc each in parallel (" + ", ".join(
               f"{n} {_build.build_info[n]['seconds']:.1f} s" for n in SOURCES) + ")")
-    spills, wg_dense_spills, wg_rows_spills = 0, None, None
+    spills, wg_dense_spills, wg_rows_spills, wg_fwd_spills = 0, None, None, {}
     for name in SOURCES:
         # ptxas -v: "Compiling entry function '<mangled>'", then its stack and
         # spill line, then "Used N registers, ..."
@@ -205,22 +212,28 @@ def phase_build() -> None:
                     wg_dense_spills = n_spill
                 if kernel == "schnet_bwd_rows_wg_kernel":
                     wg_rows_spills = n_spill
+                if kernel.startswith("schnet_fwd_wg_kernel"):  # B3 (hs stored) and B4
+                    wg_fwd_spills[kernel] = n_spill
                 print(f"[build] {name}: {kernel}: {line.strip().replace('ptxas info    : ', '')}; "
                       f"{stack}")
     print(f"[build] spill stores over all kernels: {spills} bytes; of the dense score's "
           f"warp-specialised kernel: {wg_dense_spills} bytes, of B3 backward's wgmma row kernel: "
-          f"{wg_rows_spills} bytes (both must be 0)")
+          f"{wg_rows_spills} bytes, of the wgmma forward (B3, B4): {wg_fwd_spills} (all must be "
+          f"0)")
     if wg_dense_spills != 0:
         fail(f"condensed_score_wg_kernel spills {wg_dense_spills} bytes (or was not found)")
     if wg_rows_spills != 0:
         fail(f"schnet_bwd_rows_wg_kernel spills {wg_rows_spills} bytes (or was not found)")
-    # ptxas says C7512 / C7520 where it serializes a kernel's wgmma
+    if len(wg_fwd_spills) != 2 or any(wg_fwd_spills.values()):
+        fail(f"schnet_fwd_wg_kernel spills, or was not found twice: {wg_fwd_spills}")
+    # ptxas says C7512 / C7520 where it serializes a kernel's wgmma; the stack's
+    # library has two wgmma kernels, the forward and the backward's row kernel
     serialized = [line.strip() for line in _build.build_info["schnet_stack"]["log"].splitlines()
                   if re.search(r"C75(12|20)", line)]
     print(f"[build] schnet_stack: {len(serialized)} wgmma serialization lines (C7512/C7520)"
           + "".join(f"\n[build]   {line[:200]}" for line in serialized))
-    if any("schnet_bwd_rows_wg_kernel" in line for line in serialized):
-        fail("ptxas serializes the wgmma of schnet_bwd_rows_wg_kernel")
+    if serialized:
+        fail("ptxas serializes the wgmma of schnet_fwd_wg_kernel or schnet_bwd_rows_wg_kernel")
 
 
 def load_member(seed: int, dtype, device, **model_overrides):
@@ -570,40 +583,71 @@ def phase_stack_kernels() -> dict:
         tag = f"B={B} N={N} {dname}"
         ea4, c3 = ea.reshape(B, N, N, H), c.reshape(B, N, N)
 
-        out, hs = ss.schnet_stack_fwd(w, h, ea, c)
+        # the wgmma kernels' weight image and ea tile images, made once as a
+        # train step makes them (None in f32: the mma.sync kernels take none)
+        image, ea_img = ss.stack_wg_operands(w, h, ea, c)
+        torch.cuda.synchronize()
+        made = ""
+        if image is not None:
+            ops_ms = cuda_time_ms(lambda: ss.stack_wg_operands(w, h, ea, c), TIMING_ITERS)
+            made = (f"; the weight image and ea's tile images (made once per train step) "
+                    f"{ops_ms[0]:.4f} ms (median; minimum {ops_ms[1]:.4f})")
+        fwd, b4 = ss.schnet_stack_fwd, ss.interaction_stack_pallas
+        before = (fwd.launches, fwd.wg_launches, b4.launches, b4.wg_launches)
+        out, hs = ss.schnet_stack_fwd(w, h, ea, c, image=image, ea_img=ea_img)
+        out2, hs2 = ss.schnet_stack_fwd(w, h, ea, c, image=image, ea_img=ea_img)
+        b4_out = ss.interaction_stack_pallas(w, h, ea4, c3, dtype, image=image, ea_img=ea_img)
+        b4_again = ss.interaction_stack_pallas(w, h, ea4, c3, dtype, image=image, ea_img=ea_img)
         ref_out, ref_hs = ss.schnet_stack_fwd_reference(w, h, ea, c)
         torch.cuda.synchronize()
+        # bf16 takes the wgmma kernel, f32 the mma.sync one
+        wg_want = 2 if dtype == torch.bfloat16 else 0
+        took = (fwd.launches - before[0], fwd.wg_launches - before[1], b4.launches - before[2],
+                b4.wg_launches - before[3])
+        same = (torch.equal(out, out2) and torch.equal(hs, hs2) and torch.equal(b4_out, b4_again)
+                and torch.equal(b4_out, out))
+        print(f"[kernels] schnet_stack_fwd and B4 {tag}: launches (B3, of them wgmma; B4, of them "
+              f"wgmma) {took}, expected {(2, wg_want, 2, wg_want)}; two launches of each bitwise "
+              f"equal, and B4 equal to B3's out: {same}{made}")
+        if took != (2, wg_want, 2, wg_want):
+            fail(f"schnet_stack_fwd / B4 {tag}: launches {took}")
+        if not same:
+            fail(f"schnet_stack_fwd / B4 {tag}: two launches on the same inputs differ")
+        del out2, hs2, b4_again
         e_fwd = max(check_close(f"schnet_stack_fwd {tag} out", out, ref_out, dname),
                     check_close(f"schnet_stack_fwd {tag} hs", hs, ref_hs, dname))
+        e_b4 = check_close(f"schnet_stack (B4) {tag} out", b4_out,
+                           ss.interaction_stack_reference(w, h, ea, c), dname)
         wg_before = ss.schnet_stack_bwd.wg_launches
         dh, dea, grads = ss.schnet_stack_bwd(w, ea, c, ref_hs, g)
         again = ss.schnet_stack_bwd(w, ea, c, ref_hs, g)
+        # as a train step calls it: the forward's image and tile images
+        given = ss.schnet_stack_bwd(w, ea, c, ref_hs, g, image=image, ea_img=ea_img)
         rdh, rdea, rgrads = ss.schnet_stack_bwd_reference(w, ea, c, ref_hs, g)
         torch.cuda.synchronize()
         # bf16 takes the wgmma row kernel, f32 the mma.sync one
         took_wg = ss.schnet_stack_bwd.wg_launches - wg_before
-        same = (torch.equal(dh, again[0]) and torch.equal(dea, again[1])
-                and all(torch.equal(grads[k], again[2][k]) for k in ss.W_KEYS))
-        print(f"[kernels] schnet_stack_bwd {tag}: {took_wg} of 2 calls took the wgmma row kernel; "
-              f"two calls bitwise equal in dh, dea and the nine gradients: {same}")
-        if took_wg != (2 if dtype == torch.bfloat16 else 0):
+        same = all(torch.equal(dh, o[0]) and torch.equal(dea, o[1])
+                   and all(torch.equal(grads[k], o[2][k]) for k in ss.W_KEYS)
+                   for o in (again, given))
+        print(f"[kernels] schnet_stack_bwd {tag}: {took_wg} of 3 calls took the wgmma row kernel; "
+              f"two calls, and a third fed the forward's weight image and ea tile images, bitwise "
+              f"equal in dh, dea and the nine gradients: {same}")
+        if took_wg != (3 if dtype == torch.bfloat16 else 0):
             fail(f"schnet_stack_bwd {tag}: {took_wg} calls took the wgmma row kernel")
         if not same:
             fail(f"schnet_stack_bwd {tag}: two calls on the same inputs differ")
-        del again
+        del again, given
         e_bwd = max([check_close(f"schnet_stack_bwd {tag} dh", dh, rdh, dname),
                      check_close(f"schnet_stack_bwd {tag} dea", dea, rdea, dname)]
                     + [check_close(f"schnet_stack_bwd {tag} d{k}", grads[k], rgrads[k], dname)
                        for k in ss.W_KEYS])
-        b4 = ss.interaction_stack_pallas(w, h, ea4, c3, dtype)
-        torch.cuda.synchronize()
-        e_b4 = check_close(f"schnet_stack (B4) {tag} out", b4,
-                           ss.interaction_stack_reference(w, h, ea, c), dname)
-        del out, hs, ref_out, dh, dea, grads, rdh, rdea, rgrads, b4
+        del out, hs, ref_out, dh, dea, grads, rdh, rdea, rgrads, b4_out
 
         result[(N, dname)] = {
             "fwd": dict(time_and_bound(
-                f"schnet_stack_fwd {tag}", lambda: ss.schnet_stack_fwd(w, h, ea, c),
+                f"schnet_stack_fwd {tag}",
+                lambda: ss.schnet_stack_fwd(w, h, ea, c, image=image, ea_img=ea_img),
                 lambda: ss.schnet_stack_fwd_reference(w, h, ea, c),
                 ss.schnet_stack_cost(B, N, H, L, dtype, "fwd"), dname), max_abs_err=e_fwd),
             "bwd": dict(time_and_bound(
@@ -612,14 +656,15 @@ def phase_stack_kernels() -> dict:
                 ss.schnet_stack_cost(B, N, H, L, dtype, "bwd"), dname), max_abs_err=e_bwd),
             "stack": dict(time_and_bound(
                 f"schnet_stack (B4) {tag}",
-                lambda: ss.interaction_stack_pallas(w, h, ea4, c3, dtype),
+                lambda: ss.interaction_stack_pallas(w, h, ea4, c3, dtype, image=image,
+                                                    ea_img=ea_img),
                 lambda: ss.interaction_stack_reference(w, h, ea, c),
                 ss.schnet_stack_cost(B, N, H, L, dtype, "stack"), dname), max_abs_err=e_b4),
         }
         if dtype == torch.bfloat16:
             result[(N, dname)]["bwd_split"] = bwd_split(
                 tag, lambda: ss.schnet_stack_bwd(w, ea, c, ref_hs, g), B, N, H, L, dtype)
-        del w, h, ea, c, g, ref_hs, ea4, c3
+        del w, h, ea, c, g, ref_hs, ea4, c3, image, ea_img
         torch.cuda.empty_cache()
     print("[kernels] tolerances (max, mean abs err / max|ref|): float32 (1e-4, 1e-4), only the "
           "float32 summation order differs; bfloat16 (3e-2, 3e-3), both round to bf16 at the "
@@ -924,29 +969,39 @@ def phase_train() -> dict:
                       or it == iters)
     expect_fwd, expect_bwd = iters + validations * val_batches, iters
     ss.schnet_stack_fwd.launches = ss.schnet_stack_bwd.launches = 0
-    ss.schnet_stack_bwd.wg_launches = ss.interaction_stack_pallas.launches = 0
+    ss.schnet_stack_fwd.wg_launches = ss.schnet_stack_bwd.wg_launches = 0
+    ss.interaction_stack_pallas.launches = ss.interaction_stack_pallas.wg_launches = 0
     ss.schnet_stack_fwd_reference.calls = ss.schnet_stack_bwd_reference.calls = 0
     ss.interaction_stack_reference.calls = 0
+    ss.arrange_stack_weights.calls = ss.ea_tile_images.calls = 0
     t0 = time.monotonic()
     log_dir = train_cli.main([cfg_path, "--logdir", os.path.join(TRAIN_DIR, "logs"),
                               "--dtype", "bfloat16", "--device", "cuda"])
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = (ss.schnet_stack_fwd.launches, ss.schnet_stack_bwd.launches)
-    bwd_wg = ss.schnet_stack_bwd.wg_launches
+    fwd_wg, bwd_wg = ss.schnet_stack_fwd.wg_launches, ss.schnet_stack_bwd.wg_launches
     b4_launches = ss.interaction_stack_pallas.launches
     plain = (ss.schnet_stack_fwd_reference.calls, ss.schnet_stack_bwd_reference.calls,
              ss.interaction_stack_reference.calls)
+    made = (ss.arrange_stack_weights.calls, ss.ea_tile_images.calls)
     print(f"[train] {iters} iterations of batch {B} (buckets {buckets}), {validations} "
           f"validations of {val_batches} batches, in {wall:.3f} s: B3 forward launches "
-          f"{launches[0]} (expected {expect_fwd}), B3 backward launches {launches[1]} (expected "
+          f"{launches[0]} (expected {expect_fwd}), of them through the wgmma kernel {fwd_wg} "
+          f"(expected {expect_fwd}), B3 backward launches {launches[1]} (expected "
           f"{expect_bwd}), of them through the wgmma row kernel {bwd_wg} (expected "
           f"{expect_bwd}), B4 launches {b4_launches} (not on this path), plain-version calls "
-          f"{plain}")
+          f"{plain}; the weight image and ea's tile images made {made} times (expected "
+          f"{expect_fwd} each: once per forward, the backward of a train step reusing them)")
     if launches != (expect_fwd, expect_bwd):
         fail(f"stack kernels launched {launches}, expected {(expect_fwd, expect_bwd)}")
+    if fwd_wg != expect_fwd:
+        fail(f"{fwd_wg} of {launches[0]} B3 forward calls took the wgmma kernel")
     if bwd_wg != expect_bwd:
         fail(f"{bwd_wg} of {launches[1]} B3 backward calls took the wgmma row kernel")
+    if made != (expect_fwd, expect_fwd):
+        fail(f"the weight image and ea's tile images were made {made} times, expected "
+             f"{expect_fwd} each")
     if any(plain):
         fail(f"the plain stack versions ran {plain} times on the training path")
     with open(os.path.join(log_dir, "log.txt")) as f:
@@ -1011,7 +1066,7 @@ def phase_train() -> dict:
         wall_ms = (time.monotonic() - t0) * 1e3
     rows = device_kernels(prof, n_prof)
     step_ms = wall_ms / n_prof
-    fwd = sum(ms for ms, _, name in rows if "schnet_fwd_kernel" in name)
+    fwd = sum(ms for ms, _, name in rows if "schnet_fwd_" in name)
     bwd = [(ms, name) for ms, _, name in rows if "schnet_bwd_" in name]
     other = [(ms, n) for ms, n, name in rows if "schnet_" not in name]
     print(f"[train] profile of {n_prof} steps: wall {step_ms:.4f} ms/step")
@@ -1019,15 +1074,18 @@ def phase_train() -> dict:
         print("[train] the profiler shows no device time: breakdown not measured")
     else:
         busy = fwd + sum(ms for ms, _ in bwd) + sum(ms for ms, _ in other)
-        print(f"[train] device time per step: B3 forward {fwd:.4f} ms, B3 backward "
+        fwd_names = sorted({re.search(r"schnet_fwd_\w*?kernel", name).group(0)
+                            for _, _, name in rows if "schnet_fwd_" in name})
+        print(f"[train] device time per step: B3 forward {fwd:.4f} ms ({', '.join(fwd_names)}), "
+              f"B3 backward "
               f"{sum(ms for ms, _ in bwd):.4f} ms (" + ", ".join(
                   f"{re.search(r'schnet_bwd_[a-z]+(_wg)?', name).group(0)} {ms:.4f}"
                   for ms, name in bwd)
               + f"), all other kernels {sum(ms for ms, _ in other):.4f} ms "
               f"({sum(n for _, n in other):.1f} launches/step); device busy "
               f"{busy / step_ms:.4f} of wall, idle {1 - busy / step_ms:.4f}")
-        for ms, n, name in [r for r in rows if "schnet_" not in r[2]][:5]:
-            print(f"[train]   other: {ms:.4f} ms/step in {n:.0f} launches: {name[:100]}")
+        for k_ms, n, name in [r for r in rows if "schnet_" not in r[2]][:5]:
+            print(f"[train]   other: {k_ms:.4f} ms/step in {n:.0f} launches: {name[:100]}")
 
     # the checkpoint this run wrote, through the port's sampler
     test_set = os.path.join(TRAIN_DIR, "sample_set.pkl")

@@ -3,8 +3,8 @@ packed score step (B1) and its int8 variant (B5): for each the warp-specialised 
 in bfloat16, the mma.sync kernel in float32 and the tile product of the
 former alone; the dense score step (B2): its warp-specialised wgmma kernel in
 bfloat16 and its mma.sync kernel in float32; and the fused SchNet stack
-(B3's forward and backward, B4; the backward's wgmma row kernel in bfloat16
-and its mma.sync one in float32).
+(B3's forward and backward, B4; the forward's wgmma kernel and the
+backward's wgmma row kernel in bfloat16, their mma.sync ones in float32).
 
 Every test here needs an NVIDIA GPU with nvcc (marker ``cuda``) and skips
 without one.  The file imports neither JAX nor the JAX package, so on a
@@ -419,16 +419,88 @@ def assert_close(name, out, ref, dtype, tol=None):
 @pytest.mark.parametrize("N", [8, 16, 24])
 def test_stack_forward_matches_reference(cuda, dtype, N):
     w, h, ea, c, _ = stack_inputs(3, N, 256, 2, dtype, cuda, seed=N)
-    launches = ss.schnet_stack_fwd.launches
+    launches, wg_launches = ss.schnet_stack_fwd.launches, ss.schnet_stack_fwd.wg_launches
     out, hs = ss.schnet_stack_fwd(w, h, ea, c)
     torch.cuda.synchronize()
     assert ss.schnet_stack_fwd.launches == launches + 1
+    # bf16 takes the wgmma kernel, f32 the mma.sync one
+    assert ss.schnet_stack_fwd.wg_launches == wg_launches + int(dtype == torch.bfloat16)
     ref_out, ref_hs = ss.schnet_stack_fwd_reference(w, h, ea, c)
     assert_close(f"fwd out N={N}", out, ref_out, dtype)
     assert_close(f"fwd hs N={N}", hs, ref_hs, dtype)
     b4 = ss.interaction_stack_pallas(w, h, ea.reshape(3, N, N, -1), c.reshape(3, N, N), dtype)
     torch.cuda.synchronize()
     assert_close(f"B4 out N={N}", b4, ss.interaction_stack_reference(w, h, ea, c), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [8, 16, 24])
+@pytest.mark.parametrize("B", [1, 3, 200])
+def test_stack_fwd_wg_kernel_shapes_zero_mask_and_repeat(cuda, B, N):
+    """The wgmma forward, B3 and B4, at one, three and the training batch's
+    200 graphs, with a source node's whole row of the cutoff mask zero in
+    every graph and graph 0 without any edge: out and hs within TOL of the
+    plain version, two launches bitwise equal (given the weight image and
+    ea's tile images, or making them), B4 equal to B3's out, all counted as
+    the wgmma kernel's; and the backward fed the forward's image and tile
+    images equal bit for bit to the one that makes its own, within TOL."""
+    L = 2
+    w, h, ea, c, cot = stack_inputs(B, N, 256, L, torch.bfloat16, cuda, seed=5 * N + B)
+    c = c.reshape(B, N, N).clone()
+    c[:, 1, :] = 0
+    c[0] = 0
+    c = c.reshape(B, N * N).contiguous()
+    ea4, c3 = ea.reshape(B, N, N, -1), c.reshape(B, N, N)
+    fwd, b4 = ss.schnet_stack_fwd, ss.interaction_stack_pallas
+    before = (fwd.launches, fwd.wg_launches, b4.launches, b4.wg_launches)
+    image, ea_img = ss.stack_wg_operands(w, h, ea, c)
+    out, hs = ss.schnet_stack_fwd(w, h, ea, c, image=image, ea_img=ea_img)
+    out2, hs2 = ss.schnet_stack_fwd(w, h, ea, c)
+    s1 = ss.interaction_stack_pallas(w, h, ea4, c3, torch.bfloat16, image=image, ea_img=ea_img)
+    s2 = ss.interaction_stack_pallas(w, h, ea4, c3, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert (fwd.launches, fwd.wg_launches, b4.launches, b4.wg_launches) == \
+        tuple(n + 2 for n in before)
+    assert torch.equal(out, out2) and torch.equal(hs, hs2)
+    assert torch.equal(s1, out) and torch.equal(s2, out)
+    ref_out, ref_hs = ss.schnet_stack_fwd_reference(w, h, ea, c)
+    assert_close(f"fwd wg out B={B} N={N}", out, ref_out, torch.bfloat16)
+    assert_close(f"fwd wg hs B={B} N={N}", hs, ref_hs, torch.bfloat16)
+    bwd_wg = ss.schnet_stack_bwd.wg_launches
+    given = ss.schnet_stack_bwd(w, ea, c, hs, cot, image=image, ea_img=ea_img)
+    made = ss.schnet_stack_bwd(w, ea, c, hs, cot)
+    torch.cuda.synchronize()
+    assert ss.schnet_stack_bwd.wg_launches == bwd_wg + 2
+    assert torch.equal(given[0], made[0]) and torch.equal(given[1], made[1])
+    for k in ss.W_KEYS:
+        assert torch.equal(given[2][k], made[2][k]), k
+    rdh, rdea, rgrads = ss.schnet_stack_bwd_reference(w, ea, c, hs, cot)
+    assert_close(f"bwd given dh B={B} N={N}", given[0], rdh, torch.bfloat16)
+    assert_close(f"bwd given dea B={B} N={N}", given[1], rdea, torch.bfloat16)
+    for k in ss.W_KEYS:
+        assert_close(f"bwd given d{k} B={B} N={N}", given[2][k], rgrads[k], torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_stack_fwd_wg_kernel_needs_the_arranged_weights(cuda):
+    """A misshaped or mistyped weight image or ea tile image raises before
+    any launch, in B3's forward and in B4: the wgmma kernel does not give way
+    to the mma.sync kernel or to the plain version."""
+    w, h, ea, c, _ = stack_inputs(2, 8, 256, 1, torch.bfloat16, cuda)
+    image, ea_img = ss.stack_wg_operands(w, h, ea, c)
+    calls = (ss.schnet_stack_fwd_reference.calls, ss.interaction_stack_reference.calls)
+    fwd, b4 = ss.schnet_stack_fwd, ss.interaction_stack_pallas
+    before = (fwd.launches, fwd.wg_launches, b4.launches, b4.wg_launches)
+    bad = [dict(image=x) for x in (image[:-8], image.float(), torch.cat([image, image]))]
+    bad += [dict(ea_img=x) for x in (ea_img[:, :-8].contiguous(), ea_img.float(), ea_img[:1])]
+    for kw in bad:
+        with pytest.raises(ValueError):
+            ss.schnet_stack_fwd(w, h, ea, c, **kw)
+        with pytest.raises(ValueError):
+            ss.interaction_stack_pallas(w, h, ea.reshape(2, 8, 8, -1), c.reshape(2, 8, 8),
+                                        torch.bfloat16, **kw)
+    assert calls == (ss.schnet_stack_fwd_reference.calls, ss.interaction_stack_reference.calls)
+    assert (fwd.launches, fwd.wg_launches, b4.launches, b4.wg_launches) == before
 
 
 @pytest.mark.cuda
@@ -490,7 +562,7 @@ def test_stack_bwd_wg_kernel_needs_the_arranged_weights(cuda):
     passed in."""
     w, h, ea, c, cot = stack_inputs(2, 8, 256, 1, torch.bfloat16, cuda)
     _, hs = ss.schnet_stack_fwd_reference(w, h, ea, c)
-    image = ss.arrange_stack_bwd_weights(w)
+    image = ss.arrange_stack_weights(w)
     calls = ss.schnet_stack_bwd_reference.calls
     launches, wg_launches = ss.schnet_stack_bwd.launches, ss.schnet_stack_bwd.wg_launches
     for bad in (image[:-8], image.float(), torch.cat([image, image])):

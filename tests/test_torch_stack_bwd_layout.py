@@ -1,5 +1,5 @@
 """The host side of the ``wgmma`` row kernel of B3's backward, on the CPU:
-the image of each block's nine weight matrices it copies into shared memory,
+the image of each block's weight matrices it copies into shared memory,
 its static schedule of weight stages, ``ea`` as 64-row tile images, its
 fixed-order pass-2 sum, and the wrapper's choice of the plain version for CPU
 tensors, which never builds the image."""
@@ -26,27 +26,28 @@ def stack_weights(L, H=256, seed=0, dtype=torch.bfloat16):
 
 @pytest.mark.parametrize("L", [2, 7])
 def test_stack_bwd_image_round_trip(L):
-    """One flat tensor of the nine matrices per block, block after block; its
-    inverse gives back f1w, f2w, l1w, l2w transposed (the forward products'
-    B operands) and ow, l2w, f2w, f1w, l1w as they are (the backward's)."""
+    """One flat tensor of the ten matrices per block, block after block (the
+    row kernel reads the first nine); its inverse gives back f1w, f2w, l1w,
+    l2w transposed (the forward products' B operands) and ow, l2w, f2w, f1w,
+    l1w as they are (the backward's)."""
     H = 256
     w = stack_weights(L, seed=L)
-    image = ss.arrange_stack_bwd_weights(w)
-    assert image.shape == (L * 9 * H * H,) and image.dtype == torch.bfloat16
+    image = ss.arrange_stack_weights(w)
+    assert image.shape == (L * 10 * H * H,) and image.dtype == torch.bfloat16
     assert image.is_contiguous()
-    mats = ps.tile_image_inverse(image.reshape(L, 9, H * H), H, H)
-    back = {k: mats[:, m] for m, k in enumerate(ss.STACK_BWD_ORDER)}
+    mats = ps.tile_image_inverse(image.reshape(L, 10, H * H), H, H)
+    back = {k: mats[:, m] for m, k in enumerate(ss.STACK_ORDER)}
     for k in ("f1w", "f2w", "l1w", "l2w"):
         assert torch.equal(back[f"{k}_t"], w[k].transpose(-1, -2)), k
     for k in ("ow", "l2w", "f2w", "f1w", "l1w"):
         assert torch.equal(back[k], w[k]), k
     # where the producer looks for stage c of matrix m of block l
-    # (csrc/schnet_stack.cu: wimg + (l * 9 + m) * H * H + c * 32 * H)
+    # (csrc/schnet_stack.cu: wimg + (l * 10 + m) * H * H + c * 32 * H)
     stage = cs.STAGE_COLS * H
     for name, l, c in (("l1w_t", 0, 0), ("f2w_t", L - 1, 5), ("ow", 1, 7), ("l1w", L - 1, 3)):
-        m = ss.STACK_BWD_ORDER.index(name)
+        m = ss.STACK_ORDER.index(name)
         mat = w[name[:-2]][l].t() if name.endswith("_t") else w[name][l]
-        start = (l * 9 + m) * H * H + c * stage
+        start = (l * 10 + m) * H * H + c * stage
         assert torch.equal(ps.tile_image_inverse(image[start:start + stage], cs.STAGE_COLS, H),
                            mat[c * cs.STAGE_COLS:(c + 1) * cs.STAGE_COLS]), name
 
@@ -68,7 +69,7 @@ def test_stack_bwd_schedule_by_hand(N, pairs):
     pass2 = sched[32 + 16 * pairs:-8]
     assert pass2 == ([("f2w", c) for c in range(8)] + [("f1w", c) for c in range(8)]) * pairs
     assert sched[-8:] == [("l1w", c) for c in range(8)]
-    assert {k for k, _ in sched} == set(ss.STACK_BWD_ORDER)
+    assert {k for k, _ in sched} == set(ss.STACK_ORDER[:9])
     # at the training shape: 200 stages of 16 KB per CTA and block
     if N == 24:
         assert len(sched) == 200
@@ -121,7 +122,7 @@ def test_cpu_tensors_take_the_plain_version_and_never_build_the_image(monkeypatc
     def refuse(_w):
         raise AssertionError("the image was built for CPU tensors")
 
-    monkeypatch.setattr(ss, "arrange_stack_bwd_weights", refuse)
+    monkeypatch.setattr(ss, "arrange_stack_weights", refuse)
     B, N, H, L = 2, 8, 256, 1
     w = stack_weights(L, seed=3)
     g = torch.Generator().manual_seed(4)

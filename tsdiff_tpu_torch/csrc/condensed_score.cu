@@ -259,6 +259,7 @@ __global__ void __launch_bounds__(kThreads, 1) condensed_score_kernel(Params<T> 
 
 using wgb::act_silu;
 using wgb::act_ssp;
+using wgb::aggregate_dense_pair;
 using wgb::bf16;
 using wgb::GraphSmem;
 using wgb::kH;
@@ -268,6 +269,7 @@ using wgb::kStagesPerMat;
 using wgb::kTileElems;
 using wgb::ld2;
 using wgb::ld_shared32;
+using wgb::prefetch_l2;
 using wgb::rb;
 using wgb::st_shared32;
 
@@ -289,37 +291,10 @@ struct DenseImage {
   __device__ int g1w() const { return 6 + 5 * L; }  // half a unit
 };
 
-// wgb::graph_layout's carve-up with the dense row table (two bytes per row,
-// P = N*N rows) and six mbarriers beside the ring's: per warpgroup the ea tile
-// (full, empty) and the kept tile (full).  At N = 24 it takes all 232,448
-// bytes a block can have, with 3 ring stages.
-__host__ __device__ inline GraphSmem dense_layout(int N) {
-  GraphSmem s;
-  const uint32_t P = N * N;
-  s.node_stride = N * 128;
-  s.h = 0;
-  s.xh = 4 * s.node_stride;
-  s.tiles = 8 * s.node_stride;  // A0, B0, A1, B1
-  s.agg = s.tiles + 4 * wg::kTileBytes;
-  s.tab = s.agg + N * kH * 4;
-  s.bars = s.tab + (2 * P + 15) / 16 * 16;
-  s.ring = (s.bars + 8 * (2 * wg::kMaxStages + 6) + 1023) / 1024 * 1024;
-  const uint32_t room =
-      s.ring + 1024 < wgb::kMaxSmem ? (uint32_t)wgb::kMaxSmem - 1024 - s.ring : 0;
-  s.stages = room / wg::kStageBytes < wg::kMaxStages ? room / wg::kStageBytes : wg::kMaxStages;
-  s.total = s.ring + s.stages * wg::kStageBytes + 1024;  // and the slack of the alignment
-  return s;
-}
-
 // v[k] for a k known only at run time, without an indexed (local) array
 __device__ __forceinline__ uint32_t pick4(const uint32_t (&v)[4], int k) {
   const uint32_t a = (k & 1) ? v[1] : v[0], b = (k & 1) ? v[3] : v[2];
   return (k & 2) ? b : a;
-}
-
-// global -> L2, `bytes` a multiple of 16, 16-byte aligned
-__device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
-  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes) : "memory");
 }
 
 // Barriers, the dense row table (row p -> i = p / N, j = p % N) and the node
@@ -353,55 +328,11 @@ __device__ __forceinline__ void dense_setup(unsigned char* sm, uint32_t base, co
   __syncthreads();
 }
 
-// The dense aggregation of tile pair tp's rows p = i*N + j, the w tiles in
-// the A tiles of the two warpgroups (the caller has put a barrier of the
-// consumers before and puts one after).  A warpgroup takes half the receiving
-// nodes j, a thread two feature columns of four nodes at a time: it adds the
-// sources i whose row lies in the pair, in ascending order, in registers.  No
-// two threads touch one entry and the order is fixed: every node sums its N
-// sources in ascending i, the same f32 sums in every run.  The product of two
-// bf16 values rounded once to bf16 is __hmul2's; a row outside the pair adds
-// w = 0 from a valid address, so no branch separates the four nodes' loads.
-__device__ __forceinline__ void aggregate_dense_pair(unsigned char* sm, const GraphSmem& lay,
-                                                     float* agg, int tp, int w, int ct, int N,
-                                                     int P) {
-  const int pr0 = 128 * tp, nrows = min(P, pr0 + 128) - pr0;
-  const int i_lo = pr0 / N, i_hi = (pr0 + nrows - 1) / N, half = N / 2;
-  const uint32_t w_col = lay.tiles + (ct >> 5) * wg::kAtomBytes + (ct & 3) * 4;
-  const uint32_t w_unit = (ct >> 2) & 7, x_col = lay.xh + 4 * ct;
-  for (int n0 = w * half; n0 < (w + 1) * half; n0 += 4) {
-    float2 v[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      v[u] = *reinterpret_cast<const float2*>(agg + (n0 + u) * kH + 2 * ct);
-    for (int i = i_lo; i <= i_hi; ++i) {
-      const uint32_t x2 = ld_shared32(sm, x_col + i * (2 * kH));
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int pr = i * N + n0 + u;
-        const bool in = (unsigned)(pr - pr0) < (unsigned)nrows;
-        const uint32_t q = in ? pr - pr0 : 0;  // row q & 63 of warpgroup q >> 6's tile A
-        const uint32_t wraw = ld_shared32(sm, w_col + (q >> 6) * (2 * wg::kTileBytes) +
-                                                  (q & 63) * 128 + (((q & 7) ^ w_unit) << 4));
-        const uint32_t w2 = in ? wraw : 0u;
-        const float2 pv =
-            __bfloat1622float2(__hmul2(*reinterpret_cast<const __nv_bfloat162*>(&w2),
-                                       *reinterpret_cast<const __nv_bfloat162*>(&x2)));
-        v[u].x += pv.x;
-        v[u].y += pv.y;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      *reinterpret_cast<float2*>(agg + (n0 + u) * kH + 2 * ct) = v[u];
-  }
-}
-
 __global__ void __launch_bounds__(wg::kThreads, 1)
 condensed_score_wg_kernel(Params<bf16> p, const bf16* __restrict__ wimg) {
   extern __shared__ unsigned char smem_raw[];
   const int N = p.N, L = p.L, P = N * N, ntiles = P / 64, npairs = (ntiles + 1) / 2;
-  const GraphSmem lay = dense_layout(N);
+  const GraphSmem lay = wgb::dense_layout(N, true);
   const uint32_t raw = wg::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* sm = smem_raw + (base - raw);
@@ -651,63 +582,8 @@ condensed_score_wg_kernel(Params<bf16> p, const bf16* __restrict__ wimg) {
       const bf16* l2b = p.stack.l2b + (size_t)l * kH;
       const bf16* ob = p.stack.ob + (size_t)l * kH;
       if (l == L - 1) prefetch(w, p.er_out, p.ep_out);  // the head's first tile
-      WG_T(wg::kProfNodeProducts,
-           wgb::block_begin(ring, sm, base, lay, agg, w, tid, r_lo, t, N));
-
-      for (int tp = 0; tp < npairs; ++tp) {
-        const int ti = 2 * tp + w, r0 = ti * 64;
-        const bool active = ti < ntiles;
-        float c_lo = 0.0f, c_hi = 0.0f;
-        if (active) {
-          c_lo = rb(c_g[r0 + r_lo]);
-          c_hi = rb(c_g[r0 + r_hi]);
-          WG_T(wg::kProfTileWait, wg::mbar_wait(afull + 8 * w, afp));
-          afp ^= 1;
-        }
-        // f = ssp(rnd(ea f1w + f1b)), tile A into tile B
-        wg::product_bf16<kStagesPerMat, false, false>(
-            ring, active, tile_a, 0, wg::kAtomBytes, hold,
-            [&](int c, float (&acc)[16], uint32_t (&)[8]) {
-#pragma unroll
-              for (int j = 0; j < 4; ++j) {
-                const int col = 32 * c + 8 * j + 2 * t;
-                const float2 bias = ld2(f1b, col);
-                st_shared32(sm, tb_off + wg::img_off<2>(r_lo, col),
-                            wg::pack_bf16(act_ssp(rb(acc[4 * j] + bias.x)),
-                                          act_ssp(rb(acc[4 * j + 1] + bias.y))));
-                st_shared32(sm, tb_off + wg::img_off<2>(r_hi, col),
-                            wg::pack_bf16(act_ssp(rb(acc[4 * j + 2] + bias.x)),
-                                          act_ssp(rb(acc[4 * j + 3] + bias.y))));
-              }
-            });
-        if (active) publish();  // f visible to wgmma; every warp's reads of tile A have ended
-        // w = rnd(rnd(f f2w + f2b) * c) into tile A, which f1w has finished reading
-        wg::product_bf16<kStagesPerMat, false, false>(
-            ring, active, tile_b, 0, wg::kAtomBytes, hold,
-            [&](int c, float (&acc)[16], uint32_t (&)[8]) {
-#pragma unroll
-              for (int j = 0; j < 4; ++j) {
-                const int col = 32 * c + 8 * j + 2 * t;
-                const float2 bias = ld2(f2b, col);
-                st_shared32(sm, ta_off + wg::img_off<2>(r_lo, col),
-                            wg::pack_bf16(rb(acc[4 * j] + bias.x) * c_lo,
-                                          rb(acc[4 * j + 1] + bias.y) * c_lo));
-                st_shared32(sm, ta_off + wg::img_off<2>(r_hi, col),
-                            wg::pack_bf16(rb(acc[4 * j + 2] + bias.x) * c_hi,
-                                          rb(acc[4 * j + 3] + bias.y) * c_hi));
-              }
-            });
-        wg::bar_sync(wgb::kBarConsumers, wg::kConsumers);  // both w tiles are written
-        WG_T(wg::kProfAggregate, aggregate_dense_pair(sm, lay, agg, tp, w, ct, N, P));
-        // the w tiles are read, agg is whole; the generic stores into tile A
-        // are ordered before the bulk copy that refills it
-        wg::fence_async_shared();
-        wg::bar_sync(wgb::kBarConsumers, wg::kConsumers);
-        if (active && elected) wg::mbar_arrive(aempty + 8 * w);  // tile A takes the next ea tile
-      }
-
-      WG_T(wg::kProfNodeProducts,
-           wgb::node_update(ring, sm, base, lay, agg, l2b, ob, w, tid, r_lo, t, N));
+      wgb::interaction_block(ring, sm, base, lay, agg, c_g, f1b, f2b, l2b, ob, afull, aempty, afp,
+                             w, tid, N);
     }
 
     // 3. head on [h_i * h_j, ea_out] with the output-order edge features
@@ -802,11 +678,11 @@ void fill_params(Params<T>& p, const void* const* ptrs, int& i) {
 }
 
 bool wg_takes(int N, int H, int is_bf16) {
-  return is_bf16 && H == kH && N % 8 == 0 && N <= 255 && dense_layout(N).stages >= 3;
+  return is_bf16 && H == kH && N % 8 == 0 && N <= 255 && wgb::dense_layout(N, true).stages >= 3;
 }
 
 int launch_wg(const void* const* ptrs, int B, int N, int L, void* stream) {
-  const GraphSmem lay = dense_layout(N);
+  const GraphSmem lay = wgb::dense_layout(N, true);
   Params<bf16> p;
   int i = 0;
   fill_params(p, ptrs, i);

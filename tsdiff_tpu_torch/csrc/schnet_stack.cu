@@ -24,13 +24,16 @@
 // to T.
 //
 // Design.
-//   * Forward (schnet_fwd_kernel): one CTA per graph runs all L blocks.  h,
-//     xh and the f32 aggregation buffer (N x H each) stay in shared memory;
-//     the pair rows stream from global memory in tiles of TR rows, since one
-//     graph's ea (576 x 256 bf16 at N=24) exceeds a block's shared memory.
-//     Each thread owns feature columns in the aggregation, so the sum over
-//     sources needs no atomics and is deterministic.  The template flag
-//     kStoreHs compiles the store of the block inputs hs in (B3) or out (B4).
+//   * Forward, one CTA per graph runs all L blocks.  h, xh and the f32
+//     aggregation buffer (N x H each) stay in shared memory; the pair rows
+//     stream from global memory in 64-row tiles, since one graph's ea (576 x
+//     256 bf16 at N=24) exceeds a block's shared memory.  The aggregation
+//     sums each node's sources in a fixed order, without atomics.  The
+//     template flag kStoreHs compiles the store of the block inputs hs in
+//     (B3) or out (B4).  bf16 at H = 256, N <= 24 takes schnet_fwd_wg_kernel
+//     (wgmma on csrc/wg_pipeline.cuh, below); f32 and other shapes take the
+//     first port's schnet_fwd_kernel (mma.sync), by the explicit branch in
+//     launch_fwd.
 //   * Backward, one round per block l, from L-1 down to 0:
 //     - the row kernel, one CTA per graph: recomputes block l, updates the
 //       f32 cotangent g (B, N, H) and the f32 dea (B, P, E) in place (each
@@ -52,18 +55,15 @@
 // forward is 2.25e11 flop of matrix products (the TPU kernel's own estimate,
 // schnet_stack.py:129), 0.23 ms at 989 TFLOP/s, against 59 MB of ea (18 us at
 // 3.35 TB/s); the backward is 6.7e11 flop (0.68 ms) against ea, dea (f32) and
-// the weights, ~180 MB (54 us).  Both are bound by the tensor cores.  This
-// first version makes no attempt at that bound: mma.sync instead of wgmma, no
-// TMA, weights re-read from L2 once per row tile, the backward's per-row
-// factors round-trip through global memory, and the f32 path (which exists
-// to check the kernels against the plain version) runs FMA loops.
+// the weights, ~180 MB (54 us).  Both are bound by the tensor cores.  The
+// first port's mma.sync kernels make no attempt at that bound: weights
+// re-read from L2 once per row tile, the backward's per-row factors round-trip
+// through global memory, and the f32 path (which exists to check the kernels
+// against the plain version) runs FMA loops.
 //
-// The row kernel on Hopper, schnet_bwd_rows_wg_kernel (bf16, H = F = E =
-// 256, N <= 24, N % 8 == 0 so that P = N*N fills whole 64-row tiles).  Its
-// own products are 2*B*(2*P*H^2 + 2*P*H^2 + 5*N*H^2) flop per block: at the
-// training shapes 4.45e11 over the 7 blocks, 0.45 ms at 989 TFLOP/s
-// (ops/schnet_stack.py::schnet_stack_cost, "bwd_rows").  The design is the
-// dense score kernel's (csrc/condensed_score.cu):
+// The Hopper kernels (bf16, H = F = E = 256, N <= 24, N % 8 == 0 so that
+// P = N*N fills whole 64-row tiles) follow the dense score kernel's design
+// (csrc/condensed_score.cu):
 //   * the grid.  One CTA per graph: at B = 200 that is 200 CTAs on 132 SMs,
 //     1.52 waves, 5 tile pairs per CTA and pass at N = 24.  A two-CTA
 //     cluster per graph (400 CTAs, 3.03 waves of 3 and 2 tile pairs, agg,
@@ -71,14 +71,31 @@
 //     waves of 3 pairs = 12 pair units against 2 waves of 5 = 10, plus the
 //     exchange; persistent CTAs (132, each walking 1.52 graphs) leave the
 //     same 2 waves' worth on the busiest SM.  One CTA per graph is the least.
-//   * a producer warp walks the static schedule of weight stages
-//     (ops/schnet_stack.py::stack_bwd_schedule) through the 3-stage ring from
-//     the image of the block's nine matrices (arrange_stack_bwd_weights,
-//     made on the host per backward call: forward products read f1w^T,
-//     f2w^T, l1w^T, l2w^T, the transposed ones ow, l2w, f2w, f1w, l1w as
+//   * a producer warp walks a static schedule of weight stages through the
+//     3-stage ring from one image of every block's ten matrices
+//     (ops/schnet_stack.py::arrange_stack_weights, made on the host once per
+//     train step: a forward product reads its matrix transposed, f1w^T,
+//     f2w^T, l1w^T, l2w^T, ow^T, a backward one ow, l2w, f2w, f1w, l1w as
 //     they are, so every product has a weight matrix as its B operand and
 //     runs on wg::mma_stage_bf16 unchanged), and it fetches the ea tile
-//     images (tile_image(ea, 64), made once per backward call) into tile A.
+//     images (tile_image(ea, 64), made once per train step as well) into
+//     tile A.
+//
+// The forward, schnet_fwd_wg_kernel: one launch for the L blocks, each B2's
+// interaction block (wgb::interaction_block, which both kernels call),
+// walking ops/schnet_stack.py::stack_fwd_schedule (8 (3 + 2 pairs) stages a
+// block): xh = rnd(h l1w) from h's node image; per tile pair s1 =
+// rnd(ssp(rnd(ea f1w + f1b))) into tile B and w = rnd(rnd(s1 f2w + f2b) c)
+// into tile A, then agg[j] += rnd(w[i*N+j] xh[i]), i ascending; the node
+// update on the node images in the B tiles, h in place.  Nothing but hs and
+// the output goes to global memory.  2*B*L*(2*P*H^2 + 3*N*H^2) flop: 2.25e11
+// at the training shapes, 0.23 ms at 989 TFLOP/s.
+//
+// The row kernel, schnet_bwd_rows_wg_kernel, one launch per block.  Its own
+// products are 2*B*(2*P*H^2 + 2*P*H^2 + 5*N*H^2) flop per block: at the
+// training shapes 4.45e11 over the 7 blocks, 0.45 ms at 989 TFLOP/s
+// (ops/schnet_stack.py::schnet_stack_cost, "bwd_rows"), walking
+// ops/schnet_stack.py::stack_bwd_schedule:
 //   * pass 1, per tile pair: a1 = ea f1w + f1b -> s1 (tile B, global),
 //     rnd(sigmoid(a1)) (global sg1); a2 = s1 f2w + f2b -> w = rnd(rnd(a2) c)
 //     (tile A, global); agg[j] += rnd(w[i*N+j] xh[i]), i ascending.
@@ -121,7 +138,7 @@ using tile::sigmoid_f;
 using tile::ssp_f;
 using tile::to_f;
 
-constexpr int kFwdPtrs = 14;
+constexpr int kFwdPtrs = 16;
 constexpr int kBwdPtrs = 41;
 constexpr int kJobs = 5;          // weight-gradient products per block
 constexpr int kXtyTile = 64;      // output tile edge of one X^T Y CTA
@@ -397,9 +414,15 @@ __global__ void __launch_bounds__(kThreads, 1) schnet_bwd_rows_kernel(BwdParams<
 }
 
 // ---------------------------------------------------------------------------
-// The row kernel on the warp-specialised pipeline (bf16, H = 256, N <= 24)
+// The forward and the row kernel on the warp-specialised pipeline (bf16,
+// H = 256, N <= 24).  Shared memory is wgb::dense_layout's without the row
+// table: h as a node tile image, xh as N plain rows, the tiles A0, B0, A1, B1,
+// the f32 node buffer and six mbarriers beside the ring's (per warpgroup the
+// ea tile, full and empty, and the row kernel's w tile of pass 2, full); at
+// N = 24 the ring has 3 stages.
 
 using wgb::act_ssp;
+using wgb::aggregate_dense_pair;
 using wgb::bf16;
 using wgb::GraphSmem;
 using wgb::kH;
@@ -409,49 +432,28 @@ using wgb::kStagesPerMat;
 using wgb::kTileElems;
 using wgb::ld2;
 using wgb::ld_shared32;
+using wgb::prefetch_l2;
 using wgb::rb;
 using wgb::st_shared32;
 using wg::img_off;
 using wg::pack_bf16;
 using wg::unpack_bf16;
 
-// The nine matrices of a block in the arranged image, in the order the
-// producer walks them (ops/schnet_stack.py::STACK_BWD_ORDER): the forward
-// products' B operands are the transposed (out, in) matrices, the backward's
-// the (in, out) matrices as they are.
-enum StackMat { kL1wT, kF1wT, kF2wT, kL2wT, kOw, kL2w, kF2w, kF1w, kL1w, kStackMats };
+// The ten matrices of a block in the arranged image, one image for both
+// kernels (ops/schnet_stack.py::STACK_ORDER): the row kernel's producer walks
+// the first nine in this order, the forward's reads l1w^T, f1w^T, f2w^T,
+// l2w^T and ow^T.  A forward product's B operand is the transposed (out, in)
+// matrix, a backward product's the (in, out) matrix as it is.
+enum StackMat { kL1wT, kF1wT, kF2wT, kL2wT, kOw, kL2w, kF2w, kF1w, kL1w, kOwT, kStackMats };
 
-// Shared memory, offsets from a 1024-byte aligned base: h as a node tile
-// image (later dagg as N plain rows, then rnd(dxh) as a node image), xh as N
-// plain rows, the tiles A0, B0, A1, B1, the f32 node buffer (agg, then
-// sigmoid(a3), da3, dxh), and six mbarriers beside the ring's: per
-// warpgroup the ea tile (full, empty) and the w tile of pass 2 (full).  At
-// N = 24 the ring has 3 stages.
-__host__ __device__ inline GraphSmem stack_bwd_layout(int N) {
-  GraphSmem s;
-  s.node_stride = N * 128;
-  s.h = 0;
-  s.xh = 4 * s.node_stride;
-  s.tiles = 8 * s.node_stride;
-  s.agg = s.tiles + 4 * wg::kTileBytes;
-  s.tab = s.agg + N * kH * 4;  // no table
-  s.bars = s.tab;
-  s.ring = (s.bars + 8 * (2 * wg::kMaxStages + 6) + 1023) / 1024 * 1024;
-  const uint32_t room =
-      s.ring + 1024 < wgb::kMaxSmem ? (uint32_t)wgb::kMaxSmem - 1024 - s.ring : 0;
-  s.stages = room / wg::kStageBytes < wg::kMaxStages ? room / wg::kStageBytes : wg::kMaxStages;
-  s.total = s.ring + s.stages * wg::kStageBytes + 1024;  // and the slack of the alignment
-  return s;
+// Both kernels need N % 8 == 0 (whole 64-row pair tiles) and the 3 ring
+// stages that the carve-up leaves up to N = 24.
+bool fwd_wg_takes(int N, int H, int is_bf16) {
+  return is_bf16 && H == kH && N > 0 && N % 8 == 0 && N <= 24 &&
+         wgb::dense_layout(N, false).stages >= 3;
 }
+bool bwd_wg_takes(int N, int H, int is_bf16) { return fwd_wg_takes(N, H, is_bf16); }
 
-bool bwd_wg_takes(int N, int H, int is_bf16) {
-  return is_bf16 && H == kH && N > 0 && N % 8 == 0 && N <= 24 && stack_bwd_layout(N).stages >= 3;
-}
-
-// global -> L2, `bytes` a multiple of 16, 16-byte aligned
-__device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
-  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes) : "memory");
-}
 __device__ __forceinline__ float act_sigmoid(float x) { return __fdividef(1.0f, 1.0f + __expf(-x)); }
 __device__ __forceinline__ void st_global32(bf16* p, uint32_t v) {
   *reinterpret_cast<uint32_t*>(p) = v;
@@ -470,39 +472,105 @@ __device__ __forceinline__ void add2(float2& s, float2 v) {
   s.y += v.y;
 }
 
-// The dense aggregation of tile pair tp's rows (csrc/condensed_score.cu's):
-// the w tiles in the A tiles of the two warpgroups, a warpgroup half the
-// receiving nodes j, a thread two feature columns of four nodes at a time;
-// every node sums its N sources in ascending i.  (The caller has put a
-// barrier of the consumers before and puts one after.)
-__device__ __forceinline__ void aggregate_dense_pair(unsigned char* sm, const GraphSmem& lay,
-                                                     float* agg, int tp, int w, int ct, int N,
-                                                     int P) {
-  const int pr0 = 128 * tp, nrows = min(P, pr0 + 128) - pr0;
-  const int i_lo = pr0 / N, i_hi = (pr0 + nrows - 1) / N, half = N / 2;
-  const uint32_t w_col = lay.tiles + (ct >> 5) * wg::kAtomBytes + (ct & 3) * 4;
-  const uint32_t w_unit = (ct >> 2) & 7, x_col = lay.xh + 4 * ct;
-  for (int n0 = w * half; n0 < (w + 1) * half; n0 += 4) {
-    float2 v[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      v[u] = *reinterpret_cast<const float2*>(agg + (n0 + u) * kH + 2 * ct);
-    for (int i = i_lo; i <= i_hi; ++i) {
-      const uint32_t x2 = ld_shared32(sm, x_col + i * (2 * kH));
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int pr = i * N + n0 + u;
-        const bool in = (unsigned)(pr - pr0) < (unsigned)nrows;
-        const uint32_t q = in ? pr - pr0 : 0;  // row q & 63 of warpgroup q >> 6's tile A
-        const uint32_t wraw = ld_shared32(sm, w_col + (q >> 6) * (2 * wg::kTileBytes) +
-                                                  (q & 63) * 128 + (((q & 7) ^ w_unit) << 4));
-        add2(v[u], mul_bf16x2(in ? wraw : 0u, x2));
+// h (the node tile image) as N rows of global memory at dst; the consumers
+__device__ __forceinline__ void store_h(bf16* dst, const unsigned char* sm, const GraphSmem& lay,
+                                       int tid, int N) {
+  for (int idx = tid; idx < N * 32; idx += wg::kConsumers) {
+    const int row = idx >> 5, unit = idx & 31;
+    *reinterpret_cast<uint4*>(dst + (size_t)row * kH + unit * 8) =
+        *reinterpret_cast<const uint4*>(sm + lay.h + img_off<2>(row, unit * 8, lay.node_stride));
+  }
+}
+
+// All L blocks of one graph per CTA; kStoreHs: each block's input h to hs
+// (B3), else not (B4).  The producer fetches the ea tiles from ea's tile
+// images and walks 8 (3 + 2 pairs) weight stages a block.
+template <bool kStoreHs>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+schnet_fwd_wg_kernel(FwdParams<bf16> p, const bf16* __restrict__ wimg,
+                     const bf16* __restrict__ ea_img) {
+  extern __shared__ unsigned char smem_raw[];
+  const int N = p.N, L = p.L, P = N * N, ntiles = P / 64, npairs = (ntiles + 1) / 2;
+  const GraphSmem lay = wgb::dense_layout(N, false);
+  const uint32_t raw = wg::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  const uint32_t full = base + lay.bars, empty = full + 8 * wg::kMaxStages;
+  const uint32_t afull = empty + 8 * wg::kMaxStages, aempty = afull + 16;
+  float* agg = reinterpret_cast<float*>(sm + lay.agg);
+
+  const int b = blockIdx.x, tid = threadIdx.x;
+  // warp-uniform by construction, and known to the compiler as such: wgmma
+  // under a branch it takes for divergent is serialized
+  const int warp_idx = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const size_t prow = (size_t)b * P, nrow = (size_t)b * N;  // the graph's first pair / node row
+
+  // barriers; the input h as a node tile image
+  if (tid == 0) {
+    wg::ring_init(full, empty, lay.stages);
+    for (int w = 0; w < 2; ++w) {
+      wg::mbar_init(afull + 8 * w, 1);
+      wg::mbar_init(aempty + 8 * w, 1);
+    }
+    wg::mbar_init_fence();
+  }
+  for (int idx = tid; idx < N * 32; idx += wg::kThreads) {
+    const int row = idx >> 5, unit = idx & 31;
+    *reinterpret_cast<uint4*>(sm + lay.h + img_off<2>(row, unit * 8, lay.node_stride)) =
+        *reinterpret_cast<const uint4*>(p.h + (nrow + row) * kH + unit * 8);
+  }
+  wg::fence_async_shared();
+  __syncthreads();
+
+  if (warp_idx >= wg::kConsumers / 32) {
+    // ===== producer: the static schedule of weight stages and ea tiles =====
+    wg::reg_dealloc<wg::kRegsProducer>();
+    if (tid == wg::kConsumers) {
+      wg::Ring ring{full, empty, base + lay.ring, lay.stages};
+      const bf16* ea_g = ea_img + prow * kH;  // the graph's P / 64 tile images
+      uint32_t aphase = 0;  // bit w: the parity warpgroup w's tile A was last waited on
+      for (int l = 0; l < L; ++l) {
+        const bf16* wl = wimg + (size_t)l * kStackMats * kHH;  // block l's matrices
+        auto fill_mat = [&](int m) {
+          for (int c = 0; c < kStagesPerMat; ++c) ring.fill(wl + (size_t)m * kHH + c * kStageElems);
+        };
+        fill_mat(kL1wT);
+        for (int tp = 0; tp < npairs; ++tp) {
+          for (int w = 0; w < 2; ++w) {
+            const int ti = 2 * tp + w;
+            if (ti >= ntiles) continue;
+            wg::mbar_wait(aempty + 8 * w, ((aphase >> w) & 1) ^ 1);
+            aphase ^= 1u << w;
+            wg::mbar_expect_tx(afull + 8 * w, wg::kTileBytes);
+            wg::bulk_load(base + lay.tiles + 2 * w * wg::kTileBytes,
+                          ea_g + (size_t)ti * kTileElems, wg::kTileBytes, afull + 8 * w);
+          }
+          fill_mat(kF1wT);
+          fill_mat(kF2wT);
+        }
+        fill_mat(kL2wT);
+        fill_mat(kOwT);
       }
     }
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      *reinterpret_cast<float2*>(agg + (n0 + u) * kH + 2 * ct) = v[u];
+    return;
   }
+
+  // ===== consumers: one 64-row tile of each tile pair per warpgroup =====
+  wg::reg_alloc<wg::kRegsConsumer>();
+  WG_T_BEGIN(t_consumer);
+  wg::Ring ring{full, empty, base + lay.ring, lay.stages};
+  const int w = warp_idx >> 2;
+  const bf16* c_g = p.c + prow;
+  uint32_t afp = 0;
+  for (int l = 0; l < L; ++l) {
+    const size_t bo = (size_t)l * kH;
+    // the block's input (the last block has ended with a barrier of the consumers)
+    if (kStoreHs) store_h(p.hs + ((size_t)b * L + l) * N * kH, sm, lay, tid, N);
+    wgb::interaction_block(ring, sm, base, lay, agg, c_g, p.f1b + bo, p.f2b + bo, p.l2b + bo,
+                           p.ob + bo, afull, aempty, afp, w, tid, N);
+  }
+  store_h(p.out + nrow * kH, sm, lay, tid, N);
+  WG_T_END(wg::kProfTotal, t_consumer);
 }
 
 // dxh[i] += rnd(w[i*N+j] * dagg[j]) over the rows i*N+j of tile pair tp, j
@@ -534,7 +602,7 @@ schnet_bwd_rows_wg_kernel(BwdParams<bf16> p, const bf16* __restrict__ wimg,
                           const bf16* __restrict__ ea_img) {
   extern __shared__ unsigned char smem_raw[];
   const int N = p.N, P = N * N, B = p.B, l = p.l, ntiles = P / 64, npairs = (ntiles + 1) / 2;
-  const GraphSmem lay = stack_bwd_layout(N);
+  const GraphSmem lay = wgb::dense_layout(N, false);
   const uint32_t raw = wg::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* sm = smem_raw + (base - raw);
@@ -548,7 +616,7 @@ schnet_bwd_rows_wg_kernel(BwdParams<bf16> p, const bf16* __restrict__ wimg,
   // under a branch it takes for divergent is serialized
   const int warp_idx = __shfl_sync(0xffffffffu, tid >> 5, 0);
   const size_t prow = (size_t)b * P, nrow = (size_t)b * N;  // the graph's first pair / node row
-  const bf16* wl = wimg + (size_t)l * kStackMats * kHH;     // block l's nine matrices
+  const bf16* wl = wimg + (size_t)l * kStackMats * kHH;     // block l's matrices
 
   // barriers; the block input h_l as a node tile image, and to hl
   if (tid == 0) {
@@ -1113,8 +1181,6 @@ __global__ void schnet_bwd_reduce_kernel(XtyJobs<T> jobs) {
 
 template <typename T, int TR, bool kStoreHs>
 int launch_fwd(const void* const* ptrs, int B, int N, int H, int L, void* stream) {
-  const Smem lay = smem_layout<T, TR>(N, H, 2);
-  if (lay.np > TR || lay.total > kMaxSmem) return (int)cudaErrorInvalidValue;
   FwdParams<T> p;
   int i = 0;
   p.ea = static_cast<const T*>(ptrs[i++]);
@@ -1124,14 +1190,33 @@ int launch_fwd(const void* const* ptrs, int B, int N, int H, int L, void* stream
   for (const T** slot : w) *slot = static_cast<const T*>(ptrs[i++]);
   p.out = static_cast<T*>(const_cast<void*>(ptrs[i++]));
   p.hs = static_cast<T*>(const_cast<void*>(ptrs[i++]));
+  // the wgmma kernel's arranged weights and ea tile images
+  const bf16* wimg = static_cast<const bf16*>(ptrs[i++]);
+  const bf16* ea_img = static_cast<const bf16*>(ptrs[i++]);
   if (i != kFwdPtrs) return (int)cudaErrorInvalidValue;
   p.B = B; p.N = N; p.H = H; p.L = L;
-  cudaError_t e = cudaFuncSetAttribute(schnet_fwd_kernel<T, TR, kStoreHs>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)lay.total);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  // bf16 at H = 256, N <= 24 takes the wgmma kernel, everything else the
+  // mma.sync one; neither gives way to the other
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (fwd_wg_takes(N, H, 1)) {
+      const GraphSmem lay = wgb::dense_layout(N, false);
+      if (wimg == nullptr || ea_img == nullptr || lay.total > wgb::kMaxSmem)
+        return (int)cudaErrorInvalidValue;
+      e = cudaFuncSetAttribute(schnet_fwd_wg_kernel<kStoreHs>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
+      if (e != cudaSuccess) return (int)e;
+      schnet_fwd_wg_kernel<kStoreHs><<<B, wg::kThreads, lay.total, st>>>(p, wimg, ea_img);
+      return (int)cudaGetLastError();
+    }
+  }
+  const Smem lay = smem_layout<T, TR>(N, H, 2);
+  if (lay.np > TR || lay.total > kMaxSmem) return (int)cudaErrorInvalidValue;
+  e = cudaFuncSetAttribute(schnet_fwd_kernel<T, TR, kStoreHs>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
   if (e != cudaSuccess) return (int)e;
-  schnet_fwd_kernel<T, TR, kStoreHs>
-      <<<B, kThreads, lay.total, static_cast<cudaStream_t>(stream)>>>(p);
+  schnet_fwd_kernel<T, TR, kStoreHs><<<B, kThreads, lay.total, st>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -1171,7 +1256,7 @@ int launch_bwd(const void* const* ptrs, int B, int N, int H, int L, int pair_row
   // bf16 at H = 256, N <= 24 takes the wgmma row kernel, everything else the
   // mma.sync one; neither gives way to the other
   const bool use_wg = bwd_wg_takes(N, H, std::is_same<T, bf16>::value);
-  const GraphSmem wlay = stack_bwd_layout(N);
+  const GraphSmem wlay = wgb::dense_layout(N, false);
   cudaError_t e;
   if (use_wg) {
     if (wimg == nullptr || ea_img == nullptr || wlay.total > wgb::kMaxSmem)
@@ -1242,7 +1327,10 @@ extern "C" {
 
 // Forward of the stack on `stream`; returns the cudaError_t of the launch.
 // ptrs: ea, c, h, then f1w f1b f2w f2b l1w l2w l2b ow ob (matrices (L, out,
-// in)), out, hs (ignored unless store_hs).
+// in), read by the mma.sync kernel only), out, hs (ignored unless store_hs);
+// then, where schnet_stack_fwd_uses_wg says 1 (null otherwise), the arranged
+// bf16 weight image (L * 10 * H * H, ops/schnet_stack.py::arrange_stack_weights)
+// and ea as 64-row tile images (B, N*N*H).
 int schnet_stack_fwd_launch(const void* const* ptrs, int B, int N, int H, int L, int is_bf16,
                             int store_hs, void* stream) {
   if (bad_shape(B, N, H, L)) return (int)cudaErrorInvalidValue;
@@ -1264,7 +1352,7 @@ int schnet_stack_fwd_launch(const void* const* ptrs, int B, int N, int H, int L,
 // bias partials; the f32 split-K partials, (2 * ceil(B*N*N / pair_rows_per_split)
 // + 3 * ceil(B*N / node_rows_per_split)) * H * H; then, where
 // schnet_stack_bwd_uses_wg says 1 (null otherwise), the arranged bf16 weight
-// image (L * 9 * H * H, ops/schnet_stack.py::arrange_stack_bwd_weights) and
+// image (L * 10 * H * H, ops/schnet_stack.py::arrange_stack_weights) and
 // ea as 64-row tile images (B, N*N*H).
 int schnet_stack_bwd_launch(const void* const* ptrs, int B, int N, int H, int L, int is_bf16,
                             int pair_rows_per_split, int node_rows_per_split, void* stream) {
@@ -1276,8 +1364,14 @@ int schnet_stack_bwd_launch(const void* const* ptrs, int B, int N, int H, int L,
                                stream);
 }
 
-// 1 where schnet_stack_bwd_launch takes the wgmma row kernel (bf16, H = 256,
+// 1 where schnet_stack_fwd_launch takes the wgmma kernel (bf16, H = 256,
 // N % 8 == 0, N <= 24), 0 where it takes the mma.sync one.
+int schnet_stack_fwd_uses_wg(int N, int H, int is_bf16) {
+  return fwd_wg_takes(N, H, is_bf16) ? 1 : 0;
+}
+
+// 1 where schnet_stack_bwd_launch takes the wgmma row kernel (the same
+// shapes), 0 where it takes the mma.sync one.
 int schnet_stack_bwd_uses_wg(int N, int H, int is_bf16) {
   return bwd_wg_takes(N, H, is_bf16) ? 1 : 0;
 }

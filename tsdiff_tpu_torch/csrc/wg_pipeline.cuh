@@ -473,7 +473,7 @@ __device__ __forceinline__ void product_s8(Ring& ring, bool active, uint32_t a1,
 }  // namespace wg
 
 // ---------------------------------------------------------------------------
-// One graph per CTA on the pipeline: what the warp-specialised score kernels
+// One graph per CTA on the pipeline: what the warp-specialised graph kernels
 // share (bf16 working type, H = F = 256).
 
 namespace wgb {
@@ -516,6 +516,34 @@ __host__ __device__ inline GraphSmem graph_layout(int N) {
   s.stages = room / wg::kStageBytes < wg::kMaxStages ? room / wg::kStageBytes : wg::kMaxStages;
   s.total = s.ring + s.stages * wg::kStageBytes + 1024;  // and the slack of the alignment
   return s;
+}
+
+// The carve-up of the dense kernels (one graph's P = N*N pair rows p = i*N
+// + j: B2 and the SchNet stack's forward and backward row kernel):
+// graph_layout's, with the dense row table (two bytes per row) where `table`
+// says so, and six mbarriers beside the ring's: per warpgroup the ea tile
+// (full, empty) and one more tile (B2's kept tile, the row kernel's w tile of
+// pass 2).  At N = 24 the ring has 3 stages, with or without the table.
+__host__ __device__ inline GraphSmem dense_layout(int N, bool table) {
+  GraphSmem s;
+  const uint32_t P = N * N;
+  s.node_stride = N * 128;
+  s.h = 0;
+  s.xh = 4 * s.node_stride;
+  s.tiles = 8 * s.node_stride;  // A0, B0, A1, B1
+  s.agg = s.tiles + 4 * wg::kTileBytes;
+  s.tab = s.agg + N * kH * 4;
+  s.bars = s.tab + (table ? (2 * P + 15) / 16 * 16 : 0);
+  s.ring = (s.bars + 8 * (2 * wg::kMaxStages + 6) + 1023) / 1024 * 1024;
+  const uint32_t room = s.ring + 1024 < kMaxSmem ? (uint32_t)kMaxSmem - 1024 - s.ring : 0;
+  s.stages = room / wg::kStageBytes < wg::kMaxStages ? room / wg::kStageBytes : wg::kMaxStages;
+  s.total = s.ring + s.stages * wg::kStageBytes + 1024;  // and the slack of the alignment
+  return s;
+}
+
+// global -> L2, `bytes` a multiple of 16, 16-byte aligned
+__device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes) : "memory");
 }
 
 __device__ __forceinline__ float2 ld2(const bf16* v, int col) {
@@ -644,6 +672,50 @@ __device__ __forceinline__ void aggregate_pair(unsigned char* sm, const GraphSme
   }
 }
 
+// The dense aggregation of tile pair tp's rows p = i*N + j, the w tiles in
+// the A tiles of the two warpgroups (the caller has put a barrier of the
+// consumers before and puts one after).  A warpgroup takes half the receiving
+// nodes j, a thread two feature columns of four nodes at a time: it adds the
+// sources i whose row lies in the pair, in ascending order, in registers.  No
+// two threads touch one entry and the order is fixed: every node sums its N
+// sources in ascending i, the same f32 sums in every run.  The product of two
+// bf16 values rounded once to bf16 is __hmul2's; a row outside the pair adds
+// w = 0 from a valid address, so no branch separates the four nodes' loads.
+__device__ __forceinline__ void aggregate_dense_pair(unsigned char* sm, const GraphSmem& lay,
+                                                     float* agg, int tp, int w, int ct, int N,
+                                                     int P) {
+  const int pr0 = 128 * tp, nrows = min(P, pr0 + 128) - pr0;
+  const int i_lo = pr0 / N, i_hi = (pr0 + nrows - 1) / N, half = N / 2;
+  const uint32_t w_col = lay.tiles + (ct >> 5) * wg::kAtomBytes + (ct & 3) * 4;
+  const uint32_t w_unit = (ct >> 2) & 7, x_col = lay.xh + 4 * ct;
+  for (int n0 = w * half; n0 < (w + 1) * half; n0 += 4) {
+    float2 v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      v[u] = *reinterpret_cast<const float2*>(agg + (n0 + u) * kH + 2 * ct);
+    for (int i = i_lo; i <= i_hi; ++i) {
+      const uint32_t x2 = ld_shared32(sm, x_col + i * (2 * kH));
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int pr = i * N + n0 + u;
+        const bool in = (unsigned)(pr - pr0) < (unsigned)nrows;
+        const uint32_t q = in ? pr - pr0 : 0;  // row q & 63 of warpgroup q >> 6's tile A
+        const uint32_t wraw = ld_shared32(sm, w_col + (q >> 6) * (2 * wg::kTileBytes) +
+                                                  (q & 63) * 128 + (((q & 7) ^ w_unit) << 4));
+        const uint32_t w2 = in ? wraw : 0u;
+        const float2 pv =
+            __bfloat1622float2(__hmul2(*reinterpret_cast<const __nv_bfloat162*>(&w2),
+                                       *reinterpret_cast<const __nv_bfloat162*>(&x2)));
+        v[u].x += pv.x;
+        v[u].y += pv.y;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      *reinterpret_cast<float2*>(agg + (n0 + u) * kH + 2 * ct) = v[u];
+  }
+}
+
 // End of an interaction block: h += rnd(ssp(rnd(rnd(agg) l2w + l2b)) ow + ob).
 // The B tiles are free between two tile loops: rnd(agg) goes to warpgroup 0's,
 // the ssp to warpgroup 1's.  Starts after, and ends with, a barrier of the
@@ -699,6 +771,94 @@ __device__ __forceinline__ void node_update(wg::Ring& ring, unsigned char* sm, u
   });
   wg::fence_async_shared();
   wg::bar_sync(kBarConsumers, wg::kConsumers);
+}
+
+// The cutoff of a pair row as the filter multiplies it: B2's is f32 and
+// rounded to bf16 here, the SchNet stack's is bf16 already.
+__device__ __forceinline__ float cutoff_value(float c) { return rb(c); }
+__device__ __forceinline__ float cutoff_value(bf16 c) { return __bfloat162float(c); }
+
+// One interaction block of a dense kernel (B2, the SchNet stack's forward)
+// on the graph's 64-row pair tiles, which the producer brings into the
+// warpgroups' A tiles (afull, aempty: per warpgroup; afp: the parity of this
+// warpgroup's next wait on afull), weight stages l1w, per tile pair f1w and
+// f2w, then l2w and ow:
+//   xh = rnd(h l1w); per tile pair s1 = rnd(ssp(rnd(ea f1w + f1b))) into
+//   tile B, w = rnd(rnd(s1 f2w + f2b) * c) into tile A, then agg[j] +=
+//   rnd(w[i*N+j] xh[i]); h += rnd(ssp(rnd(rnd(agg) l2w + l2b)) ow + ob).
+// w is the consumer's warpgroup, tid its thread (0..255).  Starts after, and
+// ends with, a barrier of the consumers.
+template <typename C>
+__device__ __forceinline__ void interaction_block(wg::Ring& ring, unsigned char* sm, uint32_t base,
+                                                  const GraphSmem& lay, float* agg, const C* c_g,
+                                                  const bf16* f1b, const bf16* f2b,
+                                                  const bf16* l2b, const bf16* ob, uint32_t afull,
+                                                  uint32_t aempty, uint32_t& afp, int w, int tid,
+                                                  int N) {
+  const int P = N * N, ntiles = P / 64, npairs = (ntiles + 1) / 2;
+  const int ct = tid & 127, t = tid & 3, r_lo = ((ct >> 5) << 4) + ((tid & 31) >> 2);
+  const int r_hi = r_lo + 8;
+  const bool elected = ct == 0;
+  const uint32_t ta_off = lay.tiles + 2 * w * wg::kTileBytes, tb_off = ta_off + wg::kTileBytes;
+  uint32_t hold[64];  // product_bf16's kept registers: unused here (kKeep false)
+  WG_T(wg::kProfNodeProducts, block_begin(ring, sm, base, lay, agg, w, tid, r_lo, t, N));
+
+  for (int tp = 0; tp < npairs; ++tp) {
+    const int ti = 2 * tp + w, r0 = ti * 64;
+    const bool active = ti < ntiles;
+    float c_lo = 0.0f, c_hi = 0.0f;
+    if (active) {
+      c_lo = cutoff_value(c_g[r0 + r_lo]);
+      c_hi = cutoff_value(c_g[r0 + r_hi]);
+      WG_T(wg::kProfTileWait, wg::mbar_wait(afull + 8 * w, afp));
+      afp ^= 1;
+    }
+    // s1 = rnd(ssp(rnd(ea f1w + f1b))), tile A into tile B
+    wg::product_bf16<kStagesPerMat, false, false>(
+        ring, active, base + ta_off, 0, wg::kAtomBytes, hold,
+        [&](int c, float (&acc)[16], uint32_t (&)[8]) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int col = 32 * c + 8 * j + 2 * t;
+            const float2 bias = ld2(f1b, col);
+            st_shared32(sm, tb_off + wg::img_off<2>(r_lo, col),
+                        wg::pack_bf16(act_ssp(rb(acc[4 * j] + bias.x)),
+                                      act_ssp(rb(acc[4 * j + 1] + bias.y))));
+            st_shared32(sm, tb_off + wg::img_off<2>(r_hi, col),
+                        wg::pack_bf16(act_ssp(rb(acc[4 * j + 2] + bias.x)),
+                                      act_ssp(rb(acc[4 * j + 3] + bias.y))));
+          }
+        });
+    if (active) {  // s1 visible to wgmma; every warp's reads of tile A have ended
+      wg::fence_async_shared();
+      wg::bar_sync(kBarWg0 + w, 128);
+    }
+    // w = rnd(rnd(s1 f2w + f2b) * c) into tile A, which f1w has finished reading
+    wg::product_bf16<kStagesPerMat, false, false>(
+        ring, active, base + tb_off, 0, wg::kAtomBytes, hold,
+        [&](int c, float (&acc)[16], uint32_t (&)[8]) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int col = 32 * c + 8 * j + 2 * t;
+            const float2 bias = ld2(f2b, col);
+            st_shared32(sm, ta_off + wg::img_off<2>(r_lo, col),
+                        wg::pack_bf16(rb(acc[4 * j] + bias.x) * c_lo,
+                                      rb(acc[4 * j + 1] + bias.y) * c_lo));
+            st_shared32(sm, ta_off + wg::img_off<2>(r_hi, col),
+                        wg::pack_bf16(rb(acc[4 * j + 2] + bias.x) * c_hi,
+                                      rb(acc[4 * j + 3] + bias.y) * c_hi));
+          }
+        });
+    wg::bar_sync(kBarConsumers, wg::kConsumers);  // both w tiles are written
+    WG_T(wg::kProfAggregate, aggregate_dense_pair(sm, lay, agg, tp, w, ct, N, P));
+    // the w tiles are read, agg is whole; the generic stores into tile A are
+    // ordered before the bulk copy that refills it
+    wg::fence_async_shared();
+    wg::bar_sync(kBarConsumers, wg::kConsumers);
+    if (active && elected) wg::mbar_arrive(aempty + 8 * w);  // tile A takes the next ea tile
+  }
+
+  WG_T(wg::kProfNodeProducts, node_update(ring, sm, base, lay, agg, l2b, ob, w, tid, r_lo, t, N));
 }
 
 // Per-row symmetric int8 of a product's results on the fragment's positions

@@ -1,10 +1,13 @@
 """The kernels of several checkouts of this repository side by side, on the card:
 
-    python -m tsdiff_tpu_torch.ops.kernel_compare PARENT . . PARENT
+    python -m tsdiff_tpu_torch.ops.kernel_compare [--train] PARENT . . PARENT
 
 Runs phases 1-3 of each checkout's own ``chip_smoke.py`` (card, build, every
 kernel against its plain version), one process per checkout, in the order
 given: parent, change, change, parent spreads the card's drift over both.
+With ``--train`` each process also runs that checkout's phase 6 (the train
+CLI, then the ms per step on one fixed batch and a profiled step, all in its
+log) and adds the ms per train step to the table.
 Every kernel is timed the same way in every checkout, as the median of five
 timings of 20 launches (CUDA events after two warm-up launches), also where
 that checkout's ``chip_smoke.py`` timed it otherwise.  Each run's log goes to
@@ -69,16 +72,19 @@ for (n, dn), parts in m.phase_stack_kernels().items():
     for part, v in parts.items():
         if part in names:  # not the backward's profiled split
             rows[f"{names[part]} N={n} {dn}"] = v
-print("''' + _MARK + r'''" + json.dumps(
-    {k: {"ms": v["ms"], "max_abs_err": v["max_abs_err"]} for k, v in rows.items()}))
+rows = {k: {"ms": v["ms"], "max_abs_err": v["max_abs_err"]} for k, v in rows.items()}
+if "--train" in sys.argv:
+    tr = m.phase_train()
+    rows["train step, fixed N=24 batch"] = {"ms": tr["ms_per_step"], "max_abs_err": None}
+print("''' + _MARK + r'''" + json.dumps(rows))
 '''
 
 
-def run(checkout: str, log_path: str) -> dict:
+def run(checkout: str, log_path: str, flags: list[str]) -> dict:
     """The kernels' ``{name: {"ms", "max_abs_err"}}`` of one checkout."""
     with open(log_path, "w") as log:
-        proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=checkout, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
+        proc = subprocess.run([sys.executable, "-c", _CHILD, *flags], cwd=checkout,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         log.write(proc.stdout)
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(_MARK)]
     if proc.returncode != 0 or not lines:
@@ -87,19 +93,22 @@ def run(checkout: str, log_path: str) -> dict:
 
 
 def main(argv: list[str]) -> None:
+    flags = [a for a in argv if a == "--train"]
+    argv = [a for a in argv if a != "--train"]
     if not argv:
         sys.exit(__doc__)
     os.makedirs("chiprun_out", exist_ok=True)
     runs = []
     for i, checkout in enumerate(argv):
         runs.append(run(os.path.abspath(checkout), os.path.join("chiprun_out",
-                                                                f"kernel_compare_{i}.txt")))
+                                                                f"kernel_compare_{i}.txt"), flags))
         print(f"run {i}: {checkout} done", flush=True)
     print("kernel | " + " | ".join(f"run {i} ({c}) ms, max abs err" for i, c in enumerate(argv)))
     for name in runs[0]:
         print(f"{name} | " + " | ".join(
-            f"{r[name]['ms']:.4f}, {r[name]['max_abs_err']:.6g}" if name in r else "-"
-            for r in runs))
+            f"{r[name]['ms']:.4f}, " + ("-" if r[name]["max_abs_err"] is None
+                                       else f"{r[name]['max_abs_err']:.6g}")
+            if name in r else "-" for r in runs))
 
 
 if __name__ == "__main__":

@@ -39,14 +39,18 @@ against ~180 MB.  Both are bound by the tensor cores (``schnet_stack_cost``).
 The design (one CTA per graph, pair tiles streamed from L2, a deterministic
 split-K reduction for the weight gradients) is described in the source.
 
-The backward's per-graph row kernel has two versions, chosen by the shape
-alone in ``schnet_stack_bwd_launch``: bfloat16 at H = 256 with N <= 24 takes
-the ``wgmma`` kernel on ``csrc/wg_pipeline.cuh`` (``schnet_stack_bwd.wg_launches``
+The forward and the backward's per-graph row kernel each have two versions,
+chosen by the shape alone in the library (``schnet_stack_fwd_uses_wg``,
+``schnet_stack_bwd_uses_wg``): bfloat16 at H = 256 with N <= 24 takes the
+``wgmma`` kernel on ``csrc/wg_pipeline.cuh`` (each wrapper's ``wg_launches``
 counts those calls), everything else the first port's ``mma.sync`` kernel.
-The former's host side is here for the tests: the image of each block's nine
-weight matrices (``arrange_stack_bwd_weights``, made on every backward
-call), the static schedule of weight stages
-(``stack_bwd_schedule``) and the order of its pass-2 sum (``dxh_by_source``).
+Both ``wgmma`` kernels read one image of every block's ten weight matrices
+(``arrange_stack_weights``) and ``ea`` as 64-row tile images
+(``ea_tile_images``); ``InteractionStackFn`` makes both once per train step,
+in its forward, and hands them to its backward.  Their host side is here for
+the tests: the image, the static schedules of weight stages
+(``stack_fwd_schedule``, ``stack_bwd_schedule``) and the order of the row
+kernel's pass-2 sum (``dxh_by_source``).
 """
 
 from __future__ import annotations
@@ -64,11 +68,12 @@ _LOG2 = 0.6931471805599453
 #: rows per split of the weight-gradient reduction (pair rows, node rows)
 PAIR_ROWS_PER_SPLIT = 2048
 NODE_ROWS_PER_SPLIT = 512
-#: the nine matrices of a block in the ``wgmma`` row kernel's image, in the
-#: order its producer walks them (``csrc/schnet_stack.cu::StackMat``): "_t"
+#: the ten matrices of a block in the ``wgmma`` kernels' image
+#: (``csrc/schnet_stack.cu::StackMat``): the row kernel's producer walks the
+#: first nine in this order, the forward's reads the five "_t" ones.  "_t"
 #: marks a matrix transposed to (out, in), the B operand of a forward product
 #: X W; the others stay (in, out), the B operand of a backward product Y W^T
-STACK_BWD_ORDER = ("l1w_t", "f1w_t", "f2w_t", "l2w_t", "ow", "l2w", "f2w", "f1w", "l1w")
+STACK_ORDER = ("l1w_t", "f1w_t", "f2w_t", "l2w_t", "ow", "l2w", "f2w", "f1w", "l1w", "ow_t")
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -81,8 +86,9 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.schnet_stack_fwd_launch.restype = ctypes.c_int
     lib.schnet_stack_bwd_launch.argtypes = [ptrs, *[ctypes.c_int] * 7, ctypes.c_void_p]
     lib.schnet_stack_bwd_launch.restype = ctypes.c_int
-    lib.schnet_stack_bwd_uses_wg.argtypes = [ctypes.c_int] * 3
-    lib.schnet_stack_bwd_uses_wg.restype = ctypes.c_int
+    for fn in (lib.schnet_stack_fwd_uses_wg, lib.schnet_stack_bwd_uses_wg):
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_int
     lib.schnet_stack_error_string.argtypes = [ctypes.c_int]
     lib.schnet_stack_error_string.restype = ctypes.c_char_p
     return lib
@@ -207,19 +213,55 @@ interaction_stack_reference.calls = 0
 
 
 # ---------------------------------------------------------------------------
-# The wgmma row kernel's host side
+# The wgmma kernels' host side
 
 
-def arrange_stack_bwd_weights(w: dict) -> torch.Tensor:
-    """The nine matrices of every block, in ``STACK_BWD_ORDER``, as one flat
+def arrange_stack_weights(w: dict) -> torch.Tensor:
+    """The ten matrices of every block, in ``STACK_ORDER``, as one flat
     tensor of tile images in the weights' type, block after block: what the
-    ``wgmma`` row kernel's producer copies, 16 KB a stage, into its ring.
-    The training weights change every step, so the backward arranges them on
-    every call."""
+    ``wgmma`` kernels' producers copy, 16 KB a stage, into their rings.  The
+    training weights change every step, so a train step arranges them once,
+    in the forward (``.calls`` counts the arrangements)."""
     from tsdiff_tpu_torch.ops.packed_score import tile_image
 
-    mats = [w[k[:-2]].transpose(-1, -2) if k.endswith("_t") else w[k] for k in STACK_BWD_ORDER]
-    return tile_image(torch.stack(mats, dim=1)).reshape(-1)   # (L, 9, H*H) flat
+    arrange_stack_weights.calls += 1
+    mats = [w[k[:-2]].transpose(-1, -2) if k.endswith("_t") else w[k] for k in STACK_ORDER]
+    return tile_image(torch.stack(mats, dim=1)).reshape(-1)   # (L, 10, H*H) flat
+
+
+def ea_tile_images(ea: torch.Tensor) -> torch.Tensor:
+    """``ea (B, P, E)`` as the ``wgmma`` kernels' producers fetch it: per
+    graph P / 64 tile images of 64 rows, ``(B, P*E)`` (``.calls`` counts
+    them)."""
+    from tsdiff_tpu_torch.ops.condensed_score import TILE_ROWS
+    from tsdiff_tpu_torch.ops.packed_score import tile_image
+
+    ea_tile_images.calls += 1
+    return tile_image(ea, TILE_ROWS)
+
+
+arrange_stack_weights.calls = 0
+ea_tile_images.calls = 0
+
+
+def _blocks_schedule(*groups: tuple[tuple[str, ...], int]) -> list[tuple[str, int]]:
+    """``(matrix, 32-column block)`` per stage: each group's matrices, every
+    one's stages in order, the group repeated its count of times."""
+    from tsdiff_tpu_torch.ops.condensed_score import STAGE_COLS
+
+    blocks = range(256 // STAGE_COLS)
+    return [(k, c) for keys, times in groups for _ in range(times) for k in keys for c in blocks]
+
+
+def stack_fwd_schedule(N: int) -> list[tuple[str, int]]:
+    """The static schedule of weight stages every CTA of the ``wgmma``
+    forward walks per block (a launch walks it L times), producer and
+    consumers alike: ``(matrix, 32-column block)`` per stage.  The node
+    product xh; per tile pair s1 and w; the node update's two products."""
+    from tsdiff_tpu_torch.ops.condensed_score import dense_tile_pairs
+
+    return _blocks_schedule((("l1w_t",), 1), (("f1w_t", "f2w_t"), dense_tile_pairs(N)),
+                            (("l2w_t", "ow_t"), 1))
 
 
 def stack_bwd_schedule(N: int) -> list[tuple[str, int]]:
@@ -228,16 +270,11 @@ def stack_bwd_schedule(N: int) -> list[tuple[str, int]]:
     ``(matrix, 32-column block)`` per stage.  The node product xh; per tile
     pair a1 and a2 (pass 1); the node products a3, ds3 and dagg; per tile
     pair ds1 and dea (pass 2); the node product dh."""
-    from tsdiff_tpu_torch.ops.condensed_score import STAGE_COLS, dense_tile_pairs
+    from tsdiff_tpu_torch.ops.condensed_score import dense_tile_pairs
 
-    blocks = range(256 // STAGE_COLS)
     pairs = dense_tile_pairs(N)
-
-    def mat(*keys):
-        return [(k, c) for k in keys for c in blocks]
-
-    return (mat("l1w_t") + mat("f1w_t", "f2w_t") * pairs + mat("l2w_t", "ow", "l2w")
-            + mat("f2w", "f1w") * pairs + mat("l1w"))
+    return _blocks_schedule((("l1w_t",), 1), (("f1w_t", "f2w_t"), pairs),
+                            (("l2w_t", "ow", "l2w"), 1), (("f2w", "f1w"), pairs), (("l1w",), 1))
 
 
 def dxh_by_source(wv: torch.Tensor, dagg: torch.Tensor) -> torch.Tensor:
@@ -347,65 +384,103 @@ def _launch(fn_name: str, tensors: list, *ints):
         raise RuntimeError(f"{fn_name} failed ({err}: {msg}) at B, N, H, L = {ints[:4]}")
 
 
-def _fwd_cuda(w: dict, h: torch.Tensor, ea: torch.Tensor, c: torch.Tensor, store_hs: bool):
-    B, N, H, L = _check(w, ea, c, h, "schnet_stack forward")
+def _wg_operands(w: dict, ea: torch.Tensor, L: int, image, ea_img, name: str):
+    """The ``wgmma`` kernels' arranged weights and ``ea`` tile images, made
+    here where not given; a misshaped one raises."""
+    B, P, H = ea.shape
+    image = arrange_stack_weights(w) if image is None else image
+    ea_img = ea_tile_images(ea) if ea_img is None else ea_img
+    for t, shape, what in ((image, (L * len(STACK_ORDER) * H * H,), "arrange_stack_weights"),
+                           (ea_img, (B, P * H), "ea_tile_images")):
+        if tuple(t.shape) != shape or t.dtype != ea.dtype or not t.is_contiguous() \
+                or t.device != ea.device:
+            raise ValueError(f"{name}: {what}'s tensor must be a contiguous {ea.dtype} {shape} "
+                             f"tensor on {ea.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    return image, ea_img
+
+
+def _fwd_uses_wg(N: int, H: int, dtype: torch.dtype) -> bool:
+    return bool(_kernel_lib().schnet_stack_fwd_uses_wg(N, H, int(dtype == torch.bfloat16)))
+
+
+def stack_wg_operands(w: dict, h: torch.Tensor, ea: torch.Tensor, c: torch.Tensor):
+    """``(image, ea_img)`` for the ``wgmma`` kernels, to be made once and
+    given to the forward and the backward of one step; ``(None, None)`` for
+    CPU tensors (the plain versions) and for shapes that take the
+    ``mma.sync`` kernels."""
+    if h.device.type == "cpu":
+        return None, None
+    B, N, H, L = _check(w, ea, c, h, "schnet_stack")
+    if not _fwd_uses_wg(N, H, ea.dtype):
+        return None, None
+    return _wg_operands(w, ea, L, None, None, "schnet_stack")
+
+
+def _fwd_cuda(w: dict, h: torch.Tensor, ea: torch.Tensor, c: torch.Tensor, store_hs: bool,
+              image, ea_img):
+    """``(out, hs, took the wgmma kernel)``."""
+    name = "schnet_stack forward"
+    B, N, H, L = _check(w, ea, c, h, name)
+    use_wg = _fwd_uses_wg(N, H, h.dtype)
+    if use_wg:
+        image, ea_img = _wg_operands(w, ea, L, image, ea_img, name)
+        mats = [None if k in _MATS else w[k] for k in W_KEYS]   # read from the image
+    else:
+        image = ea_img = None
+        mats = [w[k].transpose(1, 2).contiguous() if k in _MATS else w[k] for k in W_KEYS]
     out = torch.empty_like(h)
     hs = torch.empty((B, L, N, H), dtype=h.dtype, device=h.device) if store_hs else None
-    wt = [w[k].transpose(1, 2).contiguous() if k in _MATS else w[k] for k in W_KEYS]
-    _launch("schnet_stack_fwd_launch", [ea, c, h, *wt, out, hs],
+    _launch("schnet_stack_fwd_launch", [ea, c, h, *mats, out, hs, image, ea_img],
             B, N, H, L, int(h.dtype == torch.bfloat16), int(store_hs))
+    return out, hs, use_wg
+
+
+def schnet_stack_fwd(w: dict, h: torch.Tensor, ea: torch.Tensor, c: torch.Tensor,
+                     image: torch.Tensor | None = None, ea_img: torch.Tensor | None = None):
+    """B3's forward: ``(out, hs)``.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel on the current stream, or raise.
+
+    Which kernel is decided by the shape alone, in the library: bfloat16 at
+    H = 256 with N <= 24 takes the ``wgmma`` one (``.wg_launches`` counts
+    those calls), which reads the weights as ``arrange_stack_weights`` lays
+    them out and ``ea`` as ``ea_tile_images`` does (each made here unless
+    given; a misshaped one raises); float32 and other shapes take the
+    ``mma.sync`` one.  Neither gives way to the other, or to the plain
+    version."""
+    if h.device.type == "cpu":
+        return schnet_stack_fwd_reference(w, h, ea, c)
+    out, hs, use_wg = _fwd_cuda(w, h, ea, c, True, image, ea_img)
+    schnet_stack_fwd.launches += 1
+    schnet_stack_fwd.wg_launches += int(use_wg)
     return out, hs
 
 
-def schnet_stack_fwd(w: dict, h: torch.Tensor, ea: torch.Tensor, c: torch.Tensor):
-    """B3's forward: ``(out, hs)``.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel on the current stream, or raise."""
-    if h.device.type == "cpu":
-        return schnet_stack_fwd_reference(w, h, ea, c)
-    out = _fwd_cuda(w, h, ea, c, store_hs=True)
-    schnet_stack_fwd.launches += 1
-    return out
-
-
-def _check_stack_image(image: torch.Tensor, L: int, H: int, ea: torch.Tensor) -> None:
-    n = L * len(STACK_BWD_ORDER) * H * H
-    if tuple(image.shape) != (n,) or image.dtype != ea.dtype or not image.is_contiguous() \
-            or image.device != ea.device:
-        raise ValueError(f"schnet_stack backward: the arranged weights must be a contiguous "
-                         f"{ea.dtype} ({n},) tensor on {ea.device} (arrange_stack_bwd_weights), "
-                         f"got {image.dtype} {tuple(image.shape)} on {image.device}")
-
-
 def schnet_stack_bwd(w: dict, ea: torch.Tensor, c: torch.Tensor, hs: torch.Tensor,
-                     g: torch.Tensor, image: torch.Tensor | None = None):
+                     g: torch.Tensor, image: torch.Tensor | None = None,
+                     ea_img: torch.Tensor | None = None):
     """B3's backward: ``(dh, dea, grads)`` as ``schnet_stack_bwd_reference``.
     CPU tensors take the plain version; CUDA tensors run the kernels on the
     current stream, or raise.
 
     Which row kernel is decided by the shape alone, in the library: bfloat16
     at H = 256 with N <= 24 takes the ``wgmma`` one (``.wg_launches`` counts
-    those calls), which reads the weights as ``arrange_stack_bwd_weights``
-    lays them out (made here unless ``image`` is given; a misshaped one
-    raises) and ``ea`` as 64-row tile images (made here, once for all
-    blocks); float32 and other shapes take the ``mma.sync`` one.  Neither
-    gives way to the other, or to the plain version."""
+    those calls), which reads the weights and ``ea`` as the ``wgmma``
+    forward does (each made here unless given, as the forward of a train
+    step gives them; a misshaped one raises); float32 and other shapes take
+    the ``mma.sync`` one.  Neither gives way to the other, or to the plain
+    version."""
     if hs.device.type == "cpu":
         return schnet_stack_bwd_reference(w, ea, c, hs, g)
-    B, N, H, L = _check(w, ea, c, hs[:, 0], "schnet_stack backward")
+    name = "schnet_stack backward"
+    B, N, H, L = _check(w, ea, c, hs[:, 0], name)
     if tuple(g.shape) != (B, N, H):
-        raise ValueError(f"schnet_stack backward: g must be ({B}, {N}, {H}), got {tuple(g.shape)}")
+        raise ValueError(f"{name}: g must be ({B}, {N}, {H}), got {tuple(g.shape)}")
     dev, dt = ea.device, ea.dtype
     use_wg = bool(_kernel_lib().schnet_stack_bwd_uses_wg(N, H, int(dt == torch.bfloat16)))
-    ea_img = None
     if use_wg:
-        from tsdiff_tpu_torch.ops.condensed_score import TILE_ROWS
-        from tsdiff_tpu_torch.ops.packed_score import tile_image
-
-        image = arrange_stack_bwd_weights(w) if image is None else image
-        _check_stack_image(image, L, H, ea)
-        ea_img = tile_image(ea, TILE_ROWS)
+        image, ea_img = _wg_operands(w, ea, L, image, ea_img, name)
     else:
-        image = None
+        image = ea_img = None
     f32 = dict(dtype=torch.float32, device=dev)
     P = N * N
     dh = g.float().contiguous().clone()
@@ -438,45 +513,53 @@ def prepare_inputs(weights: dict, h, edge_attr, cmask, dtype):
 
 
 def interaction_stack_pallas(weights: dict, h: torch.Tensor, edge_attr: torch.Tensor,
-                             cmask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+                             cmask: torch.Tensor, dtype=torch.float32,
+                             image: torch.Tensor | None = None,
+                             ea_img: torch.Tensor | None = None) -> torch.Tensor:
     """B4: the forward-only stack, ``(B, N, H)`` in ``dtype``, from the JAX
     package's arguments (``edge_attr (B, N, N, E)``, ``cmask (B, N, N)``).
-    CPU tensors take the plain version; CUDA tensors launch the kernel built
-    without the ``hs`` store, or raise."""
+    CPU tensors take the plain version; CUDA tensors launch B3's forward
+    kernel built without the ``hs`` store (the ``wgmma`` one where
+    ``schnet_stack_fwd`` takes it, counted in ``.wg_launches``, with its
+    image and ``ea`` tile images made here unless given), or raise."""
     w, h, ea, c = prepare_inputs(weights, h, edge_attr, cmask, dtype)
     if h.device.type == "cpu":
         return interaction_stack_reference(w, h, ea, c)
-    out, _ = _fwd_cuda(w, h, ea, c, store_hs=False)
+    out, _, use_wg = _fwd_cuda(w, h, ea, c, False, image, ea_img)
     interaction_stack_pallas.launches += 1
+    interaction_stack_pallas.wg_launches += int(use_wg)
     return out
 
 
-schnet_stack_fwd.launches = 0
-schnet_stack_bwd.launches = 0
-schnet_stack_bwd.wg_launches = 0
-interaction_stack_pallas.launches = 0
+schnet_stack_fwd.launches = schnet_stack_fwd.wg_launches = 0
+schnet_stack_bwd.launches = schnet_stack_bwd.wg_launches = 0
+interaction_stack_pallas.launches = interaction_stack_pallas.wg_launches = 0
 
 
 class InteractionStackFn(torch.autograd.Function):
     """B3 as an autograd function: the forward kernel saves the block inputs
-    ``hs``; the backward kernels recompute from them.  Gradients come back in
-    the inputs' types, as ``_bwd_rule`` casts them; ``cmask`` gets none."""
+    ``hs``; the backward kernels recompute from them.  On the card the
+    forward makes the ``wgmma`` kernels' weight image and ``ea`` tile images
+    once and saves them for the backward.  Gradients come back in the
+    inputs' types, as ``_bwd_rule`` casts them; ``cmask`` gets none."""
 
     @staticmethod
     def forward(ctx, f1w, f1b, f2w, f2b, l1w, l2w, l2b, ow, ob, h, edge_attr, cmask, dtype):
         weights = dict(zip(W_KEYS, (f1w, f1b, f2w, f2b, l1w, l2w, l2b, ow, ob)))
         w, hv, ea, c = prepare_inputs(weights, h, edge_attr, cmask, dtype)
-        out, hs = schnet_stack_fwd(w, hv, ea, c)
-        ctx.save_for_backward(*(w[k] for k in W_KEYS), ea, c, hs)
+        image, ea_img = stack_wg_operands(w, hv, ea, c)
+        out, hs = schnet_stack_fwd(w, hv, ea, c, image=image, ea_img=ea_img)
+        ctx.save_for_backward(*(w[k] for k in W_KEYS), ea, c, hs, image, ea_img)
         ctx.meta = (h.dtype, edge_attr.shape, edge_attr.dtype, [weights[k].dtype for k in W_KEYS])
         return out
 
     @staticmethod
     def backward(ctx, g):
-        *ws, ea, c, hs = ctx.saved_tensors
+        *ws, ea, c, hs, image, ea_img = ctx.saved_tensors
         h_dtype, ea_shape, ea_dtype, w_dtypes = ctx.meta
         w = dict(zip(W_KEYS, ws))
-        dh, dea, grads = schnet_stack_bwd(w, ea, c, hs, g.to(ea.dtype).contiguous())
+        dh, dea, grads = schnet_stack_bwd(w, ea, c, hs, g.to(ea.dtype).contiguous(),
+                                          image=image, ea_img=ea_img)
         dws = [grads[k].to(dt) for k, dt in zip(W_KEYS, w_dtypes)]
         return (*dws, dh.to(h_dtype), dea.reshape(ea_shape).to(ea_dtype), None, None)
 

@@ -1,4 +1,4 @@
-"""Where the time of the warp-specialised score kernels goes, on the card:
+"""Where the time of the warp-specialised kernels goes, on the card:
 
     python -m tsdiff_tpu_torch.ops.wg_profile [N]
 
@@ -6,9 +6,10 @@ Builds ``csrc/packed_score.cu``, ``csrc/packed_score_int8.cu``,
 ``csrc/condensed_score.cu`` and ``csrc/schnet_stack.cu`` with ``-DWG_PROFILE``
 (into their own build directories), launches each warp-specialised kernel
 once at its path's shapes (the packed kernels B1 and B5 at M=8 members, B=100
-graphs; the dense kernel B2 at B=100 graphs, one model; B3 backward's
-``wgmma`` row kernel through one backward call at the training batch,
-B=200, so its 7 launches, one per block, add up; H=256, L=7, bfloat16, N=24
+graphs; the dense kernel B2 at B=100 graphs, one model; B3's ``wgmma``
+forward, one launch for the 7 blocks, and B3 backward's ``wgmma`` row kernel
+through one backward call, so its 7 launches, one per block, add up, both at
+the training batch, B=200; H=256, L=7, bfloat16, N=24
 unless given) on seeded random weights and inputs, and prints the ``clock64``
 cycles one lane of consumer warpgroup 0 of CTA 0 spent in each part of the
 kernel, as a share of its whole time.  The two consumer warpgroups run in
@@ -17,7 +18,8 @@ products or the aggregation counts in both slots.  The machine these kernels
 are measured on runs no profiler; this is its stand-in.  The slots are
 ``csrc/wg_pipeline.cuh::Prof``; in B2 "stores of kept results" is the wait
 for the bulk copy that brings a kept tile back from its global scratch, and
-"node products" includes the head's ``h_i * h_j``.  In B3's row kernel
+"node products" includes the head's ``h_i * h_j``; in B3's forward, as in
+B2's blocks, it is each block's xh product and node update.  In B3's row kernel
 "ea tile waits" also holds pass 2's waits for the w tiles, "aggregation" also
 pass 2's dxh sums, "node products" the whole node stage between the passes
 (with its barriers), and "first layer" the da2 tile build and da1's column
@@ -80,8 +82,9 @@ def dense_case(B, N, H, L, seed, device):
 
 
 def stack_case(B, N, H, L, seed, device):
-    """Seeded bfloat16 stack weights (flax layout), edge features, a cutoff
-    mask, the block inputs of the plain forward and a cotangent."""
+    """Seeded bfloat16 stack weights (flax layout), node states, edge
+    features, a cutoff mask, the block inputs of the plain forward and a
+    cotangent."""
     from tsdiff_tpu_torch.ops import schnet_stack as ss
 
     g = torch.Generator().manual_seed(seed)
@@ -96,7 +99,7 @@ def stack_case(B, N, H, L, seed, device):
     c = (torch.rand(B, N * N, generator=g) < 0.7).to(device, torch.bfloat16)
     cot = torch.randn(B, N, H, generator=g).to(device, torch.bfloat16)
     _, hs = ss.schnet_stack_fwd_reference(w, h, ea, c)
-    return w, ea, c, hs, cot
+    return w, h, ea, c, hs, cot
 
 
 def quantize_stacked(w32: dict) -> dict:
@@ -153,7 +156,8 @@ def main(argv: list[str]) -> None:
     wb = ps.with_wg_image({k: v.to(torch.bfloat16).contiguous() for k, v in w32.items()})
     w8 = quantize_stacked(w32)
     wd, zd, dd, cd, embs = dense_case(B, N, H, L, seed=N + 1, device=dev)
-    stack_args = stack_case(200, N, H, L, seed=N + 2, device=dev)
+    sw, sh, sea, sc, shs, scot = stack_case(200, N, H, L, seed=N + 2, device=dev)
+    image, ea_img = ss.stack_wg_operands(sw, sh, sea, sc)
     cases = (
         ("packed_score (B1)", ps._kernel_lib(), "packed_score_profile",
          lambda: ps.packed_score(wb, z, d, cmask, *types, num_blocks=L)),
@@ -161,8 +165,12 @@ def main(argv: list[str]) -> None:
          lambda: p8.packed_score_int8(w8, z, d, cmask, *types, num_blocks=L)),
         ("condensed_score (B2), one model", cs._kernel_lib(), "condensed_score_profile",
          lambda: cs.condensed_score(wd, zd, dd, cd, *embs, num_blocks=L)),
+        ("schnet_fwd_wg_kernel (B3 forward), B=200, its 7 blocks in one launch",
+         ss._kernel_lib(), "schnet_stack_profile",
+         lambda: ss.schnet_stack_fwd(sw, sh, sea, sc, image=image, ea_img=ea_img)),
         ("schnet_bwd_rows_wg_kernel (B3 backward), B=200, its 7 launches",
-         ss._kernel_lib(), "schnet_stack_profile", lambda: ss.schnet_stack_bwd(*stack_args)),
+         ss._kernel_lib(), "schnet_stack_profile",
+         lambda: ss.schnet_stack_bwd(sw, sea, sc, shs, scot, image=image, ea_img=ea_img)),
     )
     for name, lib, entry, launch in cases:
         cycles = read_profile(lib, entry, launch)
