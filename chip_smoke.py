@@ -10,9 +10,9 @@ Phases (any failure exits non-zero):
    nvcc per source, in parallel, cached libraries removed first so that the
    time is the build's; registers, spills and shared memory of every kernel
    from the ``ptxas`` log; fails if the dense score's warp-specialised kernel,
-   B3's ``wgmma`` forward (both builds: B3 and B4) or B3 backward's ``wgmma``
-   row kernel spills, or if ptxas serializes the ``wgmma`` of either stack
-   kernel (C7512/C7520);
+   B3's ``wgmma`` forward (both builds: B3 and B4), B3 backward's ``wgmma``
+   row kernel or its ``wgmma`` weight-gradient kernel spills, or if ptxas
+   serializes the ``wgmma`` of any stack kernel (C7512/C7520);
 3. kernels against their plain PyTorch versions at the main paths' shapes:
    the tile product of the warp-specialised kernels alone against a matrix
    product; the packed score step (B1) with the 8 trained campaign members on
@@ -32,10 +32,14 @@ Phases (any failure exits non-zero):
    forward and B4 through their ``wgmma`` kernel, fed the weight image and
    ``ea``'s tile images as a train step makes them (their own counters, two
    launches bitwise equal, B4 equal to B3's output), the backward's calls
-   bitwise equal, also fed those, and through its ``wgmma`` row kernel
-   (float32 through none: ``mma.sync``), with the backward's time split under
-   torch.profiler into the row kernel and the weight-gradient kernels beside
-   their bounds; errors, times
+   bitwise equal, also fed those, and through its ``wgmma`` row and
+   weight-gradient kernels (float32 through neither: ``mma.sync``), with the
+   backward's time split under torch.profiler into the row kernel and the
+   weight-gradient kernels beside their bounds; in bf16 the weight-gradient
+   kernel also alone on the plain backward's operands of the 7 blocks (two
+   calls bitwise equal, against the plain products and ``torch.mm``), timed
+   beside the same 35 products through ``torch.mm`` (float32 output); errors,
+   times
    (CUDA events: the median and the minimum of five timings of 20 launches,
    with the SM clock and temperature before and after) and the bound of each;
 4. sampling main path: the port's sampling CLI on 200 synthetic reactions
@@ -49,7 +53,8 @@ Phases (any failure exits non-zero):
 6. training main path: the port's train CLI at full width (H=256, L=7,
    batch 200, bf16, ``use_pallas``) for 40 iterations on a synthetic corpus;
    checks the stack kernels' launch counts (every forward call through the
-   ``wgmma`` forward, every backward call through the ``wgmma`` row kernel,
+   ``wgmma`` forward, every backward call through the ``wgmma`` row and
+   weight-gradient kernels,
    the weight image and ``ea``'s tile images made once per forward and reused
    by the backward), no plain-version call, finite
    losses and a written checkpoint, and reads the CLI's graphs/s over the
@@ -95,6 +100,8 @@ PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
 # launches per timing of a kernel; cuda_time_ms takes five such timings
 TIMING_ITERS = 20
+# a B3 backward kernel's name in a profile, without "_kernel" and its arguments
+BWD_KERNEL = re.compile(r"schnet_bwd_\w*?(?=_kernel)")
 
 # kernel vs plain version, as a fraction of the output's largest magnitude,
 # for every kernel and every output (the stack's gradients included):
@@ -192,7 +199,7 @@ def phase_build() -> None:
     print(f"[build] {', '.join(f'{n}.cu' for n in SOURCES)} built in "
           f"{time.monotonic() - t0:.1f} s, one nvcc each in parallel (" + ", ".join(
               f"{n} {_build.build_info[n]['seconds']:.1f} s" for n in SOURCES) + ")")
-    spills, wg_dense_spills, wg_rows_spills, wg_fwd_spills = 0, None, None, {}
+    spills, wg_dense_spills, wg_rows_spills, wg_xty_spills, wg_fwd_spills = 0, None, None, None, {}
     for name in SOURCES:
         # ptxas -v: "Compiling entry function '<mangled>'", then its stack and
         # spill line, then "Used N registers, ..."
@@ -212,28 +219,34 @@ def phase_build() -> None:
                     wg_dense_spills = n_spill
                 if kernel == "schnet_bwd_rows_wg_kernel":
                     wg_rows_spills = n_spill
+                if kernel == "schnet_bwd_xty_wg_kernel":
+                    wg_xty_spills = n_spill
                 if kernel.startswith("schnet_fwd_wg_kernel"):  # B3 (hs stored) and B4
                     wg_fwd_spills[kernel] = n_spill
                 print(f"[build] {name}: {kernel}: {line.strip().replace('ptxas info    : ', '')}; "
                       f"{stack}")
     print(f"[build] spill stores over all kernels: {spills} bytes; of the dense score's "
           f"warp-specialised kernel: {wg_dense_spills} bytes, of B3 backward's wgmma row kernel: "
-          f"{wg_rows_spills} bytes, of the wgmma forward (B3, B4): {wg_fwd_spills} (all must be "
-          f"0)")
+          f"{wg_rows_spills} bytes, of its wgmma weight-gradient kernel: {wg_xty_spills} bytes, "
+          f"of the wgmma forward (B3, B4): {wg_fwd_spills} (all must be 0)")
     if wg_dense_spills != 0:
         fail(f"condensed_score_wg_kernel spills {wg_dense_spills} bytes (or was not found)")
     if wg_rows_spills != 0:
         fail(f"schnet_bwd_rows_wg_kernel spills {wg_rows_spills} bytes (or was not found)")
+    if wg_xty_spills != 0:
+        fail(f"schnet_bwd_xty_wg_kernel spills {wg_xty_spills} bytes (or was not found)")
     if len(wg_fwd_spills) != 2 or any(wg_fwd_spills.values()):
         fail(f"schnet_fwd_wg_kernel spills, or was not found twice: {wg_fwd_spills}")
     # ptxas says C7512 / C7520 where it serializes a kernel's wgmma; the stack's
-    # library has two wgmma kernels, the forward and the backward's row kernel
+    # library has three wgmma kernels, the forward and the backward's row and
+    # weight-gradient kernels
     serialized = [line.strip() for line in _build.build_info["schnet_stack"]["log"].splitlines()
                   if re.search(r"C75(12|20)", line)]
     print(f"[build] schnet_stack: {len(serialized)} wgmma serialization lines (C7512/C7520)"
           + "".join(f"\n[build]   {line[:200]}" for line in serialized))
     if serialized:
-        fail("ptxas serializes the wgmma of schnet_fwd_wg_kernel or schnet_bwd_rows_wg_kernel")
+        fail("ptxas serializes the wgmma of schnet_fwd_wg_kernel, schnet_bwd_rows_wg_kernel or "
+             "schnet_bwd_xty_wg_kernel")
 
 
 def load_member(seed: int, dtype, device, **model_overrides):
@@ -253,13 +266,22 @@ def load_members(dtype, device):
     return [load_member(seed, dtype, device) for seed in MEMBER_SEEDS]
 
 
-def time_and_bound(tag: str, kernel, plain, cost: dict, dname: str) -> dict:
+def time_and_bound(tag: str, kernel, plain, cost: dict, dname: str, library=None,
+                   library_what: str = "") -> dict:
     """Kernel and plain-version times (CUDA events, warmed up; the median and
     the minimum of five timings) beside the bound: the larger of operations /
     peak rate (working-type flop and, where the kernel has them, int8
-    operations, each at its own rate, summed) and bytes / memory rate."""
+    operations, each at its own rate, summed) and bytes / memory rate; and,
+    where ``library`` is given, the time of the PyTorch call that computes
+    the same function (``library_what`` says which)."""
     ms, ms_min = cuda_time_ms(kernel, TIMING_ITERS)
     plain_ms, plain_min = cuda_time_ms(plain, 2, warmup=1)
+    lib_ms = lib_min = None
+    lib_text = "library_ms null (no single PyTorch call computes this function)"
+    if library is not None:
+        lib_ms, lib_min = cuda_time_ms(library, TIMING_ITERS)
+        lib_text = (f"library {lib_ms:.4f} ms (median; minimum {lib_min:.4f}; {library_what}), "
+                    f"the kernel {ms / lib_ms:.3f}x of it")
     t_ops = (cost["flops"] / PEAK_FLOPS[dname] + cost.get("int8_ops", 0) / PEAK_INT8) * 1e3
     t_bytes = cost["bytes"] / PEAK_BYTES * 1e3
     bound_ms = max(t_ops, t_bytes)
@@ -270,8 +292,9 @@ def time_and_bound(tag: str, kernel, plain, cost: dict, dname: str) -> dict:
           f"{bound_ms:.4f} ms by {bound_by} ({cost['flops']:.4g} flop, "
           f"{cost.get('int8_ops', 0):.4g} int8 operations, {cost['bytes']:.4g} bytes), "
           f"{(cost['flops'] + cost.get('int8_ops', 0)) / ms / 1e9:.4g} T operations/s achieved, "
-          f"library_ms null (no single PyTorch call computes this function)")
-    return dict(ms=ms, ms_min=ms_min, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+          f"{lib_text}")
+    return dict(ms=ms, ms_min=ms_min, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=lib_ms, library_ms_min=lib_min)
 
 
 def check_close(tag: str, out, ref, dname: str, tol=None) -> float:
@@ -524,6 +547,65 @@ def stack_inputs(B: int, n_bucket: int, dname: str, seed: int):
     return w, h, ea, c, g
 
 
+def library_xty():
+    """``(fn, what)``: x^T y by one ``torch.mm`` call with float32 output from
+    bf16 inputs (``mm.dtype``) where this torch has it, else by bf16
+    ``torch.mm``.  The port never calls it: it is the yardstick."""
+    import torch
+
+    x = torch.ones((64, 256), dtype=torch.bfloat16, device="cuda")
+    try:
+        torch.mm(x.t(), x, out_dtype=torch.float32)
+        return (lambda a, b: torch.mm(a.t(), b, out_dtype=torch.float32),
+                "torch.mm(x.t(), y, out_dtype=torch.float32)")
+    except (TypeError, RuntimeError) as err:
+        print(f"[kernels] torch.mm has no out_dtype here ({type(err).__name__}: "
+              f"{str(err)[:120]}): the yardstick is bf16 torch.mm(x.t(), y)")
+        return (lambda a, b: torch.mm(a.t(), b)), "torch.mm(x.t(), y) in bf16 (no out_dtype)"
+
+
+def phase_xty(tag: str, operands: list, rgrads: dict, B: int, N: int, H: int, dtype) -> dict:
+    """B3 backward's ``wgmma`` weight-gradient kernel alone on the plain
+    backward's operands of every block (one backward call's 7 x 5 products):
+    two calls bitwise equal, the gradients against the plain products and
+    against ``torch.mm``, every call counted as the ``wgmma`` kernel's; its
+    time per backward call beside its bound and beside the same 35 products
+    through ``torch.mm``."""
+    import torch
+
+    from tsdiff_tpu_torch.ops import schnet_stack as ss
+
+    mm, what = library_xty()
+    L = len(operands)
+    xty = ss.schnet_stack_xty
+    before = (xty.launches, xty.wg_launches)
+    e_max, same = 0.0, True
+    for l, (xs, ys) in zip(reversed(range(L)), operands):
+        out, again = ss.schnet_stack_xty(xs, ys), ss.schnet_stack_xty(xs, ys)
+        torch.cuda.synchronize()
+        same = same and torch.equal(out, again)
+        for k, (name, _, _) in enumerate(ss.XTY_JOBS):
+            e_max = max(e_max, check_close(f"schnet_bwd_xty_wg {tag} l={l} d{name}", out[k],
+                                           rgrads[name][l], "bfloat16"))
+            check_close(f"schnet_bwd_xty_wg {tag} l={l} d{name} against {what}", out[k],
+                        mm(xs[k], ys[k]).float(), "bfloat16")
+    took = (xty.launches - before[0], xty.wg_launches - before[1])
+    print(f"[kernels] schnet_bwd_xty_wg {tag}: {took[1]} of {took[0]} calls took the wgmma kernel "
+          f"(expected {2 * L} of {2 * L}); two calls bitwise equal: {same}")
+    if took != (2 * L, 2 * L):
+        fail(f"schnet_bwd_xty_wg {tag}: {took[1]} of {took[0]} calls took the wgmma kernel")
+    if not same:
+        fail(f"schnet_bwd_xty_wg {tag}: two calls on the same operands differ")
+    timing = time_and_bound(
+        f"schnet_bwd_xty_wg {tag} (one backward call: {L} calls of 5 products)",
+        lambda: [ss.schnet_stack_xty(xs, ys) for xs, ys in operands],
+        lambda: [ss.xty_reference(xs, ys) for xs, ys in operands],
+        ss.schnet_stack_cost(B, N, H, L, dtype, "bwd_xty"), "bfloat16",
+        library=lambda: [mm(x, y) for xs, ys in operands for x, y in zip(xs, ys)],
+        library_what=f"{5 * L} calls of {what}")
+    return dict(timing, max_abs_err=e_max)
+
+
 def bwd_split(tag: str, call, B: int, N: int, H: int, L: int, dtype, n_calls: int = 3) -> dict:
     """B3 backward's time per call by kernel under torch.profiler (device
     events), its row kernel and its weight-gradient kernels beside their
@@ -618,23 +700,27 @@ def phase_stack_kernels() -> dict:
                     check_close(f"schnet_stack_fwd {tag} hs", hs, ref_hs, dname))
         e_b4 = check_close(f"schnet_stack (B4) {tag} out", b4_out,
                            ss.interaction_stack_reference(w, h, ea, c), dname)
-        wg_before = ss.schnet_stack_bwd.wg_launches
+        wg_before = (ss.schnet_stack_bwd.wg_launches, ss.schnet_stack_bwd.xty_wg_launches)
         dh, dea, grads = ss.schnet_stack_bwd(w, ea, c, ref_hs, g)
         again = ss.schnet_stack_bwd(w, ea, c, ref_hs, g)
         # as a train step calls it: the forward's image and tile images
         given = ss.schnet_stack_bwd(w, ea, c, ref_hs, g, image=image, ea_img=ea_img)
-        rdh, rdea, rgrads = ss.schnet_stack_bwd_reference(w, ea, c, ref_hs, g)
+        operands = []   # the weight-gradient products' operands, block by block
+        rdh, rdea, rgrads = ss.schnet_stack_bwd_reference(w, ea, c, ref_hs, g, operands=operands)
         torch.cuda.synchronize()
-        # bf16 takes the wgmma row kernel, f32 the mma.sync one
-        took_wg = ss.schnet_stack_bwd.wg_launches - wg_before
+        # bf16 takes the wgmma row and weight-gradient kernels, f32 the mma.sync ones
+        took_wg = (ss.schnet_stack_bwd.wg_launches - wg_before[0],
+                   ss.schnet_stack_bwd.xty_wg_launches - wg_before[1])
         same = all(torch.equal(dh, o[0]) and torch.equal(dea, o[1])
                    and all(torch.equal(grads[k], o[2][k]) for k in ss.W_KEYS)
                    for o in (again, given))
-        print(f"[kernels] schnet_stack_bwd {tag}: {took_wg} of 3 calls took the wgmma row kernel; "
-              f"two calls, and a third fed the forward's weight image and ea tile images, bitwise "
-              f"equal in dh, dea and the nine gradients: {same}")
-        if took_wg != (3 if dtype == torch.bfloat16 else 0):
-            fail(f"schnet_stack_bwd {tag}: {took_wg} calls took the wgmma row kernel")
+        print(f"[kernels] schnet_stack_bwd {tag}: of 3 calls, {took_wg[0]} took the wgmma row "
+              f"kernel and {took_wg[1]} the wgmma weight-gradient kernel; two calls, and a third "
+              f"fed the forward's weight image and ea tile images, bitwise equal in dh, dea and "
+              f"the nine gradients: {same}")
+        if took_wg != ((3, 3) if dtype == torch.bfloat16 else (0, 0)):
+            fail(f"schnet_stack_bwd {tag}: (row, weight-gradient) calls through the wgmma "
+                 f"kernels {took_wg}")
         if not same:
             fail(f"schnet_stack_bwd {tag}: two calls on the same inputs differ")
         del again, given
@@ -642,7 +728,7 @@ def phase_stack_kernels() -> dict:
                      check_close(f"schnet_stack_bwd {tag} dea", dea, rdea, dname)]
                     + [check_close(f"schnet_stack_bwd {tag} d{k}", grads[k], rgrads[k], dname)
                        for k in ss.W_KEYS])
-        del out, hs, ref_out, dh, dea, grads, rdh, rdea, rgrads, b4_out
+        del out, hs, ref_out, dh, dea, grads, rdh, rdea, b4_out
 
         result[(N, dname)] = {
             "fwd": dict(time_and_bound(
@@ -664,7 +750,8 @@ def phase_stack_kernels() -> dict:
         if dtype == torch.bfloat16:
             result[(N, dname)]["bwd_split"] = bwd_split(
                 tag, lambda: ss.schnet_stack_bwd(w, ea, c, ref_hs, g), B, N, H, L, dtype)
-        del w, h, ea, c, g, ref_hs, ea4, c3, image, ea_img
+            result[(N, dname)]["xty"] = phase_xty(tag, operands, rgrads, B, N, H, dtype)
+        del w, h, ea, c, g, ref_hs, ea4, c3, image, ea_img, operands, rgrads
         torch.cuda.empty_cache()
     print("[kernels] tolerances (max, mean abs err / max|ref|): float32 (1e-4, 1e-4), only the "
           "float32 summation order differs; bfloat16 (3e-2, 3e-3), both round to bf16 at the "
@@ -970,6 +1057,7 @@ def phase_train() -> dict:
     expect_fwd, expect_bwd = iters + validations * val_batches, iters
     ss.schnet_stack_fwd.launches = ss.schnet_stack_bwd.launches = 0
     ss.schnet_stack_fwd.wg_launches = ss.schnet_stack_bwd.wg_launches = 0
+    ss.schnet_stack_bwd.xty_wg_launches = 0
     ss.interaction_stack_pallas.launches = ss.interaction_stack_pallas.wg_launches = 0
     ss.schnet_stack_fwd_reference.calls = ss.schnet_stack_bwd_reference.calls = 0
     ss.interaction_stack_reference.calls = 0
@@ -981,6 +1069,7 @@ def phase_train() -> dict:
     wall = time.monotonic() - t0
     launches = (ss.schnet_stack_fwd.launches, ss.schnet_stack_bwd.launches)
     fwd_wg, bwd_wg = ss.schnet_stack_fwd.wg_launches, ss.schnet_stack_bwd.wg_launches
+    xty_wg = ss.schnet_stack_bwd.xty_wg_launches
     b4_launches = ss.interaction_stack_pallas.launches
     plain = (ss.schnet_stack_fwd_reference.calls, ss.schnet_stack_bwd_reference.calls,
              ss.interaction_stack_reference.calls)
@@ -989,8 +1078,8 @@ def phase_train() -> dict:
           f"validations of {val_batches} batches, in {wall:.3f} s: B3 forward launches "
           f"{launches[0]} (expected {expect_fwd}), of them through the wgmma kernel {fwd_wg} "
           f"(expected {expect_fwd}), B3 backward launches {launches[1]} (expected "
-          f"{expect_bwd}), of them through the wgmma row kernel {bwd_wg} (expected "
-          f"{expect_bwd}), B4 launches {b4_launches} (not on this path), plain-version calls "
+          f"{expect_bwd}), of them through the wgmma row kernel {bwd_wg} and through the wgmma "
+          f"weight-gradient kernel {xty_wg} (expected {expect_bwd} each), B4 launches {b4_launches} (not on this path), plain-version calls "
           f"{plain}; the weight image and ea's tile images made {made} times (expected "
           f"{expect_fwd} each: once per forward, the backward of a train step reusing them)")
     if launches != (expect_fwd, expect_bwd):
@@ -999,6 +1088,8 @@ def phase_train() -> dict:
         fail(f"{fwd_wg} of {launches[0]} B3 forward calls took the wgmma kernel")
     if bwd_wg != expect_bwd:
         fail(f"{bwd_wg} of {launches[1]} B3 backward calls took the wgmma row kernel")
+    if xty_wg != expect_bwd:
+        fail(f"{xty_wg} of {launches[1]} B3 backward calls took the wgmma weight-gradient kernel")
     if made != (expect_fwd, expect_fwd):
         fail(f"the weight image and ea's tile images were made {made} times, expected "
              f"{expect_fwd} each")
@@ -1079,7 +1170,7 @@ def phase_train() -> dict:
         print(f"[train] device time per step: B3 forward {fwd:.4f} ms ({', '.join(fwd_names)}), "
               f"B3 backward "
               f"{sum(ms for ms, _ in bwd):.4f} ms (" + ", ".join(
-                  f"{re.search(r'schnet_bwd_[a-z]+(_wg)?', name).group(0)} {ms:.4f}"
+                  f"{BWD_KERNEL.search(name).group(0)} {ms:.4f}"
                   for ms, name in bwd)
               + f"), all other kernels {sum(ms for ms, _ in other):.4f} ms "
               f"({sum(n for _, n in other):.1f} launches/step); device busy "
@@ -1101,7 +1192,8 @@ def phase_train() -> dict:
         fail("sampling from the trained checkpoint gave missing or non-finite positions")
     print(f"[train] sampled {len(samples)} reactions for 20 respaced ld steps with the trained "
           f"checkpoint: all positions finite")
-    return dict(launches=launches, b4_launches=b4_launches, wall=wall, ms_per_step=ms,
+    return dict(launches=launches, b4_launches=b4_launches, xty_launches=xty_wg, wall=wall,
+                ms_per_step=ms,
                 cli_graphs_per_s=cli_gps, final_loss=losses[-1][2])
 
 
@@ -1136,9 +1228,9 @@ def main() -> None:
         fail(f"the int8 run's mean D-MAE differs from the bf16 run's by {delta:.4f}")
 
     def entry(name, source, replaces, launches, numbers):
-        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, **{key: numbers[key] for key in keys}, "library_ms": None}
+                "launches": launches, **{key: numbers.get(key) for key in keys}}
 
     stack_src = "tsdiff_tpu_torch/csrc/schnet_stack.cu"
     vjp = "tsdiff_tpu/ops/pallas/schnet_stack_vjp.py"
@@ -1152,6 +1244,9 @@ def main() -> None:
               dk[(24, "bfloat16")]),
         entry("schnet_stack_fwd", stack_src, f"{vjp}:44", tr["launches"][0], bf["fwd"]),
         entry("schnet_stack_bwd", stack_src, f"{vjp}:72", tr["launches"][1], bf["bwd"]),
+        # the backward's weight gradients alone: a launch is one backward call's
+        # products, its time the 7 blocks' (the library call: torch.mm for each)
+        entry("schnet_stack_bwd_xty", stack_src, f"{vjp}:72", tr["xty_launches"], bf["xty"]),
         # B4 has no caller on a path in either package: the training run counts 0
         entry("schnet_stack", stack_src, "tsdiff_tpu/ops/pallas/schnet_stack.py:53",
               tr["b4_launches"], bf["stack"]),

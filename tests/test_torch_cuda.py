@@ -4,7 +4,9 @@ in bfloat16, the mma.sync kernel in float32 and the tile product of the
 former alone; the dense score step (B2): its warp-specialised wgmma kernel in
 bfloat16 and its mma.sync kernel in float32; and the fused SchNet stack
 (B3's forward and backward, B4; the forward's wgmma kernel and the
-backward's wgmma row kernel in bfloat16, their mma.sync ones in float32).
+backward's wgmma row and weight-gradient kernels in bfloat16, their mma.sync
+ones in float32; the weight-gradient kernel also alone, against the plain
+products and against ``torch.mm``).
 
 Every test here needs an NVIDIA GPU with nvcc (marker ``cuda``) and skips
 without one.  The file imports neither JAX nor the JAX package, so on a
@@ -509,12 +511,14 @@ def test_stack_fwd_wg_kernel_needs_the_arranged_weights(cuda):
 def test_stack_backward_matches_reference(cuda, dtype, N):
     w, h, ea, c, cot = stack_inputs(3, N, 256, 2, dtype, cuda, seed=100 + N)
     _, hs = ss.schnet_stack_fwd_reference(w, h, ea, c)
-    launches, wg_launches = ss.schnet_stack_bwd.launches, ss.schnet_stack_bwd.wg_launches
+    bwd = ss.schnet_stack_bwd
+    launches, wg_launches, xty_wg = bwd.launches, bwd.wg_launches, bwd.xty_wg_launches
     dh, dea, grads = ss.schnet_stack_bwd(w, ea, c, hs, cot)
     torch.cuda.synchronize()
     assert ss.schnet_stack_bwd.launches == launches + 1
-    # bf16 takes the wgmma row kernel, f32 the mma.sync one
+    # bf16 takes the wgmma row and weight-gradient kernels, f32 the mma.sync ones
     assert ss.schnet_stack_bwd.wg_launches == wg_launches + int(dtype == torch.bfloat16)
+    assert ss.schnet_stack_bwd.xty_wg_launches == xty_wg + int(dtype == torch.bfloat16)
     rdh, rdea, rgrads = ss.schnet_stack_bwd_reference(w, ea, c, hs, cot)
     assert_close(f"bwd dh N={N}", dh, rdh, dtype)
     assert_close(f"bwd dea N={N}", dea, rdea, dtype)
@@ -599,3 +603,109 @@ def test_stack_cuda_tensors_never_take_the_plain_path(cuda):
         ss.schnet_stack_fwd(w2, h2, ea2, c2)
     assert calls == (ss.schnet_stack_fwd_reference.calls, ss.schnet_stack_bwd_reference.calls,
                      ss.interaction_stack_reference.calls)
+
+
+def library_xty(x, y):
+    """x^T y in float32 by one ``torch.mm`` call: with float32 output from
+    bf16 inputs where this torch has that overload (``mm.dtype``), else in
+    the inputs' type (a bf16 result, rounded once per element)."""
+    try:
+        return torch.mm(x.t(), y, out_dtype=torch.float32)
+    except (TypeError, RuntimeError):
+        return torch.mm(x.t(), y).float()
+
+
+def xty_operands(B, N, L, dtype, device, seed):
+    """The weight-gradient products' operands of the plain backward, per
+    block, on inputs with a source node's whole mask row zero in every graph
+    and graph 0 without any edge."""
+    w, h, ea, c, cot = stack_inputs(B, N, 256, L, dtype, device, seed=seed)
+    c = c.reshape(B, N, N).clone()
+    c[:, 1, :] = 0
+    c[0] = 0
+    c = c.reshape(B, N * N).contiguous()
+    _, hs = ss.schnet_stack_fwd_reference(w, h, ea, c)
+    operands = []
+    _, _, grads = ss.schnet_stack_bwd_reference(w, ea, c, hs, cot, operands=operands)
+    return operands, grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [8, 16, 24])
+@pytest.mark.parametrize("B", [1, 3, 200])
+def test_stack_xty_wg_kernel_against_plain_and_torch_mm(cuda, B, N):
+    """The wgmma weight-gradient kernel alone on the plain backward's
+    operands of each block (the pair rows of B = 1, N = 8 are one stage; the
+    node rows of B = 1 and 3 end inside their first or second stage): its five
+    gradients within TOL of the plain products and of torch.mm, two calls
+    bitwise equal, every call counted as the wgmma kernel's."""
+    operands, grads = xty_operands(B, N, 2, torch.bfloat16, cuda, seed=11 * N + B)
+    xty = ss.schnet_stack_xty
+    before = (xty.launches, xty.wg_launches, ss.xty_reference.calls)
+    for l, (xs, ys) in zip((1, 0), operands):
+        out = ss.schnet_stack_xty(xs, ys)
+        again = ss.schnet_stack_xty(xs, ys)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        ref = ss.xty_reference(xs, ys)
+        for k, (name, _, _) in enumerate(ss.XTY_JOBS):
+            assert torch.equal(ref[k], grads[name][l])
+            assert_close(f"xty d{name} l={l} B={B} N={N}", out[k], ref[k], torch.bfloat16)
+            assert_close(f"xty d{name} l={l} B={B} N={N} vs torch.mm", out[k],
+                         library_xty(xs[k], ys[k]), torch.bfloat16)
+    assert (xty.launches, xty.wg_launches, ss.xty_reference.calls) == \
+        (before[0] + 4, before[1] + 4, before[2] + 2)
+
+
+@pytest.mark.cuda
+def test_stack_xty_takes_the_wgmma_kernel_only_for_bf16_at_256(cuda):
+    """bf16 at H = 256 takes the wgmma weight-gradient kernel, in the
+    backward and alone; float32 at H = 256 and bf16 at H = 128 the mma.sync
+    one, within TOL of the plain products all the same."""
+    xty = ss.schnet_stack_xty
+    for dtype, Hs, wg in ((torch.bfloat16, 256, 1), (torch.float32, 256, 0),
+                          (torch.bfloat16, 128, 0)):
+        g = torch.Generator().manual_seed(Hs)
+        rows = (3 * 64, 3 * 64, 24, 24, 24)
+        xs = [torch.randn(r, Hs, generator=g).to(cuda, dtype) for r in rows]
+        ys = [torch.randn(r, Hs, generator=g).to(cuda, dtype) for r in rows]
+        before = (xty.launches, xty.wg_launches)
+        out = ss.schnet_stack_xty(xs, ys)
+        torch.cuda.synchronize()
+        assert (xty.launches, xty.wg_launches) == (before[0] + 1, before[1] + wg), (dtype, Hs)
+        ref = ss.xty_reference(xs, ys)
+        for k in range(5):
+            assert_close(f"xty {dtype} H={Hs} job {k}", out[k], ref[k], dtype)
+    for dtype in (torch.bfloat16, torch.float32):
+        w, h, ea, c, cot = stack_inputs(3, 8, 256, 1, dtype, cuda, seed=2)
+        _, hs = ss.schnet_stack_fwd_reference(w, h, ea, c)
+        before = ss.schnet_stack_bwd.xty_wg_launches
+        ss.schnet_stack_bwd(w, ea, c, hs, cot)
+        torch.cuda.synchronize()
+        assert ss.schnet_stack_bwd.xty_wg_launches == before + int(dtype == torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_stack_xty_rejects_misshaped_scratch(cuda):
+    """A misshaped, mistyped or non-contiguous operand raises before any
+    launch: the kernel gives way neither to the mma.sync kernel nor to the
+    plain version."""
+    g = torch.Generator().manual_seed(0)
+    rows = (128, 128, 16, 16, 16)
+    xs = [torch.randn(r, 256, generator=g).to(cuda, torch.bfloat16) for r in rows]
+    ys = [torch.randn(r, 256, generator=g).to(cuda, torch.bfloat16) for r in rows]
+    bad = [
+        (xs[:4], ys),                                                  # four X
+        ([xs[0][:64], *xs[1:]], ys),                                   # pair rows disagree
+        (xs, [*ys[:2], ys[2][:8], *ys[3:]]),                           # node rows disagree
+        ([xs[0][:, :128].contiguous(), *xs[1:]], ys),                  # H disagrees
+        ([xs[0].float(), *xs[1:]], ys),                                # type disagrees
+        ([torch.randn(256, 128, generator=g).to(cuda, torch.bfloat16).t(), *xs[1:]], ys),
+        (xs, [*ys[:4], torch.randn(16, 512, generator=g).to(cuda, torch.bfloat16)[:, ::2]]),
+    ]
+    xty = ss.schnet_stack_xty
+    before = (xty.launches, xty.wg_launches, ss.xty_reference.calls)
+    for a, b in bad:
+        with pytest.raises(ValueError):
+            ss.schnet_stack_xty(a, b)
+    assert (xty.launches, xty.wg_launches, ss.xty_reference.calls) == before

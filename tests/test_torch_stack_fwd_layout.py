@@ -167,7 +167,10 @@ def test_autograd_makes_the_wg_operands_once_per_step(monkeypatch):
     the backward gets the same two tensors and makes none."""
     monkeypatch.setattr(ss, "_fwd_uses_wg", lambda *_: True)
     monkeypatch.setattr(ss, "_kernel_lib",
-                        lambda: type("Lib", (), {"schnet_stack_bwd_uses_wg": lambda *_: 1})())
+                        lambda: type("Lib", (), {"schnet_stack_bwd_uses_wg": lambda *_: 1,
+                                                 "schnet_stack_bwd_xty_uses_wg": lambda *_: 1})())
+    table = torch.empty(0, dtype=torch.int32, device="meta")
+    monkeypatch.setattr(ss, "_xty_table", lambda *_: (table, 132, 141))
     launched = []
     monkeypatch.setattr(ss, "_launch", lambda fn, tensors, *ints: launched.append((fn, tensors)))
     B, N, H, L = 2, 8, 256, 2
@@ -183,7 +186,7 @@ def test_autograd_makes_the_wg_operands_once_per_step(monkeypatch):
     assert (fwd, bwd) == ("schnet_stack_fwd_launch", "schnet_stack_bwd_launch")
     image, ea_img = fwd_args[-2:]
     assert image.shape == (L * 10 * H * H,) and ea_img.shape == (B, N * N * H)
-    assert bwd_args[-2] is image and bwd_args[-1] is ea_img
+    assert bwd_args[-3] is image and bwd_args[-2] is ea_img and bwd_args[-1] is table
 
 
 def jax_setup(B=2, N=8, H=16, L=2, seed=11):

@@ -44,9 +44,13 @@
 //       f32 and other shapes take schnet_bwd_rows_kernel (mma.sync), by the
 //       explicit branch in launch_bwd;
 //     - schnet_bwd_sum_kernel sums the bias partials over graphs;
-//     - schnet_bwd_xty_kernel is a split-K X^T Y over all rows of all graphs
-//       for the five weight gradients of block l (f32 accumulation), and
-//       schnet_bwd_reduce_kernel sums its partials in a fixed order.
+//     - a split-K X^T Y over all rows of all graphs for the five weight
+//       gradients of block l (f32 accumulation), then a sum of its partials
+//       in a fixed order.  bf16 at H = 256 takes schnet_bwd_xty_wg_kernel
+//       (wgmma with both operands read transposed, tensor copies, one
+//       persistent CTA per SM; below) and schnet_bwd_xty_wg_reduce_kernel;
+//       f32 and other shapes take schnet_bwd_xty_kernel (mma.sync) and
+//       schnet_bwd_reduce_kernel, by the explicit branch in launch_bwd.
 //     The TPU kernel accumulated the weight gradients in resident outputs
 //     over a sequential grid; on the GPU graphs run in parallel, and this
 //     two-pass reduction keeps the result deterministic without atomics.
@@ -119,6 +123,8 @@
 //   indices come from __shfl_sync (ptxas serializes wgmma under a branch it
 //   takes for divergent); every mbarrier wait is bounded.
 
+#include <cuda.h>
+
 #include <type_traits>
 
 #include "graph_block.cuh"
@@ -139,7 +145,6 @@ using tile::ssp_f;
 using tile::to_f;
 
 constexpr int kFwdPtrs = 16;
-constexpr int kBwdPtrs = 41;
 constexpr int kJobs = 5;          // weight-gradient products per block
 constexpr int kXtyTile = 64;      // output tile edge of one X^T Y CTA
 constexpr int kXtyRows = 32;      // rows staged per step
@@ -1177,6 +1182,290 @@ __global__ void schnet_bwd_reduce_kernel(XtyJobs<T> jobs) {
 }
 
 // ---------------------------------------------------------------------------
+// Weight gradients on Hopper: schnet_bwd_xty_wg_kernel (bf16, H = 256).
+//
+// Replaces, for these shapes, schnet_bwd_xty_kernel and
+// schnet_bwd_reduce_kernel: _bwd_kernel's dot(X.T, Y) lines (dow, dl2w, dl1w,
+// df2w, df1w += ..., schnet_stack_vjp.py:72).  The five products of block l
+// (df1w = ea^T da1 and df2w = s1^T da2 over the B*N*N pair rows; dl1w = hl^T
+// dxh, dl2w = agg^T da3 and dow = s3^T gd over the B*N node rows) are ten
+// outputs of 128 x 256: output 2k + mt is rows 128 mt .. 128 mt + 127 of job
+// k's gradient.  Each output's reduction is cut into stages of 64 rows, and
+// the stage-units of all ten, in the order (job, M-tile, stage), are dealt in
+// equal ranges to one persistent CTA per SM (ops/schnet_stack.py::
+// xty_schedule, made on the host and read here as a table): no wave is left
+// part full and no small job trails behind a large one.  A CTA's range is
+// one or more segments, each a run of one output's stages; a segment's sum
+// goes to its own f32 partial (128 x 256), and
+// schnet_bwd_xty_wg_reduce_kernel adds each output's partials in segment
+// order: deterministic, bitwise repeatable, no atomics.
+//
+// Per stage the producer warp copies by 2-D tensor copies (wg::tma_load_2d;
+// the ten tensor maps are made on the host once per backward call, the
+// scratch being the same for every block) the M-tile's 128 columns of X as
+// two boxes, one per consumer warpgroup, and Y's 256 columns as four, 64 rows
+// each, 48 KB into a ring of 4 stages.  Each consumer warpgroup keeps its 64 x
+// 256 f32 output in registers (128 a thread) and runs four wgmma m64n256k16
+// a stage with both operands MN-major (imm-trans-a = imm-trans-b = 1), the
+// next stage's product issued while the last one's finishes.  Both M-tiles of
+// an output read all of Y; the CTAs on them start at about the same row and
+// move at the same pace, so the second read finds Y in L2.
+//
+// Bound: per block X and Y are read once, 4 B N^2 H + 6 B N H bf16 values, and
+// the products are 2 B (2 N^2 + 3 N) H^2 flop (schnet_stack_cost, "bwd_xty"):
+// at B = 200, N = 24 per call of 7 blocks 1.764e9 bytes, 0.53 ms at 3.35 TB/s,
+// against 2.246e11 flop, 0.23 ms: bound by bytes.  The partials add 128 KB
+// written and read per segment, about 141 segments a block on 132 SMs.
+
+constexpr int kXtyWgTileM = 128;
+constexpr int kXtyWgOutputs = 2 * kJobs;
+constexpr int kXtyWgRing = 4;
+constexpr uint32_t kXtyWgXBytes = 2 * wg::kMnBoxBytes;      // X: one box per warpgroup
+constexpr uint32_t kXtyWgStageBytes = 6 * wg::kMnBoxBytes;  // and Y's four boxes
+constexpr size_t kXtyWgSmem = kXtyWgRing * kXtyWgStageBytes + 16 * kXtyWgRing + 1024;
+
+// the tensor maps of the five X and the five Y (row-major (rows, 256) bf16,
+// 64 x 64 boxes, 128-byte swizzle)
+struct XtyMaps {
+  CUtensorMap x[kJobs];
+  CUtensorMap y[kJobs];
+};
+struct XtyOuts {
+  float* out[kJobs];  // (256, 256) f32 each
+};
+
+// The schedule's int32 table (ops/schnet_stack.py::xty_schedule_table): the
+// first segment of each CTA, cta_begin[ctas + 1]; of each output,
+// out_begin[kXtyWgOutputs + 1]; then per segment (job, M-tile, first stage,
+// end stage).
+__device__ __forceinline__ const int* xty_segments(const int* sched, int ctas) {
+  return sched + ctas + 1 + kXtyWgOutputs + 1;
+}
+
+__global__ void __launch_bounds__(wg::kThreads, 1)
+schnet_bwd_xty_wg_kernel(const __grid_constant__ XtyMaps maps, const int* __restrict__ sched,
+                         int ctas, float* __restrict__ part) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = wg::smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  const uint32_t full = ring + kXtyWgRing * kXtyWgStageBytes, empty = full + 8 * kXtyWgRing;
+  const int tid = threadIdx.x;
+  // warp-uniform by construction, and known to the compiler as such
+  const int warp_idx = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const int* segs = xty_segments(sched, ctas);
+  const int seg0 = sched[blockIdx.x], seg1 = sched[blockIdx.x + 1];
+  if (tid == 0) {
+    for (int i = 0; i < kXtyWgRing; ++i) {
+      wg::mbar_init(full + 8 * i, 1);
+      wg::mbar_init(empty + 8 * i, wg::kConsumers / 32);
+    }
+    wg::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp_idx >= wg::kConsumers / 32) {
+    // ===== producer: the CTA's segments, stage after stage =====
+    wg::reg_dealloc<wg::kRegsProducer>();
+    if (tid == wg::kConsumers) {
+      uint32_t idx = 0, phase = 0;
+      for (int sg = seg0; sg < seg1; ++sg) {
+        const int job = segs[4 * sg], x_col = kXtyWgTileM * segs[4 * sg + 1];
+        const void* xm = &maps.x[job];
+        const void* ym = &maps.y[job];
+        for (int s = segs[4 * sg + 2]; s < segs[4 * sg + 3]; ++s) {
+          wg::mbar_wait(empty + 8 * idx, phase ^ 1);
+          const uint32_t st = ring + idx * kXtyWgStageBytes, bar = full + 8 * idx;
+          const int row = s * (int)wg::kMnBoxRows;
+          wg::mbar_expect_tx(bar, kXtyWgStageBytes);
+          wg::tma_load_2d(st, xm, x_col, row, bar);
+          wg::tma_load_2d(st + wg::kMnBoxBytes, xm, x_col + 64, row, bar);
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            wg::tma_load_2d(st + kXtyWgXBytes + q * wg::kMnBoxBytes, ym, 64 * q, row, bar);
+          if (++idx == kXtyWgRing) { idx = 0; phase ^= 1; }
+        }
+      }
+    }
+    return;
+  }
+
+  // ===== consumers: warpgroup w, rows 64 w .. 64 w + 63 of each segment's output =====
+  wg::reg_alloc<wg::kRegsConsumer>();
+  const int w = warp_idx >> 2, lane = tid & 31;
+  const int r_lo = ((warp_idx & 3) << 4) + (lane >> 2), c0 = 2 * (lane & 3);
+  uint32_t idx = 0, phase = 0, ridx = 0;
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+  // wgmma on the next filled stage; `first` starts the sum
+  auto stage = [&](bool first) {
+    wg::mbar_wait(full + 8 * idx, phase);
+    const uint32_t st = ring + idx * kXtyWgStageBytes;
+    if (++idx == kXtyWgRing) { idx = 0; phase ^= 1; }
+    const uint64_t da = wg::make_desc_mn(st + w * wg::kMnBoxBytes);
+    const uint64_t db = wg::make_desc_mn(st + kXtyWgXBytes);
+    wg::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k)  // a k16 step is 16 rows further on in both operands
+      wg::mma_tt_bf16_n256(acc, da + ((k * wg::kMnK16Bytes) >> 4),
+                           db + ((k * wg::kMnK16Bytes) >> 4), (first && k == 0) ? 0 : 1);
+    wg::wgmma_commit();
+  };
+  // after its warp's wgmma on the oldest unreleased stage have ended
+  auto release = [&]() {
+    if (lane == 0) wg::mbar_arrive(empty + 8 * ridx);
+    if (++ridx == kXtyWgRing) ridx = 0;
+  };
+  for (int sg = seg0; sg < seg1; ++sg) {
+    const int n = __shfl_sync(0xffffffffu, segs[4 * sg + 3] - segs[4 * sg + 2], 0);
+    stage(true);
+    for (int i = 1; i < n; ++i) {
+      stage(false);
+      wg::wgmma_wait<1>();
+      release();
+    }
+    wg::wgmma_wait<0>();
+    wg::fence_acc128(acc);
+    release();
+    // the partial's rows r_lo and r_lo + 8 of this warpgroup's half, at
+    // constant offsets from one row base
+    float* dst = part + ((size_t)sg * kXtyWgTileM + 64 * w + r_lo) * kH + c0;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(dst + 8 * kH + 8 * j) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+}
+
+// out[k][row] = the sum of output (k, row / 128)'s partials, in segment order
+__global__ void schnet_bwd_xty_wg_reduce_kernel(XtyOuts o, const float* __restrict__ part,
+                                                const int* __restrict__ sched, int ctas) {
+  const int k = blockIdx.y, i4 = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i4 >= kHH / 4) return;
+  const int row = i4 / (kH / 4), col = 4 * (i4 % (kH / 4));
+  const int* out_begin = sched + ctas + 1 + 2 * k + row / kXtyWgTileM;
+  const float* src = part + (size_t)(row % kXtyWgTileM) * kH + col;
+  float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int sg = out_begin[0]; sg < out_begin[1]; ++sg) {
+    const float4 v = *reinterpret_cast<const float4*>(src + (size_t)sg * kXtyWgTileM * kH);
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
+  *reinterpret_cast<float4*>(o.out[k] + (size_t)row * kH + col) = s;
+}
+
+// bf16 at H = 256 takes the wgmma weight-gradient kernel: the tensor maps
+// address any row count an int holds.  Everything else takes
+// schnet_bwd_xty_kernel; neither gives way to the other.
+bool xty_wg_takes(int pair_rows, int node_rows, int H, int is_bf16) {
+  return is_bf16 && H == kH && pair_rows > 0 && node_rows > 0;
+}
+
+// cuTensorMapEncodeTiled from the driver, found at run time: the library
+// links no driver library
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+cudaError_t encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled found = nullptr;
+  if (found == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess) return e;
+    if (q != cudaDriverEntryPointSuccess || ptr == nullptr) return cudaErrorSymbolNotFound;
+    found = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  *fn = found;
+  return cudaSuccess;
+}
+
+// the map of a row-major (rows, 256) bf16 matrix in boxes of 64 columns x 64
+// rows with the 128-byte swizzle; rows past the end read as zeros
+cudaError_t rows_map(CUtensorMap* map, const bf16* ptr, int rows) {
+  EncodeTiled fn;
+  const cudaError_t e = encode_tiled(&fn);
+  if (e != cudaSuccess) return e;
+  const cuuint64_t dims[2] = {(cuuint64_t)kH, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)kH * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, wg::kMnBoxRows}, elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+cudaError_t xty_maps(XtyMaps* maps, const bf16* const xs[kJobs], const bf16* const ys[kJobs],
+                     int pair_rows, int node_rows) {
+  for (int k = 0; k < kJobs; ++k) {
+    const int rows = k < 2 ? pair_rows : node_rows;
+    cudaError_t e = rows_map(&maps->x[k], xs[k], rows);
+    if (e == cudaSuccess) e = rows_map(&maps->y[k], ys[k], rows);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+// One block's five gradients by the wgmma kernel and its reduction.
+cudaError_t launch_xty_wg(const XtyMaps& maps, const int* sched, int ctas, float* part,
+                          float* const outs[kJobs], cudaStream_t st) {
+  cudaError_t e = cudaFuncSetAttribute(schnet_bwd_xty_wg_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kXtyWgSmem);
+  if (e != cudaSuccess) return e;
+  schnet_bwd_xty_wg_kernel<<<ctas, wg::kThreads, kXtyWgSmem, st>>>(maps, sched, ctas, part);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  XtyOuts o;
+  for (int k = 0; k < kJobs; ++k) o.out[k] = outs[k];
+  schnet_bwd_xty_wg_reduce_kernel<<<dim3(kHH / 4 / 256, kJobs), 256, 0, st>>>(o, part, sched, ctas);
+  return cudaGetLastError();
+}
+
+// One block's five gradients by schnet_bwd_xty_kernel and
+// schnet_bwd_reduce_kernel (split-K over fixed row counts).
+template <typename T>
+cudaError_t launch_xty_split(const T* const xs[kJobs], const T* const ys[kJobs],
+                             float* const outs[kJobs], float* part, int pair_rows, int node_rows,
+                             int H, int pair_rows_per_split, int node_rows_per_split,
+                             cudaStream_t st) {
+  const size_t HH = (size_t)H * H;
+  const int pair_splits = (pair_rows + pair_rows_per_split - 1) / pair_rows_per_split;
+  const int node_splits = (node_rows + node_rows_per_split - 1) / node_rows_per_split;
+  XtyJobs<T> jobs;
+  jobs.M = H;
+  size_t off = 0;
+  for (int k = 0; k < kJobs; ++k) {
+    const bool pair = k < 2;
+    XtyJob<T>& jb = jobs.job[k];
+    jb.x = xs[k];
+    jb.y = ys[k];
+    jb.rows = pair ? pair_rows : node_rows;
+    jb.splits = pair ? pair_splits : node_splits;
+    jb.rows_per_split = pair ? pair_rows_per_split : node_rows_per_split;
+    jb.part = part + off;
+    jb.out = outs[k];
+    off += (size_t)jb.splits * HH;
+  }
+  const int tiles = (H / kXtyTile) * (H / kXtyTile);
+  const int max_splits = pair_splits > node_splits ? pair_splits : node_splits;
+  schnet_bwd_xty_kernel<T><<<dim3(tiles, max_splits, kJobs), kXtyThreads, 0, st>>>(jobs);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  schnet_bwd_reduce_kernel<T><<<dim3((int)((HH + 255) / 256), kJobs), 256, 0, st>>>(jobs);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // Launches
 
 template <typename T, int TR, bool kStoreHs>
@@ -1222,7 +1511,7 @@ int launch_fwd(const void* const* ptrs, int B, int N, int H, int L, void* stream
 
 template <typename T, int TR>
 int launch_bwd(const void* const* ptrs, int B, int N, int H, int L, int pair_rows_per_split,
-               int node_rows_per_split, void* stream) {
+               int node_rows_per_split, int xty_ctas, void* stream) {
   const Smem lay = smem_layout<T, TR>(N, H, 3);
   if (lay.np > TR || lay.total > kMaxSmem) return (int)cudaErrorInvalidValue;
   if (pair_rows_per_split <= 0 || node_rows_per_split <= 0) return (int)cudaErrorInvalidValue;
@@ -1252,6 +1541,8 @@ int launch_bwd(const void* const* ptrs, int B, int N, int H, int L, int pair_row
   // the wgmma row kernel's arranged weights and ea tile images
   const bf16* wimg = static_cast<const bf16*>(ptrs[39]);
   const bf16* ea_img = static_cast<const bf16*>(ptrs[40]);
+  // the wgmma weight-gradient kernel's schedule table
+  const int* sched = static_cast<const int*>(ptrs[41]);
 
   // bf16 at H = 256, N <= 24 takes the wgmma row kernel, everything else the
   // mma.sync one; neither gives way to the other
@@ -1271,11 +1562,19 @@ int launch_bwd(const void* const* ptrs, int B, int N, int H, int L, int pair_row
 
   const size_t HH = (size_t)H * H;
   const int pair_rows = B * N * N, node_rows = B * N;
-  const int pair_splits = (pair_rows + pair_rows_per_split - 1) / pair_rows_per_split;
-  const int node_splits = (node_rows + node_rows_per_split - 1) / node_rows_per_split;
   const T* xs[kJobs] = {p.ea, p.s1, p.hl, p.agg, p.s3};
   const T* ys[kJobs] = {p.da1, p.da2, p.dxh, p.da3, p.gd};
-  float* outs[kJobs] = {df1w, df2w, dl1w, dl2w, dow};
+  // bf16 at H = 256 takes the wgmma weight-gradient kernel, everything else
+  // schnet_bwd_xty_kernel; neither gives way to the other.  The scratch is
+  // the same for every block: its tensor maps are made once.
+  const bool use_xty_wg = xty_wg_takes(pair_rows, node_rows, H, std::is_same<T, bf16>::value);
+  XtyMaps maps;
+  if (use_xty_wg) {
+    if (sched == nullptr || xty_ctas <= 0) return (int)cudaErrorInvalidValue;
+    e = xty_maps(&maps, reinterpret_cast<const bf16* const*>(xs),
+                 reinterpret_cast<const bf16* const*>(ys), pair_rows, node_rows);
+    if (e != cudaSuccess) return (int)e;
+  }
 
   for (int l = L - 1; l >= 0; --l) {
     p.l = l;
@@ -1290,29 +1589,45 @@ int launch_bwd(const void* const* ptrs, int B, int N, int H, int L, int pair_row
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     schnet_bwd_sum_kernel<<<4, kThreads, 0, st>>>(p.bias, bias_out, B, H, l);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    XtyJobs<T> jobs;
-    jobs.M = H;
-    size_t off = 0;
-    for (int k = 0; k < kJobs; ++k) {
-      const bool pair = k < 2;
-      XtyJob<T>& jb = jobs.job[k];
-      jb.x = xs[k];
-      jb.y = ys[k];
-      jb.rows = pair ? pair_rows : node_rows;
-      jb.splits = pair ? pair_splits : node_splits;
-      jb.rows_per_split = pair ? pair_rows_per_split : node_rows_per_split;
-      jb.part = part + off;
-      jb.out = outs[k] + (size_t)l * HH;
-      off += (size_t)jb.splits * HH;
-    }
-    const int tiles = (H / kXtyTile) * (H / kXtyTile);
-    const int max_splits = pair_splits > node_splits ? pair_splits : node_splits;
-    schnet_bwd_xty_kernel<T><<<dim3(tiles, max_splits, kJobs), kXtyThreads, 0, st>>>(jobs);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    schnet_bwd_reduce_kernel<T><<<dim3((int)((HH + 255) / 256), kJobs), 256, 0, st>>>(jobs);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    float* const outs[kJobs] = {df1w + l * HH, df2w + l * HH, dl1w + l * HH, dl2w + l * HH,
+                                dow + l * HH};
+    e = use_xty_wg ? launch_xty_wg(maps, sched, xty_ctas, part, outs, st)
+                   : launch_xty_split<T>(xs, ys, outs, part, pair_rows, node_rows, H,
+                                         pair_rows_per_split, node_rows_per_split, st);
+    if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaSuccess;
+}
+
+// One block's five weight gradients alone (schnet_stack_xty_launch).
+template <typename T>
+int launch_xty(const void* const* ptrs, int pair_rows, int node_rows, int H,
+               int pair_rows_per_split, int node_rows_per_split, int xty_ctas, void* stream) {
+  if (pair_rows <= 0 || node_rows <= 0 || H <= 0 || H % kXtyTile != 0 || H > kH ||
+      pair_rows_per_split <= 0 || node_rows_per_split <= 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T* xs[kJobs];
+  const T* ys[kJobs];
+  float* outs[kJobs];
+  float* out = static_cast<float*>(const_cast<void*>(ptrs[2 * kJobs]));
+  for (int k = 0; k < kJobs; ++k) {
+    xs[k] = static_cast<const T*>(ptrs[k]);
+    ys[k] = static_cast<const T*>(ptrs[kJobs + k]);
+    outs[k] = out + (size_t)k * H * H;
+  }
+  float* part = static_cast<float*>(const_cast<void*>(ptrs[2 * kJobs + 1]));
+  const int* sched = static_cast<const int*>(ptrs[2 * kJobs + 2]);
+  if (xty_wg_takes(pair_rows, node_rows, H, std::is_same<T, bf16>::value)) {
+    if (sched == nullptr || xty_ctas <= 0) return (int)cudaErrorInvalidValue;
+    XtyMaps maps;
+    cudaError_t e = xty_maps(&maps, reinterpret_cast<const bf16* const*>(xs),
+                             reinterpret_cast<const bf16* const*>(ys), pair_rows, node_rows);
+    if (e == cudaSuccess) e = launch_xty_wg(maps, sched, xty_ctas, part, outs, st);
+    return (int)e;
+  }
+  return (int)launch_xty_split<T>(xs, ys, outs, part, pair_rows, node_rows, H,
+                                  pair_rows_per_split, node_rows_per_split, st);
 }
 
 bool bad_shape(int B, int N, int H, int L) {
@@ -1349,19 +1664,40 @@ int schnet_stack_fwd_launch(const void* const* ptrs, int B, int N, int H, int L,
 // (L, out, in); f1w f2w l1w l2w ow as (L, in, out); f1b f2b l2b; the nine f32
 // gradients f1w f1b f2w f2b l1w l2w l2b ow ob; pair scratch s1 sg1 w da2 da1
 // (B*N*N, H); node scratch hl dxh agg da3 s3 gd (B*N, H); the (4, B, H) f32
-// bias partials; the f32 split-K partials, (2 * ceil(B*N*N / pair_rows_per_split)
-// + 3 * ceil(B*N / node_rows_per_split)) * H * H; then, where
+// bias partials; the f32 weight-gradient partials; then, where
 // schnet_stack_bwd_uses_wg says 1 (null otherwise), the arranged bf16 weight
-// image (L * 10 * H * H, ops/schnet_stack.py::arrange_stack_weights) and
-// ea as 64-row tile images (B, N*N*H).
+// image (L * 10 * H * H, ops/schnet_stack.py::arrange_stack_weights) and ea
+// as 64-row tile images (B, N*N*H); then, where schnet_stack_bwd_xty_uses_wg
+// says 1 (null otherwise), the int32 schedule table of xty_ctas CTAs
+// (ops/schnet_stack.py::xty_schedule_table).  The partials are, for the
+// wgmma weight-gradient kernel, (the table's segments, 128, H), otherwise
+// (2 * ceil(B*N*N / pair_rows_per_split) + 3 * ceil(B*N / node_rows_per_split),
+// H, H).
 int schnet_stack_bwd_launch(const void* const* ptrs, int B, int N, int H, int L, int is_bf16,
-                            int pair_rows_per_split, int node_rows_per_split, void* stream) {
+                            int pair_rows_per_split, int node_rows_per_split, int xty_ctas,
+                            void* stream) {
   if (bad_shape(B, N, H, L)) return (int)cudaErrorInvalidValue;
   if (is_bf16)
     return launch_bwd<__nv_bfloat16, 64>(ptrs, B, N, H, L, pair_rows_per_split,
-                                         node_rows_per_split, stream);
+                                         node_rows_per_split, xty_ctas, stream);
   return launch_bwd<float, 32>(ptrs, B, N, H, L, pair_rows_per_split, node_rows_per_split,
-                               stream);
+                               xty_ctas, stream);
+}
+
+// The five weight-gradient products of one block of the backward alone, on
+// `stream`: out[k] (f32, H x H) = x_k^T y_k summed over all rows.  ptrs: x0..x4,
+// y0..y4 (row major (rows, H); jobs 0 and 1 pair_rows rows, 2-4 node_rows),
+// out (5, H, H), the f32 partials and the schedule table as for
+// schnet_stack_bwd_launch (the table null where schnet_stack_bwd_xty_uses_wg
+// says 0).
+int schnet_stack_xty_launch(const void* const* ptrs, int pair_rows, int node_rows, int H,
+                            int is_bf16, int pair_rows_per_split, int node_rows_per_split,
+                            int xty_ctas, void* stream) {
+  if (is_bf16)
+    return launch_xty<__nv_bfloat16>(ptrs, pair_rows, node_rows, H, pair_rows_per_split,
+                                     node_rows_per_split, xty_ctas, stream);
+  return launch_xty<float>(ptrs, pair_rows, node_rows, H, pair_rows_per_split,
+                           node_rows_per_split, xty_ctas, stream);
 }
 
 // 1 where schnet_stack_fwd_launch takes the wgmma kernel (bf16, H = 256,
@@ -1374,6 +1710,12 @@ int schnet_stack_fwd_uses_wg(int N, int H, int is_bf16) {
 // shapes), 0 where it takes the mma.sync one.
 int schnet_stack_bwd_uses_wg(int N, int H, int is_bf16) {
   return bwd_wg_takes(N, H, is_bf16) ? 1 : 0;
+}
+
+// 1 where the backward's weight gradients take the wgmma kernel (bf16, H =
+// 256), 0 where they take schnet_bwd_xty_kernel.
+int schnet_stack_bwd_xty_uses_wg(int pair_rows, int node_rows, int H, int is_bf16) {
+  return xty_wg_takes(pair_rows, node_rows, H, is_bf16) ? 1 : 0;
 }
 
 const char* schnet_stack_error_string(int code) {

@@ -470,6 +470,81 @@ __device__ __forceinline__ void product_s8(Ring& ring, bool active, uint32_t a1,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Both operands read transposed: D (+)= X^T Y over rows, for weight gradients.
+//
+// A 2-D tensor copy (cp.async.bulk.tensor.2d, tensor map made on the host
+// with CU_TENSOR_MAP_SWIZZLE_128B) brings a box of 64 columns (128 bytes of
+// bf16) by 64 rows of a row-major matrix into shared memory: row r at byte
+// 128 r, its 16-byte unit u at unit u ^ (r % 8), the tile image's swizzle
+// (img_off) with the rows along the reduction.  Rows past the tensor's end
+// arrive as zeros, and the copy's bytes count in full.  A wgmma operand
+// whose M (or N) runs along such a row is MN-major (imm-trans = 1); in its
+// descriptor the stride byte offset is the step between 8-row groups along K
+// (kMnGroupBytes) and the leading byte offset the step between 64-column
+// boxes along M or N (kMnBoxBytes, the boxes one after another); a k16 step
+// begins 16 rows (kMnK16Bytes) further on.  ops/schnet_stack.py mirrors these
+// constants (XTY_*), and tests/test_torch_stack_xty_layout.py emulates the
+// addresses they give.
+
+constexpr uint32_t kMnBoxRows = 64;
+constexpr uint32_t kMnBoxBytes = 8192;   // 64 rows x 128 bytes
+constexpr uint32_t kMnGroupBytes = 1024; // 8 rows x 128 bytes
+constexpr uint32_t kMnK16Bytes = 2048;   // 16 rows x 128 bytes
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, int col, int row,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(bar)
+      : "memory");
+}
+
+// descriptor of an MN-major operand made of 64-column boxes (1024-byte aligned)
+__device__ __forceinline__ uint64_t make_desc_mn(uint32_t saddr) {
+  uint64_t d = (uint64_t)((saddr & 0x3FFFF) >> 4);
+  d |= (uint64_t)(kMnBoxBytes >> 4) << 16;    // leading byte offset: between boxes along M or N
+  d |= (uint64_t)(kMnGroupBytes >> 4) << 32;  // stride byte offset: between 8-row groups along K
+  d |= (uint64_t)1 << 62;                     // 128-byte swizzle
+  return d;
+}
+
+#define WG_ACC16_AT(c, d, o)                                                                  \
+  c(d[o]), c(d[o + 1]), c(d[o + 2]), c(d[o + 3]), c(d[o + 4]), c(d[o + 5]), c(d[o + 6]),      \
+      c(d[o + 7]), c(d[o + 8]), c(d[o + 9]), c(d[o + 10]), c(d[o + 11]), c(d[o + 12]),         \
+      c(d[o + 13]), c(d[o + 14]), c(d[o + 15])
+#define WG_ACC128(c, d)                                                                       \
+  WG_ACC16_AT(c, d, 0), WG_ACC16_AT(c, d, 16), WG_ACC16_AT(c, d, 32), WG_ACC16_AT(c, d, 48),  \
+      WG_ACC16_AT(c, d, 64), WG_ACC16_AT(c, d, 80), WG_ACC16_AT(c, d, 96),                     \
+      WG_ACC16_AT(c, d, 112)
+
+// d (+)= A B, m64n256k16 bf16, A (64 x 16) and B (16 x 256) both MN-major in
+// shared memory: imm-trans-a = imm-trans-b = 1.  Thread (warp q, lane 4g+t)
+// of the warpgroup holds rows 16q+g (d[4j], d[4j+1]) and 16q+g+8 (d[4j+2],
+// d[4j+3]) of columns 8j+2t, 8j+2t+1, j = 0..31.
+__device__ __forceinline__ void mma_tt_bf16_n256(float (&d)[128], uint64_t da, uint64_t db,
+                                                 int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18,"
+      " %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52,"
+      " %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69,"
+      " %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86,"
+      " %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102,"
+      " %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116,"
+      " %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
+      ", %128, %129, p, 1, 1, 1, 1;\n}\n"
+      : WG_ACC128(WG_F, d)
+      : "l"(da), "l"(db), "r"(acc));
+}
+__device__ __forceinline__ void fence_acc128(float (&x)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+
 }  // namespace wg
 
 // ---------------------------------------------------------------------------

@@ -67,7 +67,8 @@ for key, v in m.phase_kernels().items():
     rows[f"{name} N={key[-2]} {key[-1]}"] = v
 for (n, dn), v in m.phase_dense_kernels().items():
     rows[f"B2 condensed_score N={n} {dn}"] = v
-names = {"fwd": "B3 forward", "bwd": "B3 backward", "stack": "B4"}
+names = {"fwd": "B3 forward", "bwd": "B3 backward", "stack": "B4",
+         "xty": "B3 backward's weight gradients alone"}
 for (n, dn), parts in m.phase_stack_kernels().items():
     for part, v in parts.items():
         if part in names:  # not the backward's profiled split
@@ -104,7 +105,7 @@ def main(argv: list[str]) -> None:
                                                                 f"kernel_compare_{i}.txt"), flags))
         print(f"run {i}: {checkout} done", flush=True)
     print("kernel | " + " | ".join(f"run {i} ({c}) ms, max abs err" for i, c in enumerate(argv)))
-    for name in runs[0]:
+    for name in dict.fromkeys(name for r in runs for name in r):   # every run's, in order
         print(f"{name} | " + " | ".join(
             f"{r[name]['ms']:.4f}, " + ("-" if r[name]["max_abs_err"] is None
                                        else f"{r[name]['max_abs_err']:.6g}")

@@ -24,6 +24,9 @@ float32, with the TPU kernel's casts of dagg, da2, ds1 and da1.
   ``csrc/schnet_stack.cu`` (built at first use) or raise.  Each wrapper's
   ``launches`` counts its kernel launches (one per call; the backward's call
   runs 4 kernels per block) and each plain version's ``calls`` its calls.
+* ``schnet_stack_xty`` / ``xty_reference``: one block of the backward's
+  weight-gradient products alone (``_bwd_kernel``'s ``dot(X.T, Y)``), the
+  kernel the backward runs for them and its plain version.
 * ``InteractionStackFn``: the autograd function of the training path
   (``interaction_stack_pallas_trainable``).
 
@@ -51,6 +54,14 @@ in its forward, and hands them to its backward.  Their host side is here for
 the tests: the image, the static schedules of weight stages
 (``stack_fwd_schedule``, ``stack_bwd_schedule``) and the order of the row
 kernel's pass-2 sum (``dxh_by_source``).
+
+The backward's weight gradients have two versions too, chosen by the shape
+alone (``schnet_stack_bwd_xty_uses_wg``): bfloat16 at H = 256 takes the
+``wgmma`` weight-gradient kernel (``.xty_wg_launches`` on the backward),
+which reads the row kernel's row-major scratch by 2-D tensor copies and
+deals its work in equal ranges to one CTA per SM (``xty_schedule``, made here
+once per shape and device); everything else the first port's ``mma.sync``
+split-K kernel (``PAIR_ROWS_PER_SPLIT``, ``NODE_ROWS_PER_SPLIT``).
 """
 
 from __future__ import annotations
@@ -65,9 +76,24 @@ W_KEYS = ("f1w", "f1b", "f2w", "f2b", "l1w", "l2w", "l2b", "ow", "ob")
 _MATS = ("f1w", "f2w", "l1w", "l2w", "ow")
 _LIB = "schnet_stack"
 _LOG2 = 0.6931471805599453
-#: rows per split of the weight-gradient reduction (pair rows, node rows)
+#: rows per split of the ``mma.sync`` weight-gradient kernel (pair rows, node rows)
 PAIR_ROWS_PER_SPLIT = 2048
 NODE_ROWS_PER_SPLIT = 512
+#: the ``wgmma`` weight-gradient kernel (``csrc/schnet_stack.cu::
+#: schnet_bwd_xty_wg_kernel``): outputs of XTY_TILE_M rows of a gradient,
+#: reductions in stages of XTY_STAGE_ROWS rows, and the MN-major operand
+#: layout of ``csrc/wg_pipeline.cuh`` (``kMnBoxBytes``, ``kMnGroupBytes``,
+#: ``kMnK16Bytes``): boxes of 64 columns by 64 rows with the 128-byte swizzle,
+#: 8-row groups along K, and a k16 step 16 rows on
+XTY_TILE_M = 128
+XTY_STAGE_ROWS = 64
+XTY_BOX_BYTES = 8192
+XTY_GROUP_BYTES = 1024
+XTY_K16_BYTES = 2048
+#: the weight-gradient products per block, pair-row jobs first:
+#: ``(gradient, X, Y)`` in the kernels' job order
+XTY_JOBS = (("f1w", "ea", "da1"), ("f2w", "s1", "da2"), ("l1w", "hl", "dxh"),
+            ("l2w", "agg", "da3"), ("ow", "s3", "gd"))
 #: the ten matrices of a block in the ``wgmma`` kernels' image
 #: (``csrc/schnet_stack.cu::StackMat``): the row kernel's producer walks the
 #: first nine in this order, the forward's reads the five "_t" ones.  "_t"
@@ -84,11 +110,15 @@ def _kernel_lib() -> ctypes.CDLL:
     ptrs = ctypes.POINTER(ctypes.c_void_p)
     lib.schnet_stack_fwd_launch.argtypes = [ptrs, *[ctypes.c_int] * 6, ctypes.c_void_p]
     lib.schnet_stack_fwd_launch.restype = ctypes.c_int
-    lib.schnet_stack_bwd_launch.argtypes = [ptrs, *[ctypes.c_int] * 7, ctypes.c_void_p]
+    lib.schnet_stack_bwd_launch.argtypes = [ptrs, *[ctypes.c_int] * 8, ctypes.c_void_p]
     lib.schnet_stack_bwd_launch.restype = ctypes.c_int
+    lib.schnet_stack_xty_launch.argtypes = [ptrs, *[ctypes.c_int] * 7, ctypes.c_void_p]
+    lib.schnet_stack_xty_launch.restype = ctypes.c_int
     for fn in (lib.schnet_stack_fwd_uses_wg, lib.schnet_stack_bwd_uses_wg):
         fn.argtypes = [ctypes.c_int] * 3
         fn.restype = ctypes.c_int
+    lib.schnet_stack_bwd_xty_uses_wg.argtypes = [ctypes.c_int] * 4
+    lib.schnet_stack_bwd_xty_uses_wg.restype = ctypes.c_int
     lib.schnet_stack_error_string.argtypes = [ctypes.c_int]
     lib.schnet_stack_error_string.restype = ctypes.c_char_p
     return lib
@@ -161,10 +191,13 @@ def interaction_stack_reference(w: dict, h: torch.Tensor, ea: torch.Tensor, c: t
 
 
 def schnet_stack_bwd_reference(w: dict, ea: torch.Tensor, c: torch.Tensor, hs: torch.Tensor,
-                               g: torch.Tensor):
+                               g: torch.Tensor, operands: list | None = None):
     """Plain backward, an explicit port of ``_bwd_kernel``: ``(dh (B, N, H),
     dea (B, P, E), grads)``, all float32, ``grads`` keyed by ``W_KEYS`` in
-    the weights' shapes and summed over graphs."""
+    the weights' shapes and summed over graphs.  Given a list as
+    ``operands``, appends per block, from the last to the first, the
+    weight-gradient products' operands ``(xs, ys)`` in ``XTY_JOBS`` order, as
+    contiguous ``(rows, H)`` tensors in the working type."""
     schnet_stack_bwd_reference.calls += 1
     dt = ea.dtype
     B, L, N, H = hs.shape
@@ -204,12 +237,24 @@ def schnet_stack_bwd_reference(w: dict, ea: torch.Tensor, c: torch.Tensor, hs: t
         grads["f1b"][l] = da1.float().sum((0, 1))
         dea = dea + _dot(da1, w["f1w"][l].t())
         g = g + dh_from_xh
+        if operands is not None:
+            rows = [t.reshape(-1, t.shape[-1]).contiguous() for t in
+                    (ea, s1, h_l, agg, s3, da1, da2, dxh, da3.to(dt), gd)]
+            operands.append((rows[:5], rows[5:]))
     return g, dea, grads
+
+
+def xty_reference(xs: list, ys: list) -> torch.Tensor:
+    """Plain version of one block's weight-gradient products: ``(5, H, H)``
+    float32, ``xs[k]^T ys[k]`` in ``XTY_JOBS`` order."""
+    xty_reference.calls += 1
+    return torch.stack([_xty(x, y) for x, y in zip(xs, ys)])
 
 
 schnet_stack_fwd_reference.calls = 0
 schnet_stack_bwd_reference.calls = 0
 interaction_stack_reference.calls = 0
+xty_reference.calls = 0
 
 
 # ---------------------------------------------------------------------------
@@ -294,6 +339,66 @@ def dxh_by_source(wv: torch.Tensor, dagg: torch.Tensor) -> torch.Tensor:
             i, j = divmod(pr, N)
             dxh[i] += (wv[pr] * dagg[j]).float()
     return dxh
+
+
+def xty_schedule(pair_rows: int, node_rows: int, ctas: int) -> dict:
+    """The ``wgmma`` weight-gradient kernel's work for one block at H = 256,
+    a pure function of the row counts and the number of CTAs (one per SM).
+
+    The ten outputs, ``2 * job + mt`` (``XTY_JOBS``' job, rows ``XTY_TILE_M *
+    mt`` onward of its gradient), each reduce over ``ceil(rows / 64)``
+    stages of ``XTY_STAGE_ROWS`` rows (the last one zero-filled past the
+    end).  Their stage-units, in the order (job, M-tile, stage), are dealt in
+    equal ranges ``[c*T // ctas, (c+1)*T // ctas)`` to the CTAs (at most one
+    CTA per unit), so that every CTA does the same work within one stage and
+    no wave is left part full.  A range is cut where an output ends: each
+    piece is a segment ``(job, mt, first stage, end stage)`` with an f32
+    partial of its own, and the outputs' partials are summed in segment
+    order.  Returns ``{"ctas", "segments", "cta_begin" (ctas + 1 segment
+    indices), "out_begin" (11)}``."""
+    stages = [math.ceil(r / XTY_STAGE_ROWS) for r in (pair_rows,) * 2 + (node_rows,) * 3]
+    sizes = [stages[k // 2] for k in range(2 * len(stages))]
+    starts = [sum(sizes[:k]) for k in range(len(sizes) + 1)]
+    total = starts[-1]
+    ctas = min(ctas, total)
+    segments, cta_begin = [], []
+    for c in range(ctas):
+        lo, hi = c * total // ctas, (c + 1) * total // ctas
+        cta_begin.append(len(segments))
+        for k in range(len(sizes)):
+            a, b = max(lo, starts[k]), min(hi, starts[k + 1])
+            if a < b:
+                segments.append((k // 2, k % 2, a - starts[k], b - starts[k]))
+    cta_begin.append(len(segments))
+    out_begin = [next(i for i, sg in enumerate(segments) if 2 * sg[0] + sg[1] == k)
+                 for k in range(len(sizes))] + [len(segments)]
+    return {"ctas": ctas, "segments": segments, "cta_begin": cta_begin, "out_begin": out_begin}
+
+
+def xty_schedule_table(schedule: dict) -> list[int]:
+    """``xty_schedule`` as the kernel reads it (int32): ``cta_begin``, then
+    ``out_begin``, then the four numbers of each segment."""
+    return (schedule["cta_begin"] + schedule["out_begin"]
+            + [v for sg in schedule["segments"] for v in sg])
+
+
+_xty_tables: dict = {}
+
+
+def _xty_table(pair_rows: int, node_rows: int, device: torch.device):
+    """``(table on the device, ctas, segments)`` for these row counts, made
+    once per device and shape."""
+    key = (pair_rows, node_rows, device)
+    if key not in _xty_tables:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        sched = xty_schedule(pair_rows, node_rows, sms)
+        # from pinned memory, without waiting: a copy from pageable memory
+        # would first wait for all the work queued on the stream.  The pinned
+        # tensor is kept with the table, so it outlives the copy.
+        host = torch.tensor(xty_schedule_table(sched), dtype=torch.int32).pin_memory()
+        table = host.to(device, non_blocking=True)
+        _xty_tables[key] = (table, sched["ctas"], len(sched["segments"]), host)
+    return _xty_tables[key][:3]
 
 
 def schnet_stack_cost(B: int, N: int, H: int, L: int, dtype: torch.dtype, kind: str) -> dict:
@@ -381,7 +486,7 @@ def _launch(fn_name: str, tensors: list, *ints):
         err = getattr(lib, fn_name)(ptrs, *ints, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         msg = lib.schnet_stack_error_string(err).decode()
-        raise RuntimeError(f"{fn_name} failed ({err}: {msg}) at B, N, H, L = {ints[:4]}")
+        raise RuntimeError(f"{fn_name} failed ({err}: {msg}) with arguments {ints}")
 
 
 def _wg_operands(w: dict, ea: torch.Tensor, L: int, image, ea_img, name: str):
@@ -467,7 +572,10 @@ def schnet_stack_bwd(w: dict, ea: torch.Tensor, c: torch.Tensor, hs: torch.Tenso
     those calls), which reads the weights and ``ea`` as the ``wgmma``
     forward does (each made here unless given, as the forward of a train
     step gives them; a misshaped one raises); float32 and other shapes take
-    the ``mma.sync`` one.  Neither gives way to the other, or to the plain
+    the ``mma.sync`` one.  The weight gradients likewise: bfloat16 at H = 256
+    takes the ``wgmma`` weight-gradient kernel (``.xty_wg_launches`` counts
+    those calls; ``schnet_stack_xty`` runs it alone), everything else the
+    ``mma.sync`` one.  Neither gives way to the other, or to the plain
     version."""
     if hs.device.type == "cpu":
         return schnet_stack_bwd_reference(w, ea, c, hs, g)
@@ -489,17 +597,64 @@ def schnet_stack_bwd(w: dict, ea: torch.Tensor, c: torch.Tensor, hs: torch.Tenso
     pair = [torch.empty((B * P, H), dtype=dt, device=dev) for _ in range(5)]
     node = [torch.empty((B * N, H), dtype=dt, device=dev) for _ in range(6)]
     bias = torch.empty((4, B, H), **f32)
-    splits = 2 * math.ceil(B * P / PAIR_ROWS_PER_SPLIT) + 3 * math.ceil(B * N / NODE_ROWS_PER_SPLIT)
-    part = torch.empty((splits, H, H), **f32)
+    use_xty_wg, part, table, ctas = _xty_plan(B * P, B * N, H, dt, dev)
     fwd_layout = [w[k].transpose(1, 2).contiguous() for k in ("f1w", "f2w", "l1w", "l2w")]
     tensors = [ea, c, hs, dh, dea, *fwd_layout,
                *(w[k] for k in ("f1w", "f2w", "l1w", "l2w", "ow", "f1b", "f2b", "l2b")),
-               *(grads[k] for k in W_KEYS), *pair, *node, bias, part, image, ea_img]
+               *(grads[k] for k in W_KEYS), *pair, *node, bias, part, image, ea_img, table]
     _launch("schnet_stack_bwd_launch", tensors, B, N, H, L, int(dt == torch.bfloat16),
-            PAIR_ROWS_PER_SPLIT, NODE_ROWS_PER_SPLIT)
+            PAIR_ROWS_PER_SPLIT, NODE_ROWS_PER_SPLIT, ctas)
     schnet_stack_bwd.launches += 1
     schnet_stack_bwd.wg_launches += int(use_wg)
+    schnet_stack_bwd.xty_wg_launches += int(use_xty_wg)
     return dh, dea, grads
+
+
+def _xty_plan(pair_rows: int, node_rows: int, H: int, dt: torch.dtype, dev: torch.device):
+    """``(takes the wgmma weight-gradient kernel, f32 partials, schedule table
+    or None, CTAs)`` for one block's products: the kernel is decided by the
+    shape alone, in the library."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    lib = _kernel_lib()
+    if lib.schnet_stack_bwd_xty_uses_wg(pair_rows, node_rows, H, int(dt == torch.bfloat16)):
+        table, ctas, segments = _xty_table(pair_rows, node_rows, dev)
+        return True, torch.empty((segments, XTY_TILE_M, H), **f32), table, ctas
+    splits = 2 * math.ceil(pair_rows / PAIR_ROWS_PER_SPLIT) \
+        + 3 * math.ceil(node_rows / NODE_ROWS_PER_SPLIT)
+    return False, torch.empty((splits, H, H), **f32), None, 0
+
+
+def schnet_stack_xty(xs: list, ys: list) -> torch.Tensor:
+    """One block's five weight-gradient products alone, as B3's backward runs
+    them: ``(5, H, H)`` float32, ``xs[k]^T ys[k]`` summed over all rows, in
+    ``XTY_JOBS`` order; ``xs[k]``, ``ys[k]`` row-major ``(rows, H)``, jobs 0
+    and 1 over the pair rows, 2-4 over the node rows.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel on the current stream, or
+    raise.  bfloat16 at H = 256 takes the ``wgmma`` kernel (``.wg_launches``
+    counts those calls), float32 and other widths the ``mma.sync`` one;
+    neither gives way to the other, or to the plain version."""
+    name = "schnet_stack_xty"
+    if len(xs) != len(XTY_JOBS) or len(ys) != len(XTY_JOBS):
+        raise ValueError(f"{name}: needs {len(XTY_JOBS)} X and {len(XTY_JOBS)} Y tensors")
+    if xs[0].device.type == "cpu":
+        return xty_reference(xs, ys)
+    dt, dev, H = xs[0].dtype, xs[0].device, xs[0].shape[-1]
+    rows = (xs[0].shape[0],) * 2 + (xs[2].shape[0],) * 3
+    if dt not in (torch.float32, torch.bfloat16) or H % 64 or H > 256:
+        raise ValueError(f"{name}: needs float32 or bfloat16 and H a multiple of 64 up to 256, "
+                         f"got {dt}, H={H}")
+    for k, t in enumerate(list(xs) + list(ys)):
+        shape = (rows[k % len(XTY_JOBS)], H)
+        if tuple(t.shape) != shape or t.dtype != dt or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: operand {k} must be a contiguous {dt} {shape} tensor on "
+                             f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    use_wg, part, table, ctas = _xty_plan(rows[0], rows[2], H, dt, dev)
+    out = torch.empty((len(XTY_JOBS), H, H), dtype=torch.float32, device=dev)
+    _launch("schnet_stack_xty_launch", [*xs, *ys, out, part, table], rows[0], rows[2], H,
+            int(dt == torch.bfloat16), PAIR_ROWS_PER_SPLIT, NODE_ROWS_PER_SPLIT, ctas)
+    schnet_stack_xty.launches += 1
+    schnet_stack_xty.wg_launches += int(use_wg)
+    return out
 
 
 def prepare_inputs(weights: dict, h, edge_attr, cmask, dtype):
@@ -532,7 +687,8 @@ def interaction_stack_pallas(weights: dict, h: torch.Tensor, edge_attr: torch.Te
 
 
 schnet_stack_fwd.launches = schnet_stack_fwd.wg_launches = 0
-schnet_stack_bwd.launches = schnet_stack_bwd.wg_launches = 0
+schnet_stack_bwd.launches = schnet_stack_bwd.wg_launches = schnet_stack_bwd.xty_wg_launches = 0
+schnet_stack_xty.launches = schnet_stack_xty.wg_launches = 0
 interaction_stack_pallas.launches = interaction_stack_pallas.wg_launches = 0
 
 
