@@ -38,8 +38,9 @@ Phases (any failure exits non-zero):
    weight-gradient kernels beside their bounds; in bf16 the weight-gradient
    kernel also alone on the plain backward's operands of the 7 blocks (two
    calls bitwise equal, against the plain products and ``torch.mm``), timed
-   beside the same 35 products through ``torch.mm`` (float32 output); errors,
-   times
+   beside the same 35 products through ``torch.mm`` (float32 output), both
+   also by their device time under torch.profiler, the figures kept in the
+   JSON line (``ms_by``, ``library_ms_by``: "profiler"); errors, times
    (CUDA events: the median and the minimum of five timings of 20 launches,
    with the SM clock and temperature before and after) and the bound of each;
 4. sampling main path: the port's sampling CLI on 200 synthetic reactions
@@ -50,17 +51,26 @@ Phases (any failure exits non-zero):
    gated figure) and matched over each graph's automorphisms (the reference
    metric, never above it);
 5. sampling profile: 20 steps at N=24 under torch.profiler;
-6. training main path: the port's train CLI at full width (H=256, L=7,
-   batch 200, bf16, ``use_pallas``) for 40 iterations on a synthetic corpus;
-   checks the stack kernels' launch counts (every forward call through the
-   ``wgmma`` forward, every backward call through the ``wgmma`` row and
-   weight-gradient kernels,
-   the weight image and ``ea``'s tile images made once per forward and reused
-   by the backward), no plain-version call, finite
-   losses and a written checkpoint, and reads the CLI's graphs/s over the
-   run; then 20 steps on one fixed batch (the loss must fall), the time per
-   step and a profile; then samples 8 reactions with the checkpoint it
-   trained;
+6. training paths, on a synthetic corpus at full width (H=256, L=7, batch
+   200, bf16, 40 iterations), each with finite losses, a written checkpoint
+   and the CLI's graphs/s over the run, then 20 steps on one fixed N=24
+   batch (the loss must fall), the time per step and a profile (device ms,
+   idle share, launches per step), then 8 reactions sampled through B1 from
+   the checkpoint it trained:
+   a. the train CLI with ``use_pallas`` and its defaults (the corpus resident
+      on the card by ``--device_data auto``): checks the stack kernels'
+      launch counts (every forward call through the ``wgmma`` forward, every
+      backward call through the ``wgmma`` row and weight-gradient kernels,
+      the weight image and ``ea``'s tile images made once per forward and
+      reused by the backward) and no plain-version call; then the same run
+      with ``--device_data off``, ``off`` and ``auto`` again (graphs/s of
+      each);
+   b. the production command line, ``--tag seed0 --dtype bfloat16
+      --packed_train --device_data auto`` on the trained members' ``model``
+      block: the run directory ends in ``_seed0``, the log reports the
+      resident corpus, no stack kernel, no B1 and no plain version ran; then
+      the same with ``--device_data off``, ``off`` and ``auto`` again, each
+      checked the same way (graphs/s of each);
 7. dense sampling path: seed106 with ``fused_score`` through ``make_score_fn``
    and ``dynamic_sampling`` on 100 reactions of the N=24 bucket, 625 launches
    of the dense score kernel (B2), all of its warp-specialised kernel, against
@@ -77,6 +87,8 @@ card's ``nvidia-smi`` name and power limit; the last line is
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import pickle
@@ -294,7 +306,8 @@ def time_and_bound(tag: str, kernel, plain, cost: dict, dname: str, library=None
           f"{(cost['flops'] + cost.get('int8_ops', 0)) / ms / 1e9:.4g} T operations/s achieved, "
           f"{lib_text}")
     return dict(ms=ms, ms_min=ms_min, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=lib_ms, library_ms_min=lib_min)
+                library_ms=lib_ms, library_ms_min=lib_min, ms_by="events",
+                library_ms_by=None if lib_ms is None else "events")
 
 
 def check_close(tag: str, out, ref, dname: str, tol=None) -> float:
@@ -596,13 +609,26 @@ def phase_xty(tag: str, operands: list, rgrads: dict, B: int, N: int, H: int, dt
         fail(f"schnet_bwd_xty_wg {tag}: {took[1]} of {took[0]} calls took the wgmma kernel")
     if not same:
         fail(f"schnet_bwd_xty_wg {tag}: two calls on the same operands differ")
+    kernel = lambda: [ss.schnet_stack_xty(xs, ys) for xs, ys in operands]  # noqa: E731
+    library = lambda: [mm(x, y) for xs, ys in operands for x, y in zip(xs, ys)]  # noqa: E731
     timing = time_and_bound(
-        f"schnet_bwd_xty_wg {tag} (one backward call: {L} calls of 5 products)",
-        lambda: [ss.schnet_stack_xty(xs, ys) for xs, ys in operands],
+        f"schnet_bwd_xty_wg {tag} (one backward call: {L} calls of 5 products)", kernel,
         lambda: [ss.xty_reference(xs, ys) for xs, ys in operands],
         ss.schnet_stack_cost(B, N, H, L, dtype, "bwd_xty"), "bfloat16",
-        library=lambda: [mm(x, y) for xs, ys in operands for x, y in zip(xs, ys)],
-        library_what=f"{5 * L} calls of {what}")
+        library=library, library_what=f"{5 * L} calls of {what}")
+    # CUDA events around host launches may time the host (35 torch.mm calls):
+    # the device time of the same calls under torch.profiler is the figure kept
+    kernel_dev, library_dev = profiled_ms(kernel), profiled_ms(library)
+    print(f"[kernels] schnet_bwd_xty_wg {tag} under torch.profiler (device events, per backward "
+          f"call): the kernel alone {fmt_ms(kernel_dev)} ms ({L} calls; CUDA events "
+          f"{timing['ms']:.4f}), {what} {fmt_ms(library_dev)} ms ({5 * L} calls; CUDA events "
+          f"{timing['library_ms']:.4f})" + ("" if None in (kernel_dev, library_dev) else
+                                            f", the kernel {kernel_dev / library_dev:.3f}x of it"))
+    timing.update(ms_events=timing["ms"], library_ms_events=timing["library_ms"])
+    if kernel_dev is not None:
+        timing.update(ms=kernel_dev, ms_by="profiler")
+    if library_dev is not None:
+        timing.update(library_ms=library_dev, library_ms_by="profiler")
     return dict(timing, max_abs_err=e_max)
 
 
@@ -779,6 +805,27 @@ def device_kernels(prof, steps: int) -> list[tuple[float, float, str]]:
     return sorted(rows, reverse=True)
 
 
+def profiled_ms(fn, n_calls: int = 5) -> float | None:
+    """Device time of one call of ``fn`` under torch.profiler: the device
+    events of ``n_calls`` calls (after one warm-up) summed, per call; None
+    where the profiler shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ms for ms, _, _ in device_kernels(prof, n_calls))
+    return total if total > 0 else None
+
+
+def fmt_ms(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
 def phase_profile(n_steps: int = 20) -> None:
     """Where a sampling step's time goes: ``n_steps`` ld steps of the 8-member
     bf16 ensemble on 100 reactions of the N=24 bucket under torch.profiler."""
@@ -833,7 +880,7 @@ def phase_main_path(quant: str = "none") -> dict:
     calls; with ``quant="int8"`` the same run through the int8 kernel."""
     import numpy as np
 
-    from tsdiff_tpu_torch.cli import sampling
+    from tsdiff_tpu_torch.cli import evaluate, sampling
     from tsdiff_tpu_torch.data.dataset import save_dataset
     from tsdiff_tpu_torch.data.synthetic import make_corpus
     from tsdiff_tpu_torch.diffusion.sampler import SamplingSettings, build_step_coeffs
@@ -913,6 +960,21 @@ def phase_main_path(quant: str = "none") -> dict:
         if sel.any()))
     if not dmae.mean() < DMAE_BOUND:
         fail(f"mean D-MAE {dmae.mean():.4f} >= {DMAE_BOUND}")
+    # the evaluate CLI, as the production pipeline runs it right after sampling
+    stats_path = os.path.join(OUT_DIR, "dmae_stats.pkl")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        evaluate.main(["--samples", save_path, "--out", stats_path])
+    with open(stats_path, "rb") as f:
+        written = pickle.load(f)
+    gap = abs(float(np.mean(written["dmae"])) - float(matched.mean()))
+    print(f"[{tag}] evaluate CLI: " + " / ".join(printed.getvalue().strip().splitlines())
+          + f"; its mean D-MAE {np.mean(written['dmae']):.10f} against this phase's matched "
+          f"{matched.mean():.10f}: |difference| {gap:.3g} (limit 1e-9)")
+    if len(written["dmae"]) != len(results):
+        fail(f"the evaluate CLI scored {len(written['dmae'])} of {len(results)} samples")
+    if not gap <= 1e-9:
+        fail(f"the evaluate CLI's mean D-MAE differs from the phase's by {gap:.3g}")
     return dict(launches=launches, wall=wall, dmae_mean=float(dmae.mean()))
 
 
@@ -1005,30 +1067,14 @@ def phase_dense_path() -> dict:
     return dict(launches=launches, wall=wall, dmae_mean=float(dmae.mean()))
 
 
-def phase_train() -> dict:
-    """The training main path at full width, then a fixed-batch descent
-    check with step times and a profile, then sampling from the checkpoint
-    this run trained."""
-    import numpy as np
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from tsdiff_tpu_torch.cli import sampling
-    from tsdiff_tpu_torch.cli import train as train_cli
-    from tsdiff_tpu_torch.config import Config
-    from tsdiff_tpu_torch.data import PaddedBatchLoader, TSDataset, save_dataset
+def train_setup() -> tuple[dict, dict, dict, list]:
+    """The training phases' corpus (1000 + 200 synthetic reactions) and the
+    production model and ``train`` block (configs/train_config.yml, as the
+    trained checkpoints embed it: ``packed_train``, no ``use_pallas``) with
+    EMA and a 40-iteration run: ``(model_cfg, train_cfg, paths, buckets)``."""
+    from tsdiff_tpu_torch.data import save_dataset
     from tsdiff_tpu_torch.data.synthetic import make_corpus
-    from tsdiff_tpu_torch.diffusion.objective import sample_antithetic_timesteps
-    from tsdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
-    from tsdiff_tpu_torch.models import get_model
-    from tsdiff_tpu_torch.ops import schnet_stack as ss
-    from tsdiff_tpu_torch.train import (
-        get_checkpoint_path,
-        init_train_state,
-        load_checkpoint,
-        make_optimizer,
-        make_train_step,
-    )
+    from tsdiff_tpu_torch.train import load_checkpoint
 
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     os.makedirs(TRAIN_DIR)
@@ -1037,86 +1083,84 @@ def phase_train() -> dict:
              "val": os.path.join(TRAIN_DIR, "valid_data.pkl")}
     save_dataset(paths["train"], corpus[:1000])
     save_dataset(paths["val"], corpus[1000:])
-    # the production model and train block (configs/train_config.yml, as the
-    # trained checkpoints embed it), with the fused stack, EMA and a short run
     ck = load_checkpoint(os.path.join(CKPT_DIR, "seed106_best.ckpt"))
-    model_cfg = {**ck["config"]["model"], "packed_train": False, "use_pallas": True}
     train_cfg = {**ck["config"]["train"], "seed": 0, "batch_size": 200, "val_freq": 20,
                  "log_freq": 10, "max_iters": 40, "ema_decay": 0.999}
-    buckets = [16, 24]
+    return dict(ck["config"]["model"]), train_cfg, paths, [16, 24]
+
+
+def write_train_config(name: str, model_cfg: dict, train_cfg: dict, paths: dict,
+                       buckets: list) -> str:
     cfg = {"model": model_cfg, "train": train_cfg, "dataset": paths,
            "tpu": {"bucket_sizes": buckets}}
-    cfg_path = os.path.join(TRAIN_DIR, "train_config.json")
-    with open(cfg_path, "w") as f:
+    path = os.path.join(TRAIN_DIR, f"{name}.json")
+    with open(path, "w") as f:
         json.dump(cfg, f, indent=1)
+    return path
 
-    B, iters = train_cfg["batch_size"], train_cfg["max_iters"]
-    val_batches = len(PaddedBatchLoader(TSDataset(paths["val"]), B, bucket_sizes=buckets))
+
+def run_train_cli(tag: str, cfg_path: str, train_cfg: dict, flags: list, logdir: str) -> dict:
+    """The train CLI on ``cfg_path`` with ``flags``, its run directory made
+    under ``TRAIN_DIR/logdir``; checks finite losses, a
+    written checkpoint and the closing throughput line, and returns the run's
+    directory, wall, log, losses, graphs/s and best checkpoint."""
+    import numpy as np
+    import torch
+
+    from tsdiff_tpu_torch.cli import train as train_cli
+    from tsdiff_tpu_torch.train import get_checkpoint_path
+
+    iters = train_cfg["max_iters"]
     validations = sum(1 for it in range(1, iters + 1) if it % train_cfg["val_freq"] == 0
                       or it == iters)
-    expect_fwd, expect_bwd = iters + validations * val_batches, iters
-    ss.schnet_stack_fwd.launches = ss.schnet_stack_bwd.launches = 0
-    ss.schnet_stack_fwd.wg_launches = ss.schnet_stack_bwd.wg_launches = 0
-    ss.schnet_stack_bwd.xty_wg_launches = 0
-    ss.interaction_stack_pallas.launches = ss.interaction_stack_pallas.wg_launches = 0
-    ss.schnet_stack_fwd_reference.calls = ss.schnet_stack_bwd_reference.calls = 0
-    ss.interaction_stack_reference.calls = 0
-    ss.arrange_stack_weights.calls = ss.ea_tile_images.calls = 0
     t0 = time.monotonic()
-    log_dir = train_cli.main([cfg_path, "--logdir", os.path.join(TRAIN_DIR, "logs"),
-                              "--dtype", "bfloat16", "--device", "cuda"])
+    log_dir = train_cli.main([cfg_path, "--logdir", os.path.join(TRAIN_DIR, logdir), *flags,
+                              "--device", "cuda"])
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = (ss.schnet_stack_fwd.launches, ss.schnet_stack_bwd.launches)
-    fwd_wg, bwd_wg = ss.schnet_stack_fwd.wg_launches, ss.schnet_stack_bwd.wg_launches
-    xty_wg = ss.schnet_stack_bwd.xty_wg_launches
-    b4_launches = ss.interaction_stack_pallas.launches
-    plain = (ss.schnet_stack_fwd_reference.calls, ss.schnet_stack_bwd_reference.calls,
-             ss.interaction_stack_reference.calls)
-    made = (ss.arrange_stack_weights.calls, ss.ea_tile_images.calls)
-    print(f"[train] {iters} iterations of batch {B} (buckets {buckets}), {validations} "
-          f"validations of {val_batches} batches, in {wall:.3f} s: B3 forward launches "
-          f"{launches[0]} (expected {expect_fwd}), of them through the wgmma kernel {fwd_wg} "
-          f"(expected {expect_fwd}), B3 backward launches {launches[1]} (expected "
-          f"{expect_bwd}), of them through the wgmma row kernel {bwd_wg} and through the wgmma "
-          f"weight-gradient kernel {xty_wg} (expected {expect_bwd} each), B4 launches {b4_launches} (not on this path), plain-version calls "
-          f"{plain}; the weight image and ea's tile images made {made} times (expected "
-          f"{expect_fwd} each: once per forward, the backward of a train step reusing them)")
-    if launches != (expect_fwd, expect_bwd):
-        fail(f"stack kernels launched {launches}, expected {(expect_fwd, expect_bwd)}")
-    if fwd_wg != expect_fwd:
-        fail(f"{fwd_wg} of {launches[0]} B3 forward calls took the wgmma kernel")
-    if bwd_wg != expect_bwd:
-        fail(f"{bwd_wg} of {launches[1]} B3 backward calls took the wgmma row kernel")
-    if xty_wg != expect_bwd:
-        fail(f"{xty_wg} of {launches[1]} B3 backward calls took the wgmma weight-gradient kernel")
-    if made != (expect_fwd, expect_fwd):
-        fail(f"the weight image and ea's tile images were made {made} times, expected "
-             f"{expect_fwd} each")
-    if any(plain):
-        fail(f"the plain stack versions ran {plain} times on the training path")
     with open(os.path.join(log_dir, "log.txt")) as f:
-        logged = re.findall(r"\[(Train|Validate)\] Iter (\d+) \| Loss (\S+)", f.read())
-    losses = [(kind, int(it), float(v)) for kind, it, v in logged]
-    print(f"[train] logged losses: {losses}")
+        log = f.read()
+    losses = [(kind, int(it), float(v))
+              for kind, it, v in re.findall(r"\[(Train|Validate)\] Iter (\d+) \| Loss (\S+)", log)]
+    print(f"[{tag}] {' '.join(flags)}: {iters} iterations in {wall:.3f} s; logged losses: {losses}")
     if len(losses) != iters // train_cfg["log_freq"] + validations:
-        fail(f"expected {iters // train_cfg['log_freq']} train and {validations} validation "
-             f"log lines, got {len(losses)}")
+        fail(f"{tag}: expected {iters // train_cfg['log_freq']} train and {validations} "
+             f"validation log lines, got {len(losses)}")
     if not all(np.isfinite(v) for _, _, v in losses):
-        fail("non-finite training or validation loss")
-    with open(os.path.join(log_dir, "log.txt")) as f:
-        tput = re.search(r"\[Train\] Throughput \| Iters (\d+)-(\d+) \| (\d+) graphs in (\S+) s "
-                         r"\| (\S+) graphs/s", f.read())
+        fail(f"{tag}: non-finite training or validation loss")
+    tput = re.search(r"\[Train\] Throughput \| Iters (\d+)-(\d+) \| (\d+) graphs in (\S+) s "
+                     r"\| (\S+) graphs/s", log)
     if tput is None:
-        fail("the train CLI logged no throughput line")
-    cli_gps = float(tput.group(5))
-    print(f"[train] CLI run, iterations {int(tput.group(1))}-{int(tput.group(2))} (all but the "
-          f"first, the loader, both buckets, validations and checkpoints included): "
-          f"{int(tput.group(3))} graphs in {float(tput.group(4)):.3f} s, {cli_gps:.4f} graphs/s")
+        fail(f"{tag}: the train CLI logged no throughput line")
+    gps = float(tput.group(5))
+    print(f"[{tag}] CLI run, iterations {int(tput.group(1))}-{int(tput.group(2))} (all but the "
+          f"first, the input pipeline, both buckets, validations and checkpoints included): "
+          f"{int(tput.group(3))} graphs in {float(tput.group(4)):.3f} s, {gps:.4f} graphs/s")
     ckpt_path, ckpt_it = get_checkpoint_path(os.path.join(log_dir, "checkpoints"))
-    print(f"[train] best checkpoint {os.path.relpath(ckpt_path, ROOT)} (iteration {ckpt_it})")
+    print(f"[{tag}] best checkpoint {os.path.relpath(ckpt_path, ROOT)} (iteration {ckpt_it}); "
+          f"run directory {os.path.basename(log_dir)}")
+    return dict(log_dir=log_dir, wall=wall, log=log, losses=losses, graphs_per_s=gps,
+                ckpt=ckpt_path)
 
-    # descent on one fixed batch with fixed t and noise; step times; profile
+
+def fixed_batch_steps(tag: str, model_cfg: dict, train_cfg: dict, paths: dict, buckets: list,
+                      n_prof: int = 3) -> dict:
+    """20 train steps on one fixed N=24 batch of 200 with fixed t and noise
+    (the loss must fall), their time per step on the host clock, then
+    ``n_prof`` steps under torch.profiler: ms per step, device ms, idle
+    share and launches per step, and the profile's kernel rows."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tsdiff_tpu_torch.config import Config
+    from tsdiff_tpu_torch.data import PaddedBatchLoader, TSDataset
+    from tsdiff_tpu_torch.diffusion.objective import sample_antithetic_timesteps
+    from tsdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
+    from tsdiff_tpu_torch.models import get_model
+    from tsdiff_tpu_torch.train import init_train_state, make_optimizer, make_train_step
+
+    B = train_cfg["batch_size"]
     mcfg = Config(model_cfg)
     model = get_model(mcfg, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0))
     model = model.to("cuda")
@@ -1139,15 +1183,15 @@ def phase_train() -> dict:
         step_s.append(time.monotonic() - t0)
     ms = float(np.mean(step_s[1:])) * 1e3
     first, last = float(np.mean(fixed[:5])), float(np.mean(fixed[-5:]))
-    print(f"[train] fixed batch (B={B}, N=24, bf16, use_pallas), 20 steps: losses "
+    what = "packed_train" if model.packed_train else "use_pallas"
+    print(f"[{tag}] fixed batch (B={B}, N=24, bf16, {what}), 20 steps: losses "
           f"{[round(v, 4) for v in fixed]}; mean of the first 5 {first:.4f}, of the last 5 "
           f"{last:.4f}")
-    print(f"[train] per-step figure on the fixed N=24 batch: {ms:.4f} ms per train step "
+    print(f"[{tag}] per-step figure on the fixed N=24 batch: {ms:.4f} ms per train step "
           f"(steps 2-20, host clock around a synchronised step), {B / ms * 1e3:.4f} graphs/s")
     if not np.all(np.isfinite(fixed)) or not last < first:
-        fail("the loss did not fall on the fixed batch")
+        fail(f"{tag}: the loss did not fall on the fixed batch")
 
-    n_prof = 3
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
@@ -1157,14 +1201,121 @@ def phase_train() -> dict:
         wall_ms = (time.monotonic() - t0) * 1e3
     rows = device_kernels(prof, n_prof)
     step_ms = wall_ms / n_prof
+    busy = sum(r[0] for r in rows)
+    launches = sum(r[1] for r in rows)
+    print(f"[{tag}] profile of {n_prof} steps: wall {step_ms:.4f} ms/step; device time "
+          + (f"{busy:.4f} ms/step in {launches:.1f} kernel launches/step, device busy "
+             f"{busy / step_ms:.4f} of wall, idle {1 - busy / step_ms:.4f}" if busy else
+             "not measured (the profiler shows no device time)"))
+    return dict(ms_per_step=ms, device_ms=busy or None, idle=1 - busy / step_ms if busy else None,
+                launches_per_step=launches, rows=rows)
+
+
+def sample_with(tag: str, ckpt_path: str) -> None:
+    """8 reactions, 20 respaced ld steps, from a checkpoint this run trained,
+    through the packed score kernel (B1): every model call one launch of its
+    warp-specialised kernel, all positions finite."""
+    import numpy as np
+
+    from tsdiff_tpu_torch.cli import sampling
+    from tsdiff_tpu_torch.data import save_dataset
+    from tsdiff_tpu_torch.data.synthetic import make_corpus
+    from tsdiff_tpu_torch.ops import packed_score as ps
+
+    test_set = os.path.join(TRAIN_DIR, "sample_set.pkl")
+    save_dataset(test_set, make_corpus(8, seed=77))
+    ps.packed_score.launches = ps.packed_score.wg_launches = 0
+    save_path = sampling.main([
+        ckpt_path, "--test_set", test_set, "--save_dir", os.path.join(TRAIN_DIR, f"samples_{tag}"),
+        "--fused_score", "--dtype", "bfloat16", "--sampling_type", "ld", "--n_steps", "5000",
+        "--timestep_respacing", "20", "--batch_size", "8", "--device", "cuda",
+    ])
+    with open(save_path, "rb") as f:
+        samples = pickle.load(f)
+    launches = (ps.packed_score.launches, ps.packed_score.wg_launches)
+    if len(samples) != 8 or not all(np.isfinite(r["pos_gen"]).all() for r in samples):
+        fail(f"{tag}: sampling from the trained checkpoint gave missing or non-finite positions")
+    if launches[0] == 0 or launches[0] % 20 or launches[1] != launches[0]:
+        fail(f"{tag}: sampling launched the packed score kernel {launches[0]} times, "
+             f"{launches[1]} of them warp-specialised")
+    print(f"[{tag}] sampled {len(samples)} reactions for 20 respaced ld steps with the trained "
+          f"checkpoint: all positions finite; packed_score launches {launches[0]} (20 per batch "
+          f"and attempt), all {launches[1]} warp-specialised")
+
+
+def phase_train(setup: tuple) -> dict:
+    """The training path with the fused SchNet stack (``use_pallas``) at full
+    width and the CLI's defaults (``--device_data auto``): its stack kernels'
+    launch counts, then a fixed-batch descent check with step times and a
+    profile, then sampling from the checkpoint this run trained."""
+    import torch
+
+    from tsdiff_tpu_torch.data import PaddedBatchLoader, TSDataset
+    from tsdiff_tpu_torch.ops import schnet_stack as ss
+
+    model_cfg, train_cfg, paths, buckets = setup
+    model_cfg = {**model_cfg, "packed_train": False, "use_pallas": True}
+    cfg_path = write_train_config("train_config", model_cfg, train_cfg, paths, buckets)
+    B, iters = train_cfg["batch_size"], train_cfg["max_iters"]
+    val_batches = len(PaddedBatchLoader(TSDataset(paths["val"]), B, bucket_sizes=buckets))
+    validations = sum(1 for it in range(1, iters + 1) if it % train_cfg["val_freq"] == 0
+                      or it == iters)
+    expect_fwd, expect_bwd = iters + validations * val_batches, iters
+    ss.schnet_stack_fwd.launches = ss.schnet_stack_bwd.launches = 0
+    ss.schnet_stack_fwd.wg_launches = ss.schnet_stack_bwd.wg_launches = 0
+    ss.schnet_stack_bwd.xty_wg_launches = 0
+    ss.interaction_stack_pallas.launches = ss.interaction_stack_pallas.wg_launches = 0
+    ss.schnet_stack_fwd_reference.calls = ss.schnet_stack_bwd_reference.calls = 0
+    ss.interaction_stack_reference.calls = 0
+    ss.arrange_stack_weights.calls = ss.ea_tile_images.calls = 0
+    run = run_train_cli("train", cfg_path, train_cfg, ["--dtype", "bfloat16"], "logs")
+    launches = (ss.schnet_stack_fwd.launches, ss.schnet_stack_bwd.launches)
+    fwd_wg, bwd_wg = ss.schnet_stack_fwd.wg_launches, ss.schnet_stack_bwd.wg_launches
+    xty_wg = ss.schnet_stack_bwd.xty_wg_launches
+    b4_launches = ss.interaction_stack_pallas.launches
+    plain = (ss.schnet_stack_fwd_reference.calls, ss.schnet_stack_bwd_reference.calls,
+             ss.interaction_stack_reference.calls)
+    made = (ss.arrange_stack_weights.calls, ss.ea_tile_images.calls)
+    print(f"[train] {iters} iterations of batch {B} (buckets {buckets}), {validations} "
+          f"validations of {val_batches} batches: B3 forward launches "
+          f"{launches[0]} (expected {expect_fwd}), of them through the wgmma kernel {fwd_wg} "
+          f"(expected {expect_fwd}), B3 backward launches {launches[1]} (expected "
+          f"{expect_bwd}), of them through the wgmma row kernel {bwd_wg} and through the wgmma "
+          f"weight-gradient kernel {xty_wg} (expected {expect_bwd} each), B4 launches "
+          f"{b4_launches} (not on this path), plain-version calls {plain}; the weight image and "
+          f"ea's tile images made {made} times (expected {expect_fwd} each: once per forward, "
+          f"the backward of a train step reusing them)")
+    if launches != (expect_fwd, expect_bwd):
+        fail(f"stack kernels launched {launches}, expected {(expect_fwd, expect_bwd)}")
+    if fwd_wg != expect_fwd:
+        fail(f"{fwd_wg} of {launches[0]} B3 forward calls took the wgmma kernel")
+    if bwd_wg != expect_bwd:
+        fail(f"{bwd_wg} of {launches[1]} B3 backward calls took the wgmma row kernel")
+    if xty_wg != expect_bwd:
+        fail(f"{xty_wg} of {launches[1]} B3 backward calls took the wgmma weight-gradient kernel")
+    if made != (expect_fwd, expect_fwd):
+        fail(f"the weight image and ea's tile images were made {made} times, expected "
+             f"{expect_fwd} each")
+    if any(plain):
+        fail(f"the plain stack versions ran {plain} times on the training path")
+    if "device-resident corpus" not in run["log"]:
+        fail("the train CLI's default (--device_data auto) did not keep the corpus on the card")
+    # the CLI's graphs/s with the corpus resident and streamed, in turns: the
+    # host sets the pace of these 40-iteration runs and drifts between them
+    gps = {"auto": [run["graphs_per_s"]], "off": []}
+    for i, mode in enumerate(("off", "off", "auto")):
+        gps[mode].append(run_train_cli("train", cfg_path, train_cfg,
+                                       ["--dtype", "bfloat16", "--device_data", mode],
+                                       f"logs_{i}_{mode}")["graphs_per_s"])
+    print(f"[train] CLI graphs/s in the order auto, off, off, auto: --device_data auto "
+          f"{gps['auto']}, off {gps['off']}")
+
+    fixed = fixed_batch_steps("train", model_cfg, train_cfg, paths, buckets)
+    rows = fixed["rows"]
     fwd = sum(ms for ms, _, name in rows if "schnet_fwd_" in name)
     bwd = [(ms, name) for ms, _, name in rows if "schnet_bwd_" in name]
     other = [(ms, n) for ms, n, name in rows if "schnet_" not in name]
-    print(f"[train] profile of {n_prof} steps: wall {step_ms:.4f} ms/step")
-    if fwd == 0.0:
-        print("[train] the profiler shows no device time: breakdown not measured")
-    else:
-        busy = fwd + sum(ms for ms, _ in bwd) + sum(ms for ms, _ in other)
+    if fwd:
         fwd_names = sorted({re.search(r"schnet_fwd_\w*?kernel", name).group(0)
                             for _, _, name in rows if "schnet_fwd_" in name})
         print(f"[train] device time per step: B3 forward {fwd:.4f} ms ({', '.join(fwd_names)}), "
@@ -1173,28 +1324,68 @@ def phase_train() -> dict:
                   f"{BWD_KERNEL.search(name).group(0)} {ms:.4f}"
                   for ms, name in bwd)
               + f"), all other kernels {sum(ms for ms, _ in other):.4f} ms "
-              f"({sum(n for _, n in other):.1f} launches/step); device busy "
-              f"{busy / step_ms:.4f} of wall, idle {1 - busy / step_ms:.4f}")
+              f"({sum(n for _, n in other):.1f} launches/step)")
         for k_ms, n, name in [r for r in rows if "schnet_" not in r[2]][:5]:
             print(f"[train]   other: {k_ms:.4f} ms/step in {n:.0f} launches: {name[:100]}")
+    sample_with("train", run["ckpt"])
+    torch.cuda.empty_cache()
+    return dict(launches=launches, b4_launches=b4_launches, xty_launches=xty_wg,
+                wall=run["wall"], ms_per_step=fixed["ms_per_step"],
+                cli_graphs_per_s=run["graphs_per_s"], final_loss=run["losses"][-1][2])
 
-    # the checkpoint this run wrote, through the port's sampler
-    test_set = os.path.join(TRAIN_DIR, "sample_set.pkl")
-    save_dataset(test_set, make_corpus(8, seed=77))
-    save_path = sampling.main([
-        ckpt_path, "--test_set", test_set, "--save_dir", os.path.join(TRAIN_DIR, "samples"),
-        "--fused_score", "--dtype", "bfloat16", "--sampling_type", "ld", "--n_steps", "5000",
-        "--timestep_respacing", "20", "--batch_size", "8", "--device", "cuda",
-    ])
-    with open(save_path, "rb") as f:
-        samples = pickle.load(f)
-    if len(samples) != 8 or not all(np.isfinite(r["pos_gen"]).all() for r in samples):
-        fail("sampling from the trained checkpoint gave missing or non-finite positions")
-    print(f"[train] sampled {len(samples)} reactions for 20 respaced ld steps with the trained "
-          f"checkpoint: all positions finite")
-    return dict(launches=launches, b4_launches=b4_launches, xty_launches=xty_wg, wall=wall,
-                ms_per_step=ms,
-                cli_graphs_per_s=cli_gps, final_loss=losses[-1][2])
+
+def phase_train_packed(setup: tuple) -> dict:
+    """The production command line: the trained members' ``model`` block
+    unchanged (``packed_train``, no ``use_pallas``) with the training phase's
+    ``train`` block, ``--tag seed0 --dtype bfloat16 --packed_train
+    --device_data auto``; checks the run's directory and resident corpus, and
+    that no stack kernel and no plain version ran; then the same run with
+    ``--device_data off``, ``off`` and ``auto``, in turns; then the
+    fixed-batch check, step times and profile; then sampling from the
+    packed-trained checkpoint through B1."""
+    import torch
+
+    from tsdiff_tpu_torch.ops import packed_score as ps
+    from tsdiff_tpu_torch.ops import schnet_stack as ss
+
+    model_cfg, train_cfg, paths, buckets = setup
+    if not model_cfg.get("packed_train") or model_cfg.get("use_pallas"):
+        fail("the trained members' model block no longer carries packed_train without use_pallas")
+    cfg_path = write_train_config("train_config_packed", model_cfg, train_cfg, paths, buckets)
+    counters = [(ss.schnet_stack_fwd, "launches"), (ss.schnet_stack_bwd, "launches"),
+                (ss.interaction_stack_pallas, "launches"), (ss.schnet_stack_fwd_reference, "calls"),
+                (ss.schnet_stack_bwd_reference, "calls"), (ss.interaction_stack_reference, "calls"),
+                (ps.packed_score, "launches"), (ps.packed_score_reference, "calls")]
+    runs = {"auto": [], "off": []}
+    for i, mode in enumerate(("auto", "off", "off", "auto")):   # in turns, as in phase 6a
+        for fn, attr in counters:
+            setattr(fn, attr, 0)
+        flags = ["--tag", "seed0", "--dtype", "bfloat16", "--packed_train", "--device_data", mode]
+        run = run_train_cli("train packed", cfg_path, train_cfg, flags, f"logs_packed_{i}_{mode}")
+        counts = {f"{fn.__name__}.{attr}": getattr(fn, attr) for fn, attr in counters}
+        resident = "device-resident corpus" in run["log"]
+        print(f"[train packed] --device_data {mode}: run directory ends in _seed0: "
+              f"{run['log_dir'].endswith('_seed0')}; resident corpus logged: {resident}; "
+              f"stack kernels, plain versions and the packed score kernel on this path: {counts} "
+              f"(all must be 0)")
+        if not run["log_dir"].endswith("_seed0"):
+            fail(f"the run directory {run['log_dir']} does not end in _seed0")
+        if resident != (mode == "auto"):
+            fail(f"--device_data {mode}: resident corpus logged {resident}")
+        if any(counts.values()):
+            fail(f"--device_data {mode}: a stack kernel, a plain version or B1 ran on the packed "
+                 f"training path: {counts}")
+        runs[mode].append(run)
+    print(f"[train packed] CLI graphs/s in the order auto, off, off, auto: --device_data auto "
+          f"{[r['graphs_per_s'] for r in runs['auto']]}, off "
+          f"{[r['graphs_per_s'] for r in runs['off']]}")
+    fixed = fixed_batch_steps("train packed", model_cfg, train_cfg, paths, buckets)
+    for k_ms, n, name in fixed["rows"][:6]:
+        print(f"[train packed]   kernel: {k_ms:.4f} ms/step in {n:.0f} launches: {name[:100]}")
+    sample_with("train packed", runs["auto"][0]["ckpt"])
+    torch.cuda.empty_cache()
+    return dict(graphs_per_s={m: [r["graphs_per_s"] for r in rs] for m, rs in runs.items()},
+                **{k: fixed[k] for k in ("ms_per_step", "device_ms", "idle", "launches_per_step")})
 
 
 def main() -> None:
@@ -1217,7 +1408,9 @@ def main() -> None:
     sk = phase_stack_kernels()
     main_path = phase_main_path()
     phase_profile()
-    tr = phase_train()
+    setup = train_setup()
+    tr = phase_train(setup)
+    phase_train_packed(setup)
     dense_path = phase_dense_path()
     int8_path = phase_main_path(quant="int8")
     delta = abs(int8_path["dmae_mean"] - main_path["dmae_mean"])
@@ -1228,7 +1421,8 @@ def main() -> None:
         fail(f"the int8 run's mean D-MAE differs from the bf16 run's by {delta:.4f}")
 
     def entry(name, source, replaces, launches, numbers):
-        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_by",
+                "library_ms_by")
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, **{key: numbers.get(key) for key in keys}}
 

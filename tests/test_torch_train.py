@@ -11,6 +11,7 @@ rtol=5e-4, atol=5e-5 unless a test says otherwise."""
 
 import json
 import os
+import re
 
 import numpy as np
 import jax
@@ -230,9 +231,8 @@ def test_schedule_alphas_copied_to_a_device_once():
 def test_cli_train_rejects_what_is_not_ported(tmp_path):
     cfg = tiny_config(str(tmp_path))
     base = [cfg, "--logdir", str(tmp_path / "logs"), "--device", "cpu"]
-    for flag in (["--packed_train"], ["--multihost"], ["--ckpt_backend", "orbax"],
-                 ["--pretrain", "x.ckpt"], ["--device_data", "on"], ["--mesh_layout", "flat"],
-                 ["--profile"]):
+    for flag in (["--multihost"], ["--ckpt_backend", "orbax"], ["--pretrain", "x.ckpt"],
+                 ["--mesh_layout", "flat"], ["--profile"]):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             train_cli.main(base + flag)
     with open(cfg) as f:
@@ -261,3 +261,92 @@ def test_load_config_json_and_yaml(tmp_path):
         assert c.model.hidden_dim == 8 and c.to_dict() == d
     with pytest.raises(ValueError):
         load_config(str(tmp_path / "c.txt"))
+
+
+@pytest.mark.parametrize("device_data", ["auto", "on", "off", "auto_over_budget"])
+def test_cli_train_production_flags(tmp_path, monkeypatch, device_data):
+    """The production command line (``--tag``, ``--dtype bfloat16``,
+    ``--packed_train``, ``--device_data``) trains the packed objective to a
+    checkpoint; ``auto`` streams only past the byte budget, and says so."""
+    from tsdiff_tpu_torch.ops import packed_score as ps
+
+    mode = device_data
+    if device_data == "auto_over_budget":
+        monkeypatch.setattr(train_cli, "DEVICE_DATA_BUDGET", 1)
+        mode = "auto"
+    cfg = tiny_config(str(tmp_path), max_iters=4)
+    calls = (ss.schnet_stack_bwd_reference.calls, ps.packed_score_reference.calls)
+    run = train_cli.main([cfg, "--logdir", str(tmp_path / "logs"), "--tag", "seed3", "--dtype",
+                          "bfloat16", "--packed_train", "--device_data", mode, "--device", "cpu"])
+    assert (ss.schnet_stack_bwd_reference.calls, ps.packed_score_reference.calls) == calls
+    assert run.endswith("_seed3")
+    path, it = get_checkpoint_path(os.path.join(run, "checkpoints"))
+    ck = load_checkpoint(path)
+    assert ck["config"]["model"]["packed_train"] is True and ck["opt_state"]["count"] == it
+    with open(os.path.join(run, "log.txt")) as f:
+        log = f.read()
+    resident = "device-resident corpus" in log
+    assert resident == (device_data in ("auto", "on"))
+    assert ("budget); streaming" in log) == (device_data == "auto_over_budget")
+    assert "packed_train=True" in log and "[Train] Throughput" in log
+    losses = [float(v) for v in re.findall(r"\] Iter \d+ \| Loss (\S+)", log)]
+    assert len(losses) == 4 + 2 and all(np.isfinite(losses))
+
+
+def first_log_dir(cli_main, argv, monkeypatch, misc) -> str:
+    """The run directory a train CLI names, without the timestamp; the CLI
+    is stopped right after naming it."""
+    made = []
+    real = misc.get_new_log_dir
+
+    def record(*args, **kw):
+        made.append(real(*args, **kw))
+        raise KeyboardInterrupt  # stop here: the name is all this test needs
+
+    monkeypatch.setattr(misc, "get_new_log_dir", record)
+    with pytest.raises(KeyboardInterrupt):
+        cli_main(argv)
+    monkeypatch.setattr(misc, "get_new_log_dir", real)
+    return re.sub(r"\d{4}_\d\d_\d\d__\d\d_\d\d_\d\d", "<time>", os.path.basename(made[0]))
+
+
+@pytest.mark.parametrize("case", ["tag", "name", "neither", "resume"])
+def test_cli_train_names_its_log_dir_as_jax(tmp_path, monkeypatch, case):
+    from tsdiff_tpu.cli import train as jax_train_cli
+    from tsdiff_tpu.utils import misc as jax_misc
+
+    from tsdiff_tpu_torch.utils import misc as port_misc
+
+    cfg = tiny_config(str(tmp_path))
+    if case == "resume":  # a previous run's directory: the JAX CLI reads its *.yml
+        prev = tmp_path / "prev"
+        prev.mkdir()
+        (prev / "cfg.yml").write_text(open(cfg).read())
+        cfg = str(prev)
+    extra = {"tag": ["--tag", "seed4"], "name": ["--name", "run7"], "neither": [],
+             "resume": ["--tag", "seed4"]}[case]
+    argv = [cfg, "--logdir", str(tmp_path / "logs"), *extra]
+    mine = first_log_dir(train_cli.main, argv + ["--device", "cpu"], monkeypatch, port_misc)
+    want = first_log_dir(jax_train_cli.main, argv, monkeypatch, jax_misc)
+    assert mine == want == {"tag": "cfg_<time>_seed4", "name": "cfg_<time>_run7",
+                            "neither": "cfg_<time>", "resume": "cfg_<time>_seed4_resume"}[case]
+
+
+def test_cli_train_debug_nans(tmp_path):
+    """With ``--debug_nans`` a NaN position fails the run at its iteration,
+    and anomaly detection is off again afterwards; without it the run goes on."""
+    from tsdiff_tpu_torch.data import load_dataset
+
+    cfg = tiny_config(str(tmp_path), max_iters=3, val_freq=3)
+    graphs, _ = load_dataset(str(tmp_path / "train.pkl"))
+    for g in graphs:
+        g["pos"] = g["pos"].copy()
+        g["pos"][0, 1] = np.nan
+    save_dataset(str(tmp_path / "train.pkl"), graphs)
+    base = [cfg, "--logdir", str(tmp_path / "logs"), "--device", "cpu", "--packed_train"]
+    with pytest.raises(FloatingPointError, match=r"iteration 1: non-finite loss"):
+        train_cli.main(base + ["--debug_nans"])
+    assert not torch.is_anomaly_enabled()
+    run = train_cli.main(base)
+    with open(os.path.join(run, "log.txt")) as f:
+        assert "[Train] Iter 00003 | Loss nan" in f.read()

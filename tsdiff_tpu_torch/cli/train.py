@@ -1,21 +1,36 @@
 """Training CLI of the port.
 
 Usage:
-    python -m tsdiff_tpu_torch.cli.train config.json [--logdir ./logs --dtype bfloat16 ...]
+    python -m tsdiff_tpu_torch.cli.train config.json [--logdir ./logs --tag seed0 \
+        --dtype bfloat16 --packed_train --device_data auto ...]
     python -m tsdiff_tpu_torch.cli.train <previous_log_dir>          # resume
 
 A config (JSON, or YAML where PyYAML is installed) or a log directory to
-resume from; seeded set-up; an endless stream of padded batches; the
-denoising loss and the optax-equivalent update; validation every
-``val_freq`` iterations driving the LR scheduler; a training log line every
-``log_freq``; ``<iteration>.ckpt`` written whenever the validation loss
-improves; at the end, graphs/s over every iteration after the first
-(validation and checkpoints included).  Runs on CUDA unless ``--device cpu`` is given.  With
-``model.use_pallas`` the SchNet stack runs through the fused CUDA kernels.
+resume from; seeded set-up; the denoising loss and the optax-equivalent
+update; validation every ``val_freq`` iterations driving the LR scheduler; a
+training log line every ``log_freq``; ``<iteration>.ckpt`` written whenever
+the validation loss improves; at the end, graphs/s over every iteration after
+the first (validation and checkpoints included).  Runs on CUDA unless
+``--device cpu`` is given.  With ``model.use_pallas`` the SchNet stack runs
+through the fused CUDA kernels; ``--packed_train`` (or ``model.packed_train``
+in the config) trains through the offset-packed forward.
 
-Not ported yet: ``--packed_train``, ``--device_data``, ``--multihost``,
-``--mesh_layout``, ``--ckpt_backend orbax``, ``--profile``, ``--pretrain``
-and ``dataset.type: sidechain``.
+The flags and defaults are the JAX package's CLI's:
+
+* the run directory is ``<logdir>/<config name>_<timestamp>_<tag>``, the tag
+  being ``--tag``, else ``--name``, with ``_resume`` appended on a resume;
+* ``--device_data`` (default ``auto``) chooses the input pipeline: ``on``
+  packs the corpus once and keeps it on the device, batches gathered there
+  (``data/resident.py``); ``auto`` does so when the train and validation
+  corpora pack to at most 4e9 bytes together and otherwise logs why and
+  streams; ``off`` streams padded batches packed on the host by a
+  background thread (``data/prefetch.py``);
+* ``--debug_nans`` fails at the first non-finite loss or gradient norm,
+  naming the iteration, with autograd's anomaly detection on;
+* ``--name`` with ``--project`` logs to wandb where it can be imported.
+
+Not ported yet: ``--multihost``, ``--mesh_layout``, ``--ckpt_backend
+orbax``, ``--profile``, ``--pretrain`` and ``dataset.type: sidechain``.
 """
 
 from __future__ import annotations
@@ -27,27 +42,35 @@ import shutil
 import time
 
 _NOT_PORTED = {
-    "packed_train": "--packed_train",
-    "device_data": "--device_data",
     "multihost": "--multihost",
     "mesh_layout": "--mesh_layout",
     "ckpt_backend": "--ckpt_backend",
     "profile": "--profile",
     "pretrain": "--pretrain",
 }
+#: ``--device_data auto`` keeps the corpus on the device up to this many bytes
+DEVICE_DATA_BUDGET = int(4e9)
 
 
 def parse_args(argv=None):
-    parser = argparse.ArgumentParser(description=__doc__)
+    parser = argparse.ArgumentParser(description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("config", type=str, help="config .json/.yml, or a log dir to resume")
     parser.add_argument("--resume_iter", type=int, default=None)
     parser.add_argument("--logdir", type=str, default="./logs")
+    parser.add_argument("--project", type=str, default="")
+    parser.add_argument("--name", type=str, default="")
+    parser.add_argument("--tag", type=str, default=None)
     parser.add_argument("--dtype", type=str, default="float32", choices=["float32", "bfloat16"])
     parser.add_argument("--max_iters", type=int, default=None, help="override config max_iters")
+    parser.add_argument("--packed_train", action="store_true",
+                        help="train through the offset-packed forward (mlp edge encoder)")
+    parser.add_argument("--debug_nans", action="store_true",
+                        help="fail at the first non-finite loss or gradient")
+    parser.add_argument("--device_data", choices=["auto", "on", "off"], default="auto",
+                        help="keep the corpus on the device (auto: when it packs to <= 4e9 bytes)")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     # flags of the JAX package's CLI that are not ported: they raise
-    parser.add_argument("--packed_train", action="store_true")
-    parser.add_argument("--device_data", choices=["auto", "on", "off"], default=None)
     parser.add_argument("--multihost", action="store_true")
     parser.add_argument("--mesh_layout", choices=["flat", "hybrid"], default=None)
     parser.add_argument("--ckpt_backend", choices=["pickle", "orbax"], default="pickle")
@@ -59,6 +82,21 @@ def parse_args(argv=None):
         if value and not (attr == "ckpt_backend" and value == "pickle"):
             raise NotImplementedError(f"{flag} is not yet ported")
     return args
+
+
+def resident_steps(res, start_iter: int):
+    """``(arrays, plan, cursor, real graphs)`` of every training step from
+    ``start_iter`` on: the epoch's bucket schedule walked in order, a fresh
+    plan per bucket and epoch, a cursor per bucket (wrapped by the gather)."""
+    schedule = res.epoch_schedule()
+    epoch, pos = divmod(start_iter - 1, len(schedule))
+    cursors = {b: schedule[:pos].count(b) for b in res.buckets}
+    while True:
+        plans = {b: res.make_plan(b, epoch) for b in res.buckets}
+        for b in schedule[pos:]:
+            yield res.buckets[b], plans[b], cursors[b], res.real_graphs(b, cursors[b])
+            cursors[b] += 1
+        epoch, pos = epoch + 1, 0
 
 
 def _config_path(log_dir: str) -> str:
@@ -75,9 +113,22 @@ def main(argv=None) -> str:
 
     import torch
 
+    anomaly = torch.is_anomaly_enabled()
+    torch.autograd.set_detect_anomaly(args.debug_nans or anomaly)
+    try:
+        return _train(args)
+    finally:
+        torch.autograd.set_detect_anomaly(anomaly)
+
+
+def _train(args) -> str:
+    import torch
+
     from tsdiff_tpu_torch.config import Config, load_config
     from tsdiff_tpu_torch.convert import params_from_jax
     from tsdiff_tpu_torch.data import PaddedBatchLoader, TSDataset, inf_iterator
+    from tsdiff_tpu_torch.data.prefetch import Prefetcher, to_device
+    from tsdiff_tpu_torch.data.resident import CorpusTooLarge, DeviceResidentData
     from tsdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
     from tsdiff_tpu_torch.models import get_model
     from tsdiff_tpu_torch.train import (
@@ -87,6 +138,8 @@ def main(argv=None) -> str:
         load_checkpoint,
         make_eval_step,
         make_optimizer,
+        make_resident_eval_step,
+        make_resident_train_step,
         make_train_step,
         opt_state_from_checkpoint,
         save_checkpoint,
@@ -111,7 +164,9 @@ def main(argv=None) -> str:
         config.train.max_iters = args.max_iters
 
     config_name = os.path.splitext(os.path.basename(config_path))[0]
-    log_dir = get_new_log_dir(args.logdir, prefix=config_name, tag="resume" if resume else "")
+    tag = args.tag if args.tag is not None else args.name
+    log_dir = get_new_log_dir(args.logdir, prefix=config_name,
+                              tag=f"{tag}_resume" if resume else tag)
     ckpt_dir = os.path.join(log_dir, "checkpoints")
     os.makedirs(ckpt_dir, exist_ok=True)
     logger = get_logger("train", log_dir)
@@ -119,30 +174,70 @@ def main(argv=None) -> str:
     logger.info(config)
     shutil.copyfile(config_path, os.path.join(log_dir, os.path.basename(config_path)))
 
-    # data
+    wandb = None
+    if args.name and args.project:
+        try:
+            import wandb
+
+            wandb.init(project=args.project, name=args.name)
+            wandb.config = config.to_dict()
+        except ImportError:
+            wandb = None
+            logger.warning("wandb not installed; logging to file only")
+
+    # data: the corpus resident on the device where --device_data lets it,
+    # else padded batches packed on the host by a background thread
     bucket_sizes = config.get("tpu", Config()).get("bucket_sizes", None)
     train_set = TSDataset(config.dataset.train)
     val_set = TSDataset(config.dataset.val)
     if len(val_set) == 0:
         raise SystemExit(f"validation set is empty ({config.dataset.val})")
     batch_size = config.train.batch_size
-    train_iter = inf_iterator(PaddedBatchLoader(
-        train_set, batch_size, shuffle=True, bucket_sizes=bucket_sizes,
-        seed=config.train.seed, with_indices=True, device=device,
-    ))
-    val_loader = PaddedBatchLoader(val_set, batch_size, shuffle=False,
-                                   bucket_sizes=bucket_sizes, device=device)
+    train_res = val_res = None
+    if args.device_data != "off":
+        budget = DEVICE_DATA_BUDGET if args.device_data == "auto" else None
+        try:
+            train_res = DeviceResidentData(train_set.graphs, batch_size, bucket_sizes,
+                                           seed=config.train.seed, device=device, upload=False)
+            val_res = DeviceResidentData(val_set.graphs, batch_size, bucket_sizes,
+                                         device=device, upload=False)
+            total = train_res.nbytes + val_res.nbytes
+            if budget is not None and total > budget:
+                raise CorpusTooLarge(f"packed corpus is {total / 1e9:.2f} GB "
+                                     f"(> {budget / 1e9:.2f} GB budget)")
+            train_res.upload()
+            val_res.upload()
+        except CorpusTooLarge as e:
+            logger.info(f"device_data auto: {e}; streaming batches through the prefetcher")
+            train_res = val_res = None
+        else:
+            logger.info(f"device-resident corpus: {total:,} bytes on {device} (batches per "
+                        f"bucket: train {train_res.n_batches}, val {val_res.n_batches})")
+    if train_res is None:
+        loader = PaddedBatchLoader(train_set, batch_size, shuffle=True, bucket_sizes=bucket_sizes,
+                                   seed=config.train.seed, with_indices=True)
+        train_iter = iter(Prefetcher(inf_iterator(loader), depth=2,
+                                     transfer=lambda item: (to_device(item[0], device), item[1])))
+        val_loader = PaddedBatchLoader(val_set, batch_size, shuffle=False,
+                                       bucket_sizes=bucket_sizes, device=device)
+    else:
+        val_plans = {b: val_res.fixed_plan(b) for b in val_res.buckets}
 
     # model, optimizer, schedule
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    if args.packed_train:
+        config.model.packed_train = True
     init_gen = torch.Generator().manual_seed(config.train.seed)
     model = get_model(config.model, dtype=dtype, generator=init_gen).to(device)
     schedule = DiffusionSchedule.from_config(config.model)
     tx = make_optimizer(config.train.optimizer, config.train.max_grad_norm)
     t0, t1 = config.model.get("t0", 0), config.model.get("t1", None)
     ema_decay = config.train.get("ema_decay", None)
-    train_step = make_train_step(model, tx, schedule, t0=t0, t1=t1, ema_decay=ema_decay)
+    train_step = make_train_step(model, tx, schedule, t0=t0, t1=t1, ema_decay=ema_decay,
+                                 debug_nans=args.debug_nans)
     eval_step = make_eval_step(model, schedule, t0=t0, t1=t1)
+    res_train_step = make_resident_train_step(train_step, batch_size)
+    res_eval_step = make_resident_eval_step(eval_step, batch_size)
     scheduler = get_scheduler(config.train.scheduler, config.train.optimizer.lr)
     state = init_train_state(model, tx, ema_decay=ema_decay)
     start_iter = 1
@@ -162,19 +257,32 @@ def main(argv=None) -> str:
                            opt_state_from_checkpoint(ck, device), start_iter, ema)
         if ck.get("scheduler"):
             scheduler.load_state_dict(ck["scheduler"])
+    if train_res is not None:
+        train_iter = resident_steps(train_res, start_iter)
     logger.info(f"Parameters: {count_parameters(model):,} on {device}, {args.dtype}, "
-                f"use_pallas={model.use_pallas}")
+                f"use_pallas={model.use_pallas}, packed_train={model.packed_train}")
+
+    def val_batches():
+        if val_res is None:
+            yield from ((batch,) for batch in val_loader)
+        else:
+            for b, arrays in val_res.buckets.items():
+                for cursor in range(val_res.n_batches[b]):
+                    yield arrays, val_plans[b], cursor
 
     def validate(it: int) -> float:
         sum_loss = sum_n = 0.0
-        for vi, batch in enumerate(val_loader):
+        step = eval_step if val_res is None else res_eval_step
+        for vi, batch in enumerate(val_batches()):
             gen = torch.Generator(device=device).manual_seed(10_000_000 + vi)
-            ls, nn = eval_step(batch, generator=gen)
+            ls, nn = step(*batch, generator=gen)
             sum_loss += float(ls)
             sum_n += float(nn)
         avg = sum_loss / max(sum_n, 1.0)
         scheduler.step(avg)
         logger.info("[Validate] Iter %05d | Loss %.6f" % (it, avg))
+        if wandb is not None:
+            wandb.log({"val/loss": avg}, step=it)
         return avg
 
     gen = torch.Generator(device=device).manual_seed(config.train.seed + 1)
@@ -186,32 +294,49 @@ def main(argv=None) -> str:
     # warm-up), validation and checkpoints included; padding graphs not counted
     t_first = None
     graphs = 0
-    for it in range(start_iter, config.train.max_iters + 1):
-        batch, indices = next(train_iter)
-        state, metrics = train_step(state, batch, scheduler.lr, generator=gen)
-        if t_first is None:
-            float(metrics["loss_sum"])  # wait for the first step
-            t_first = time.monotonic()
-        else:
-            graphs += int((indices >= 0).sum())
-        loss_sum = loss_sum + metrics["loss_sum"]
-        n_sum = n_sum + metrics["n_nodes"]
-        grad_norm_sum = grad_norm_sum + metrics["grad_norm"]
-        window += 1
-        last = it == config.train.max_iters
-        if it % config.train.log_freq == 0 or last:
-            logger.info("[Train] Iter %05d | Loss %.2f | Grad %.2f | LR %.6f" % (
-                it, float(loss_sum) / max(float(n_sum), 1.0), float(grad_norm_sum) / window,
-                scheduler.lr))
-            loss_sum = n_sum = grad_norm_sum = 0.0
-            window = 0
-        if it % config.train.val_freq == 0 or last:
-            avg_val_loss = validate(it)
-            if avg_val_loss < best_loss:
-                best_loss = avg_val_loss
-                save_checkpoint(os.path.join(ckpt_dir, f"{it}.ckpt"), config, state,
-                                scheduler.state_dict(), iteration=it, avg_val_loss=avg_val_loss)
-                logger.info(f"Saved checkpoint at iter {it} (val {avg_val_loss:.6f})")
+    try:
+        for it in range(start_iter, config.train.max_iters + 1):
+            try:
+                if train_res is None:
+                    batch, indices = next(train_iter)
+                    real = int((indices >= 0).sum())
+                    state, metrics = train_step(state, batch, scheduler.lr, generator=gen)
+                else:
+                    arrays, plan, cursor, real = next(train_iter)
+                    state, metrics, _ = res_train_step(state, arrays, plan, cursor, scheduler.lr,
+                                                       generator=gen)
+            except FloatingPointError as e:  # --debug_nans
+                raise FloatingPointError(f"iteration {it}: {e}") from e
+            if t_first is None:
+                float(metrics["loss_sum"])  # wait for the first step
+                t_first = time.monotonic()
+            else:
+                graphs += real
+            loss_sum = loss_sum + metrics["loss_sum"]
+            n_sum = n_sum + metrics["n_nodes"]
+            grad_norm_sum = grad_norm_sum + metrics["grad_norm"]
+            window += 1
+            last = it == config.train.max_iters
+            if it % config.train.log_freq == 0 or last:
+                train_loss = float(loss_sum) / max(float(n_sum), 1.0)
+                grad_norm = float(grad_norm_sum) / window
+                logger.info("[Train] Iter %05d | Loss %.2f | Grad %.2f | LR %.6f" % (
+                    it, train_loss, grad_norm, scheduler.lr))
+                if wandb is not None:
+                    wandb.log({"train/loss": train_loss, "train/lr": scheduler.lr,
+                               "train/grad_norm": grad_norm}, step=it)
+                loss_sum = n_sum = grad_norm_sum = 0.0
+                window = 0
+            if it % config.train.val_freq == 0 or last:
+                avg_val_loss = validate(it)
+                if avg_val_loss < best_loss:
+                    best_loss = avg_val_loss
+                    save_checkpoint(os.path.join(ckpt_dir, f"{it}.ckpt"), config, state,
+                                    scheduler.state_dict(), iteration=it,
+                                    avg_val_loss=avg_val_loss)
+                    logger.info(f"Saved checkpoint at iter {it} (val {avg_val_loss:.6f})")
+    finally:
+        train_iter.close()  # ends the prefetcher's worker
     if graphs:  # the last iteration's log line and validation waited for the card
         seconds = time.monotonic() - t_first
         logger.info("[Train] Throughput | Iters %05d-%05d | %d graphs in %.3f s | %.1f graphs/s" % (

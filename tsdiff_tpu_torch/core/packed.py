@@ -11,6 +11,9 @@ Sum-aggregations over pairs become circular rolls along the node axis::
 
     agg = sum_k  roll(w_k * xh, +k)  +  w_k * roll(xh, -k)
 
+Here the rolls of all K offsets are taken at once, each direction one
+gather through the index tables of ``offset_index_tables``.
+
 Layout everywhere: packed arrays are (B, K, N, ...) with
 ``packed[b, k-1, i] = dense[b, i, (i+k) % N]``.
 """
@@ -31,6 +34,34 @@ def packed_index_arrays(n: int, device="cpu") -> tuple[torch.Tensor, torch.Tenso
     rows = torch.arange(n, device=device).expand(k, n)
     cols = (rows + torch.arange(1, k + 1, device=device)[:, None]) % n
     return rows, cols
+
+
+_TABLES: dict[tuple[int, torch.device], tuple[torch.Tensor, ...]] = {}
+
+
+def offset_index_tables(n: int, device="cpu") -> tuple[torch.Tensor, ...]:
+    """``(minus, plus, unroll)``, flattened (K * N,) int64 gather indices for
+    the offsets k = 1..K: ``minus[(k-1) * N + i] = (k-1) * N + (i - k) mod N``
+    indexes the flattened (K, N) axis of a packed tensor, giving
+    ``roll(x_k, k)`` for every k; ``unroll``, its inverse permutation, gives
+    ``roll(x_k, -k)``; ``plus[(k-1) * N + i] = (i + k) mod N`` indexes the
+    node axis, giving ``roll(x, -k)``.  Made once per (N, device)."""
+    key = (n, torch.device(device))
+    if key not in _TABLES:
+        k = torch.arange(1, n // 2 + 1)[:, None]
+        i = torch.arange(n)[None, :]
+        plus = (i + k) % n
+        tables = ((k - 1) * n + (i - k) % n, plus, (k - 1) * n + plus)
+        _TABLES[key] = tuple(t.reshape(-1).to(device) for t in tables)
+    return _TABLES[key]
+
+
+def roll_offsets(x: torch.Tensor) -> torch.Tensor:
+    """(B, N, ...) -> (B, K, N, ...): ``out[:, k-1] = roll(x, -k)``, so that
+    ``out[:, k-1, i] = x[:, (i+k) % N]``, the other end of packed row (k, i)."""
+    b, n = x.shape[:2]
+    plus = offset_index_tables(n, x.device)[1]
+    return x.index_select(1, plus).reshape(b, n // 2, n, *x.shape[2:])
 
 
 def pack_pairs(dense: torch.Tensor) -> torch.Tensor:
@@ -58,19 +89,12 @@ def half_last_slab_mask(n: int, dtype=torch.float32, device="cpu") -> torch.Tens
 
 def packed_diff(pos: torch.Tensor) -> torch.Tensor:
     """(B, N, 3) -> (B, K, N, 3): diff[k-1, i] = pos[i] - pos[(i+k) % N]."""
-    n = pos.shape[1]
-    return torch.stack(
-        [pos - torch.roll(pos, -k, dims=1) for k in range(1, n // 2 + 1)], dim=1
-    )
+    return pos[:, None] - roll_offsets(pos)
 
 
 def packed_valid_mask(node_mask: torch.Tensor) -> torch.Tensor:
     """(B, N) bool -> (B, K, N) bool: both endpoints are real atoms."""
-    n = node_mask.shape[1]
-    return torch.stack(
-        [node_mask & torch.roll(node_mask, -k, dims=1) for k in range(1, n // 2 + 1)],
-        dim=1,
-    )
+    return node_mask[:, None] & roll_offsets(node_mask)
 
 
 def packed_distance(pos: torch.Tensor, pmask: torch.Tensor) -> torch.Tensor:
@@ -122,10 +146,8 @@ def eq_transform_packed(
     ``score_pos[i] = sum_j 2 m_ij s_ij (r_i - r_j) / d_ij``; packed row (k, i)
     contributes +2ws*diff at node i and -2ws*diff at node (i+k) % N."""
     w = 2.0 * m_eq * score_p / d_safe
-    out = torch.zeros_like(pos)
-    n = pos.shape[1]
-    for k in range(1, n // 2 + 1):
-        diff = pos - torch.roll(pos, -k, dims=1)
-        c = w[:, k - 1, :, None] * diff
-        out = out + c - torch.roll(c, k, dims=1)
-    return out
+    c = w[..., None] * packed_diff(pos)        # (B, K, N, 3)
+    b, k, n = c.shape[:3]
+    minus = offset_index_tables(n, pos.device)[0]
+    # + c_k at node i, - c_k at node (i+k) % N: the second is roll(c_k, k)
+    return c.sum(1) - c.reshape(b, k * n, 3).index_select(1, minus).reshape(b, k, n, 3).sum(1)

@@ -7,8 +7,8 @@ list of such dicts.  Graphs are padded to a small set of bucket sizes
 sampling campaign sees only a few distinct shapes.  ``PaddedBatchLoader``
 cuts a dataset into fixed-shape batches per bucket with the JAX package's
 ``np.random.default_rng(seed)`` plan, so both packages yield the same
-batches.  The background prefetcher and the device-resident corpus are not
-ported yet.
+batches.  The background prefetcher is ``data/prefetch.py``, the
+device-resident corpus ``data/resident.py``.
 
 Reference PyG pickles are not read yet.
 """

@@ -13,8 +13,10 @@ batches.
 The timesteps and the noise come from a ``torch.Generator``, or are passed
 in (``t``, ``noise``), so a test can feed the JAX package's own draws.  A
 ``fused_score`` model takes its unfused path here: the fused score kernel is
-inference-only.  The offset-packed training forward (``packed_train``) is not
-ported yet.
+inference-only.  A ``packed_train`` model takes steps 3-4 on offset-packed
+pair rows (``score_step_packed_xla``, ``eq_transform_packed``): the same
+loss with half the pair rows, the k = N/2 slab's 0.5 factor riding in the
+packed masks.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 
 from tsdiff_tpu_torch.core.geometry import eq_transform, pairwise_distance
 from tsdiff_tpu_torch.core.graph import ReactionBatch
+from tsdiff_tpu_torch.core.packed import eq_transform_packed, packed_distance
 from tsdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
 
 
@@ -48,8 +51,6 @@ def diffusion_loss(
 ) -> tuple[torch.Tensor, dict]:
     """Scalar loss (mean over real atoms) and an aux dict with ``loss_sum``,
     ``n_nodes`` and ``timesteps``."""
-    if getattr(model, "packed_train", False):
-        raise NotImplementedError("the packed_train objective is not yet ported")
     if t1 is None:
         t1 = len(schedule.alphas)
     pos = batch.pos
@@ -63,18 +64,27 @@ def diffusion_loss(
     node_mask_f = batch.node_mask[..., None].to(pos.dtype)
     pos_perturbed = (pos + noise.to(dev) * torch.sqrt(1.0 - a) / torch.sqrt(a)) * node_mask_f
 
-    # the fused score kernel has no gradient, so a sampling configuration
-    # with fused_score trains through the unfused path
-    unfused = {"fused": False} if getattr(model, "fused_score", False) else {}
-    edge_inv, edges, d_perturbed = model(
-        batch.atom_type, batch.r_feat, batch.p_feat, pos_perturbed, batch.bond_mat,
-        batch.node_mask, **unfused,
-    )
-    emask = edges.mask_global
-    node_eq = eq_transform(edge_inv, pos_perturbed, emask, d_perturbed)
-    d_gt = pairwise_distance(pos, emask)
-    d_target = (d_gt - d_perturbed) / torch.sqrt(1.0 - a) * torch.sqrt(a)
-    pos_target = eq_transform(d_target, pos_perturbed, emask, d_perturbed)
+    if getattr(model, "packed_train", False):
+        pp = model.precompute_packed_pairs(batch.bond_mat, batch.node_mask)
+        z = model.node_states(batch.atom_type, batch.r_feat, batch.p_feat, batch.node_mask)
+        score, info = model.score_step_packed_xla(pos_perturbed, batch.node_mask, z, pp)
+        node_eq = eq_transform_packed(score, pos_perturbed, info.m_eq, info.d_out)
+        d_gt = packed_distance(pos, info.m_eq > 0)
+        d_target = (d_gt - info.d_out) / torch.sqrt(1.0 - a) * torch.sqrt(a)
+        pos_target = eq_transform_packed(d_target, pos_perturbed, info.m_eq, info.d_out)
+    else:
+        # the fused score kernel has no gradient, so a sampling configuration
+        # with fused_score trains through the unfused path
+        unfused = {"fused": False} if getattr(model, "fused_score", False) else {}
+        edge_inv, edges, d_perturbed = model(
+            batch.atom_type, batch.r_feat, batch.p_feat, pos_perturbed, batch.bond_mat,
+            batch.node_mask, **unfused,
+        )
+        emask = edges.mask_global
+        node_eq = eq_transform(edge_inv, pos_perturbed, emask, d_perturbed)
+        d_gt = pairwise_distance(pos, emask)
+        d_target = (d_gt - d_perturbed) / torch.sqrt(1.0 - a) * torch.sqrt(a)
+        pos_target = eq_transform(d_target, pos_perturbed, emask, d_perturbed)
 
     loss_node = torch.sum((node_eq - pos_target) ** 2, dim=-1)  # (B, N)
     mask = batch.node_mask.to(loss_node.dtype)

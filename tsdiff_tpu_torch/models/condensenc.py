@@ -21,9 +21,12 @@ stay float32; each use casts them to the working dtype.  Two paths:
   distances and masks is the inference-only fused op ``ops.condensed_score``;
 * sampling (``score_step_packed``): the offset-packed fused score step
   ``ops.packed_score``, or with ``score_quant="int8"`` its quantized variant
-  ``ops.packed_score_int8``.
+  ``ops.packed_score_int8``;
+* packed training (``score_step_packed_xla``, the objective's ``packed_train``
+  branch): the differentiable offset-packed forward ``ops.packed_score_xla``
+  in torch ops, on the module's own parameters.
 
-The Gaussian edge encoder and the packed training forward are not ported yet.
+The Gaussian edge encoder is not ported yet.
 """
 
 from __future__ import annotations
@@ -66,6 +69,7 @@ from tsdiff_tpu_torch.ops.packed_score_int8 import (
     packed_score_int8,
     with_wg_images_int8,
 )
+from tsdiff_tpu_torch.ops.packed_score_xla import packed_score_xla
 
 NUM_ATOM_TYPES = 100  # atomic-number embedding table size
 
@@ -133,8 +137,9 @@ class CondenseEncoderEpsNetwork(nn.Module):
         (its plain twin on CPU tensors); ``fused_score`` runs ``score_step``
         through the inference-only fused dense score op and makes an ensemble
         take the packed path; ``score_quant="int8"`` picks the packed path's
-        int8 op; ``packed_train`` is recorded for the objective, which does
-        not port it yet.  Parameters are initialised from ``generator``
+        int8 op; ``packed_train`` makes the objective train through the
+        differentiable packed forward ``score_step_packed_xla``.
+        Parameters are initialised from ``generator``
         (``models.init``)."""
         super().__init__()
         if edge_encoder != "mlp" or smooth_conv or mlp_act != "swish" or edge_cat_act != "swish":
@@ -380,3 +385,41 @@ class CondenseEncoderEpsNetwork(nn.Module):
             num_blocks=self.num_convs,
         )
         return out[0]
+
+    # ---- offset-packed path (training) ----
+
+    def packed_xla_weights(self) -> dict[str, torch.Tensor]:
+        """The packed forward's weights as views of this module's parameters
+        (gradients reach them), in the XLA twin's names and (in, out) layout."""
+        H = self.hidden_dim
+        c0w = self.edge_cat.lin0.weight            # (H, 2H)
+        g0w = self.grad_dist_mlp.layers[0].weight  # (H, 2H)
+        d_mlp, head = self.edge_enc.mlp.layers, self.grad_dist_mlp.layers
+        return dict(
+            dw0=d_mlp[0].weight.t(), db0=d_mlp[0].bias,
+            dw1=d_mlp[1].weight.t(), db1=d_mlp[1].bias,
+            table=self.edge_enc.bond_emb.weight,
+            c0r=c0w[:, :H].t(), c0p=c0w[:, H:].t(), c0b=self.edge_cat.lin0.bias,
+            c1w=self.edge_cat.lin1.weight.t(), c1b=self.edge_cat.lin1.bias,
+            **self.encoder.stack.weights(),
+            g0h=g0w[:, :H].t(), g0e=g0w[:, H:].t(), g0b=head[0].bias,
+            g1w=head[1].weight.t(), g1b=head[1].bias,
+            g2w=head[2].weight.t(), g2b=head[2].bias,
+        )
+
+    def score_step_packed_xla(self, pos, node_mask, z, pp: PackedPairs, pair_info=None):
+        """Differentiable packed score ``(edge_inv (B, K, N) float32,
+        PackedPairInfo)`` (``ops.packed_score_xla``): the packed training
+        forward, with the gradient of every parameter.  Needs the mlp edge
+        encoder and swish, which the constructor enforces, and the hard
+        cutoff, as the JAX package's."""
+        if self.encoder.smooth:
+            raise ValueError("the packed score needs the hard cutoff")
+        if pair_info is None:
+            pair_info = self.build_packed_pair_info(pos, node_mask, pp)
+        score = packed_score_xla(
+            self.packed_xla_weights(), z, pair_info.d_in, pair_info.cmask,
+            pp.type_r_in, pp.type_p_in, pp.type_r_out, pp.type_p_out,
+            num_blocks=self.num_convs, dtype=self.dtype,
+        )
+        return score, pair_info

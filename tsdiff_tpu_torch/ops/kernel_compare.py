@@ -7,7 +7,8 @@ kernel against its plain version), one process per checkout, in the order
 given: parent, change, change, parent spreads the card's drift over both.
 With ``--train`` each process also runs that checkout's phase 6 (the train
 CLI, then the ms per step on one fixed batch and a profiled step, all in its
-log) and adds the ms per train step to the table.
+log; where it has them, the packed training runs too) and adds the ms per
+train step to the table.
 Every kernel is timed the same way in every checkout, as the median of five
 timings of 20 launches (CUDA events after two warm-up launches), also where
 that checkout's ``chip_smoke.py`` timed it otherwise.  Each run's log goes to
@@ -73,9 +74,18 @@ for (n, dn), parts in m.phase_stack_kernels().items():
     for part, v in parts.items():
         if part in names:  # not the backward's profiled split
             rows[f"{names[part]} N={n} {dn}"] = v
-rows = {k: {"ms": v["ms"], "max_abs_err": v["max_abs_err"]} for k, v in rows.items()}
+# CUDA events in every checkout, also where chip_smoke.py keeps a profiled time
+rows = {k: {"ms": v.get("ms_events", v["ms"]), "max_abs_err": v["max_abs_err"]}
+        for k, v in rows.items()}
 if "--train" in sys.argv:
-    tr = m.phase_train()
+    if hasattr(m, "train_setup"):   # chip_smoke.py with the packed training phase
+        setup = m.train_setup()
+        tr = m.phase_train(setup)
+        packed = m.phase_train_packed(setup)
+        rows["packed train step, fixed N=24 batch"] = {"ms": packed["ms_per_step"],
+                                                      "max_abs_err": None}
+    else:
+        tr = m.phase_train()
     rows["train step, fixed N=24 batch"] = {"ms": tr["ms_per_step"], "max_abs_err": None}
 print("''' + _MARK + r'''" + json.dumps(rows))
 '''

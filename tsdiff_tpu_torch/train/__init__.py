@@ -10,5 +10,7 @@ from tsdiff_tpu_torch.train.trainer import (  # noqa: F401
     init_train_state,
     make_eval_step,
     make_optimizer,
+    make_resident_eval_step,
+    make_resident_train_step,
     make_train_step,
 )

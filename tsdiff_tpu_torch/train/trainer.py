@@ -25,6 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from tsdiff_tpu_torch.data.resident import gather_batch
 from tsdiff_tpu_torch.diffusion.objective import diffusion_loss
 from tsdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
 
@@ -91,18 +92,28 @@ def init_train_state(model: torch.nn.Module, tx: Adam,
 
 
 def make_train_step(model, tx: Adam, schedule: DiffusionSchedule, t0: int = 0,
-                    t1: int | None = None, ema_decay: float | None = None):
+                    t1: int | None = None, ema_decay: float | None = None,
+                    debug_nans: bool = False):
     """``train_step(state, batch, lr, generator=None, t=None, noise=None) ->
     (state, metrics)``: one loss and gradient, the optimizer update applied
     to the model's parameters in place, and the EMA.  ``t`` and ``noise``
-    override the draws from ``generator``.  The metrics stay on the device."""
+    override the draws from ``generator``.  The metrics stay on the device.
+    ``debug_nans`` checks the loss before the backward and the gradient norm
+    before the update, and raises ``FloatingPointError`` on a non-finite one
+    (two reads of the card per step)."""
+
+    def check(what: str, value: torch.Tensor, step: int) -> None:
+        if debug_nans and not bool(torch.isfinite(value)):
+            raise FloatingPointError(f"non-finite {what} ({float(value)}) in train step {step}")
 
     def train_step(state: TrainState, batch, lr: float, generator=None, t=None, noise=None):
         loss, aux = diffusion_loss(model, schedule, batch, t0, t1, generator, t, noise)
+        check("loss", loss.detach(), state.step + 1)
         names = list(state.params)
         grads = torch.autograd.grad(loss, [state.params[k] for k in names])
         updates, opt_state, grad_norm = tx.update(dict(zip(names, grads)), state.opt_state,
                                                   state.params)
+        check("gradient norm", grad_norm, state.step + 1)
         step = state.step + 1
         with torch.no_grad():
             for k in names:
@@ -117,6 +128,29 @@ def make_train_step(model, tx: Adam, schedule: DiffusionSchedule, t0: int = 0,
         return TrainState(state.params, opt_state, step, ema), metrics
 
     return train_step
+
+
+def make_resident_train_step(train_step, batch_size: int):
+    """``step(state, arrays, plan, cursor, lr, **kw) -> (state, metrics,
+    cursor + 1)``: ``train_step`` on batch ``cursor`` of ``plan``, gathered
+    on the device from a bucket's resident arrays (``data.resident``).
+    ``cursor`` is a Python integer: the step reads nothing back from the card."""
+
+    def step(state, arrays, plan, cursor: int, lr: float, **kw):
+        state, metrics = train_step(state, gather_batch(arrays, plan, cursor, batch_size), lr, **kw)
+        return state, metrics, cursor + 1
+
+    return step
+
+
+def make_resident_eval_step(eval_step, batch_size: int):
+    """Validation twin of ``make_resident_train_step``: ``(loss_sum,
+    n_nodes)`` of batch ``cursor`` of a fixed plan."""
+
+    def step(arrays, plan, cursor: int, **kw):
+        return eval_step(gather_batch(arrays, plan, cursor, batch_size), **kw)
+
+    return step
 
 
 def make_eval_step(model, schedule: DiffusionSchedule, t0: int = 0, t1: int | None = None):
