@@ -78,7 +78,26 @@ Phases (any failure exits non-zero):
    reactions and noise; both D-MAE figures as in phase 4;
 8. int8 sampling path: phase 4 with ``--quant int8``: every model call one
    launch of the warp-specialised int8 kernel (B5), none of B1, D-MAE within
-   noise of phase 4.
+   noise of phase 4;
+9. serving: ``tsdiff_tpu_torch.serve.SamplerService`` and its HTTP front in
+   this process on 127.0.0.1, with the 8 members, bf16, ``fused_score``,
+   5000 steps and a draft tier of 625, ``max_batch`` 32, ``max_wait_ms`` 50,
+   each (bucket, tier, respacing) walked by replaying one CUDA graph of the
+   sampling step: (a) phase 4's 200 reactions as draft requests from 8 client
+   threads, each POSTing 1-8 graphs at a time, (b) 32 of them at full
+   quality, each with requests/s, p50 and p99 latency, the rounds by (bucket,
+   respacing, tier) and the D-MAE (gate as phase 4); one recording per
+   (bucket, tier, respacing), the peak memory; (c) captured rounds against
+   eager rounds on the same seed, through B1 and B5 at tiers 4 and 32, N=24:
+   equal bit for bit; B1 and B5 against their plain versions on the statics
+   and positions of served rounds at N=8, 16, 24 and tiers 4 and 32; their
+   launches counted by kernel name under torch.profiler in captured rounds
+   of 25 steps (exactly 25 each); (d) for tiers 4, 8, 16, 32 at N=24 the ms
+   per step of a 625-step round eager and captured, and from a profiled
+   25-step round the device ms per step, the idle share against the
+   unprofiled step and B1's time per launch; (e) the
+   command line ``python -m tsdiff_tpu_torch.serve`` in its own process:
+   ``/healthz``, one draft ``POST /generate``, a 404, then stopped.
 
 The second-to-last lines are a JSON object of per-kernel numbers and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -139,6 +158,11 @@ DMAE_BOUND = 0.6
 # the check that carries the weight is the agreement with the unfused run
 DMAE_BOUND_N24 = 1.0
 DMAE_FUSED_DELTA = 0.03
+# the batch tiers of the serving phase (max_batch 32 and its halvings)
+SERVE_TIERS = (4, 8, 16, 32)
+# the steps of a profiled serving round: short enough that its trace holds
+# every launch (a profiled round of 625 steps came out a few records short)
+PROFILED_WALK = 25
 # the int8 run against the bf16 run on the same reactions and seeds: within
 # the mean's standard error (the JAX package's gate is "within noise")
 DMAE_INT8_DELTA = 0.03
@@ -329,6 +353,19 @@ def check_close(tag: str, out, ref, dname: str, tol=None) -> float:
     return e_max
 
 
+def bucket_graphs(rng, n_bucket: int, count: int) -> list[dict]:
+    """``count`` synthetic reactions of the ``n_bucket`` bucket (more than
+    ``n_bucket - 8`` atoms, at most ``n_bucket``) drawn from ``rng``."""
+    from tsdiff_tpu_torch.data.synthetic import _bend_table, make_reaction
+
+    table, graphs = _bend_table(), []
+    while len(graphs) < count:
+        g = make_reaction(rng, table)
+        if n_bucket - 8 < len(g["atom_type"]) <= n_bucket:
+            graphs.append(g)
+    return graphs
+
+
 def kernel_batch(n_bucket: int, seed: int, count: int = 100):
     """``count`` synthetic reactions in the ``n_bucket`` bucket, with a
     jittered geometry, on the card."""
@@ -336,16 +373,10 @@ def kernel_batch(n_bucket: int, seed: int, count: int = 100):
     import torch
 
     from tsdiff_tpu_torch.core.graph import from_numpy_graphs
-    from tsdiff_tpu_torch.data.synthetic import _bend_table, make_reaction
 
     rng = np.random.default_rng(seed)
-    table = _bend_table()
-    graphs = []
-    while len(graphs) < count:
-        g = make_reaction(rng, table)
-        if n_bucket - 8 < len(g["atom_type"]) <= n_bucket:
-            graphs.append(g)
-    batch = from_numpy_graphs(graphs, max_nodes=n_bucket, device="cuda")
+    batch = from_numpy_graphs(bucket_graphs(rng, n_bucket, count), max_nodes=n_bucket,
+                              device="cuda")
     jitter = torch.from_numpy(rng.normal(scale=0.2, size=batch.pos.shape).astype(np.float32))
     pos = (batch.pos + jitter.to("cuda")) * batch.node_mask[..., None]
     return batch, pos
@@ -1388,6 +1419,387 @@ def phase_train_packed(setup: tuple) -> dict:
                 **{k: fixed[k] for k in ("ms_per_step", "device_ms", "idle", "launches_per_step")})
 
 
+def profiled_round(svc, tier: int, batch, int8: bool) -> dict:
+    """One warm round of ``PROFILED_WALK`` steps of ``svc`` at ``(24, tier)``
+    (the first records its graph), then one under torch.profiler.  Counts
+    the launches of the score kernel on the service's path (B5 for
+    ``int8``, else B1) and of the other by kernel name, and fails unless
+    they are ``PROFILED_WALK`` and 0.  The device time per step is the sum
+    of every device event that starts from the first step's score kernel up
+    to the last step's, over the ``PROFILED_WALK - 1`` steps between them:
+    the round's set-up and read-back lie outside."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    svc._execute(24, tier, batch, PROFILED_WALK)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        svc._execute(24, tier, batch, PROFILED_WALK)
+        torch.cuda.synchronize()
+    events = sorted((ev.time_range.start, ev.time_range.elapsed_us(), ev.name)
+                    for ev in prof.events() if ev.device_type == DeviceType.CUDA)
+
+    def score(name: str, want_int8: bool) -> bool:
+        return "packed_score" in name and ("int8" in name) == want_int8 \
+            and "selftest" not in name
+
+    on_path = [(t, us) for t, us, name in events if score(name, int8)]
+    other = sum(score(name, not int8) for _, _, name in events)
+    if (len(on_path), other) != (PROFILED_WALK, 0):
+        fail(f"a profiled {'int8' if int8 else 'bf16'} round of {PROFILED_WALK} steps at tier "
+             f"{tier} launched its score kernel {len(on_path)} times and the other {other}")
+    first, last = on_path[0][0], on_path[-1][0]
+    window = [us for t, us, _ in events if first <= t < last]
+    steps = PROFILED_WALK - 1
+    return dict(launches=len(on_path), device_ms=sum(window) / steps / 1e3,
+                events=len(window) / steps,
+                kernel_ms=sum(us for _, us in on_path) / len(on_path) / 1e3)
+
+
+def post_json(port: int, payload: dict) -> tuple[int, dict]:
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/generate",
+                                 data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.load(r)
+    except urllib.error.HTTPError as e:
+        return e.code, json.load(e)
+
+
+def serve_clients(port: int, graphs: list, quality: str, sizes: list[int], threads: int = 8):
+    """POST ``graphs`` in consecutive chunks of ``sizes`` from ``threads``
+    client threads, each taking the next chunk when its last one returned.
+    Returns ``(positions by graph, latency s by graph, wall s)``."""
+    import threading
+
+    import numpy as np
+
+    chunks, i = [], 0
+    for n in sizes:
+        if i >= len(graphs):
+            break
+        chunks.append(list(range(i, min(i + n, len(graphs)))))
+        i += n
+    pos, lat, errors = [None] * len(graphs), [None] * len(graphs), []
+    lock = threading.Lock()
+
+    def client():
+        while True:
+            with lock:
+                if not chunks:
+                    return
+                idx = chunks.pop(0)
+            body = {"quality": quality, "graphs": [
+                {"atom_type": graphs[j]["atom_type"].tolist(), "r_feat": graphs[j]["r_feat"].tolist(),
+                 "p_feat": graphs[j]["p_feat"].tolist(), "pos": None,
+                 "bond_mat": graphs[j]["bond_mat"].tolist()} for j in idx]}
+            t0 = time.monotonic()
+            code, out = post_json(port, body)
+            dt = time.monotonic() - t0
+            if code != 200:
+                errors.append(f"HTTP {code}: {out}")
+                return
+            for k, j in enumerate(idx):
+                pos[j] = np.asarray(out["pos_gen"][k], np.float32)
+                lat[j] = dt
+                if out["nan"][k]:
+                    errors.append(f"graph {j} came back with nan")
+
+    workers = [threading.Thread(target=client) for _ in range(threads)]
+    t0 = time.monotonic()
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=900)
+    wall = time.monotonic() - t0
+    if errors or any(w.is_alive() for w in workers):
+        fail(f"serving clients: {errors[:3] or 'a client did not return'}")
+    return pos, np.array(lat), wall
+
+
+def served_dmae(tag: str, graphs: list, pos: list) -> float:
+    import numpy as np
+
+    from tsdiff_tpu_torch.eval.dmae import calc_dmae
+
+    for g, p in zip(graphs, pos):
+        if p is None or p.shape != (len(g["atom_type"]), 3) or not np.isfinite(p).all():
+            fail(f"[{tag}] a request did not resolve to finite (n, 3) positions")
+    dmae = np.array([calc_dmae(g["pos"], p) for g, p in zip(graphs, pos)])
+    print(f"[{tag}] D-MAE mean {dmae.mean():.4f} median {np.median(dmae):.4f} over "
+          f"{len(dmae)} requests (identity matching, bound {DMAE_BOUND})")
+    if not dmae.mean() < DMAE_BOUND:
+        fail(f"[{tag}] mean D-MAE {dmae.mean():.4f} >= {DMAE_BOUND}")
+    return float(dmae.mean())
+
+
+def serve_rounds(svc) -> dict:
+    """``{(bucket, respacing, tier): rounds}`` walked by a service, retries
+    keyed with "retry"."""
+    return {(*key, tier): n for key, runner in svc._runners.items()
+            for tier, n in runner.rounds().items() if n}
+
+
+def steps_walked(svc, rounds_before: dict | None = None) -> int:
+    before = rounds_before or {}
+    return sum((n - before.get(key, 0)) * svc._runners[key[:-1]].n_walk
+               for key, n in serve_rounds(svc).items())
+
+
+def serve_cli(ckpts: list[str], graphs: list) -> None:
+    """(e) the command line a user runs, ``python -m tsdiff_tpu_torch.serve
+    CKPT... --fused_score --dtype bfloat16 --draft_respacing 625 --port P``,
+    in its own process on the card: ``GET /healthz``, one draft ``POST
+    /generate`` of two graphs and a 404; the process is stopped at the end."""
+    import socket
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    cmd = [sys.executable, "-m", "tsdiff_tpu_torch.serve", *ckpts, "--fused_score",
+           "--dtype", "bfloat16", "--draft_respacing", "625", "--port", str(port)]
+    os.makedirs(os.path.join(ROOT, ".scratch"), exist_ok=True)
+    log = open(os.path.join(ROOT, ".scratch", "serve_cli.log"), "w")
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        t0 = time.monotonic()
+        health = None
+        while health is None and time.monotonic() - t0 < 180 and proc.poll() is None:
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=1) as r:
+                    health = json.load(r)
+            except OSError:
+                time.sleep(0.5)
+        if health is None or not health.get("ok"):
+            fail(f"the serving CLI did not come up (exit code {proc.poll()}; log "
+                 f".scratch/serve_cli.log)")
+        up = time.monotonic() - t0
+        body = {"quality": "draft", "graphs": [
+            {"atom_type": g["atom_type"].tolist(), "r_feat": g["r_feat"].tolist(),
+             "p_feat": g["p_feat"].tolist(), "pos": None, "bond_mat": g["bond_mat"].tolist()}
+            for g in graphs]}
+        t1 = time.monotonic()
+        code, out = post_json(port, body)
+        took = time.monotonic() - t1
+        shapes = [np.asarray(p).shape for p in out.get("pos_gen", [])]
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/nothing")
+        try:
+            urllib.request.urlopen(req, timeout=10)
+            missing = 200
+        except urllib.error.HTTPError as e:
+            missing = e.code
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=10) as r:
+            health = json.load(r)
+        print(f"[serve cli] python -m tsdiff_tpu_torch.serve with the 8 members: up in {up:.1f} s; "
+              f"POST /generate of 2 draft graphs: HTTP {code} in {took:.3f} s, shapes {shapes}, "
+              f"nan {out.get('nan')}; GET /nothing: HTTP {missing}; /healthz {health}")
+        want = [(len(g["atom_type"]), 3) for g in graphs]
+        if code != 200 or shapes != want or any(out["nan"]) or missing != 404 \
+                or health["served"] != len(graphs):
+            fail("the serving CLI answered wrongly")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def served_kernel_checks(svc, quant: str | None, graphs: dict) -> float:
+    """The service's score kernel (B5 for ``quant="int8"``, else B1) against
+    its plain version on served rounds: for each bucket 8, 16 and 24 and
+    tiers 4 and 32, one round of the draft walk on that many of ``graphs``
+    (bucket -> reactions), then the kernel's wrapper and its plain version
+    on what the round's buffers hold: the statics it copied in (packed
+    pairs, the members' node states, the mask) and the positions it ended
+    at.  Returns the largest max abs error."""
+    import torch
+
+    from tsdiff_tpu_torch.core.graph import from_numpy_graphs
+    from tsdiff_tpu_torch.ops import packed_score as ps
+    from tsdiff_tpu_torch.ops import packed_score_int8 as p8
+
+    kernel, plain, tol = ((p8.packed_score_int8, p8.packed_score_int8_reference, TOL_INT8)
+                          if quant else (ps.packed_score, ps.packed_score_reference, None))
+    ensemble, worst = svc.ensemble, 0.0
+    model, L = ensemble.model, ensemble.model.num_convs
+    for n_bucket in (8, 16, 24):
+        for tier in (4, 32):
+            batch = from_numpy_graphs(graphs[n_bucket][:tier], max_nodes=n_bucket, device="cuda")
+            _, nan = svc._execute(n_bucket, tier, batch, 625)
+            buf = svc._runners[(n_bucket, 625)]._tiers[tier]
+            statics, pp = buf.statics, buf.statics.pairs
+            with torch.no_grad():
+                info = model.build_packed_pair_info(buf.pos, statics.node_mask, pp)
+                args = (ensemble.weights, statics.z, info.d_in.contiguous(),
+                        info.cmask.contiguous(), pp.type_r_in, pp.type_p_in, pp.type_r_out,
+                        pp.type_p_out)
+                out = kernel(*args, num_blocks=L)
+                ref = plain(*args, num_blocks=L)
+            torch.cuda.synchronize()
+            if nan:
+                fail(f"the served {quant or 'bf16'} round at N={n_bucket}, tier {tier} was NaN")
+            pairs = int(info.cmask.sum().item())
+            tag = f"served {kernel.__name__} N={n_bucket} tier {tier} ({pairs} pairs in cutoff)"
+            worst = max(worst, check_close(tag, out, ref, "bfloat16", tol=tol))
+    return worst
+
+
+def phase_serving() -> dict:
+    """The serving entry point, in process: ``SamplerService`` and its HTTP
+    front on 127.0.0.1 with the 8 members, bf16, ``fused_score``, 5000
+    steps, a draft tier of 625, ``max_batch`` 32, ``max_wait_ms`` 50.
+    (a) phase 4's 200 reactions as draft requests from 8 client threads,
+    each POSTing 1-8 graphs at a time; (b) 32 of them at full quality;
+    (c) captured rounds against eager rounds, B1 and B5, tiers 4 and 32,
+    N=24, bit for bit; each kernel against its plain version on served
+    rounds (``served_kernel_checks``) and its launches counted in profiled
+    rounds (``profiled_round``); (d) ms per step eager and captured and the
+    idle share by tier."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from tsdiff_tpu_torch import serve
+    from tsdiff_tpu_torch.core.graph import from_numpy_graphs
+    from tsdiff_tpu_torch.data.synthetic import make_corpus
+    from tsdiff_tpu_torch.ops import packed_score as ps
+    from tsdiff_tpu_torch.ops import packed_score_int8 as p8
+
+    ckpts = [os.path.join(CKPT_DIR, f"seed{s}_best.ckpt") for s in MEMBER_SEEDS]
+
+    def make_service(quant=None, capture=True):
+        return serve.SamplerService(
+            ckpts, n_steps=5000, dtype="bfloat16", fused_score=True, quant=quant,
+            draft_respacing=625, max_batch=32, max_wait_s=0.05, capture=capture)
+
+    counters = [(ps.packed_score, "launches"), (ps.packed_score, "wg_launches"),
+                (p8.packed_score_int8, "launches"), (ps.packed_score_reference, "calls"),
+                (p8.packed_score_int8_reference, "calls")]
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    svc = make_service()
+    httpd = serve.make_http_server(svc, "127.0.0.1", 0)
+    port = httpd.server_address[1]
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    corpus = make_corpus(200, seed=2024)
+    sizes = [int(n) for n in np.random.default_rng(7).integers(1, 9, size=200)]
+    results = {}
+    try:
+        for tag, quality, graphs in (("serve draft", "draft", corpus),
+                                     ("serve full", "full", corpus[:32])):
+            before = serve_rounds(svc)
+            pos, lat, wall = serve_clients(port, graphs, quality, sizes)
+            steps = steps_walked(svc, before)
+            rounds = {k: n - before.get(k, 0) for k, n in serve_rounds(svc).items()
+                      if n > before.get(k, 0)}
+            print(f"[{tag}] {len(graphs)} requests over HTTP from 8 client threads in "
+                  f"{wall:.3f} s: {len(graphs) / wall:.4f} requests/s, latency p50 "
+                  f"{np.percentile(lat, 50):.3f} s p99 {np.percentile(lat, 99):.3f} s; rounds by "
+                  f"(bucket, respacing, tier): {rounds}; {steps} walk steps; graphs recorded so "
+                  f"far {svc._graphs_captured}")
+            results[tag] = dict(dmae=served_dmae(tag, graphs, pos), steps=steps, wall=wall,
+                                p50=float(np.percentile(lat, 50)),
+                                p99=float(np.percentile(lat, 99)))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=60)
+    health = svc._timed_out, svc._cancelled, svc._rejected
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    keys = sorted(svc._runners, key=str)
+    print(f"[serve] {svc._served} served, timed out/cancelled/rejected {health}; runners {keys}; "
+          f"graphs recorded {svc._graphs_captured} (one per (bucket, tier, respacing) walked: "
+          f"{sum(len(r.rounds()) for r in svc._runners.values())}); peak memory "
+          f"{peak:.3f} GiB; B1 wrapper launches {ps.packed_score.launches} (warm-up steps and "
+          f"recordings only), plain-version calls "
+          f"{ps.packed_score_reference.calls + p8.packed_score_int8_reference.calls}")
+    if svc._graphs_captured != sum(len(r.rounds()) for r in svc._runners.values()):
+        fail("a (bucket, tier, respacing) was recorded more than once")
+    if ps.packed_score.launches == 0 or ps.packed_score.wg_launches != ps.packed_score.launches:
+        fail("the served rounds did not go through the warp-specialised B1 kernel")
+    if ps.packed_score_reference.calls or p8.packed_score_int8_reference.calls \
+            or p8.packed_score_int8.launches:
+        fail("the plain version or B5 ran on the bf16 serving path")
+    served_steps = sum(r["steps"] for r in results.values())
+
+    # (c) captured against eager, bit for bit; the kernel against its plain
+    # version on served rounds; (d) ms per step by tier
+    rng = np.random.default_rng(31)
+    graphs = {n: bucket_graphs(rng, n, 32) for n in (8, 16, 24)}
+    batches = {t: from_numpy_graphs(graphs[24][:t], max_nodes=24, device="cuda")
+               for t in SERVE_TIERS}
+    served_err, profiled, by_tier = {}, {}, {}
+    for quant in (None, "int8"):
+        cap = svc if quant is None else make_service("int8")
+        eager = make_service(quant, capture=False)
+        for tier in (4, 32):
+            eager._served = cap._served
+            pos, nan = cap._execute(24, tier, batches[tier], 625)
+            ref, ref_nan = eager._execute(24, tier, batches[tier], 625)
+            diff = float(np.abs(pos - ref).max())
+            print(f"[serve] captured against eager, {quant or 'bf16'}, tier {tier}, N=24, 625 "
+                  f"steps: max abs difference {diff} (gate 0), NaN {nan}, {ref_nan}")
+            if diff != 0.0 or nan or ref_nan or not np.isfinite(pos).all():
+                fail(f"the captured {quant or 'bf16'} round at tier {tier} differs from the eager one")
+        served_err[quant] = served_kernel_checks(cap, quant, graphs)
+        # the launches on the serving path: profiled captured rounds, by kernel name
+        profiled[quant] = sum(profiled_round(cap, tier, batches[tier], quant == "int8")["launches"]
+                              for tier in ((4, 32) if quant else SERVE_TIERS))
+        if quant is None:
+            for tier in SERVE_TIERS:
+                row = {}
+                for mode, s in (("eager", eager), ("captured", cap)):
+                    s._execute(24, tier, batches[tier], 625)      # recorded, warm
+                    torch.cuda.synchronize()
+                    t0 = time.monotonic()
+                    s._execute(24, tier, batches[tier], 625)
+                    row[mode] = (time.monotonic() - t0) / 625 * 1e3
+                    prof = profiled_round(s, tier, batches[tier], int8=False)
+                    row[mode + "_device"] = prof["device_ms"]
+                    row[mode + "_idle"] = 1 - prof["device_ms"] / row[mode]
+                    row[mode + "_b1"] = prof["kernel_ms"]
+                    row[mode + "_events"] = prof["events"]
+                by_tier[tier] = row
+                print(f"[serve] tier {tier}, N=24, bf16: ms per step of a 625-step round eager "
+                      f"{row['eager']:.4f}, captured {row['captured']:.4f} "
+                      f"({row['eager'] / row['captured']:.3f}x); device ms per step of a profiled "
+                      f"{PROFILED_WALK}-step round {row['eager_device']:.4f} and "
+                      f"{row['captured_device']:.4f}, idle share against the unprofiled step "
+                      f"{row['eager_idle']:.4f} and {row['captured_idle']:.4f}, device events per "
+                      f"step {row['eager_events']:.1f} and {row['captured_events']:.1f}, B1 "
+                      f"{row['captured_b1']:.4f} ms per launch ({8 * tier} CTAs on "
+                      f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs); B1 "
+                      f"launched {PROFILED_WALK} times in each profiled round")
+        for s in (cap, eager):
+            if s is not svc:
+                s.close()
+    print(f"[serve] launches counted by kernel name in the profiled captured rounds of "
+          f"{PROFILED_WALK} steps: B1 {profiled[None]} (tiers {SERVE_TIERS}), B5 "
+          f"{profiled['int8']} (tiers 4, 32); the served requests walked {served_steps} steps")
+    svc.close()
+    torch.cuda.empty_cache()
+    serve_cli(ckpts, corpus[:2])
+    return dict(b1_launches=profiled[None], b5_launches=profiled["int8"],
+                walk_steps=served_steps, b1_err=served_err[None], b5_err=served_err["int8"],
+                by_tier=by_tier, peak_gib=peak, **results)
+
+
 def main() -> None:
     try:
         import torch
@@ -1419,20 +1831,31 @@ def main() -> None:
           f"{DMAE_INT8_DELTA}); {int8_path['wall']:.3f} s against {main_path['wall']:.3f} s")
     if not delta <= DMAE_INT8_DELTA:
         fail(f"the int8 run's mean D-MAE differs from the bf16 run's by {delta:.4f}")
+    served = phase_serving()
 
-    def entry(name, source, replaces, launches, numbers):
+    def entry(name, source, replaces, launches, numbers, by_path=None):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_by",
                 "library_ms_by")
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, **{key: numbers.get(key) for key in keys}}
+        out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": launches, **{key: numbers.get(key) for key in keys}}
+        if by_path:
+            out["launches_by_path"] = by_path
+        return out
 
     stack_src = "tsdiff_tpu_torch/csrc/schnet_stack.cu"
     vjp = "tsdiff_tpu/ops/pallas/schnet_stack_vjp.py"
     bf = sk[(24, "bfloat16")]
+    serving = f"serving, profiled captured rounds of {PROFILED_WALK} steps"
+    b1 = entry("packed_score", "tsdiff_tpu_torch/csrc/packed_score.cu",
+               "tsdiff_tpu/ops/pallas/condensed_score_packed.py:164",
+               main_path["launches"] + served["b1_launches"], k[(24, "bfloat16")],
+               {"sampling CLI": main_path["launches"], serving: served["b1_launches"]})
+    # graph replays advance no wrapper's counter: the served requests' walk
+    # steps are not launches counted, and stand apart
+    b1["serving_walk_steps"] = served["walk_steps"]
+    b1["serving_max_abs_err"] = served["b1_err"]
     print(json.dumps({"kernels": [
-        entry("packed_score", "tsdiff_tpu_torch/csrc/packed_score.cu",
-              "tsdiff_tpu/ops/pallas/condensed_score_packed.py:164", main_path["launches"],
-              k[(24, "bfloat16")]),
+        b1,
         entry("condensed_score", "tsdiff_tpu_torch/csrc/condensed_score.cu",
               "tsdiff_tpu/ops/pallas/condensed_score.py:152", dense_path["launches"],
               dk[(24, "bfloat16")]),
@@ -1445,8 +1868,10 @@ def main() -> None:
         entry("schnet_stack", stack_src, "tsdiff_tpu/ops/pallas/schnet_stack.py:53",
               tr["b4_launches"], bf["stack"]),
         entry("packed_score_int8", "tsdiff_tpu_torch/csrc/packed_score_int8.cu",
-              "tsdiff_tpu/ops/pallas/condensed_score_packed_int8.py:188", int8_path["launches"],
-              k[("int8", 24, "bfloat16")]),
+              "tsdiff_tpu/ops/pallas/condensed_score_packed_int8.py:188",
+              int8_path["launches"] + served["b5_launches"], k[("int8", 24, "bfloat16")],
+              {"sampling CLI": int8_path["launches"], serving: served["b5_launches"]})
+        | {"serving_max_abs_err": served["b5_err"]},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

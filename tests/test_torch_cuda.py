@@ -6,7 +6,14 @@ bfloat16 and its mma.sync kernel in float32; and the fused SchNet stack
 (B3's forward and backward, B4; the forward's wgmma kernel and the
 backward's wgmma row and weight-gradient kernels in bfloat16, their mma.sync
 ones in float32; the weight-gradient kernel also alone, against the plain
-products and against ``torch.mm``).
+products and against ``torch.mm``).  The serving walk
+(``tsdiff_tpu_torch/serve.py``, ``diffusion/captured.py``) with the 8 trained
+campaign members of ``artifacts/seeds/ckpts``: a round replayed from its CUDA
+graph equals the eager round on the same seed bit for bit, through B1 in
+bfloat16 and B5, at tiers 4 and 32 (N=24) and for the dense ensemble; a
+second round of a (bucket, tier, respacing) records no graph; and a
+captured round launches the score kernel once per walk step, counted under
+torch.profiler (the wrappers' counters advance only when a graph is recorded).
 
 Every test here needs an NVIDIA GPU with nvcc (marker ``cuda``) and skips
 without one.  The file imports neither JAX nor the JAX package, so on a
@@ -31,7 +38,9 @@ average: a handful of flipped codes among the ~1e5 of a call (``TOL_INT8``).
 """
 
 import math
+import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -709,3 +718,119 @@ def test_stack_xty_rejects_misshaped_scratch(cuda):
         with pytest.raises(ValueError):
             ss.schnet_stack_xty(a, b)
     assert (xty.launches, xty.wg_launches, ss.xty_reference.calls) == before
+
+
+# -- the serving walk: one CUDA graph of the sampling step per (bucket, tier) --
+
+CKPT_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "artifacts", "seeds", "ckpts")
+MEMBER_SEEDS = (106, 101, 104, 102, 108, 103, 109, 105)
+SERVE_RESPACING = 25
+
+
+def served_graphs(count: int, seed: int) -> list[dict]:
+    """``count`` synthetic reactions of the N=24 bucket (17-23 atoms)."""
+    from tsdiff_tpu_torch.data.synthetic import _bend_table, make_reaction
+
+    rng, table, out = np.random.default_rng(seed), _bend_table(), []
+    while len(out) < count:
+        g = make_reaction(rng, table)
+        if len(g["atom_type"]) > 16:
+            out.append(g)
+    return out
+
+
+@pytest.fixture(scope="module")
+def services():
+    """``services(quant, capture)``: one service per (quant, capture), made
+    at first use and closed at the end of the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
+    from tsdiff_tpu_torch.serve import SamplerService
+
+    made = {}
+
+    def get(quant, capture, fused=True, seeds=MEMBER_SEEDS):
+        key = (quant, capture, fused, seeds)
+        if key not in made:
+            made[key] = SamplerService(
+                [os.path.join(CKPT_DIR, f"seed{s}_best.ckpt") for s in seeds],
+                n_steps=5000, dtype="bfloat16", fused_score=fused, quant=quant,
+                draft_respacing=SERVE_RESPACING, max_batch=32, capture=capture,
+            )
+        return made[key]
+
+    yield get
+    for svc in made.values():
+        svc.close()
+
+
+def served_round(svc, tier: int, seed: int):
+    from tsdiff_tpu_torch.core.graph import from_numpy_graphs
+
+    batch = from_numpy_graphs(served_graphs(tier, seed), max_nodes=24, device="cuda")
+    return svc._execute(24, tier, batch, SERVE_RESPACING)
+
+
+def score_kernel_launches(prof, int8: bool) -> int:
+    """Launches of B1 (``int8=False``) or B5 on the card in a profile."""
+    from torch.autograd import DeviceType
+
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA and "packed_score" in ev.key
+               and ("int8" in ev.key) == int8 and "selftest" not in ev.key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", [4, 32])
+@pytest.mark.parametrize("quant", [None, "int8"], ids=["B1", "B5"])
+def test_captured_round_equals_eager_round(services, quant, tier):
+    captured, eager = services(quant, True), services(quant, False)
+    before = captured._graphs_captured
+    for seed in (tier, tier + 100):     # the second round replays the first's graph
+        pos, nan = served_round(captured, tier, seed)
+        ref, ref_nan = served_round(eager, tier, seed)
+        print(f"{quant or 'bf16'} tier {tier} seed {seed}: max |captured - eager| "
+              f"{np.abs(pos - ref).max()}, graphs recorded {captured._graphs_captured}")
+        assert pos.shape == (tier, 24, 3) and np.isfinite(pos).all() and not nan
+        assert not ref_nan
+        np.testing.assert_array_equal(pos, ref)
+        assert captured._graphs_captured == before + 1
+    assert eager._graphs_captured == 0
+    runner = captured._runners[(24, SERVE_RESPACING)]
+    assert runner._tiers[tier].graph is not None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [None, "int8"], ids=["B1", "B5"])
+def test_captured_round_launches_the_score_kernel_once_per_step(services, quant):
+    from torch.profiler import ProfilerActivity, profile
+
+    svc = services(quant, True)
+    served_round(svc, 8, seed=1)        # records the tier-8 graph
+    torch.cuda.synchronize()
+    before = svc._graphs_captured
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        served_round(svc, 8, seed=2)
+        torch.cuda.synchronize()
+    n_walk = svc._runners[(24, SERVE_RESPACING)].n_walk
+    on_path = score_kernel_launches(prof, int8=quant == "int8")
+    other = score_kernel_launches(prof, int8=quant != "int8")
+    print(f"{quant or 'bf16'}: {on_path} launches of the score kernel in a round of "
+          f"{n_walk} steps, {other} of the other")
+    assert n_walk == SERVE_RESPACING
+    assert (on_path, other) == (n_walk, 0)
+    assert svc._graphs_captured == before
+
+
+@pytest.mark.cuda
+def test_captured_dense_ensemble_round_equals_eager(services):
+    """Without ``fused_score`` the service walks the dense ensemble in torch
+    ops; its step records and replays as the packed one does."""
+    seeds = MEMBER_SEEDS[:2]
+    captured, eager = services(None, True, False, seeds), services(None, False, False, seeds)
+    pos, nan = served_round(captured, 4, seed=3)
+    ref, _ = served_round(eager, 4, seed=3)
+    assert not nan and np.isfinite(pos).all()
+    np.testing.assert_array_equal(pos, ref)
+    assert captured._graphs_captured == 1

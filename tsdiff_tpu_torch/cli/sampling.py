@@ -84,39 +84,12 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def _load_members(args, device, dtype, logger):
-    from tsdiff_tpu_torch.config import Config
-    from tsdiff_tpu_torch.convert import params_from_jax
-    from tsdiff_tpu_torch.models import CondenseEncoderEpsNetwork
-    from tsdiff_tpu_torch.train import load_checkpoint, select_params
-
-    members, model_cfg = [], None
-    for path in args.ckpt:
-        ck = load_checkpoint(path)
-        cfg = Config(ck["config"]).model
-        if cfg.get("network", "condensenc") != "condensenc":
-            raise NotImplementedError(f"{path}: network {cfg.network} is not ported yet")
-        if args.fused_score:
-            cfg.fused_score = True
-        if args.quant != "none":
-            cfg.score_quant = args.quant
-        if model_cfg is None:
-            model_cfg = cfg
-        params, used_ema = select_params(ck, args.use_ema)
-        if args.use_ema and not used_ema:
-            logger.warning("--use_ema: %s has no EMA weights; using raw params", path)
-        model = CondenseEncoderEpsNetwork.from_config(cfg, dtype=dtype)
-        model.load_state_dict(params_from_jax(params))
-        members.append(model.to(device).eval())
-    return members, model_cfg
-
-
 def main(argv=None) -> str:
     args = parse_args(argv)
 
     from tsdiff_tpu_torch.core.graph import from_numpy_graphs
     from tsdiff_tpu_torch.data.dataset import default_buckets, load_dataset, pick_bucket, tier_ladder
-    from tsdiff_tpu_torch.diffusion.ensemble import make_ensemble_score_fn
+    from tsdiff_tpu_torch.diffusion.ensemble import load_members, make_ensemble_score_fn
     from tsdiff_tpu_torch.diffusion.sampler import (
         SamplingSettings,
         dynamic_sampling,
@@ -140,7 +113,8 @@ def main(argv=None) -> str:
 
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     logger.info("Loading checkpoints...")
-    members, model_cfg = _load_members(args, device, dtype, logger)
+    members, model_cfg = load_members(args.ckpt, device, dtype, fused_score=args.fused_score,
+                                      quant=args.quant, use_ema=args.use_ema, logger=logger)
     schedule = DiffusionSchedule.from_config(model_cfg)
 
     logger.info("Loading test set...")

@@ -1,0 +1,172 @@
+"""The reverse walk of one served (bucket, respacing, clip), replayed from
+one CUDA graph of its step per batch tier.
+
+The JAX service compiles the whole reverse diffusion once per (bucket,
+tier) and reruns the compiled program (``tsdiff_tpu/serve.py``).  Here a
+``WalkRunner`` holds, for each tier, the buffers a round reads and writes:
+the batch's statics (``PackedEnsemble.prepare``/``DenseEnsemble.prepare``),
+the positions, the round's noise ``(n_walk, tier, bucket, 3)``, the step
+counter and the NaN flag.  With ``capture`` it records ``walk_step`` on
+those buffers in one CUDA graph, after one eager warm-up step (which builds
+the kernel library, sets the kernel's attributes and settles the
+allocator), and a round replays the graph ``n_walk`` times; without it the
+same step runs eagerly on the same buffers.  Every graph of a runner comes
+from the memory pool its caller gives, so one service's graphs share one.
+
+A round copies its batch's statics and start into the buffers, fills the
+noise buffer from the caller's generator (or copies the caller's noise into
+it), resets the counter and the flag, walks, and synchronises once, to read
+the flag.  No random number is drawn inside a step: the round's noise is
+drawn before it, so a captured and an eager round on the same noise are
+equal bit for bit.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from tsdiff_tpu_torch.diffusion.sampler import (
+    SamplingSettings,
+    at_counter,
+    build_step_coeffs,
+    final_frame_scale,
+    initial_position,
+    step_coeff_table,
+    walk_step,
+)
+from tsdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
+
+
+def copy_into(dst, src) -> None:
+    """Copy every tensor of ``src`` into the tensor at the same place in
+    ``dst``: tensors, dataclasses, lists and tuples of them, and None where
+    both hold None.  Shapes and dtypes must agree."""
+    if isinstance(dst, torch.Tensor):
+        if not isinstance(src, torch.Tensor) or src.shape != dst.shape or src.dtype != dst.dtype:
+            raise ValueError(f"cannot copy {getattr(src, 'shape', src)} into a "
+                             f"{dst.dtype} {tuple(dst.shape)} buffer")
+        dst.copy_(src)
+    elif dataclasses.is_dataclass(dst):
+        for f in dataclasses.fields(dst):
+            copy_into(getattr(dst, f.name), getattr(src, f.name))
+    elif isinstance(dst, (list, tuple)):
+        if len(dst) != len(src):
+            raise ValueError(f"cannot copy {len(src)} items into {len(dst)}")
+        for d, s in zip(dst, src):
+            copy_into(d, s)
+    elif dst is not None or src is not None:
+        raise TypeError(f"cannot copy a {type(src).__name__} into a {type(dst).__name__}")
+
+
+@dataclasses.dataclass
+class _TierBuffers:
+    statics: object             # the ensemble's statics, copied into each round
+    step_fn: object             # the ensemble's step function on ``statics``
+    pos: torch.Tensor           # (tier, bucket, 3) float32
+    noise: torch.Tensor         # (n_walk, tier, bucket, 3) float32
+    counter: torch.Tensor       # () int64
+    nan_flag: torch.Tensor      # () bool
+    graph: torch.cuda.CUDAGraph | None = None
+    rounds: int = 0             # rounds walked at this tier
+
+
+class WalkRunner:
+    """The reverse walk of one (bucket, respacing, clip) of a service, for
+    any batch tier; ``run`` is one round."""
+
+    def __init__(self, ensemble, schedule: DiffusionSchedule, settings: SamplingSettings,
+                 capture: bool, pool=None):
+        self.ensemble = ensemble
+        self.schedule = schedule
+        self.settings = settings
+        self.capture = capture
+        self.pool = pool
+        coeffs = build_step_coeffs(schedule, settings)
+        self.n_walk = len(coeffs.a)
+        self.scale = final_frame_scale(schedule, settings)
+        self._coeffs = coeffs
+        self._coef: torch.Tensor | None = None
+        self._tiers: dict[int, _TierBuffers] = {}
+        #: CUDA graphs recorded, one per tier at most
+        self.captures = 0
+
+    def rounds(self) -> dict[int, int]:
+        """Rounds walked so far, by tier."""
+        return {tier: buf.rounds for tier, buf in self._tiers.items()}
+
+    def _step(self, buf: _TierBuffers) -> None:
+        step_noise = at_counter(buf.noise, buf.counter)
+        pos = walk_step(buf.step_fn, buf.pos, buf.statics.node_mask, self._coef, buf.counter,
+                        step_noise, buf.nan_flag, self.settings.clip, self.settings.clip_pos)
+        buf.pos.copy_(pos)
+
+    def _reset(self, buf: _TierBuffers, start: torch.Tensor) -> None:
+        buf.pos.copy_(start)
+        buf.counter.zero_()
+        buf.nan_flag.zero_()
+
+    def _record(self, buf: _TierBuffers, start: torch.Tensor) -> None:
+        """One eager warm-up step on a side stream, then the round's start
+        restored and the step recorded.  ``thread_local``: the service's
+        worker thread captures while other threads of the process (the HTTP
+        front, a caller waiting on its futures) may free CUDA tensors."""
+        side = torch.cuda.Stream(device=buf.pos.device)
+        side.wait_stream(torch.cuda.current_stream(buf.pos.device))
+        with torch.cuda.stream(side):
+            self._step(buf)
+        torch.cuda.current_stream(buf.pos.device).wait_stream(side)
+        self._reset(buf, start)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
+            self._step(buf)
+        buf.graph = graph
+        self.captures += 1
+
+    @torch.no_grad()
+    def run(self, batch, pos_init: torch.Tensor,
+            noise: torch.Tensor | torch.Generator) -> tuple[np.ndarray, bool]:
+        """One round: ``pos_init`` (tier, bucket, 3) the unit-variance start;
+        ``noise`` the step noise (n_walk, tier, bucket, 3), or the generator
+        that fills the round's noise buffer in place (as ``torch.randn`` of
+        that shape would draw it).  Returns the final physical-frame
+        positions as numpy and the NaN flag."""
+        tier = pos_init.shape[0]
+        noise_shape = (self.n_walk, *pos_init.shape)
+        if isinstance(noise, torch.Tensor) and noise.shape != noise_shape:
+            raise ValueError(f"noise must be {noise_shape}, got {tuple(noise.shape)}")
+        statics = self.ensemble.prepare(batch)
+        buf = self._tiers.get(tier)
+        if buf is None:
+            dev = pos_init.device
+            if self._coef is None:
+                self._coef = step_coeff_table(self._coeffs, dev)
+            buf = _TierBuffers(
+                statics=statics, step_fn=self.ensemble.step_fn(statics),
+                pos=torch.empty_like(pos_init), noise=pos_init.new_empty(noise_shape),
+                counter=torch.zeros((), dtype=torch.int64, device=dev),
+                nan_flag=torch.zeros((), dtype=torch.bool, device=dev),
+            )
+            self._tiers[tier] = buf
+        else:
+            copy_into(buf.statics, statics)
+        mask = buf.statics.node_mask[..., None].to(pos_init.dtype)
+        start = initial_position(self.schedule, self.settings, pos_init) * mask
+        if isinstance(noise, torch.Tensor):
+            buf.noise.copy_(noise)
+        else:
+            buf.noise.normal_(generator=noise)
+        self._reset(buf, start)
+        if self.capture:
+            if buf.graph is None:
+                self._record(buf, start)
+            for _ in range(self.n_walk):
+                buf.graph.replay()
+        else:
+            for _ in range(self.n_walk):
+                self._step(buf)
+        buf.rounds += 1
+        nan = bool(buf.nan_flag.item())
+        return (buf.pos * self.scale).cpu().numpy(), nan

@@ -1,29 +1,38 @@
 """Score functions for the sampler: one model, a dense ensemble, and the
-offset-packed ensemble.
+offset-packed ensemble, and the loading of an ensemble's members.
 
-All position-independent work is done once per batch, when the function is
-built: the typed pair structures, each member's node states and bond
-embeddings (dense) or its kernel weights stacked on a leading member axis
-(packed).
+All position-independent work is done once per batch: the typed pair
+structures, each member's node states and bond embeddings (dense); the
+members' kernel weights are stacked on a leading member axis once per
+ensemble (packed).
 
 * ``make_score_fn`` — one model's dense ``pos -> (edge_inv, emask, d)``; with
   ``fused_score`` each step is one launch of the fused dense score kernel.
-* ``make_ensemble_score_fn`` — the mean over members.  Dense: the
-  member-invariant radius mask and distances are built once per step, each
-  member's unfused ``score_step`` runs on them, and the scores are averaged.
-  With ``fused_score`` it returns the packed path.
-* ``make_packed_ensemble_eps_fn`` — each step builds the member-invariant
-  packed distances and masks, makes ONE score-kernel launch for all members
-  (the int8 kernel when ``score_quant == "int8"``), takes the mean over
-  members and chain-rules it to per-atom vectors with ``eq_transform_packed``.
+* ``PackedEnsemble`` — each step builds the member-invariant packed
+  distances and masks, makes ONE score-kernel launch for all members (the
+  int8 kernel when ``score_quant == "int8"``), takes the mean over members
+  and chain-rules it to per-atom vectors with ``eq_transform_packed``.
+* ``DenseEnsemble`` — the member-invariant radius mask and distances are
+  built once per step, each member's unfused ``score_step`` runs on them,
+  and the scores are averaged.
+* Both split into ``prepare(batch)``, the per-batch statics, and
+  ``step_fn(statics)``, the per-step function that reads them; the service's
+  captured walk keeps the statics in tensors of its own
+  (``diffusion/captured.py``).  ``make_packed_ensemble_eps_fn`` and
+  ``make_ensemble_score_fn`` (packed for ``fused_score`` members) do both
+  for one batch.
+* ``load_members`` — the members from checkpoints, as the sampling CLI and
+  the service load them.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from tsdiff_tpu_torch.core.graph import ReactionBatch
-from tsdiff_tpu_torch.core.packed import eq_transform_packed
+from tsdiff_tpu_torch.core.packed import PackedPairs, eq_transform_packed
 
 
 def stack_params(params_list: list[dict]) -> dict[str, torch.Tensor]:
@@ -51,55 +60,145 @@ def make_score_fn(model, batch: ReactionBatch):
     return score
 
 
-def make_packed_ensemble_eps_fn(members: list, batch: ReactionBatch):
-    """``pos -> node_eq`` (B, N, 3): the member-mean per-atom score before
-    clip_norm, marked ``returns_node_eq`` so the sampler skips its dense
-    ``eq_transform``.  ``members`` are CondenseEncoderEpsNetwork modules on
-    the batch's device, sharing one configuration and working dtype."""
-    model = members[0]
-    pp = model.precompute_packed_pairs(batch.bond_mat, batch.node_mask)
-    with torch.no_grad():
-        z = torch.stack([
-            m.node_states(batch.atom_type, batch.r_feat, batch.p_feat, batch.node_mask)
-            for m in members
-        ]).contiguous()
-    ops, member_weights = zip(*(m.packed_score_op() for m in members))
-    score_op, weights = ops[0], stack_params(list(member_weights))
+@dataclasses.dataclass(frozen=True)
+class PackedStatics:
+    """Per-batch, position-independent inputs of the packed ensemble's step;
+    every tensor is new, none is the batch's own."""
+
+    node_mask: torch.Tensor  # (B, N) bool
+    pairs: PackedPairs       # offset-packed typed pair structures
+    z: torch.Tensor          # (M, B, N, H) each member's node states
+
+
+class PackedEnsemble:
+    """The offset-packed ensemble score, split where a batch changes: the
+    members' kernel weights are stacked once, ``prepare`` makes one batch's
+    ``PackedStatics``, and the function of ``step_fn`` reads them on every
+    step.  A caller that keeps the statics in tensors of its own (a CUDA
+    graph reads fixed addresses) copies each new batch's into them."""
+
+    def __init__(self, members: list):
+        self.model = members[0]
+        self.members = members
+        ops, member_weights = zip(*(m.packed_score_op() for m in members))
+        self.score_op, self.weights = ops[0], stack_params(list(member_weights))
 
     @torch.no_grad()
-    def node_eq_fn(pos: torch.Tensor) -> torch.Tensor:
-        info = model.build_packed_pair_info(pos, batch.node_mask, pp)
-        score = score_op(
-            weights, z, info.d_in.contiguous(), info.cmask.contiguous(),
-            pp.type_r_in, pp.type_p_in, pp.type_r_out, pp.type_p_out,
-            num_blocks=model.num_convs,
-        ).mean(dim=0)
-        return eq_transform_packed(score, pos, info.m_eq, info.d_out)
+    def prepare(self, batch: ReactionBatch) -> PackedStatics:
+        z = torch.stack([
+            m.node_states(batch.atom_type, batch.r_feat, batch.p_feat, batch.node_mask)
+            for m in self.members
+        ]).contiguous()
+        pairs = self.model.precompute_packed_pairs(batch.bond_mat, batch.node_mask)
+        return PackedStatics(node_mask=batch.node_mask.clone(), pairs=pairs, z=z)
 
-    node_eq_fn.returns_node_eq = True
-    return node_eq_fn
+    def step_fn(self, statics: PackedStatics):
+        """``pos -> node_eq`` (B, N, 3): the member-mean per-atom score before
+        clip_norm, marked ``returns_node_eq`` so the sampler skips its dense
+        ``eq_transform``."""
+        model, pp = self.model, statics.pairs
+
+        @torch.no_grad()
+        def node_eq_fn(pos: torch.Tensor) -> torch.Tensor:
+            info = model.build_packed_pair_info(pos, statics.node_mask, pp)
+            score = self.score_op(
+                self.weights, statics.z, info.d_in.contiguous(), info.cmask.contiguous(),
+                pp.type_r_in, pp.type_p_in, pp.type_r_out, pp.type_p_out,
+                num_blocks=model.num_convs,
+            ).mean(dim=0)
+            return eq_transform_packed(score, pos, info.m_eq, info.d_out)
+
+        node_eq_fn.returns_node_eq = True
+        return node_eq_fn
+
+
+def make_packed_ensemble_eps_fn(members: list, batch: ReactionBatch):
+    """``pos -> node_eq`` (B, N, 3) of the packed ensemble on one batch
+    (``PackedEnsemble``).  ``members`` are CondenseEncoderEpsNetwork modules
+    on the batch's device, sharing one configuration and working dtype."""
+    ensemble = PackedEnsemble(members)
+    return ensemble.step_fn(ensemble.prepare(batch))
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseStatics:
+    """Per-batch inputs of the dense ensemble's step."""
+
+    node_mask: torch.Tensor       # (B, N) bool
+    members: list                 # each member's StaticFeatures
+
+
+class DenseEnsemble:
+    """The dense ensemble score, split as ``PackedEnsemble`` is: each
+    member's unfused dense ``score_step`` on the step's shared pair info,
+    and the mean over members."""
+
+    def __init__(self, members: list):
+        self.model = members[0]
+        self.members = members
+
+    def prepare(self, batch: ReactionBatch) -> DenseStatics:
+        return DenseStatics(node_mask=batch.node_mask.clone(),
+                            members=[_precompute_static(m, batch) for m in self.members])
+
+    def step_fn(self, statics: DenseStatics):
+        """``pos -> (edge_inv (B, N, N, 1), emask (B, N, N), d (B, N, N))``."""
+        model, node_mask = self.model, statics.node_mask
+        pairs = statics.members[0].pairs
+
+        @torch.no_grad()
+        def score(pos: torch.Tensor):
+            pair_info = model.build_pair_info(pos, node_mask, pairs)
+            edge_inv = torch.stack([
+                m.score_step(pos, node_mask, st, pair_info)[0]
+                for m, st in zip(self.members, statics.members)
+            ]).mean(dim=0)
+            _, _, edges_out, d_out = pair_info
+            return edge_inv, edges_out.mask_global, d_out
+
+        return score
+
+
+def make_ensemble(members: list) -> PackedEnsemble | DenseEnsemble:
+    """The packed ensemble for ``fused_score`` members (the same contract for
+    the sampler, half the pair rows), else the dense one."""
+    return PackedEnsemble(members) if members[0].fused_score else DenseEnsemble(members)
 
 
 def make_ensemble_score_fn(members: list, batch: ReactionBatch):
-    """Mean-of-members score function for ``dynamic_sampling``.  With
-    ``fused_score`` members this is the offset-packed path
-    (``make_packed_ensemble_eps_fn``): the same contract for the sampler, half
-    the pair rows.  Otherwise each member's unfused dense ``score_step`` runs
-    on the step's shared pair info."""
-    model = members[0]
-    if model.fused_score:
-        return make_packed_ensemble_eps_fn(members, batch)
-    statics = [_precompute_static(m, batch) for m in members]
-    pairs = statics[0].pairs
+    """Mean-of-members score function for ``dynamic_sampling`` on one batch
+    (``make_ensemble``)."""
+    ensemble = make_ensemble(members)
+    return ensemble.step_fn(ensemble.prepare(batch))
 
-    @torch.no_grad()
-    def score(pos: torch.Tensor):
-        pair_info = model.build_pair_info(pos, batch.node_mask, pairs)
-        edge_inv = torch.stack([
-            m.score_step(pos, batch.node_mask, st, pair_info)[0]
-            for m, st in zip(members, statics)
-        ]).mean(dim=0)
-        _, _, edges_out, d_out = pair_info
-        return edge_inv, edges_out.mask_global, d_out
 
-    return score
+def load_members(paths: list[str], device, dtype, fused_score: bool = False,
+                 quant: str | None = None, use_ema: bool = False, logger=None):
+    """``(members, model_cfg)``: one CondenseEncoderEpsNetwork per checkpoint,
+    rebuilt from its embedded config with ``fused_score`` and ``quant``
+    (``score_quant``) set where given, on ``device`` in eval mode; the
+    config is the first member's."""
+    from tsdiff_tpu_torch.config import Config
+    from tsdiff_tpu_torch.convert import params_from_jax
+    from tsdiff_tpu_torch.models import CondenseEncoderEpsNetwork
+    from tsdiff_tpu_torch.train import load_checkpoint, select_params
+
+    members, model_cfg = [], None
+    for path in paths:
+        ck = load_checkpoint(path)
+        cfg = Config(ck["config"]).model
+        if cfg.get("network", "condensenc") != "condensenc":
+            raise NotImplementedError(f"{path}: network {cfg.network} is not ported yet")
+        if fused_score:
+            cfg.fused_score = True
+        if quant not in (None, "none"):
+            cfg.score_quant = quant
+        if model_cfg is None:
+            model_cfg = cfg
+        params, used_ema = select_params(ck, use_ema)
+        if use_ema and not used_ema and logger is not None:
+            logger.warning("--use_ema: %s has no EMA weights; using raw params", path)
+        model = CondenseEncoderEpsNetwork.from_config(cfg, dtype=dtype)
+        model.load_state_dict(params_from_jax(params))
+        members.append(model.to(device).eval())
+    return members, model_cfg

@@ -12,11 +12,15 @@ with coefficients that depend only on schedule scalars at step k:
   * ``ddpm_det``    legacy DDPM with the posterior variance
   * ``generalized`` legacy DDIM-with-eta, clamped by the LD step sizes
 
-(A, B, C) are computed on the host once per run (``build_step_coeffs``); the
-device loop is: score -> clip_norm -> one fused axpy -> center_pos.  The NaN
-check is a device flag read once after the loop, so the loop never waits on
-the host.  Coordinates live in the scaled frame; ``final_frame_scale``
-converts the result to the physical frame.
+(A, B, C) are computed on the host once per run (``build_step_coeffs``) and
+held on the device as one (n_walk, 3) table; ``walk_step`` is one update:
+score -> clip_norm -> the affine update with row k of the table -> center_pos,
+where k is a device counter that the step advances.  The NaN check is a
+device flag read once after the loop, so the loop never waits on the host.
+Nothing of a step is fixed on the host, so a CUDA graph of ``walk_step``
+replays the whole walk (``diffusion/captured.py``).  Coordinates live in the
+scaled frame; ``final_frame_scale`` converts the result to the physical
+frame.
 """
 
 from __future__ import annotations
@@ -173,6 +177,49 @@ def initial_position(
     return pos_init * float(np.sqrt(1.0 - alphas[-1]) / np.sqrt(alphas[-1]))
 
 
+def step_coeff_table(coeffs: StepCoeffs, device) -> torch.Tensor:
+    """(n_walk, 3) float32 rows ``[a_k, b_k, c_k]`` on ``device``."""
+    return torch.from_numpy(np.stack([coeffs.a, coeffs.b, coeffs.c], axis=1)).to(device)
+
+
+def at_counter(table: torch.Tensor, counter: torch.Tensor) -> torch.Tensor:
+    """Row ``counter`` (a 0-dim int64 device tensor) of ``table``, read on the
+    device."""
+    return table.index_select(0, counter.view(1))[0]
+
+
+@torch.no_grad()
+def walk_step(
+    score_fn: ScoreFn | NodeEqFn,
+    pos: torch.Tensor,          # (B, N, 3) float32
+    node_mask: torch.Tensor,    # (B, N) bool
+    coef: torch.Tensor,         # (n_walk, 3) float32, ``step_coeff_table``
+    counter: torch.Tensor,      # () int64: the walk's position, advanced here
+    step_noise: torch.Tensor,   # (B, N, 3) this step's noise
+    nan_flag: torch.Tensor,     # () bool, OR-ed here
+    clip: float,
+    clip_pos: float | None = None,
+) -> torch.Tensor:
+    """One update of the reverse walk with the coefficients of row
+    ``counter`` of ``coef``; returns the new positions, advances ``counter``
+    and ORs a NaN check of the update into ``nan_flag``, both in place.
+    Nothing here waits on or reads from the host."""
+    if getattr(score_fn, "returns_node_eq", False):
+        node_eq = score_fn(pos)
+    else:
+        edge_inv, emask, d = score_fn(pos)
+        node_eq = eq_transform(edge_inv, pos, emask, d)
+    eps_pos = clip_norm(node_eq, limit=clip)
+    a, b, c = at_counter(coef, counter).view(3, 1, 1, 1)
+    pos = a * pos + b * eps_pos + c * step_noise
+    nan_flag |= torch.isnan(pos).any()
+    counter += 1
+    pos = center_pos(pos, node_mask)
+    if clip_pos is not None:
+        pos = torch.clamp(pos, -clip_pos, clip_pos)
+    return pos
+
+
 @torch.no_grad()
 def dynamic_sampling(
     score_fn: ScoreFn | NodeEqFn,
@@ -200,25 +247,16 @@ def dynamic_sampling(
     pos = initial_position(schedule, settings, pos_init, init_noise, generator)
     pos = pos * node_mask[..., None].to(pos.dtype)
     nan_flag = torch.zeros((), dtype=torch.bool, device=pos.device)
+    coef = step_coeff_table(coeffs, pos.device)
+    counter = torch.zeros((), dtype=torch.int64, device=pos.device)
     traj = [] if settings.save_traj else None
-    returns_node_eq = getattr(score_fn, "returns_node_eq", False)
     for k in range(n_walk):
-        if returns_node_eq:
-            node_eq = score_fn(pos)
-        else:
-            edge_inv, emask, d = score_fn(pos)
-            node_eq = eq_transform(edge_inv, pos, emask, d)
-        eps_pos = clip_norm(node_eq, limit=settings.clip)
         step_noise = (
             noise[k] if noise is not None
             else torch.randn(pos.shape, generator=generator, device=pos.device)
         )
-        pos = float(coeffs.a[k]) * pos + float(coeffs.b[k]) * eps_pos \
-            + float(coeffs.c[k]) * step_noise
-        nan_flag |= torch.isnan(pos).any()
-        pos = center_pos(pos, node_mask)
-        if settings.clip_pos is not None:
-            pos = torch.clamp(pos, -settings.clip_pos, settings.clip_pos)
+        pos = walk_step(score_fn, pos, node_mask, coef, counter, step_noise, nan_flag,
+                        settings.clip, settings.clip_pos)
         if traj is not None:
             traj.append(pos)
     return SampleResult(
