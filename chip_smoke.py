@@ -97,7 +97,22 @@ Phases (any failure exits non-zero):
    25-step round the device ms per step, the idle share against the
    unprofiled step and B1's time per launch; (e) the
    command line ``python -m tsdiff_tpu_torch.serve`` in its own process:
-   ``/healthz``, one draft ``POST /generate``, a 404, then stopped.
+   ``/healthz``, one draft ``POST /generate``, a 404, then stopped;
+10. reference interop: (a) the 8 members written as reference ``.pt`` files
+   (``torch.save``, an ``easydict`` config, the schedule buffers) and phase
+   4's first 100 reactions as a PyG pickle, sampled with phase 4's flags,
+   against the ``.ckpt`` files on the native pickle of the same reactions:
+   ``pos_gen`` equal bit for bit, every model call one launch of B1's
+   ``wgmma`` kernel, the evaluate CLI's D-MAE of both; (b) phase 6b's
+   command line with ``--pretrain`` seed101's ``.pt``: finite losses, the
+   warm-start file logged, the last validation loss below phase 6b's from
+   random init; (c) that run resumed for 20 more iterations with
+   ``--profile``: the checkpoint read holds the optimizer state in the JAX
+   package's layout, the count continues, ``Phase timings:`` logs ``data``
+   and ``train_step``; (d) the 100 true geometries plus N(0, 0.3 A) noise
+   attached by the post-processing CLI as ``ts_guess`` and refined with
+   ``--from_ts_guess --denoise_from_time_t 1500`` (the 1500-step window in
+   625 calls) through B1: finite, mean D-MAE < 0.6.
 
 The second-to-last lines are a JSON object of per-kernel numbers and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -1415,8 +1430,249 @@ def phase_train_packed(setup: tuple) -> dict:
         print(f"[train packed]   kernel: {k_ms:.4f} ms/step in {n:.0f} launches: {name[:100]}")
     sample_with("train packed", runs["auto"][0]["ckpt"])
     torch.cuda.empty_cache()
+    val_loss = [v for kind, _, v in runs["auto"][0]["losses"] if kind == "Validate"][-1]
     return dict(graphs_per_s={m: [r["graphs_per_s"] for r in rs] for m, rs in runs.items()},
+                val_loss=val_loss,
                 **{k: fixed[k] for k in ("ms_per_step", "device_ms", "idle", "launches_per_step")})
+
+
+def write_reference_pt(path: str, ck: dict) -> None:
+    """``ck``'s raw weights as a reference ``<iter>.pt`` (``torch.save`` zip
+    container): the state dict by the port's ``condensenc_state_dict_from_params``
+    with the schedule's ``betas``/``alphas`` buffers, and the config as nested
+    ``easydict.EasyDict`` (a stand-in module registered for the write only)."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from tsdiff_tpu_torch.config import Config
+    from tsdiff_tpu_torch.data.convert import condensenc_state_dict_from_params
+    from tsdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
+    from tsdiff_tpu_torch.train import select_params
+
+    mod = types.ModuleType("easydict")
+    mod.EasyDict = type("EasyDict", (dict,), {"__module__": "easydict"})
+
+    def easy(obj):
+        return mod.EasyDict({k: easy(v) for k, v in obj.items()}) if isinstance(obj, dict) else obj
+
+    model_cfg = ck["config"]["model"]
+    sd = {k: torch.from_numpy(np.array(v)) for k, v in condensenc_state_dict_from_params(
+        select_params(ck, False)[0], model_cfg["encoder"]["num_convs"]).items()}
+    schedule = DiffusionSchedule.from_config(Config(model_cfg))
+    sd["betas"] = torch.from_numpy(np.asarray(schedule.betas, np.float32))
+    sd["alphas"] = torch.from_numpy(np.asarray(schedule.alphas, np.float32))
+    saved = sys.modules.get("easydict")
+    sys.modules["easydict"] = mod
+    try:
+        torch.save({"config": easy(ck["config"]), "model": sd, "iteration": ck["iteration"],
+                    "avg_val_loss": ck["avg_val_loss"]}, path)
+    finally:
+        sys.modules.pop("easydict")
+        if saved is not None:
+            sys.modules["easydict"] = saved
+
+
+def write_pyg_pickle(path: str, graphs: list) -> None:
+    """``graphs`` as a reference PyG pickle: one ``torch_geometric`` ``Data``
+    per reaction (the port's stand-in, pickled under PyG's name), its fields
+    torch tensors, the condensed bonds as ``edge_index``/``edge_type``."""
+    import numpy as np
+    import torch
+
+    from tsdiff_tpu_torch.data import pyg_compat
+
+    installed = pyg_compat.install_pyg_stubs()
+    try:
+        data = []
+        for g in graphs:
+            row, col = np.nonzero(g["bond_mat"])
+            data.append(pyg_compat.StubData(
+                atom_type=torch.from_numpy(np.asarray(g["atom_type"], np.int64)),
+                r_feat=torch.from_numpy(g["r_feat"]), p_feat=torch.from_numpy(g["p_feat"]),
+                pos=torch.from_numpy(g["pos"]),
+                edge_index=torch.from_numpy(np.stack([row, col]).astype(np.int64)),
+                edge_type=torch.from_numpy(g["bond_mat"][row, col].astype(np.int64)),
+                smiles=g["smiles"]))
+        with open(path, "wb") as f:
+            pickle.dump(data, f)
+    finally:
+        for name in installed:
+            sys.modules.pop(name, None)
+
+
+def sample_cli(tag: str, ckpts: list, test_set: str, save_dir: str, n_steps: int = 5000,
+               extra=()) -> tuple:
+    """The sampling CLI with phase 4's flags (bf16, ``--fused_score``, ``ld``,
+    the ``n_steps`` window in 625 respaced calls, batch 100, the default
+    seed) plus ``extra``; checks
+    that every model call was one launch of B1's ``wgmma`` kernel and that
+    all positions are finite.  ``(results, launches, D-MAE mean, evaluate
+    CLI's output)``."""
+    import numpy as np
+
+    from tsdiff_tpu_torch.cli import evaluate, sampling
+    from tsdiff_tpu_torch.eval.dmae import calc_dmae
+    from tsdiff_tpu_torch.ops import packed_score as ps
+
+    respacing = 625
+    ps.packed_score.launches = ps.packed_score.wg_launches = 0
+    ps.packed_score_reference.calls = 0
+    t0 = time.monotonic()
+    save_path = sampling.main(ckpts + [
+        "--test_set", test_set, "--save_dir", save_dir, "--dtype", "bfloat16", "--fused_score",
+        "--sort_by_size", "--sampling_type", "ld", "--batch_size", "100", "--device", "cuda",
+        "--n_steps", str(n_steps), "--timestep_respacing", str(respacing), *extra])
+    wall = time.monotonic() - t0
+    with open(save_path, "rb") as f:
+        results = pickle.load(f)
+    attempts = [results[i]["sampling_attempts"] for i in range(0, len(results), 100)]
+    expected = respacing * sum(attempts)
+    launches = (ps.packed_score.launches, ps.packed_score.wg_launches)
+    print(f"[interop] {tag}: {len(results)} samples in {wall:.3f} s (checkpoints and test set "
+          f"loaded, sampled, written), attempts {attempts}: packed_score launches "
+          f"{launches[0]}, of the wgmma kernel {launches[1]} (expected {expected} each), "
+          f"plain-version calls {ps.packed_score_reference.calls}")
+    if launches != (expected, expected) or ps.packed_score_reference.calls:
+        fail(f"{tag}: not every model call was one launch of B1's wgmma kernel")
+    for r in results:
+        if r["pos_gen"].shape != (len(r["atom_type"]), 3) or not np.isfinite(r["pos_gen"]).all():
+            fail(f"{tag}: non-finite or misshaped pos_gen")
+    dmae = float(np.mean([calc_dmae(r["pos"], r["pos_gen"]) for r in results]))
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        evaluate.main(["--samples", save_path])
+    return results, launches[0], dmae, " / ".join(printed.getvalue().strip().splitlines())
+
+
+def phase_reference_interop(setup: tuple, packed: dict) -> dict:
+    """Phase 10: the reference's artifacts through the port on the card.
+    (a) the 8 members as reference ``.pt`` files and phase 4's first 100
+    reactions as a PyG pickle, sampled through B1, against the ``.ckpt``
+    files on the native pickle: equal bit for bit; (b) the production
+    command line warm-started from seed101's ``.pt``; (c) its run resumed
+    with ``--profile``; (d) guess refinement: noisy true geometries attached
+    by the post-processing CLI, denoised from t = 1500."""
+    import numpy as np
+
+    from tsdiff_tpu_torch.cli import post_processing
+    from tsdiff_tpu_torch.cli import train as train_cli
+    from tsdiff_tpu_torch.data.dataset import save_dataset
+    from tsdiff_tpu_torch.data.parse_xyz import format_xyz_block
+    from tsdiff_tpu_torch.data.synthetic import make_corpus
+    from tsdiff_tpu_torch.eval.dmae import calc_dmae
+    from tsdiff_tpu_torch.train import get_checkpoint_path, load_checkpoint
+
+    t_phase = time.monotonic()
+    out_dir = os.path.join(ROOT, ".scratch", "chip_smoke_interop")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    ckpts = [os.path.join(CKPT_DIR, f"seed{s}_best.ckpt") for s in MEMBER_SEEDS]
+    pts = []
+    for path in ckpts:
+        pts.append(os.path.join(out_dir, os.path.basename(path)[:-5] + ".pt"))
+        write_reference_pt(pts[-1], load_checkpoint(path))
+    graphs = make_corpus(200, seed=2024)[:100]          # phase 4's first 100 reactions
+    native, pyg = os.path.join(out_dir, "test_data.pkl"), os.path.join(out_dir, "test_pyg.pkl")
+    save_dataset(native, graphs)
+    write_pyg_pickle(pyg, graphs)
+    print(f"[interop] wrote {len(pts)} reference .pt files ({os.path.getsize(pts[0]):,} bytes "
+          f"each) and a PyG pickle of {len(graphs)} reactions")
+
+    # (a) .pt + PyG against .ckpt + native
+    got, n_pt, dmae_pt, eval_pt = sample_cli(".pt + PyG", pts, pyg, os.path.join(out_dir, "pt"))
+    want, n_ck, dmae_ck, eval_ck = sample_cli(".ckpt + native", ckpts, native,
+                                              os.path.join(out_dir, "ckpt"))
+    diff = max(float(np.abs(a["pos_gen"] - b["pos_gen"]).max()) for a, b in zip(got, want))
+    same = len(got) == len(want) == 100 and all(
+        a["smiles"] == b["smiles"] and np.array_equal(a["pos_gen"], b["pos_gen"])
+        for a, b in zip(got, want))
+    print(f"[interop] (a) pos_gen of the .pt + PyG run against the .ckpt + native run: max |diff| "
+          f"{diff}, equal bit for bit: {same}; D-MAE mean {dmae_pt:.4f} / {dmae_ck:.4f}; "
+          f"evaluate CLI: {eval_pt} || {eval_ck}")
+    if not same:
+        fail("sampling from the .pt files and the PyG pickle differs from the .ckpt run")
+
+    # (b) the production command line warm-started from seed101's .pt
+    model_cfg, train_cfg, paths, buckets = setup
+    cfg_path = write_train_config("train_config_pretrain", model_cfg, train_cfg, paths, buckets)
+    warm = pts[MEMBER_SEEDS.index(101)]
+    flags = ["--tag", "seed0", "--dtype", "bfloat16", "--packed_train", "--device_data", "auto"]
+    run = run_train_cli("interop pretrain", cfg_path, train_cfg, flags + ["--pretrain", warm],
+                        "logs_pretrain")
+    val = [v for kind, _, v in run["losses"] if kind == "Validate"]
+    named = f"Warm-start weights from {warm}" in run["log"]
+    print(f"[interop] (b) --pretrain {os.path.basename(warm)}: log names it: {named}; last "
+          f"validation loss {val[-1]:.4f} against {packed['val_loss']:.4f} from random init "
+          f"(phase 6b, the same iteration)")
+    if not named:
+        fail("the --pretrain run's log does not name the warm-start file")
+    if not val[-1] < packed["val_loss"]:
+        fail("the warm-started run's validation loss is not below the run from random init")
+
+    # (c) resume (b) with --profile
+    ck_path, it = get_checkpoint_path(os.path.join(run["log_dir"], "checkpoints"))
+    ck = load_checkpoint(ck_path)
+    opt = ck["opt_state"]
+    jax_layout = (isinstance(opt, tuple) and len(opt) == 2 and opt[0] == ()
+                  and set(opt[1]) == {"count", "mu", "nu"})
+
+    def shapes(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k: v for key in tree for k, v in shapes(tree[key], f"{prefix}/{key}").items()}
+        return {prefix: np.shape(tree)}
+
+    if jax_layout:
+        jax_layout = shapes(opt[1]["mu"]) == shapes(opt[1]["nu"]) == shapes(ck["params"])
+    count = int(opt[1]["count"]) if jax_layout else None
+    resume_iters = train_cfg["max_iters"] + 20
+    resumed = train_cli.main([run["log_dir"], "--logdir", os.path.join(TRAIN_DIR, "logs_resume"),
+                              "--max_iters", str(resume_iters), "--profile", *flags,
+                              "--device", "cuda"])
+    with open(os.path.join(resumed, "log.txt")) as f:
+        log = f.read()
+    losses = [float(v) for v in re.findall(r"\] Iter \d+ \| Loss (\S+)", log)]
+    ck2_path, it2 = get_checkpoint_path(os.path.join(resumed, "checkpoints"))
+    count2 = int(load_checkpoint(ck2_path)["opt_state"][1]["count"])
+    timings = log[log.find("Phase timings:"):] if "Phase timings:" in log else ""
+    phase_ms = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"^\s*(data|train_step): +\S+s total, +(\S+)ms avg", timings, re.M)}
+    print(f"[interop] (c) resumed {os.path.relpath(ck_path, ROOT)} (iteration {it}, JAX layout "
+          f"((), {{count, mu, nu}}) with params' leaf shapes: {jax_layout}, count {count}) to "
+          f"iteration {resume_iters}: checkpoint at {it2} with count {count2} (expected "
+          f"{None if count is None else count + it2 - it + 1}); losses finite: "
+          f"{bool(losses) and bool(np.all(np.isfinite(losses)))}; phase timings {phase_ms}: "
+          f"train_step {phase_ms.get('train_step')} ms per step profiled (a sync per step) "
+          f"against phase 6b's unprofiled {packed['ms_per_step']:.4f} ms on the fixed batch")
+    if not jax_layout:
+        fail("the checkpoint the resume read does not have the JAX optimizer-state layout")
+    if count2 != count + it2 - it + 1:
+        fail("the resumed run's optimizer count does not continue from the saved one")
+    if not losses or not np.all(np.isfinite(losses)):
+        fail("the resumed run logged non-finite losses")
+    if set(phase_ms) != {"data", "train_step"}:
+        fail("the --profile run logged no Phase timings with data and train_step")
+
+    # (d) guess refinement
+    rng = np.random.default_rng(2024)
+    xyz = os.path.join(out_dir, "guess.xyz")
+    with open(xyz, "w") as f:
+        f.write("".join(format_xyz_block(g["atom_type"], g["pos"] + rng.normal(
+            scale=0.3, size=g["pos"].shape)) for g in graphs))
+    guess = os.path.join(out_dir, "test_guess.pkl")
+    post_processing.main(["--data", native, "--xyz", xyz, "--key", "ts_guess", "--out", guess])
+    refined, n_guess, dmae_guess, eval_guess = sample_cli(
+        "ts guess", pts, guess, os.path.join(out_dir, "refined"), n_steps=1500,
+        extra=["--from_ts_guess", "--denoise_from_time_t", "1500"])
+    start = float(np.mean([calc_dmae(r["pos"], r["ts_guess"]) for r in refined]))
+    print(f"[interop] (d) guesses (true TS + N(0, 0.3 A)) at D-MAE {start:.4f}, refined from "
+          f"t = 1500 in 625 calls: D-MAE mean {dmae_guess:.4f} (bound {DMAE_BOUND}) against "
+          f"{dmae_pt:.4f} generated from noise in (a); evaluate CLI: {eval_guess}")
+    if not dmae_guess < DMAE_BOUND:
+        fail(f"refined guesses' mean D-MAE {dmae_guess:.4f} >= {DMAE_BOUND}")
+    print(f"[interop] phase 10 took {time.monotonic() - t_phase:.3f} s")
+    return dict(launches=n_pt + n_ck + n_guess)
 
 
 def profiled_round(svc, tier: int, batch, int8: bool) -> dict:
@@ -1822,7 +2078,7 @@ def main() -> None:
     phase_profile()
     setup = train_setup()
     tr = phase_train(setup)
-    phase_train_packed(setup)
+    packed = phase_train_packed(setup)
     dense_path = phase_dense_path()
     int8_path = phase_main_path(quant="int8")
     delta = abs(int8_path["dmae_mean"] - main_path["dmae_mean"])
@@ -1832,6 +2088,7 @@ def main() -> None:
     if not delta <= DMAE_INT8_DELTA:
         fail(f"the int8 run's mean D-MAE differs from the bf16 run's by {delta:.4f}")
     served = phase_serving()
+    interop = phase_reference_interop(setup, packed)
 
     def entry(name, source, replaces, launches, numbers, by_path=None):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_by",
@@ -1848,8 +2105,10 @@ def main() -> None:
     serving = f"serving, profiled captured rounds of {PROFILED_WALK} steps"
     b1 = entry("packed_score", "tsdiff_tpu_torch/csrc/packed_score.cu",
                "tsdiff_tpu/ops/pallas/condensed_score_packed.py:164",
-               main_path["launches"] + served["b1_launches"], k[(24, "bfloat16")],
-               {"sampling CLI": main_path["launches"], serving: served["b1_launches"]})
+               main_path["launches"] + served["b1_launches"] + interop["launches"],
+               k[(24, "bfloat16")],
+               {"sampling CLI": main_path["launches"], serving: served["b1_launches"],
+                "reference interop (phase 10)": interop["launches"]})
     # graph replays advance no wrapper's counter: the served requests' walk
     # steps are not launches counted, and stand apart
     b1["serving_walk_steps"] = served["walk_steps"]

@@ -1,10 +1,11 @@
 """The port's sampling CLI on the CPU (``--device cpu``), end to end on a tiny
 checkpoint and a tiny .pkl test set: result pickles of the right shapes, the
 NaN-retry bookkeeping, resume, the dense ensemble without ``--fused_score``,
-``--quant int8``, and clear errors for what is not ported."""
+``--quant int8``, and clear errors for what is refused."""
 
 import os
 import pickle
+import sys
 
 import numpy as np
 import jax
@@ -78,11 +79,18 @@ def test_cli_bf16_traj_and_resume(inputs, tmp_path):
         assert sorted(r["smiles"] for r in pickle.load(f)) == ["g0", "g1", "g2"]
 
 
-def test_cli_rejects_what_is_not_ported(inputs, tmp_path):
+def test_cli_rejects_what_is_not_ported(inputs, tmp_path, monkeypatch):
+    """A .txt test set is featurized, which needs RDKit: without it the
+    featurizer's ImportError, not a refusal of the format."""
     ckpts, test_set, _ = inputs
     base = ckpts + ["--save_dir", str(tmp_path), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        sampling.main(base + ["--test_set", "reactions.txt", "--fused_score"])
+    txt, feat_dict = tmp_path / "reactions.txt", tmp_path / "feat_dict.pkl"
+    txt.write_text("[CH3:1][H:2]>>[CH2:1].[H:2]\n")
+    feat_dict.write_bytes(pickle.dumps({"GetIsAromatic": {False: 0}}))
+    monkeypatch.setitem(sys.modules, "rdkit", None)
+    with pytest.raises(ImportError, match="RDKit is required"):
+        sampling.main(base + ["--test_set", str(txt), "--feat_dict", str(feat_dict),
+                              "--fused_score"])
     with pytest.raises(ValueError, match="--fused_score"):
         sampling.main(base + ["--test_set", test_set, "--quant", "int8"])
 

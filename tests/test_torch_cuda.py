@@ -14,6 +14,8 @@ bfloat16 and B5, at tiers 4 and 32 (N=24) and for the dense ensemble; a
 second round of a (bucket, tier, respacing) records no graph; and a
 captured round launches the score kernel once per walk step, counted under
 torch.profiler (the wrappers' counters advance only when a graph is recorded).
+The sampling CLI from two trained members written as reference ``.pt``
+files gives the samples it gives from their ``.ckpt`` files, bit for bit.
 
 Every test here needs an NVIDIA GPU with nvcc (marker ``cuda``) and skips
 without one.  The file imports neither JAX nor the JAX package, so on a
@@ -834,3 +836,65 @@ def test_captured_dense_ensemble_round_equals_eager(services):
     assert not nan and np.isfinite(pos).all()
     np.testing.assert_array_equal(pos, ref)
     assert captured._graphs_captured == 1
+
+
+def write_reference_pt(path: str, ck: dict) -> None:
+    """``ck``'s raw weights as a reference ``<iter>.pt`` (``torch.save``),
+    its config an ``easydict.EasyDict`` stand-in registered for the write."""
+    import sys
+    import types
+
+    from tsdiff_tpu_torch.data.convert import condensenc_state_dict_from_params
+
+    mod = types.ModuleType("easydict")
+    mod.EasyDict = type("EasyDict", (dict,), {"__module__": "easydict"})
+
+    def easy(obj):
+        return mod.EasyDict({k: easy(v) for k, v in obj.items()}) if isinstance(obj, dict) else obj
+
+    sd = {k: torch.from_numpy(np.array(v)) for k, v in condensenc_state_dict_from_params(
+        ck["params"], ck["config"]["model"]["encoder"]["num_convs"]).items()}
+    saved = sys.modules.get("easydict")
+    sys.modules["easydict"] = mod
+    try:
+        torch.save({"config": easy(ck["config"]), "model": sd, "iteration": ck["iteration"]},
+                   path)
+    finally:
+        sys.modules.pop("easydict")
+        if saved is not None:
+            sys.modules["easydict"] = saved
+
+
+@pytest.mark.cuda
+def test_sampling_from_reference_pt_equals_ckpt(cuda, tmp_path):
+    """Two trained members as reference ``.pt`` files and as ``.ckpt``
+    files: the sampling CLI through B1's ``wgmma`` kernel gives the same
+    samples, bit for bit."""
+    import pickle
+
+    from tsdiff_tpu_torch.cli import sampling
+    from tsdiff_tpu_torch.data import save_dataset
+    from tsdiff_tpu_torch.data.synthetic import make_corpus
+    from tsdiff_tpu_torch.train import load_checkpoint
+
+    ckpts = [os.path.join(CKPT_DIR, f"seed{s}_best.ckpt") for s in MEMBER_SEEDS[:2]]
+    pts = []
+    for path in ckpts:
+        pts.append(str(tmp_path / (os.path.basename(path)[:-5] + ".pt")))
+        write_reference_pt(pts[-1], load_checkpoint(path))
+    test_set = str(tmp_path / "test.pkl")
+    save_dataset(test_set, make_corpus(12, seed=31))
+    out = {}
+    for name, files in (("pt", pts), ("ckpt", ckpts)):
+        ps.packed_score.launches = ps.packed_score.wg_launches = 0
+        path = sampling.main(files + [
+            "--test_set", test_set, "--save_dir", str(tmp_path / name), "--dtype", "bfloat16",
+            "--fused_score", "--sampling_type", "ld", "--n_steps", "5000",
+            "--timestep_respacing", "20", "--batch_size", "12", "--device", "cuda"])
+        assert ps.packed_score.launches == ps.packed_score.wg_launches > 0
+        with open(path, "rb") as f:
+            out[name] = pickle.load(f)
+    assert len(out["pt"]) == len(out["ckpt"]) == 12
+    for a, b in zip(out["pt"], out["ckpt"]):
+        assert np.isfinite(a["pos_gen"]).all()
+        np.testing.assert_array_equal(a["pos_gen"], b["pos_gen"])

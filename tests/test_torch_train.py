@@ -190,7 +190,8 @@ def test_cli_train_writes_checkpoints_and_resumes(tmp_path):
     path, it = get_checkpoint_path(os.path.join(run, "checkpoints"))
     assert it in (2, 3) and os.path.exists(os.path.join(run, "cfg.json"))
     ck = load_checkpoint(path)
-    assert ck["opt_state"]["count"] == it and ck["ema_params"] is not None
+    # the optimizer state in the JAX package's layout: (clip, Adam) of the optax chain
+    assert ck["opt_state"][1]["count"] == it and ck["ema_params"] is not None
     jck = jax_load_checkpoint(path)
     assert jck["config"]["model"]["use_pallas"] is True
 
@@ -201,7 +202,7 @@ def test_cli_train_writes_checkpoints_and_resumes(tmp_path):
         assert "[Validate] Iter 00005" in f.read()
     # the resumed run starts at the checkpoint's iteration, as the JAX CLI does
     ck2 = load_checkpoint(os.path.join(resumed, "checkpoints", f"{it2}.ckpt"))
-    count = ck2["opt_state"]["count"]
+    count = ck2["opt_state"][1]["count"]
     assert count == it + (it2 - it + 1)
 
 
@@ -231,16 +232,15 @@ def test_schedule_alphas_copied_to_a_device_once():
 def test_cli_train_rejects_what_is_not_ported(tmp_path):
     cfg = tiny_config(str(tmp_path))
     base = [cfg, "--logdir", str(tmp_path / "logs"), "--device", "cpu"]
-    for flag in (["--multihost"], ["--ckpt_backend", "orbax"], ["--pretrain", "x.ckpt"],
-                 ["--mesh_layout", "flat"], ["--profile"]):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+    for flag in (["--multihost"], ["--ckpt_backend", "orbax"], ["--mesh_layout", "flat"]):
+        with pytest.raises(NotImplementedError, match=r"not yet ported \(ROADMAP §A\.[25]"):
             train_cli.main(base + flag)
     with open(cfg) as f:
         sidechain = json.load(f)
     sidechain["dataset"]["type"] = "sidechain"
     with open(cfg, "w") as f:
         json.dump(sidechain, f)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(NotImplementedError, match=r"not yet ported \(ROADMAP §A\.7\)"):
         train_cli.main(base)
 
 
@@ -282,7 +282,7 @@ def test_cli_train_production_flags(tmp_path, monkeypatch, device_data):
     assert run.endswith("_seed3")
     path, it = get_checkpoint_path(os.path.join(run, "checkpoints"))
     ck = load_checkpoint(path)
-    assert ck["config"]["model"]["packed_train"] is True and ck["opt_state"]["count"] == it
+    assert ck["config"]["model"]["packed_train"] is True and ck["opt_state"][1]["count"] == it
     with open(os.path.join(run, "log.txt")) as f:
         log = f.read()
     resident = "device-resident corpus" in log

@@ -1,0 +1,99 @@
+"""The train CLI's ``--pretrain`` and ``--profile`` on the CPU, and the
+refusals left.
+
+``--pretrain`` takes any file ``load_checkpoint`` reads: a ``.ckpt`` and a
+reference ``.pt`` of the same weights give the same run, bit for bit; the
+run starts from those weights with a fresh optimizer state, as the JAX
+CLI's does.  ``--profile`` logs the phase timings at the end."""
+
+import os
+import pickle
+import re
+
+import pytest
+import torch
+
+from tsdiff_tpu_torch.cli import train as train_cli
+from tsdiff_tpu_torch.config import load_config
+from tsdiff_tpu_torch.convert import params_from_jax, params_to_jax
+from tsdiff_tpu_torch.models import get_model
+from tsdiff_tpu_torch.train import get_checkpoint_path, load_checkpoint
+
+from test_torch_reference_ckpt import write_reference_pt
+from test_torch_train import tiny_config
+
+
+def warm_weights(cfg_path: str) -> dict:
+    """A flax parameter tree for the tiny config's model, from seed 123."""
+    cfg = load_config(cfg_path)
+    model = get_model(cfg.model, generator=torch.Generator().manual_seed(123))
+    return params_to_jax(model.state_dict())
+
+
+def pretrain_run(root, fmt: str) -> dict:
+    """One iteration of the tiny config warm-started from a ``fmt`` file of
+    seed 123's weights: checks the log and the checkpoint, returns the
+    parameters after the step."""
+    os.makedirs(root)
+    cfg = tiny_config(root, max_iters=1, val_freq=1)
+    config = load_config(cfg)
+    warm = warm_weights(cfg)
+    path = os.path.join(root, f"warm.{fmt}")
+    if fmt == "pt":
+        write_reference_pt(path, config.to_dict(), warm)
+    else:
+        with open(path, "wb") as f:
+            pickle.dump({"format": "tsdiff_tpu.ckpt.v1", "config": config.to_dict(),
+                         "params": warm, "ema_params": None}, f)
+    run = train_cli.main([cfg, "--logdir", os.path.join(root, "logs"), "--device", "cpu",
+                          "--pretrain", path])
+    with open(os.path.join(run, "log.txt")) as f:
+        assert f"Warm-start weights from {path}" in f.read()
+    ck = load_checkpoint(get_checkpoint_path(os.path.join(run, "checkpoints"))[0])
+    assert ck["iteration"] == 1 and ck["opt_state"][1]["count"] == 1   # fresh optimizer state
+    got, start = params_from_jax(ck["params"]), params_from_jax(warm)
+    for name, p in got.items():   # one Adam step of about lr from the warm weights
+        assert float((p - start[name]).abs().max()) <= 2 * config.train.optimizer.lr, name
+    return got
+
+
+def test_cli_pretrain_ckpt_and_pt_give_the_same_first_step(tmp_path):
+    from_ckpt = pretrain_run(str(tmp_path / "ckpt"), "ckpt")
+    from_pt = pretrain_run(str(tmp_path / "pt"), "pt")
+    assert set(from_ckpt) == set(from_pt)
+    for name, p in from_ckpt.items():
+        assert torch.equal(p, from_pt[name]), name
+
+
+@pytest.mark.parametrize("device_data", ["on", "off"])
+def test_cli_profile_logs_phase_timings(tmp_path, device_data):
+    cfg = tiny_config(str(tmp_path), max_iters=3)
+    run = train_cli.main([cfg, "--logdir", str(tmp_path / "logs"), "--device", "cpu",
+                          "--profile", "--device_data", device_data])
+    with open(os.path.join(run, "log.txt")) as f:
+        log = f.read()
+    timings = log[log.index("Phase timings:"):]
+    for phase in ("data", "train_step"):
+        m = re.search(rf"^\s*{phase}: +(\S+)s total, +(\S+)ms avg \((\d+)x\)$", timings, re.M)
+        assert m is not None, phase
+        assert int(m.group(3)) == 3 and float(m.group(1)) >= 0
+
+
+def test_orbax_directory_is_refused_naming_its_roadmap_item(tmp_path):
+    with pytest.raises(NotImplementedError, match=r"orbax.*ROADMAP §A\.2, blocked"):
+        load_checkpoint(str(tmp_path))
+
+
+def test_profiling_utilities_on_the_cpu(tmp_path):
+    from tsdiff_tpu_torch.utils.profiling import PhaseTimer, device_trace, timed_blocked
+
+    timer = PhaseTimer()
+    for _ in range(2):
+        with timer.phase("matmul", sync_value={"out": [torch.ones(2)]}):
+            torch.ones(8, 8) @ torch.ones(8, 8)
+    assert timer.counts["matmul"] == 2 and "matmul" in timer.summary()
+    seconds, out = timed_blocked(torch.add, torch.ones(3), 1)
+    assert seconds >= 0 and torch.equal(out, torch.full((3,), 2.0))
+    with device_trace(str(tmp_path / "trace")):
+        torch.ones(16, 16).sum()
+    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0

@@ -10,10 +10,12 @@ its last frame) and a reference TS (``pos``, not all zero), the D-MAE under
 the best automorphism match of the typed condensed graph (``--no-automorphisms``:
 the identity only).  Prints the count, the mean, median and standard
 deviation, and the fraction at or under each threshold; ``--out`` writes
-``{"dmae": array, "thresholds": list}`` as a pickle.  Numpy only: nothing
-runs on a device.
+``{"dmae": array, "thresholds": list}`` as a pickle.  ``--samples`` is the
+sampling CLI's ``samples_all.pkl``, a ``tsdiff_tpu.v1`` dataset, or the
+reference's PyG ``samples_all.pkl``.  Numpy only: nothing runs on a device.
 
-Not ported yet: ``--covmat`` (the COV/MAT evaluator) and ``--protein``.
+Not ported: ``--covmat`` (the COV/MAT evaluator, ROADMAP §A.8) and
+``--protein`` (§A.7).
 """
 
 from __future__ import annotations
@@ -34,9 +36,9 @@ def main(argv=None) -> dict:
     parser.add_argument("--protein", action="store_true", help="not yet ported")
     parser.add_argument("--out", type=str, default=None, help="write stats pickle here")
     args = parser.parse_args(argv)
-    for flag in ("covmat", "protein"):
+    for flag, item in (("covmat", "§A.8"), ("protein", "§A.7")):
         if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} is not yet ported")
+            raise NotImplementedError(f"--{flag} is not yet ported (ROADMAP {item})")
 
     from tsdiff_tpu_torch.data.dataset import load_dataset
     from tsdiff_tpu_torch.eval.dmae import dmae_for_graph

@@ -6,20 +6,21 @@ Usage:
         --sampling_type ld --n_steps 5000 --timestep_respacing 625 \
         --device cuda ...]
 
-Loads N checkpoints (the model is rebuilt from the embedded config), reads a
-``tsdiff_tpu.v1`` .pkl test set, batches it with optional per-reaction
-repetition (each batch padded to a row tier and a node bucket), runs the
-ensemble reverse diffusion (the dense ensemble in torch ops, or with
-``--fused_score`` the offset-packed score kernel, whose pair-row products
-``--quant int8`` runs in int8), retries a batch at clip 20 if NaNs
-appear, rescales the final frame, and pickles incremental
-(``samples_not_all.pkl``) and final (``samples_all.pkl``) results.  Each
-result records ``sampling_attempts``, the number of sampling runs its batch
-took.
+Loads N checkpoints (``.ckpt`` pickles or reference ``.pt`` files; the model
+is rebuilt from the embedded config), reads the test set (a ``tsdiff_tpu.v1``
+or reference PyG ``.pkl``; a ``.txt`` of reaction SMARTS, one per line, or
+one raw SMARTS string, featurized with ``--feat_dict``, which needs RDKit),
+batches it with optional per-reaction repetition (each batch padded to a
+row tier and a node bucket), runs the ensemble reverse diffusion (the dense
+ensemble in torch ops, or with ``--fused_score`` the offset-packed score
+kernel, whose pair-row products ``--quant int8`` runs in int8), retries a
+batch at clip 20 if NaNs appear, rescales the final frame, and pickles
+incremental (``samples_not_all.pkl``) and final (``samples_all.pkl``)
+results.  Each result records ``sampling_attempts``, the number of sampling
+runs its batch took.
 
-Runs on CUDA unless ``--device cpu`` is given.  Not ported yet: .txt and
-raw-SMARTS test sets (they need RDKit featurisation) and multi-device
-meshes.
+Runs on CUDA unless ``--device cpu`` is given.  Not ported: multi-device
+meshes (ROADMAP §A.5).
 """
 
 from __future__ import annotations
@@ -52,7 +53,12 @@ def parse_args(argv=None):
     parser.add_argument("--resume", type=str, default=None, help="path to partial results pickle")
     parser.add_argument("--save_traj", action="store_true", default=False)
     parser.add_argument("--save_dir", type=str, required=True)
-    parser.add_argument("--test_set", type=str, required=True, help="tsdiff_tpu.v1 .pkl dataset")
+    parser.add_argument("--test_set", type=str, required=True,
+                        help=".pkl dataset (tsdiff_tpu.v1 or reference PyG), .txt of reaction "
+                             "SMARTS, or one raw reaction SMARTS")
+    parser.add_argument("--feat_dict", type=str,
+                        default="./data/TS/wb97xd3/random_split_42/feat_dict.pkl",
+                        help="feature vocabulary for .txt and raw-SMARTS test sets")
     parser.add_argument("--start_idx", type=int, default=0)
     parser.add_argument("--end_idx", type=int, default=9999)
     parser.add_argument("--repeat", type=int, default=1)
@@ -89,6 +95,7 @@ def main(argv=None) -> str:
 
     from tsdiff_tpu_torch.core.graph import from_numpy_graphs
     from tsdiff_tpu_torch.data.dataset import default_buckets, load_dataset, pick_bucket, tier_ladder
+    from tsdiff_tpu_torch.data.featurize import featurize_smarts_list
     from tsdiff_tpu_torch.diffusion.ensemble import load_members, make_ensemble_score_fn
     from tsdiff_tpu_torch.diffusion.sampler import (
         SamplingSettings,
@@ -102,11 +109,6 @@ def main(argv=None) -> str:
     device = resolve_device(args.device)
     if args.quant != "none" and not args.fused_score:
         raise ValueError("--quant requires --fused_score")
-    if not args.test_set.endswith((".pkl", ".pck")):
-        raise NotImplementedError(
-            "only .pkl test sets are ported; .txt and raw-SMARTS test sets need RDKit "
-            "featurisation, which is not yet ported"
-        )
     os.makedirs(args.save_dir, exist_ok=True)
     logger = get_logger("sampling", args.save_dir)
     logger.info(args)
@@ -118,7 +120,17 @@ def main(argv=None) -> str:
     schedule = DiffusionSchedule.from_config(model_cfg)
 
     logger.info("Loading test set...")
-    test_set, _ = load_dataset(args.test_set)
+    if args.test_set.endswith((".pkl", ".pck")):
+        test_set, _ = load_dataset(args.test_set)
+    else:
+        if args.test_set.endswith(".txt"):
+            with open(args.test_set) as f:
+                smarts_list = f.read().strip().split("\n")
+        else:
+            smarts_list = [args.test_set]
+        with open(args.feat_dict, "rb") as f:
+            feat_dict = pickle.load(f)
+        test_set = featurize_smarts_list(smarts_list, feat_dict)
     test_set = [g for i, g in enumerate(test_set) if args.start_idx <= i < args.end_idx]
     if args.sort_by_size:
         test_set = sorted(test_set, key=lambda g: int(g["atom_type"].shape[0]))

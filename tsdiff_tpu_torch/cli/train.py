@@ -27,26 +27,34 @@ The flags and defaults are the JAX package's CLI's:
   background thread (``data/prefetch.py``);
 * ``--debug_nans`` fails at the first non-finite loss or gradient norm,
   naming the iteration, with autograd's anomaly detection on;
-* ``--name`` with ``--project`` logs to wandb where it can be imported.
+* ``--name`` with ``--project`` logs to wandb where it can be imported;
+* ``--pretrain CKPT`` warm-starts the parameters and the EMA from any file
+  ``load_checkpoint`` reads (a ``.ckpt``, or a reference ``.pt``), keeping
+  the fresh optimizer state;
+* ``--profile`` times the ``data`` phase (the next batch, streamed or
+  gathered on the device) and the ``train_step`` phase up to a read of the
+  step's loss, so each step waits for the card, and logs ``Phase timings:``
+  at the end.
 
-Not ported yet: ``--multihost``, ``--mesh_layout``, ``--ckpt_backend
-orbax``, ``--profile``, ``--pretrain`` and ``dataset.type: sidechain``.
+Not ported: ``--multihost`` and ``--mesh_layout`` (ROADMAP §A.5),
+``--ckpt_backend orbax`` (§A.2, blocked) and ``dataset.type: sidechain``
+(§A.7).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob
 import os
 import shutil
 import time
 
+#: flags of the JAX package's CLI that the port refuses, with their ROADMAP item
 _NOT_PORTED = {
-    "multihost": "--multihost",
-    "mesh_layout": "--mesh_layout",
-    "ckpt_backend": "--ckpt_backend",
-    "profile": "--profile",
-    "pretrain": "--pretrain",
+    "multihost": ("--multihost", "§A.5"),
+    "mesh_layout": ("--mesh_layout", "§A.5"),
+    "ckpt_backend": ("--ckpt_backend orbax", "§A.2, blocked: orbax needs JAX"),
 }
 #: ``--device_data auto`` keeps the corpus on the device up to this many bytes
 DEVICE_DATA_BUDGET = int(4e9)
@@ -70,17 +78,19 @@ def parse_args(argv=None):
     parser.add_argument("--device_data", choices=["auto", "on", "off"], default="auto",
                         help="keep the corpus on the device (auto: when it packs to <= 4e9 bytes)")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--pretrain", type=str, default="",
+                        help="warm-start params and EMA from a checkpoint (.ckpt or reference .pt)")
+    parser.add_argument("--profile", action="store_true",
+                        help="log per-phase timings (data, train_step), the device synced per step")
     # flags of the JAX package's CLI that are not ported: they raise
     parser.add_argument("--multihost", action="store_true")
     parser.add_argument("--mesh_layout", choices=["flat", "hybrid"], default=None)
     parser.add_argument("--ckpt_backend", choices=["pickle", "orbax"], default="pickle")
-    parser.add_argument("--profile", action="store_true")
-    parser.add_argument("--pretrain", type=str, default="")
     args = parser.parse_args(argv)
-    for attr, flag in _NOT_PORTED.items():
+    for attr, (flag, item) in _NOT_PORTED.items():
         value = getattr(args, attr)
         if value and not (attr == "ckpt_backend" and value == "pickle"):
-            raise NotImplementedError(f"{flag} is not yet ported")
+            raise NotImplementedError(f"{flag} is not yet ported (ROADMAP {item})")
     return args
 
 
@@ -152,13 +162,14 @@ def _train(args) -> str:
         resolve_device,
         seed_all,
     )
+    from tsdiff_tpu_torch.utils.profiling import PhaseTimer
 
     device = resolve_device(args.device)
     resume = os.path.isdir(args.config)
     config_path = _config_path(args.config) if resume else args.config
     config = load_config(config_path)
     if config.get("dataset", Config()).get("type") == "sidechain":
-        raise NotImplementedError("dataset.type: sidechain is not yet ported")
+        raise NotImplementedError("dataset.type: sidechain is not yet ported (ROADMAP §A.7)")
     seed_all(config.train.seed)
     if args.max_iters is not None:
         config.train.max_iters = args.max_iters
@@ -257,6 +268,12 @@ def _train(args) -> str:
                            opt_state_from_checkpoint(ck, device), start_iter, ema)
         if ck.get("scheduler"):
             scheduler.load_state_dict(ck["scheduler"])
+    if args.pretrain:
+        logger.info(f"Warm-start weights from {args.pretrain}")
+        warm = params_from_jax(load_checkpoint(args.pretrain)["params"])
+        model.load_state_dict(warm)
+        ema = {k: v.to(device) for k, v in warm.items()} if ema_decay else None
+        state = TrainState(dict(model.named_parameters()), state.opt_state, state.step, ema)
     if train_res is not None:
         train_iter = resident_steps(train_res, start_iter)
     logger.info(f"Parameters: {count_parameters(model):,} on {device}, {args.dtype}, "
@@ -294,17 +311,27 @@ def _train(args) -> str:
     # warm-up), validation and checkpoints included; padding graphs not counted
     t_first = None
     graphs = 0
+    timer = PhaseTimer() if args.profile else None
+
+    def phase(name: str):
+        return timer.phase(name) if timer is not None else contextlib.nullcontext()
+
     try:
         for it in range(start_iter, config.train.max_iters + 1):
+            with phase("data"):
+                item = next(train_iter)
             try:
-                if train_res is None:
-                    batch, indices = next(train_iter)
-                    real = int((indices >= 0).sum())
-                    state, metrics = train_step(state, batch, scheduler.lr, generator=gen)
-                else:
-                    arrays, plan, cursor, real = next(train_iter)
-                    state, metrics, _ = res_train_step(state, arrays, plan, cursor, scheduler.lr,
-                                                       generator=gen)
+                with phase("train_step"):
+                    if train_res is None:
+                        batch, indices = item
+                        real = int((indices >= 0).sum())
+                        state, metrics = train_step(state, batch, scheduler.lr, generator=gen)
+                    else:
+                        arrays, plan, cursor, real = item
+                        state, metrics, _ = res_train_step(state, arrays, plan, cursor,
+                                                           scheduler.lr, generator=gen)
+                    if timer is not None:
+                        float(metrics["loss"])  # --profile: the step waits for the card
             except FloatingPointError as e:  # --debug_nans
                 raise FloatingPointError(f"iteration {it}: {e}") from e
             if t_first is None:
@@ -341,6 +368,8 @@ def _train(args) -> str:
         seconds = time.monotonic() - t_first
         logger.info("[Train] Throughput | Iters %05d-%05d | %d graphs in %.3f s | %.1f graphs/s" % (
             start_iter + 1, config.train.max_iters, graphs, seconds, graphs / seconds))
+    if timer is not None:
+        logger.info("Phase timings:\n%s", timer.summary())
     return log_dir
 
 

@@ -10,7 +10,9 @@ cuts a dataset into fixed-shape batches per bucket with the JAX package's
 batches.  The background prefetcher is ``data/prefetch.py``, the
 device-resident corpus ``data/resident.py``.
 
-Reference PyG pickles are not read yet.
+``load_dataset`` also reads the reference's PyG pickles (datasets and
+``samples_all.pkl``), through the stand-in modules of ``data/pyg_compat.py``
+where torch_geometric or rdkit does not import, converted in memory.
 """
 
 from __future__ import annotations
@@ -34,16 +36,32 @@ def save_dataset(path: str, graphs: list[dict], feat_dict=None, extra: dict | No
 
 
 def load_dataset(path: str) -> tuple[list[dict], dict | None]:
-    """``(graphs, feat_dict)`` of a native ``tsdiff_tpu.v1`` pickle."""
-    with open(path, "rb") as f:
-        payload = pickle.load(f)
+    """``(graphs, feat_dict)`` of a native ``tsdiff_tpu.v1`` pickle, a bare
+    list of graph dicts, or a reference PyG pickle (list of ``Data``)."""
+    try:
+        with open(path, "rb") as f:
+            payload = pickle.load(f)
+    except (ImportError, AttributeError):
+        # a reference PyG pickle names torch_geometric/rdkit classes: retry
+        # with the stand-in modules installed
+        from tsdiff_tpu_torch.data.pyg_compat import load_pyg_pickle
+
+        payload = load_pyg_pickle(path)
     if isinstance(payload, dict) and payload.get("format") == FORMAT_TAG:
         return payload["graphs"], payload.get("feat_dict")
-    if isinstance(payload, list) and payload and isinstance(payload[0], dict):
-        return payload, None
-    raise ValueError(
-        f"{path}: not a {FORMAT_TAG} dataset (reference PyG pickles are not ported yet)"
-    )
+    if isinstance(payload, list) and payload:
+        if isinstance(payload[0], dict):
+            return payload, None
+        from tsdiff_tpu_torch.data.convert import graphs_from_pyg_list
+
+        try:
+            return graphs_from_pyg_list(payload), None
+        except (KeyError, TypeError) as e:
+            raise ValueError(
+                f"{path}: looks like a PyG pickle but is missing reaction fields ({e}); "
+                "convert explicitly with python -m tsdiff_tpu_torch.data.convert dataset"
+            ) from None
+    raise ValueError(f"{path}: not a {FORMAT_TAG} or reference PyG dataset")
 
 
 def pick_bucket(n: int, bucket_sizes: Sequence[int]) -> int:

@@ -188,7 +188,8 @@ def load_members(paths: list[str], device, dtype, fused_score: bool = False,
         ck = load_checkpoint(path)
         cfg = Config(ck["config"]).model
         if cfg.get("network", "condensenc") != "condensenc":
-            raise NotImplementedError(f"{path}: network {cfg.network} is not ported yet")
+            raise NotImplementedError(
+                f"{path}: network {cfg.network} is not ported yet (ROADMAP §A.7)")
         if fused_score:
             cfg.fused_score = True
         if quant not in (None, "none"):

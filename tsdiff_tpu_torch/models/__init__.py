@@ -8,5 +8,5 @@ def get_model(config, dtype=None, generator=None):
     if config.network == "condensenc":
         return CondenseEncoderEpsNetwork.from_config(config, dtype=dtype, generator=generator)
     if config.network == "dualenc":
-        raise NotImplementedError("the dualenc network is not yet ported")
+        raise NotImplementedError("the dualenc network is not yet ported (ROADMAP §A.7)")
     raise NotImplementedError(f"Unknown network: {config.network}")

@@ -1,41 +1,115 @@
-"""Checkpoints: ``tsdiff_tpu.ckpt.v1`` pickles, read and written.
+"""Checkpoints: ``tsdiff_tpu.ckpt.v1`` pickles, read and written, and the
+reference's torch ``.pt`` files, read.
 
 A checkpoint is a self-describing pickle of plain numpy arrays:
 ``{"format": "tsdiff_tpu.ckpt.v1", "config": {...}, "params": <flax tree>,
-"ema_params": <flax tree> | None, ...}``.  Unpickling it needs only numpy.
-The parameter trees stay in flax layout here; ``tsdiff_tpu_torch.convert``
-maps them to and from a torch ``state_dict``, so the JAX package loads what
-the port writes.  ``opt_state`` is the port's own dict of numpy arrays
-(``{"count", "mu", "nu"}``), which only the port resumes from.
+"opt_state": ..., "ema_params": <flax tree> | None, ...}``.  The parameter
+trees stay in flax layout here; ``tsdiff_tpu_torch.convert`` maps them to and
+from a torch ``state_dict``, so the JAX package loads what the port writes.
 
-Orbax directories and reference torch ``.pt`` files are not read yet.
+``opt_state`` is written in the JAX package's layout, the optax chain
+``clip_by_global_norm -> scale_by_adam [-> add_decayed_weights]`` as plain
+containers: ``((), {"count": int32, "mu": <flax tree>, "nu": <flax tree>}
+[, ()])``, the moments with the same tree shape and the same ``(in, out)``
+kernels as ``params``.  The JAX package's ``restore_opt_state`` pours the
+leaves of such a state into its optax template in sorted-key order, so each
+moment lands on its own parameter.  ``opt_state_from_checkpoint`` reads that
+layout, a state the JAX package wrote (optax NamedTuples) and the
+``{"count", "mu", "nu"}`` dict keyed by torch names that earlier versions of
+the port wrote.
+
+Checkpoint pickles are read by a restricted unpickler: numpy's globals load,
+optax's state classes load as stand-ins (``OptaxState``), so a checkpoint the
+JAX package wrote loads where neither JAX nor optax is installed, and any
+other global is refused.  A torch zip container (a reference ``<iter>.pt``)
+is converted in memory by ``data/convert.py``.  Orbax directories are not
+read: orbax's storage format has no reader without JAX.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
+import zipfile
 
 import numpy as np
 import torch
 
-from tsdiff_tpu_torch.convert import params_to_jax
+from tsdiff_tpu_torch.convert import params_from_jax, params_to_jax
 
 CKPT_FORMAT = "tsdiff_tpu.ckpt.v1"
 
+#: field names of the optax states the JAX package's optimizer chain holds
+#: (a NamedTuple pickles its values by position only)
+OPTAX_FIELDS = {"ScaleByAdamState": ("count", "mu", "nu")}
+_ADAM_FIELDS = OPTAX_FIELDS["ScaleByAdamState"]
+
+
+class OptaxState(tuple):
+    """Stand-in for an optax state NamedTuple: its values by position, with
+    the field names in ``_fields`` where ``OPTAX_FIELDS`` knows the class."""
+
+    _fields: tuple = ()
+
+    def __new__(cls, *values):
+        return super().__new__(cls, values)
+
+
+_STAND_INS: dict[tuple[str, str], type] = {}
+
+
+def _optax_stand_in(module: str, name: str) -> type:
+    key = (module, name)
+    if key not in _STAND_INS:
+        _STAND_INS[key] = type(name, (OptaxState,), {"_fields": OPTAX_FIELDS.get(name, ()),
+                                                     "__module__": module})
+    return _STAND_INS[key]
+
+
+class _CheckpointUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        root = module.partition(".")[0]
+        if root == "numpy":
+            return super().find_class(module, name)
+        if root == "optax":
+            return _optax_stand_in(module, name)
+        raise pickle.UnpicklingError(
+            f"checkpoint pickle references {module}.{name}, which a checkpoint does not hold"
+        )
+
+
+def is_torch_zip(path: str) -> bool:
+    """A torch>=1.6 zip container: a zip with an ``<archive>/data.pkl``
+    member (``zipfile.is_zipfile`` alone also accepts a pickle that embeds
+    zip bytes)."""
+    if not zipfile.is_zipfile(path):
+        return False
+    try:
+        with zipfile.ZipFile(path) as zf:
+            return any(n == "data.pkl" or n.endswith("/data.pkl") for n in zf.namelist())
+    except zipfile.BadZipFile:
+        return False
+
 
 def load_checkpoint(path: str) -> dict:
-    """Load a ``tsdiff_tpu.ckpt.v1`` pickle; raise on any other format."""
+    """Load a ``tsdiff_tpu.ckpt.v1`` pickle, or a reference torch ``.pt``
+    converted in memory; raise on any other format."""
     if os.path.isdir(path):
         raise NotImplementedError(
-            f"{path}: orbax checkpoint directories are not ported yet"
+            f"{path}: orbax checkpoint directories are not read by the port (ROADMAP §A.2, "
+            "blocked: orbax's storage format has no reader without JAX); convert with the "
+            "JAX package's --ckpt_backend pickle"
         )
+    if is_torch_zip(path):
+        from tsdiff_tpu_torch.data.convert import convert_reference_checkpoint
+
+        return convert_reference_checkpoint(path)
     with open(path, "rb") as f:
-        payload = pickle.load(f)
+        payload = _CheckpointUnpickler(f).load()
     if not (isinstance(payload, dict) and payload.get("format") == CKPT_FORMAT):
         raise ValueError(
-            f"unrecognized checkpoint format in {path}: expected a "
-            f"{CKPT_FORMAT} pickle (orbax and .pt checkpoints are not ported yet)"
+            f"unrecognized checkpoint format in {path}: expected a {CKPT_FORMAT} pickle or a "
+            "torch>=1.6 zip-container .pt file"
         )
     return payload
 
@@ -48,19 +122,24 @@ def select_params(ck: dict, use_ema: bool) -> tuple[dict, bool]:
     return ck["params"], False
 
 
+def opt_state_to_jax(opt: dict, weight_decay: float = 0.0) -> tuple:
+    """The port's Adam state in the JAX package's optax-chain layout."""
+    adam = {"count": np.asarray(opt["count"], dtype=np.int32),
+            "mu": params_to_jax(opt["mu"]), "nu": params_to_jax(opt["nu"])}
+    return ((), adam, ()) if weight_decay else ((), adam)
+
+
 def save_checkpoint(path: str, config, state, scheduler_state: dict | None = None,
                     iteration: int | None = None, avg_val_loss: float | None = None) -> None:
     """Write ``state`` (a ``train.trainer.TrainState``) as a self-describing
     pickle, atomically."""
-    opt = state.opt_state
+    cfg = config.to_dict() if hasattr(config, "to_dict") else dict(config)
+    weight_decay = cfg.get("train", {}).get("optimizer", {}).get("weight_decay", 0.0)
     payload = {
         "format": CKPT_FORMAT,
-        "config": config.to_dict() if hasattr(config, "to_dict") else dict(config),
+        "config": cfg,
         "params": params_to_jax(state.params),
-        "opt_state": {
-            "count": int(opt["count"]),
-            **{m: {k: v.detach().cpu().numpy() for k, v in opt[m].items()} for m in ("mu", "nu")},
-        },
+        "opt_state": opt_state_to_jax(state.opt_state, weight_decay),
         "ema_params": None if state.ema_params is None else params_to_jax(state.ema_params),
         "scheduler": scheduler_state,
         "iteration": int(iteration if iteration is not None else state.step),
@@ -72,18 +151,32 @@ def save_checkpoint(path: str, config, state, scheduler_state: dict | None = Non
     os.replace(tmp, path)
 
 
+def _adam_entry(opt):
+    """``(count, mu, nu)`` of the chain entry that carries Adam's state, by
+    field name: a dict entry (the port's layout) or an optax state."""
+    for entry in opt:
+        if not isinstance(entry, dict):
+            entry = dict(zip(getattr(entry, "_fields", ()), entry))
+        if set(_ADAM_FIELDS) <= set(entry):
+            return tuple(entry[k] for k in _ADAM_FIELDS)
+    raise ValueError("the checkpoint's opt_state holds no Adam state (count, mu, nu)")
+
+
 def opt_state_from_checkpoint(ck: dict, device) -> dict:
-    """The port's optimizer state of a checkpoint the port wrote."""
+    """The port's Adam state from a checkpoint: the JAX layout (the port's
+    own, or optax states the JAX package wrote), or the dict of torch-named
+    moments that earlier versions of the port wrote."""
     opt = ck.get("opt_state")
-    if not (isinstance(opt, dict) and {"count", "mu", "nu"} <= set(opt)):
-        raise NotImplementedError(
-            "resuming the optimizer state of a checkpoint the JAX package wrote is not ported"
-        )
-    return {
-        "count": int(opt["count"]),
-        **{m: {k: torch.from_numpy(np.array(v)).to(device) for k, v in opt[m].items()}
-           for m in ("mu", "nu")},
-    }
+    if isinstance(opt, dict) and set(_ADAM_FIELDS) <= set(opt):
+        count, mu, nu = (opt[k] for k in _ADAM_FIELDS)
+        moments = [{k: torch.from_numpy(np.array(v)) for k, v in m.items()} for m in (mu, nu)]
+    elif isinstance(opt, (tuple, list)):
+        count, mu, nu = _adam_entry(opt)
+        moments = [params_from_jax(m) for m in (mu, nu)]
+    else:
+        raise ValueError("the checkpoint carries no optimizer state to resume from")
+    return {"count": int(count),
+            **{k: {n: t.to(device) for n, t in m.items()} for k, m in zip(("mu", "nu"), moments)}}
 
 
 def get_checkpoint_path(ckpt_dir: str, it: int | None = None) -> tuple[str, int]:
