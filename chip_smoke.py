@@ -45,26 +45,47 @@ Phases (any failure exits non-zero):
    with the SM clock and temperature before and after) and the bound of each;
 4. sampling main path: the port's sampling CLI on 200 synthetic reactions
    with the 8 members, bf16, fused packed score, ``ld`` over the 5000-step
-   schedule walked in 625 model calls; checks that every model call went
-   through the warp-specialised kernel, that positions are finite and that
-   the mean D-MAE is plausible; prints the D-MAE with identity matching (the
-   gated figure) and matched over each graph's automorphisms (the reference
-   metric, never above it);
+   schedule walked in 625 model calls, each step a replay of the CUDA graph
+   of its (bucket, tier, clip), the run under torch.profiler; checks one
+   graph per walk shape, B1 launched once per walk step and once more per
+   graph (its eager first step) by kernel name in that run (replays advance
+   no wrapper's counter), the wrapper's counter at each graph's eager first
+   step and recording, all through the warp-specialised kernel, that
+   positions are finite and that the mean D-MAE is plausible; then the same
+   command unprofiled, for its time, its samples equal bit for bit; prints
+   the D-MAE with identity matching (the gated figure) and matched over each
+   graph's automorphisms (the reference metric, never above it);
 5. sampling profile: 20 steps at N=24 under torch.profiler;
 6. training paths, on a synthetic corpus at full width (H=256, L=7, batch
-   200, bf16, 40 iterations), each with finite losses, a written checkpoint
-   and the CLI's graphs/s over the run, then 20 steps on one fixed N=24
-   batch (the loss must fall), the time per step and a profile (device ms,
-   idle share, launches per step), then 8 reactions sampled through B1 from
-   the checkpoint it trained:
+   200, bf16, 40 iterations), each train and validation step a replay of
+   the CUDA graph of its (step kind, bucket), each run with finite losses,
+   a written checkpoint and the CLI's graphs/s over the run; then 20 steps
+   on one fixed N=24 batch (the loss must fall) eagerly, eagerly again and
+   replayed from a graph, from the same initialisation, the second eager
+   and the captured step started from the eager run's state on every step:
+   the captured step equal to the eager one bit for bit on every step in
+   every metric and in every tensor outside what the one nondeterministic
+   op (F.embedding's backward into the bond table) feeds, with how often
+   it and the second eager step differ inside; the time per step and a
+   profile of the eager
+   and the captured step (device ms, idle share, launches per step by
+   kernel name); then the train CLI eagerly twice and once with the
+   learning rate 1% higher (the control) on the first timed run's flags:
+   every logged loss of the captured run within ``CLI_LOSS_RTOL`` of the
+   eager run's, a limit that holds the second eager run and not the
+   control; then 8 reactions sampled through B1 from the checkpoint it
+   trained:
    a. the train CLI with ``use_pallas`` and its defaults (the corpus resident
-      on the card by ``--device_data auto``): checks the stack kernels'
-      launch counts (every forward call through the ``wgmma`` forward, every
-      backward call through the ``wgmma`` row and weight-gradient kernels,
-      the weight image and ``ea``'s tile images made once per forward and
-      reused by the backward) and no plain-version call; then the same run
-      with ``--device_data off``, ``off`` and ``auto`` again (graphs/s of
-      each);
+      on the card by ``--device_data auto``) under torch.profiler: checks one
+      graph per (step kind, bucket) and replays covering every step, the
+      stack kernels counted by name in that run (B3's ``wgmma`` forward at
+      every forward call, eager or replayed, B3 backward's ``wgmma`` row and
+      weight-gradient kernels L times at every backward call, no B4 and no
+      other stack kernel), the wrapper counters at each graph's eager first
+      call and recording, the weight image and ``ea``'s tile images made
+      once per forward and reused by the backward, and no plain-version
+      call; then the same run unprofiled with ``--device_data auto``,
+      ``off``, ``off`` and ``auto`` (graphs/s of each);
    b. the production command line, ``--tag seed0 --dtype bfloat16
       --packed_train --device_data auto`` on the trained members' ``model``
       block: the run directory ends in ``_seed0``, the log reports the
@@ -76,9 +97,10 @@ Phases (any failure exits non-zero):
    of the dense score kernel (B2), all of its warp-specialised kernel, against
    the unfused torch path and the 8-member packed ensemble on the same
    reactions and noise; both D-MAE figures as in phase 4;
-8. int8 sampling path: phase 4 with ``--quant int8``: every model call one
-   launch of the warp-specialised int8 kernel (B5), none of B1, D-MAE within
-   noise of phase 4;
+8. int8 sampling path: phase 4 with ``--quant int8``: the warp-specialised
+   int8 kernel (B5) once per walk step and once more per graph by kernel
+   name in the profiled run, at each graph's eager first step and recording
+   by its counter, none of B1, D-MAE within noise of phase 4;
 9. serving: ``tsdiff_tpu_torch.serve.SamplerService`` and its HTTP front in
    this process on 127.0.0.1, with the 8 members, bf16, ``fused_score``,
    5000 steps and a draft tier of 625, ``max_batch`` 32, ``max_wait_ms`` 50,
@@ -102,8 +124,9 @@ Phases (any failure exits non-zero):
    (``torch.save``, an ``easydict`` config, the schedule buffers) and phase
    4's first 100 reactions as a PyG pickle, sampled with phase 4's flags,
    against the ``.ckpt`` files on the native pickle of the same reactions:
-   ``pos_gen`` equal bit for bit, every model call one launch of B1's
-   ``wgmma`` kernel, the evaluate CLI's D-MAE of both; (b) phase 6b's
+   ``pos_gen`` equal bit for bit, B1's ``wgmma`` kernel in every walk (each
+   sampling run under torch.profiler, B1 once per walk step and once more
+   per graph by kernel name), the evaluate CLI's D-MAE of both; (b) phase 6b's
    command line with ``--pretrain`` seed101's ``.pt``: finite losses, the
    warm-start file logged, the last validation loss below phase 6b's from
    random init; (c) that run resumed for 20 more iterations with
@@ -112,7 +135,7 @@ Phases (any failure exits non-zero):
    and ``train_step``; (d) the 100 true geometries plus N(0, 0.3 A) noise
    attached by the post-processing CLI as ``ts_guess`` and refined with
    ``--from_ts_guess --denoise_from_time_t 1500`` (the 1500-step window in
-   625 calls) through B1: finite, mean D-MAE < 0.6.
+   625 calls) through B1, counted as in (a): finite, mean D-MAE < 0.6.
 
 The second-to-last lines are a JSON object of per-kernel numbers and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -872,6 +895,66 @@ def fmt_ms(ms: float | None) -> str:
     return "not measured" if ms is None else f"{ms:.4f}"
 
 
+def cli_graphs(save_dir: str) -> tuple[int, str]:
+    """``(graphs recorded, their keys)`` from the sampling CLI's log in
+    ``save_dir``: one CUDA graph per (bucket, tier, clip) walked."""
+    with open(os.path.join(save_dir, "log.txt")) as f:
+        found = re.findall(r"CUDA graphs recorded: (\d+), one per \(bucket, tier, clip\): (.*)",
+                           f.read())
+    if not found:
+        fail(f"the sampling CLI in {save_dir} logged no CUDA graphs: it did not walk captured")
+    return int(found[-1][0]), found[-1][1]
+
+
+def walk_shapes(results: list, batch_size: int, test_set: list) -> set:
+    """The (bucket, tier, clip) of every walk of a sampling CLI run, from
+    its results in order, as the CLI pads a batch: the bucket of its largest
+    reaction among the test set's buckets, the tier of its size, clip 1000
+    and, for a second attempt, 20."""
+    from tsdiff_tpu_torch.data.dataset import default_buckets, pick_bucket, tier_ladder
+
+    buckets = default_buckets(max(len(g["atom_type"]) for g in test_set))
+    tiers = tier_ladder(batch_size, 1, max_tiers=3)
+    shapes = set()
+    for i in range(0, len(results), batch_size):
+        chunk = results[i:i + batch_size]
+        tier = min((t for t in tiers if t >= len(chunk)), default=batch_size)
+        bucket = max(pick_bucket(len(r["atom_type"]), buckets) for r in chunk)
+        shapes |= {(bucket, tier, clip) for clip in (1000.0, 20.0)[:chunk[0]["sampling_attempts"]]}
+    return shapes
+
+
+def profiled_call(fn):
+    """``(fn(), prof)``: ``fn`` run under torch.profiler, the card
+    synchronised before the trace ends."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, prof
+
+
+def kernel_counts(prof) -> dict:
+    """Launches of every kernel in a torch.profiler run by name; a replay
+    of a CUDA graph advances no wrapper's counter but shows here."""
+    from torch.autograd import DeviceType
+
+    counts: dict = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            counts[ev.key] = counts.get(ev.key, 0) + ev.count
+    return counts
+
+
+def score_launches(counts: dict) -> dict:
+    """B1's (``False``) and B5's (``True``) launches in ``kernel_counts``."""
+    return {want: sum(n for name, n in counts.items() if "packed_score" in name
+                      and ("int8" in name) == want and "selftest" not in name)
+            for want in (True, False)}
+
+
 def phase_profile(n_steps: int = 20) -> None:
     """Where a sampling step's time goes: ``n_steps`` ld steps of the 8-member
     bf16 ensemble on 100 reactions of the N=24 bucket under torch.profiler."""
@@ -945,21 +1028,24 @@ def phase_main_path(quant: str = "none") -> dict:
     ckpts = [os.path.join(CKPT_DIR, f"seed{s}_best.ckpt") for s in MEMBER_SEEDS]
     n_steps, respacing, batch_size = 5000, 625, 100
     argv = ckpts + [
-        "--test_set", test_set, "--save_dir", OUT_DIR, "--dtype", "bfloat16",
+        "--test_set", test_set, "--dtype", "bfloat16",
         "--fused_score", "--sort_by_size", "--sampling_type", "ld",
-        "--n_steps", str(n_steps), "--timestep_respacing", str(respacing),
-        "--batch_size", str(batch_size), "--device", "cuda", "--quant", quant,
+        "--n_steps", str(n_steps), "--batch_size", str(batch_size), "--device", "cuda",
+        "--quant", quant,
     ]
+    # the run itself under torch.profiler: replays advance no wrapper's
+    # counter, so the score kernels are counted there by name
     ps.packed_score.launches = ps.packed_score.wg_launches = 0
     p8.packed_score_int8.launches = p8.packed_score_int8.wg_launches = 0
     ps.packed_score_reference.calls = p8.packed_score_int8_reference.calls = 0
-    t0 = time.monotonic()
-    save_path = sampling.main(argv)
-    wall = time.monotonic() - t0
+    save_path, prof = profiled_call(lambda: sampling.main(
+        argv + ["--save_dir", OUT_DIR, "--timestep_respacing", str(respacing)]))
     on_path, other = ((ps.packed_score, p8.packed_score_int8) if quant == "none"
                       else (p8.packed_score_int8, ps.packed_score))
     launches, other_launches = on_path.launches, other.launches
     plain_calls = ps.packed_score_reference.calls + p8.packed_score_int8_reference.calls
+    by_name = score_launches(kernel_counts(prof))
+    del prof
 
     with open(save_path, "rb") as f:
         results = pickle.load(f)
@@ -969,19 +1055,31 @@ def phase_main_path(quant: str = "none") -> dict:
         SamplingSettings(n_steps=n_steps, timestep_respacing=respacing),
     ).a)
     attempts = [results[i]["sampling_attempts"] for i in range(0, len(results), batch_size)]
-    expected = steps * sum(attempts)
+    graphs, keys = cli_graphs(OUT_DIR)
+    shapes = walk_shapes(results, batch_size, make_corpus(200, seed=2024))
+    # the wrappers count each graph's eager first step and its recording
+    expected = 2 * graphs
+    # on the card: every walk step, and each graph's eager first step once more
+    walk_steps = steps * sum(attempts)
+    expected_run = walk_steps + graphs
+    int8 = quant == "int8"
     print(f"[{tag}] {len(results)} samples in {len(attempts)} batches, attempts {attempts}, "
-          f"{steps} model calls per run: {on_path.__name__} launches {launches} (expected "
-          f"{expected}), {other.__name__} launches {other_launches} (expected 0), "
-          f"plain-version calls {plain_calls}")
-    if launches != expected:
-        fail(f"kernel launched {launches} times, expected {expected}")
-    # every launch of the path is the warp-specialised kernel's, none the mma.sync bf16 one's
-    wg = on_path.wg_launches
-    print(f"[{tag}] launches of the warp-specialised {on_path.__name__} kernel: {wg} (expected "
-          f"{expected}; of the mma.sync bf16 kernel: {launches - wg}, expected 0)")
-    if wg != expected:
-        fail(f"{wg} of {launches} {on_path.__name__} launches were warp-specialised")
+          f"{steps} model calls per run, {walk_steps} walk steps replayed from "
+          f"{graphs} CUDA graphs ({keys}; expected one per (bucket, tier, clip) walked: "
+          f"{len(shapes)}); counted by kernel name in this run under torch.profiler: "
+          f"{'B5' if int8 else 'B1'} {by_name[int8]} (expected {expected_run}: every walk "
+          f"step and each graph's eager first step), {'B1' if int8 else 'B5'} "
+          f"{by_name[not int8]} (expected 0); wrapper counters: {on_path.__name__} "
+          f"{launches}, of the warp-specialised kernel {on_path.wg_launches} (expected "
+          f"{expected} each: each graph's eager first step and its recording), "
+          f"{other.__name__} {other_launches} (expected 0), plain-version calls {plain_calls}")
+    if graphs != len(shapes):
+        fail(f"{graphs} CUDA graphs recorded for {len(shapes)} walk shapes")
+    if (by_name[int8], by_name[not int8]) != (expected_run, 0):
+        fail(f"{tag}: the captured walk did not launch the score kernel once per step")
+    if (launches, on_path.wg_launches) != (expected, expected):
+        fail(f"{on_path.__name__} launched {launches} times ({on_path.wg_launches} "
+             f"warp-specialised) outside replays, expected {expected}")
     if other_launches != 0:
         fail(f"{other.__name__} launched {other_launches} times on the {tag} path")
     if plain_calls != 0:
@@ -991,14 +1089,26 @@ def phase_main_path(quant: str = "none") -> dict:
     for r in results:
         if r["pos_gen"].shape != (len(r["atom_type"]), 3) or not np.isfinite(r["pos_gen"]).all():
             fail("non-finite or misshaped pos_gen")
+    # the same command unprofiled, for its time: the same samples bit for bit
+    timed_dir = os.path.join(OUT_DIR, "timed")
+    t0 = time.monotonic()
+    timed_path = sampling.main(argv + ["--save_dir", timed_dir,
+                                       "--timestep_respacing", str(respacing)])
+    wall = time.monotonic() - t0
+    with open(timed_path, "rb") as f:
+        timed = pickle.load(f)
+    same = len(timed) == len(results) and all(
+        np.array_equal(a["pos_gen"], b["pos_gen"]) for a, b in zip(timed, results))
     dmae = np.array([calc_dmae(r["pos"], r["pos_gen"]) for r in results])
     matched = np.array([dmae_for_graph(r, r["pos_gen"]) for r in results])
-    model_calls = steps * sum(attempts)
-    print(f"[{tag}] wall {wall:.3f} s, {wall / model_calls * 1e3:.4f} ms per sampling step "
-          f"(8 members, batch <= {batch_size}), {len(results) / wall:.4f} samples/s; "
-          f"D-MAE mean {dmae.mean():.4f} median {np.median(dmae):.4f} (identity matching, "
-          f"bound {DMAE_BOUND}); automorphism-matched D-MAE mean {matched.mean():.4f} median "
-          f"{np.median(matched):.4f}")
+    print(f"[{tag}] unprofiled run of the same command: samples equal to the profiled run's "
+          f"bit for bit: {same}; wall {wall:.3f} s, {wall / walk_steps * 1e3:.4f} ms per "
+          f"sampling step (8 members, batch <= {batch_size}), {len(results) / wall:.4f} "
+          f"samples/s; D-MAE mean {dmae.mean():.4f} median {np.median(dmae):.4f} (identity "
+          f"matching, bound {DMAE_BOUND}); automorphism-matched D-MAE mean {matched.mean():.4f} "
+          f"median {np.median(matched):.4f}")
+    if not same:
+        fail(f"{tag}: the unprofiled run's samples differ from the profiled run's")
     sizes = np.array([len(r["atom_type"]) for r in results])
     print(f"[{tag}] D-MAE mean by size: " + ", ".join(
         f"{name} {dmae[sel].mean():.4f} ({int(sel.sum())} reactions)"
@@ -1021,7 +1131,7 @@ def phase_main_path(quant: str = "none") -> dict:
         fail(f"the evaluate CLI scored {len(written['dmae'])} of {len(results)} samples")
     if not gap <= 1e-9:
         fail(f"the evaluate CLI's mean D-MAE differs from the phase's by {gap:.3g}")
-    return dict(launches=launches, wall=wall, dmae_mean=float(dmae.mean()))
+    return dict(launches=by_name[int8], wall=wall, dmae_mean=float(dmae.mean()))
 
 
 def phase_dense_path() -> dict:
@@ -1145,11 +1255,15 @@ def write_train_config(name: str, model_cfg: dict, train_cfg: dict, paths: dict,
     return path
 
 
-def run_train_cli(tag: str, cfg_path: str, train_cfg: dict, flags: list, logdir: str) -> dict:
+def run_train_cli(tag: str, cfg_path: str, train_cfg: dict, flags: list, logdir: str,
+                  capture: bool = True, profiled: bool = False) -> dict:
     """The train CLI on ``cfg_path`` with ``flags``, its run directory made
-    under ``TRAIN_DIR/logdir``; checks finite losses, a
-    written checkpoint and the closing throughput line, and returns the run's
-    directory, wall, log, losses, graphs/s and best checkpoint."""
+    under ``TRAIN_DIR/logdir``, its steps replayed from CUDA graphs (or, with
+    ``capture=False``, eager), with ``profiled`` under torch.profiler; checks
+    finite losses, a written checkpoint, the closing throughput line and,
+    captured, the graphs line, and returns the run's directory, wall, log,
+    losses, graphs/s, best checkpoint, graphs (recorded keys, replays by
+    key) and, profiled, its kernel launches by name."""
     import numpy as np
     import torch
 
@@ -1159,16 +1273,23 @@ def run_train_cli(tag: str, cfg_path: str, train_cfg: dict, flags: list, logdir:
     iters = train_cfg["max_iters"]
     validations = sum(1 for it in range(1, iters + 1) if it % train_cfg["val_freq"] == 0
                       or it == iters)
+    argv = [cfg_path, "--logdir", os.path.join(TRAIN_DIR, logdir), *flags, "--device", "cuda"]
+    counts = None
     t0 = time.monotonic()
-    log_dir = train_cli.main([cfg_path, "--logdir", os.path.join(TRAIN_DIR, logdir), *flags,
-                              "--device", "cuda"])
+    if profiled:
+        log_dir, prof = profiled_call(lambda: train_cli.main(argv, capture=capture))
+        counts = kernel_counts(prof)
+        del prof
+    else:
+        log_dir = train_cli.main(argv, capture=capture)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     with open(os.path.join(log_dir, "log.txt")) as f:
         log = f.read()
     losses = [(kind, int(it), float(v))
               for kind, it, v in re.findall(r"\[(Train|Validate)\] Iter (\d+) \| Loss (\S+)", log)]
-    print(f"[{tag}] {' '.join(flags)}: {iters} iterations in {wall:.3f} s; logged losses: {losses}")
+    print(f"[{tag}] {' '.join(flags)}: {iters} iterations in {wall:.3f} s"
+          f"{' under torch.profiler' if profiled else ''}; logged losses: {losses}")
     if len(losses) != iters // train_cfg["log_freq"] + validations:
         fail(f"{tag}: expected {iters // train_cfg['log_freq']} train and {validations} "
              f"validation log lines, got {len(losses)}")
@@ -1185,16 +1306,143 @@ def run_train_cli(tag: str, cfg_path: str, train_cfg: dict, flags: list, logdir:
     ckpt_path, ckpt_it = get_checkpoint_path(os.path.join(log_dir, "checkpoints"))
     print(f"[{tag}] best checkpoint {os.path.relpath(ckpt_path, ROOT)} (iteration {ckpt_it}); "
           f"run directory {os.path.basename(log_dir)}")
+    found = re.search(r"\[Train\] CUDA graphs \| recorded \d+: (.*) \| replays (.*)", log)
+    if capture != (found is not None):
+        fail(f"{tag}: capture={capture} but the log says "
+             f"{found.group(0) if found else 'no CUDA graph was recorded'}")
+    graphs = None
+    if found:
+        recorded = [(k, int(b)) for k, b in (item.split() for item in found.group(1).split(", "))]
+        replays = {(k, int(b)): int(n) for k, b, n in
+                   (item.split() for item in found.group(2).split(", "))}
+        graphs = dict(recorded=recorded, replays=replays)
+        print(f"[{tag}] CUDA graphs recorded {recorded}, replays {replays}")
     return dict(log_dir=log_dir, wall=wall, log=log, losses=losses, graphs_per_s=gps,
-                ckpt=ckpt_path)
+                ckpt=ckpt_path, graphs=graphs, kernels=counts)
+
+
+#: the one op of a train step whose result varies between calls on identical
+#: inputs on the card: F.embedding's backward into the bond-type table
+#: (``models/edge.py::bond_embedding``, ``ops/packed_score_xla.py``; bf16,
+#: ~1e5 indices into 100 rows), whose kernel
+#: ``compute_grad_weight_atomic_accumulate`` sums the repeats of a row with
+#: float atomics, so its result can differ by a bf16 ulp between calls.
+NONDETERMINISTIC = ("F.embedding's backward into edge_enc.bond_emb.weight "
+                    "(compute_grad_weight_atomic_accumulate, float atomics)")
+#: what that op's gradient feeds in one step, and nothing else does
+BOND_CHAIN = {f"{part} edge_enc.bond_emb.weight" for part in ("param", "mu", "nu", "ema")}
+#: the train CLI's logged losses, captured against eager: the largest
+#: relative difference allowed, between two eager runs' own and a control
+#: run's (the learning rate 1% higher), both read on an H100 at 700 W: 0
+#: between eager runs of 6a and of 6b, 3.4e-3 (6a) and 4.8e-3 (6b) for the
+#: control.  It passes one unit in the last logged digit of a training
+#: loss (0.01 of ~190, 5.3e-5), which the bond table's atomics could move
+CLI_LOSS_RTOL = 1e-4
+CONTROL_LR = 1.01
+
+
+def state_tensors(state) -> dict:
+    """A train state's tensors by name (live, not copies): parameters,
+    moments, EMA, counters."""
+    out = {f"param {k}": v.detach() for k, v in state.params.items()}
+    for part in ("mu", "nu"):
+        out.update({f"{part} {k}": v for k, v in state.opt_state[part].items()})
+    out.update({f"ema {k}": v for k, v in state.ema_params.items()})
+    out["step"], out["count"] = state.step, state.opt_state["count"]
+    return out
+
+
+def differing(a: dict, b: dict) -> list[str]:
+    import torch
+
+    return [k for k in a if not torch.equal(a[k], b[k])]
+
+
+def max_diff(a: dict, b: dict, keys) -> float:
+    return max((float((a[k].double() - b[k].double()).abs().max()) for k in keys), default=0.0)
+
+
+def lockstep_verdict(tag: str, steps: list) -> None:
+    """The determinism condition, step by step.  Each step of the captured
+    run and of a second eager run started from the eager run's state, copied
+    into theirs in place; ``steps[i][name]`` is ``(differing tensors,
+    differing metrics, max |diff| in BOND_CHAIN)`` against the eager step.
+    On every step the captured step must equal the eager one bit for bit in
+    every tensor outside ``BOND_CHAIN``, which only ``NONDETERMINISTIC``
+    feeds, and in every metric: the gradient norm among them sums the bond
+    table's gradient too, so a difference there is below what moves a
+    float32 norm.  The second eager run shows how often two eager steps
+    differ in the chain (informational: it varies between runs)."""
+    rows = {name: [(i, r[name]) for i, r in enumerate(steps) if r[name][0] or r[name][1]]
+            for name in ("captured", "eager again")}
+    print(f"[{tag}] lockstep, every step from the eager run's state: {len(steps)} steps; the "
+          f"captured step differs from the eager one on steps "
+          f"{[(i, t, m, d) for i, (t, m, d) in rows['captured']]}, the second eager step on "
+          f"steps {[(i, t, m, d) for i, (t, m, d) in rows['eager again']]} (differing tensors, "
+          f"differing metrics, max |diff| in {sorted(BOND_CHAIN)})")
+    for i, (tensors, metrics, _) in rows["captured"]:
+        outside = sorted(set(tensors) - BOND_CHAIN)
+        if metrics or outside:
+            fail(f"{tag}: step {i}: the captured step differs from the eager one from the same "
+                 f"state outside what {NONDETERMINISTIC} feeds: tensors {outside[:8]} "
+                 f"({len(outside)}), metrics {metrics}")
+    print(f"[{tag}] captured equals eager bit for bit in every metric and every tensor outside "
+          f"the bond chain on all {len(steps)} steps; inside it on "
+          f"{len(steps) - len(rows['captured'])} (a second eager step: "
+          f"{len(steps) - len(rows['eager again'])}); the chain is fed only by "
+          f"{NONDETERMINISTIC}")
+
+
+def compare_cli_losses(tag: str, cfg_path: str, setup: tuple, flags: list,
+                       captured: dict) -> dict:
+    """The train CLI eager on the flags of ``captured``, twice, and once
+    more with the learning rate ``CONTROL_LR`` times the config's: every
+    logged training and validation loss of the captured run against the
+    first eager run's within ``CLI_LOSS_RTOL`` relative, which must hold the
+    second eager run too and not the control.  Returns the first eager run."""
+    model_cfg, train_cfg, paths, buckets = setup
+    eager = run_train_cli(f"{tag} eager", cfg_path, train_cfg, flags, "logs_eager_0",
+                          capture=False)
+    again = run_train_cli(f"{tag} eager", cfg_path, train_cfg, flags, "logs_eager_1",
+                          capture=False)
+    opt = train_cfg["optimizer"]
+    control_cfg = {**train_cfg, "optimizer": {**opt, "lr": opt["lr"] * CONTROL_LR}}
+    control_path = write_train_config(os.path.basename(cfg_path)[:-5] + "_control", model_cfg,
+                                      control_cfg, paths, buckets)
+    control = run_train_cli(f"{tag} control", control_path, control_cfg, flags,
+                            "logs_eager_control", capture=False)
+
+    def rel(a, b):
+        if [x[:2] for x in a["losses"]] != [x[:2] for x in b["losses"]]:
+            fail(f"{tag}: two runs on the same flags logged different lines")
+        return max(abs(x[2] - y[2]) / max(abs(y[2]), 1e-12)
+                   for x, y in zip(a["losses"], b["losses"]))
+
+    d, d_again, d_control = rel(captured, eager), rel(again, eager), rel(control, eager)
+    print(f"[{tag}] the CLI's {len(eager['losses'])} logged losses against the eager run's, "
+          f"largest relative difference: captured {d:.6g}, a second eager run {d_again:.6g}, "
+          f"the control (learning rate x {CONTROL_LR}) {d_control:.6g}; limit {CLI_LOSS_RTOL}")
+    if not d_again <= CLI_LOSS_RTOL < d_control:
+        fail(f"{tag}: the limit {CLI_LOSS_RTOL} does not lie between two eager runs' difference "
+             f"{d_again:.6g} and the control's {d_control:.6g}")
+    if not d <= CLI_LOSS_RTOL:
+        fail(f"{tag}: the captured CLI run's losses differ from the eager run's by {d:.6g}")
+    return eager
 
 
 def fixed_batch_steps(tag: str, model_cfg: dict, train_cfg: dict, paths: dict, buckets: list,
                       n_prof: int = 3) -> dict:
     """20 train steps on one fixed N=24 batch of 200 with fixed t and noise
-    (the loss must fall), their time per step on the host clock, then
-    ``n_prof`` steps under torch.profiler: ms per step, device ms, idle
-    share and launches per step, and the profile's kernel rows."""
+    (the loss must fall), from one seeded initialisation three times, in
+    lockstep: eager, eager again and replayed from a CUDA graph
+    (``train/captured.py``; its first step eager, then recorded), the
+    second eager and the captured step started from the eager run's state
+    on every step, and each step's state and metrics compared
+    (``lockstep_verdict``).  For the eager
+    and the captured run: the time per step on the host clock, then
+    ``n_prof`` steps under torch.profiler (ms per step, device ms, idle
+    share, launches per step and the kernel rows by name); the stack
+    kernels' launches per step by kernel name equal in both."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1205,56 +1453,109 @@ def fixed_batch_steps(tag: str, model_cfg: dict, train_cfg: dict, paths: dict, b
     from tsdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
     from tsdiff_tpu_torch.models import get_model
     from tsdiff_tpu_torch.train import init_train_state, make_optimizer, make_train_step
+    from tsdiff_tpu_torch.train.captured import StepGraphs
+    from tsdiff_tpu_torch.train.trainer import on_device
 
     B = train_cfg["batch_size"]
     mcfg = Config(model_cfg)
-    model = get_model(mcfg, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(0))
-    model = model.to("cuda")
     schedule = DiffusionSchedule.from_config(mcfg)
-    tx = make_optimizer(Config(train_cfg["optimizer"]), train_cfg["max_grad_norm"])
-    state = init_train_state(model, tx, ema_decay=train_cfg["ema_decay"])
-    step = make_train_step(model, tx, schedule, ema_decay=train_cfg["ema_decay"])
     loader = PaddedBatchLoader(TSDataset(paths["train"]), B, bucket_sizes=buckets, device="cuda")
     batch = next(b for b in loader if b.atom_type.shape[1] == 24)
     gen = torch.Generator(device="cuda").manual_seed(5)
     t = sample_antithetic_timesteps(gen, B, 0, len(schedule.alphas), "cuda")
     noise = torch.randn(batch.pos.shape, generator=gen, device="cuda")
     lr = train_cfg["optimizer"]["lr"]
-    fixed, step_s = [], []
-    for _ in range(20):
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        state, metrics = step(state, batch, lr, t=t, noise=noise)
-        fixed.append(float(metrics["loss"]))
-        step_s.append(time.monotonic() - t0)
-    ms = float(np.mean(step_s[1:])) * 1e3
-    first, last = float(np.mean(fixed[:5])), float(np.mean(fixed[-5:]))
-    what = "packed_train" if model.packed_train else "use_pallas"
-    print(f"[{tag}] fixed batch (B={B}, N=24, bf16, {what}), 20 steps: losses "
-          f"{[round(v, 4) for v in fixed]}; mean of the first 5 {first:.4f}, of the last 5 "
-          f"{last:.4f}")
-    print(f"[{tag}] per-step figure on the fixed N=24 batch: {ms:.4f} ms per train step "
-          f"(steps 2-20, host clock around a synchronised step), {B / ms * 1e3:.4f} graphs/s")
-    if not np.all(np.isfinite(fixed)) or not last < first:
-        fail(f"{tag}: the loss did not fall on the fixed batch")
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        for _ in range(n_prof):
-            state, metrics = step(state, batch, lr, t=t, noise=noise)
+    runs = {}
+    for name in ("eager", "eager again", "captured"):
+        model = get_model(mcfg, dtype=torch.bfloat16,
+                          generator=torch.Generator().manual_seed(0)).to("cuda")
+        tx = make_optimizer(Config(train_cfg["optimizer"]), train_cfg["max_grad_norm"])
+        state = init_train_state(model, tx, ema_decay=train_cfg["ema_decay"])
+        step = make_train_step(model, tx, schedule, ema_decay=train_cfg["ema_decay"])
+        fn = (lambda step, state: lambda b, t, noise: step(state, b, lr, t=t, noise=noise)[1])(
+            step, state)
+        graphs = StepGraphs("cuda") if name == "captured" else None
+        one = (lambda fn, graphs: (lambda: graphs(("train", 24), fn, batch, t, noise)) if graphs
+               else (lambda: fn(batch, t, noise)))(fn, graphs)
+        runs[name] = dict(model=model, state=state, one=one, losses=[], step_s=[])
+    # every step of the second eager and the captured run starts from the
+    # eager run's state, copied into theirs in place (the graph holds its
+    # addresses), so that every replay is held to the eager step
+    for r in runs.values():
+        on_device(r["state"])
+    steps, norms = [], []
+    for i in range(20):
+        ref = {k: v.clone() for k, v in state_tensors(runs["eager"]["state"]).items()}
+        with torch.no_grad():
+            for name in ("eager again", "captured"):
+                for k, v in state_tensors(runs[name]["state"]).items():
+                    v.copy_(ref[k])
+        metrics = {}
+        for name, r in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            metrics[name] = r["one"]()
+            r["losses"].append(float(metrics[name]["loss"]))
+            r["step_s"].append(time.monotonic() - t0)
+        ref = state_tensors(runs["eager"]["state"])
+        norms.append(float(metrics["eager"]["grad_norm"]))
+        row = {}
+        for name in ("captured", "eager again"):
+            got = state_tensors(runs[name]["state"])
+            row[name] = (differing(got, ref), differing(metrics[name], metrics["eager"]),
+                         max_diff(got, ref, BOND_CHAIN))
+        steps.append(row)
+    print(f"[{tag}] gradient norms of the 20 eager steps (the clip at "
+          f"{train_cfg['max_grad_norm']}): {[round(n, 2) for n in norms]}")
+    def profiled(r) -> dict:
         torch.cuda.synchronize()
-        wall_ms = (time.monotonic() - t0) * 1e3
-    rows = device_kernels(prof, n_prof)
-    step_ms = wall_ms / n_prof
-    busy = sum(r[0] for r in rows)
-    launches = sum(r[1] for r in rows)
-    print(f"[{tag}] profile of {n_prof} steps: wall {step_ms:.4f} ms/step; device time "
-          + (f"{busy:.4f} ms/step in {launches:.1f} kernel launches/step, device busy "
-             f"{busy / step_ms:.4f} of wall, idle {1 - busy / step_ms:.4f}" if busy else
-             "not measured (the profiler shows no device time)"))
-    return dict(ms_per_step=ms, device_ms=busy or None, idle=1 - busy / step_ms if busy else None,
-                launches_per_step=launches, rows=rows)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            for _ in range(n_prof):
+                r["one"]()
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - t0) * 1e3
+        rows = device_kernels(prof, n_prof)
+        busy = sum(row[0] for row in rows)
+        step_ms = wall_ms / n_prof
+        return dict(ms=float(np.mean(r["step_s"][1:])) * 1e3, rows=rows, step_ms=step_ms,
+                    device_ms=busy or None, idle=1 - busy / step_ms if busy else None,
+                    launches=sum(row[1] for row in rows))
+
+    eager, captured = profiled(runs["eager"]), profiled(runs["captured"])
+    what = "packed_train" if runs["eager"]["model"].packed_train else "use_pallas"
+    for name, r in (("eager", eager), ("captured", captured)):
+        losses = runs[name]["losses"]
+        first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        print(f"[{tag}] fixed batch (B={B}, N=24, bf16, {what}), 20 {name} steps: losses "
+              f"{[round(v, 4) for v in losses]}; mean of the first 5 {first5:.4f}, of the "
+              f"last 5 {last5:.4f}")
+        if not np.all(np.isfinite(losses)) or not last5 < first5:
+            fail(f"{tag}: the loss did not fall on the fixed batch ({name})")
+        print(f"[{tag}] per-step figure on the fixed N=24 batch, {name}: {r['ms']:.4f} ms per "
+              f"train step (steps 2-20, host clock around a synchronised step), "
+              f"{B / r['ms'] * 1e3:.4f} graphs/s; profile of {n_prof} steps: wall "
+              f"{r['step_ms']:.4f} ms/step; device time "
+              + (f"{r['device_ms']:.4f} ms/step in {r['launches']:.1f} kernel launches/step, "
+                 f"device busy {r['device_ms'] / r['step_ms']:.4f} of wall, idle "
+                 f"{r['idle']:.4f}" if r["device_ms"] else
+                 "not measured (the profiler shows no device time)"))
+    print(f"[{tag}] kernels per captured step by name (launches per step, ms per step): "
+          + "; ".join(f"{name[:60]} {n:.0f} {ms:.4f}" for ms, n, name in captured["rows"][:12]))
+    stack = {kind: {re.search(r"schnet_\w+", name).group(0): n for _, n, name in r["rows"]
+                    if "schnet_" in name}
+             for kind, r in (("eager", eager), ("captured", captured))}
+    print(f"[{tag}] stack kernels per step by name, eager {stack['eager']}, captured "
+          f"{stack['captured']}")
+    if stack["eager"] != stack["captured"]:
+        fail(f"{tag}: the captured step runs other stack kernels than the eager step")
+    lockstep_verdict(tag, steps)
+    keys = ("ms", "step_ms", "device_ms", "idle", "launches")
+    return dict(ms_per_step=eager["ms"], device_ms=eager["device_ms"], idle=eager["idle"],
+                launches_per_step=eager["launches"], rows=eager["rows"],
+                captured={k: captured[k] for k in keys + ("rows",)},
+                eager={k: eager[k] for k in keys})
 
 
 def sample_with(tag: str, ckpt_path: str) -> None:
@@ -1271,22 +1572,25 @@ def sample_with(tag: str, ckpt_path: str) -> None:
     test_set = os.path.join(TRAIN_DIR, "sample_set.pkl")
     save_dataset(test_set, make_corpus(8, seed=77))
     ps.packed_score.launches = ps.packed_score.wg_launches = 0
+    save_dir = os.path.join(TRAIN_DIR, f"samples_{tag}")
     save_path = sampling.main([
-        ckpt_path, "--test_set", test_set, "--save_dir", os.path.join(TRAIN_DIR, f"samples_{tag}"),
+        ckpt_path, "--test_set", test_set, "--save_dir", save_dir,
         "--fused_score", "--dtype", "bfloat16", "--sampling_type", "ld", "--n_steps", "5000",
         "--timestep_respacing", "20", "--batch_size", "8", "--device", "cuda",
     ])
     with open(save_path, "rb") as f:
         samples = pickle.load(f)
     launches = (ps.packed_score.launches, ps.packed_score.wg_launches)
+    graphs, keys = cli_graphs(save_dir)
     if len(samples) != 8 or not all(np.isfinite(r["pos_gen"]).all() for r in samples):
         fail(f"{tag}: sampling from the trained checkpoint gave missing or non-finite positions")
-    if launches[0] == 0 or launches[0] % 20 or launches[1] != launches[0]:
+    if graphs == 0 or launches != (2 * graphs, 2 * graphs):
         fail(f"{tag}: sampling launched the packed score kernel {launches[0]} times, "
-             f"{launches[1]} of them warp-specialised")
+             f"{launches[1]} of them warp-specialised, for {graphs} CUDA graphs")
     print(f"[{tag}] sampled {len(samples)} reactions for 20 respaced ld steps with the trained "
-          f"checkpoint: all positions finite; packed_score launches {launches[0]} (20 per batch "
-          f"and attempt), all {launches[1]} warp-specialised")
+          f"checkpoint, replayed from {graphs} CUDA graph ({keys}): all positions finite; "
+          f"packed_score launches {launches[0]} (each graph's eager first step and its "
+          f"recording), all {launches[1]} warp-specialised")
 
 
 def phase_train(setup: tuple) -> dict:
@@ -1303,10 +1607,10 @@ def phase_train(setup: tuple) -> dict:
     model_cfg = {**model_cfg, "packed_train": False, "use_pallas": True}
     cfg_path = write_train_config("train_config", model_cfg, train_cfg, paths, buckets)
     B, iters = train_cfg["batch_size"], train_cfg["max_iters"]
-    val_batches = len(PaddedBatchLoader(TSDataset(paths["val"]), B, bucket_sizes=buckets))
+    val_loader = PaddedBatchLoader(TSDataset(paths["val"]), B, bucket_sizes=buckets)
+    val_batches = len(val_loader)
     validations = sum(1 for it in range(1, iters + 1) if it % train_cfg["val_freq"] == 0
                       or it == iters)
-    expect_fwd, expect_bwd = iters + validations * val_batches, iters
     ss.schnet_stack_fwd.launches = ss.schnet_stack_bwd.launches = 0
     ss.schnet_stack_fwd.wg_launches = ss.schnet_stack_bwd.wg_launches = 0
     ss.schnet_stack_bwd.xty_wg_launches = 0
@@ -1314,7 +1618,8 @@ def phase_train(setup: tuple) -> dict:
     ss.schnet_stack_fwd_reference.calls = ss.schnet_stack_bwd_reference.calls = 0
     ss.interaction_stack_reference.calls = 0
     ss.arrange_stack_weights.calls = ss.ea_tile_images.calls = 0
-    run = run_train_cli("train", cfg_path, train_cfg, ["--dtype", "bfloat16"], "logs")
+    run = run_train_cli("train", cfg_path, train_cfg, ["--dtype", "bfloat16"], "logs",
+                        profiled=True)
     launches = (ss.schnet_stack_fwd.launches, ss.schnet_stack_bwd.launches)
     fwd_wg, bwd_wg = ss.schnet_stack_fwd.wg_launches, ss.schnet_stack_bwd.wg_launches
     xty_wg = ss.schnet_stack_bwd.xty_wg_launches
@@ -1322,15 +1627,56 @@ def phase_train(setup: tuple) -> dict:
     plain = (ss.schnet_stack_fwd_reference.calls, ss.schnet_stack_bwd_reference.calls,
              ss.interaction_stack_reference.calls)
     made = (ss.arrange_stack_weights.calls, ss.ea_tile_images.calls)
+    # one graph per (step kind, bucket); a key's first call runs eagerly, then
+    # the graph is recorded: the wrappers count both, and no replay
+    graphs = run["graphs"]
+    want_keys = {("train", b) for b in buckets} | {("eval", b.pos.shape[1]) for b in val_loader}
+    n_train = sum(k == "train" for k, _ in graphs["recorded"])
+    n_eval = len(graphs["recorded"]) - n_train
+    replays = {kind: sum(n for (k, _), n in graphs["replays"].items() if k == kind)
+               for kind in ("train", "eval")}
+    expect_fwd, expect_bwd = 2 * (n_train + n_eval), 2 * n_train
+    # on the card, counted by kernel name in this run: every forward (each
+    # key's eager first call and every replay, train and eval) is one launch
+    # of B3's wgmma forward (``<true>``: it stores hs; ``<false>`` is B4) and
+    # every backward L launches each of the wgmma row and weight-gradient kernels
+    L = model_cfg["encoder"]["num_convs"]
+    ran_fwd = n_train + n_eval + replays["train"] + replays["eval"]
+    ran_bwd = n_train + replays["train"]
+    named = {kernel: sum(n for name, n in run["kernels"].items() if kernel in name)
+             for kernel in ("schnet_fwd_wg_kernel<true>", "schnet_fwd_wg_kernel<false>",
+                            "schnet_bwd_rows_wg_kernel", "schnet_bwd_xty_wg_kernel")}
+    other_stack = sorted({re.search(r"schnet_\w+", name).group(0)
+                          for name in run["kernels"] if "schnet_" in name}
+                         - {"schnet_fwd_wg_kernel", "schnet_bwd_rows_wg_kernel",
+                            "schnet_bwd_xty_wg_kernel", "schnet_bwd_xty_wg_reduce_kernel",
+                            "schnet_bwd_sum_kernel"})
+    measured = (named["schnet_fwd_wg_kernel<true>"], named["schnet_bwd_rows_wg_kernel"] // L,
+                named["schnet_bwd_xty_wg_kernel"] // L, named["schnet_fwd_wg_kernel<false>"])
     print(f"[train] {iters} iterations of batch {B} (buckets {buckets}), {validations} "
-          f"validations of {val_batches} batches: B3 forward launches "
-          f"{launches[0]} (expected {expect_fwd}), of them through the wgmma kernel {fwd_wg} "
-          f"(expected {expect_fwd}), B3 backward launches {launches[1]} (expected "
-          f"{expect_bwd}), of them through the wgmma row kernel {bwd_wg} and through the wgmma "
-          f"weight-gradient kernel {xty_wg} (expected {expect_bwd} each), B4 launches "
-          f"{b4_launches} (not on this path), plain-version calls {plain}; the weight image and "
-          f"ea's tile images made {made} times (expected {expect_fwd} each: once per forward, "
-          f"the backward of a train step reusing them)")
+          f"validations of {val_batches} batches, replayed from CUDA graphs "
+          f"{graphs['recorded']} (expected one per (step kind, bucket): {sorted(want_keys)}): "
+          f"replays {replays} (expected train {iters - n_train}, eval "
+          f"{validations * val_batches - n_eval}); counted by kernel name in this run under "
+          f"torch.profiler: {named} (expected forward {ran_fwd}: each key's eager first call "
+          f"and every replay; row and weight-gradient kernels {L} x {ran_bwd} train steps; B4 "
+          f"0), other stack kernels {other_stack} (expected none); so B3 ran {measured[0]} "
+          f"forward and {measured[1]} backward calls, B4 {measured[3]}; wrapper counters: B3 "
+          f"forward {launches[0]}, through the wgmma kernel {fwd_wg}, B3 backward "
+          f"{launches[1]}, through the wgmma row kernel {bwd_wg} and the wgmma weight-gradient "
+          f"kernel {xty_wg} (expected {expect_fwd} and {expect_bwd}: each graph's eager first "
+          f"call and its recording), B4 {b4_launches}, plain-version calls {plain}; the weight "
+          f"image and ea's tile images made {made} times (expected {expect_fwd} each: once per "
+          f"forward, the backward reusing them)")
+    if set(graphs["recorded"]) != want_keys or len(graphs["recorded"]) != len(want_keys):
+        fail(f"CUDA graphs recorded {graphs['recorded']}, expected one per {sorted(want_keys)}")
+    if replays != {"train": iters - n_train, "eval": validations * val_batches - n_eval}:
+        fail(f"graph replays {replays} do not cover the run's steps")
+    if named != {"schnet_fwd_wg_kernel<true>": ran_fwd, "schnet_fwd_wg_kernel<false>": 0,
+                 "schnet_bwd_rows_wg_kernel": L * ran_bwd,
+                 "schnet_bwd_xty_wg_kernel": L * ran_bwd} or other_stack:
+        fail(f"the run's stack kernels by name {named} (others {other_stack}) do not match its "
+             f"{ran_fwd} forward and {ran_bwd} backward calls")
     if launches != (expect_fwd, expect_bwd):
         fail(f"stack kernels launched {launches}, expected {(expect_fwd, expect_bwd)}")
     if fwd_wg != expect_fwd:
@@ -1344,19 +1690,34 @@ def phase_train(setup: tuple) -> dict:
              f"{expect_fwd} each")
     if any(plain):
         fail(f"the plain stack versions ran {plain} times on the training path")
+    # made from pinned memory at a shape's first eager backward (phase 3's,
+    # or a train graph's eager first call), so never inside a recording
+    tables = sorted((rows, nodes) for rows, nodes, _ in ss._xty_tables)
+    print(f"[train] B3's weight-gradient schedule tables (pair rows, node rows), made by eager "
+          f"backward calls before any recording: {tables}")
+    if not tables:
+        fail("no weight-gradient schedule table was made by the eager first calls")
     if "device-resident corpus" not in run["log"]:
         fail("the train CLI's default (--device_data auto) did not keep the corpus on the card")
-    # the CLI's graphs/s with the corpus resident and streamed, in turns: the
-    # host sets the pace of these 40-iteration runs and drifts between them
-    gps = {"auto": [run["graphs_per_s"]], "off": []}
-    for i, mode in enumerate(("off", "off", "auto")):
-        gps[mode].append(run_train_cli("train", cfg_path, train_cfg,
-                                       ["--dtype", "bfloat16", "--device_data", mode],
-                                       f"logs_{i}_{mode}")["graphs_per_s"])
+    # the CLI's graphs/s, unprofiled, with the corpus resident and streamed,
+    # in turns: the host sets the pace of these 40-iteration runs and drifts
+    # between them
+    gps = {"auto": [], "off": []}
+    timed = []
+    for i, mode in enumerate(("auto", "off", "off", "auto")):
+        timed.append(run_train_cli("train", cfg_path, train_cfg,
+                                   ["--dtype", "bfloat16", "--device_data", mode],
+                                   f"logs_{i}_{mode}"))
+        gps[mode].append(timed[-1]["graphs_per_s"])
     print(f"[train] CLI graphs/s in the order auto, off, off, auto: --device_data auto "
           f"{gps['auto']}, off {gps['off']}")
 
     fixed = fixed_batch_steps("train", model_cfg, train_cfg, paths, buckets)
+    eager_run = compare_cli_losses("train", cfg_path, (model_cfg, train_cfg, paths, buckets),
+                                   ["--dtype", "bfloat16", "--device_data", "auto"], timed[0])
+    print(f"[train] CLI graphs/s of the eager run on the same flags: "
+          f"{eager_run['graphs_per_s']:.4f} (captured, the same flags: "
+          f"{timed[0]['graphs_per_s']:.4f})")
     rows = fixed["rows"]
     fwd = sum(ms for ms, _, name in rows if "schnet_fwd_" in name)
     bwd = [(ms, name) for ms, _, name in rows if "schnet_bwd_" in name]
@@ -1375,9 +1736,9 @@ def phase_train(setup: tuple) -> dict:
             print(f"[train]   other: {k_ms:.4f} ms/step in {n:.0f} launches: {name[:100]}")
     sample_with("train", run["ckpt"])
     torch.cuda.empty_cache()
-    return dict(launches=launches, b4_launches=b4_launches, xty_launches=xty_wg,
+    return dict(launches=measured[:2], xty_launches=measured[2], b4_launches=measured[3],
                 wall=run["wall"], ms_per_step=fixed["ms_per_step"],
-                cli_graphs_per_s=run["graphs_per_s"], final_loss=run["losses"][-1][2])
+                cli_graphs_per_s=timed[0]["graphs_per_s"], final_loss=run["losses"][-1][2])
 
 
 def phase_train_packed(setup: tuple) -> dict:
@@ -1421,6 +1782,11 @@ def phase_train_packed(setup: tuple) -> dict:
         if any(counts.values()):
             fail(f"--device_data {mode}: a stack kernel, a plain version or B1 ran on the packed "
                  f"training path: {counts}")
+        recorded = run["graphs"]["recorded"]
+        if len(set(recorded)) != len(recorded) or {k for k, _ in recorded} != {"train", "eval"} \
+                or sum(run["graphs"]["replays"].values()) == 0:
+            fail(f"--device_data {mode}: CUDA graphs {run['graphs']}, expected one per (step "
+                 f"kind, bucket), replayed")
         runs[mode].append(run)
     print(f"[train packed] CLI graphs/s in the order auto, off, off, auto: --device_data auto "
           f"{[r['graphs_per_s'] for r in runs['auto']]}, off "
@@ -1428,6 +1794,10 @@ def phase_train_packed(setup: tuple) -> dict:
     fixed = fixed_batch_steps("train packed", model_cfg, train_cfg, paths, buckets)
     for k_ms, n, name in fixed["rows"][:6]:
         print(f"[train packed]   kernel: {k_ms:.4f} ms/step in {n:.0f} launches: {name[:100]}")
+    flags = ["--tag", "seed0", "--dtype", "bfloat16", "--packed_train", "--device_data", "auto"]
+    eager_run = compare_cli_losses("train packed", cfg_path, setup, flags, runs["auto"][0])
+    print(f"[train packed] CLI graphs/s of the eager run on the same flags: "
+          f"{eager_run['graphs_per_s']:.4f} (captured: {runs['auto'][0]['graphs_per_s']:.4f})")
     sample_with("train packed", runs["auto"][0]["ckpt"])
     torch.cuda.empty_cache()
     val_loss = [v for kind, _, v in runs["auto"][0]["losses"] if kind == "Validate"][-1]
@@ -1506,10 +1876,11 @@ def sample_cli(tag: str, ckpts: list, test_set: str, save_dir: str, n_steps: int
                extra=()) -> tuple:
     """The sampling CLI with phase 4's flags (bf16, ``--fused_score``, ``ld``,
     the ``n_steps`` window in 625 respaced calls, batch 100, the default
-    seed) plus ``extra``; checks
-    that every model call was one launch of B1's ``wgmma`` kernel and that
-    all positions are finite.  ``(results, launches, D-MAE mean, evaluate
-    CLI's output)``."""
+    seed) plus ``extra``, on the captured walk, under torch.profiler: B1
+    once per walk step and once more per graph by kernel name, none of B5;
+    the wrapper counters at each graph's eager first step and recording, no
+    plain version; all positions finite.  ``(results, B1's launches by
+    name, D-MAE mean, evaluate CLI's output)``."""
     import numpy as np
 
     from tsdiff_tpu_torch.cli import evaluate, sampling
@@ -1519,23 +1890,35 @@ def sample_cli(tag: str, ckpts: list, test_set: str, save_dir: str, n_steps: int
     respacing = 625
     ps.packed_score.launches = ps.packed_score.wg_launches = 0
     ps.packed_score_reference.calls = 0
-    t0 = time.monotonic()
-    save_path = sampling.main(ckpts + [
-        "--test_set", test_set, "--save_dir", save_dir, "--dtype", "bfloat16", "--fused_score",
+    argv = ckpts + [
+        "--test_set", test_set, "--dtype", "bfloat16", "--fused_score",
         "--sort_by_size", "--sampling_type", "ld", "--batch_size", "100", "--device", "cuda",
-        "--n_steps", str(n_steps), "--timestep_respacing", str(respacing), *extra])
+        "--n_steps", str(n_steps), *extra]
+    t0 = time.monotonic()
+    save_path, prof = profiled_call(lambda: sampling.main(
+        argv + ["--save_dir", save_dir, "--timestep_respacing", str(respacing)]))
     wall = time.monotonic() - t0
+    by_name = score_launches(kernel_counts(prof))
+    del prof
     with open(save_path, "rb") as f:
         results = pickle.load(f)
     attempts = [results[i]["sampling_attempts"] for i in range(0, len(results), 100)]
-    expected = respacing * sum(attempts)
+    graphs, keys = cli_graphs(save_dir)
+    expected = 2 * graphs
+    expected_run = respacing * sum(attempts) + graphs
     launches = (ps.packed_score.launches, ps.packed_score.wg_launches)
-    print(f"[interop] {tag}: {len(results)} samples in {wall:.3f} s (checkpoints and test set "
-          f"loaded, sampled, written), attempts {attempts}: packed_score launches "
-          f"{launches[0]}, of the wgmma kernel {launches[1]} (expected {expected} each), "
-          f"plain-version calls {ps.packed_score_reference.calls}")
-    if launches != (expected, expected) or ps.packed_score_reference.calls:
-        fail(f"{tag}: not every model call was one launch of B1's wgmma kernel")
+    print(f"[interop] {tag}: {len(results)} samples in {wall:.3f} s under torch.profiler "
+          f"(checkpoints and test set loaded, sampled, written), attempts {attempts}, "
+          f"{respacing * sum(attempts)} walk steps replayed from {graphs} CUDA graphs ({keys}): "
+          f"by kernel name B1 {by_name[False]} (expected {expected_run}: every walk step and "
+          f"each graph's eager first step), B5 {by_name[True]} (expected 0); wrapper counters: "
+          f"packed_score {launches[0]}, of the wgmma kernel {launches[1]} (expected {expected} "
+          f"each: each graph's eager first step and its recording), plain-version calls "
+          f"{ps.packed_score_reference.calls}")
+    if graphs == 0 or launches != (expected, expected) or ps.packed_score_reference.calls:
+        fail(f"{tag}: B1's wgmma kernel did not carry every recorded walk")
+    if (by_name[False], by_name[True]) != (expected_run, 0):
+        fail(f"{tag}: the captured walk did not launch B1 once per step")
     for r in results:
         if r["pos_gen"].shape != (len(r["atom_type"]), 3) or not np.isfinite(r["pos_gen"]).all():
             fail(f"{tag}: non-finite or misshaped pos_gen")
@@ -1543,7 +1926,7 @@ def sample_cli(tag: str, ckpts: list, test_set: str, save_dir: str, n_steps: int
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
         evaluate.main(["--samples", save_path])
-    return results, launches[0], dmae, " / ".join(printed.getvalue().strip().splitlines())
+    return results, by_name[False], dmae, " / ".join(printed.getvalue().strip().splitlines())
 
 
 def phase_reference_interop(setup: tuple, packed: dict) -> dict:
@@ -2109,8 +2492,8 @@ def main() -> None:
                k[(24, "bfloat16")],
                {"sampling CLI": main_path["launches"], serving: served["b1_launches"],
                 "reference interop (phase 10)": interop["launches"]})
-    # graph replays advance no wrapper's counter: the served requests' walk
-    # steps are not launches counted, and stand apart
+    # every launch here is counted by kernel name in a profiled run of its
+    # path; the served requests' walk steps, not all profiled, stand apart
     b1["serving_walk_steps"] = served["walk_steps"]
     b1["serving_max_abs_err"] = served["b1_err"]
     print(json.dumps({"kernels": [
@@ -2118,6 +2501,7 @@ def main() -> None:
         entry("condensed_score", "tsdiff_tpu_torch/csrc/condensed_score.cu",
               "tsdiff_tpu/ops/pallas/condensed_score.py:152", dense_path["launches"],
               dk[(24, "bfloat16")]),
+        # the train CLI's calls, eager and replayed, counted by kernel name
         entry("schnet_stack_fwd", stack_src, f"{vjp}:44", tr["launches"][0], bf["fwd"]),
         entry("schnet_stack_bwd", stack_src, f"{vjp}:72", tr["launches"][1], bf["bwd"]),
         # the backward's weight gradients alone: a launch is one backward call's

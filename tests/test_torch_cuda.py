@@ -16,6 +16,15 @@ captured round launches the score kernel once per walk step, counted under
 torch.profiler (the wrappers' counters advance only when a graph is recorded).
 The sampling CLI from two trained members written as reference ``.pt``
 files gives the samples it gives from their ``.ckpt`` files, bit for bit.
+The train step replayed from its CUDA graph (``train/captured.py``, B3's
+kernels inside it with ``use_pallas``, or the ``packed_train`` objective),
+stepped in lockstep with two eager runs for 10 steps on the same draws,
+each step from the eager run's state, equals the eager step bit for bit on
+every step in every tensor and metric that the one nondeterministic op of
+the step (F.embedding's backward into the bond-type table, which two eager
+runs also disagree on) does not feed; a learning
+rate changed between replays takes effect; graphs of two buckets in one
+memory pool replayed in alternation give what each gives alone.
 
 Every test here needs an NVIDIA GPU with nvcc (marker ``cuda``) and skips
 without one.  The file imports neither JAX nor the JAX package, so on a
@@ -898,3 +907,191 @@ def test_sampling_from_reference_pt_equals_ckpt(cuda, tmp_path):
     for a, b in zip(out["pt"], out["ckpt"]):
         assert np.isfinite(a["pos_gen"]).all()
         np.testing.assert_array_equal(a["pos_gen"], b["pos_gen"])
+
+
+# -- the train and validation steps replayed from CUDA graphs -----------------
+
+TRAIN_B = 32
+TRAIN_STEPS = 10
+
+
+@pytest.fixture(scope="module")
+def train_inputs():
+    """The trained members' model block and one batch of ``TRAIN_B``
+    synthetic reactions per bucket (16, 24), on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
+    from tsdiff_tpu_torch.data import PaddedBatchLoader, TSDataset
+    from tsdiff_tpu_torch.data.synthetic import make_corpus
+    from tsdiff_tpu_torch.train import load_checkpoint
+
+    model_cfg = load_checkpoint(os.path.join(CKPT_DIR, "seed106_best.ckpt"))["config"]["model"]
+    loader = PaddedBatchLoader(TSDataset(make_corpus(300, seed=41)), TRAIN_B,
+                               bucket_sizes=[16, 24], device="cuda")
+    batches = {}
+    for batch in loader:
+        batches.setdefault(batch.pos.shape[1], batch)
+    assert set(batches) == {16, 24}
+    return dict(model_cfg), batches
+
+
+#: the one op of a train step whose result varies between calls on identical
+#: inputs on the card (a bf16 ulp now and then): F.embedding's backward into
+#: the bond-type table, whose kernel compute_grad_weight_atomic_accumulate
+#: sums a row's repeats with float atomics
+BOND_CHAIN = {f"{part} edge_enc.bond_emb.weight" for part in ("param", "mu", "nu", "ema")}
+
+
+def make_trainer(train_inputs, kind: str):
+    """A bf16 model of ``kind`` ("use_pallas", B3 in the step, or
+    "packed_train") from a seeded initialisation: ``(schedule, state, step,
+    model)``."""
+    from tsdiff_tpu_torch.config import Config
+    from tsdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
+    from tsdiff_tpu_torch.models import get_model
+    from tsdiff_tpu_torch.train import init_train_state, make_optimizer, make_train_step
+
+    model_cfg, _ = train_inputs
+    cfg = Config({**model_cfg, "packed_train": kind == "packed_train",
+                  "use_pallas": kind == "use_pallas"})
+    model = get_model(cfg, dtype=torch.bfloat16,
+                      generator=torch.Generator().manual_seed(0)).to("cuda")
+    schedule = DiffusionSchedule.from_config(cfg)
+    tx = make_optimizer(Config(type="adam", lr=5e-4, beta1=0.95, beta2=0.999), 100.0)
+    state = init_train_state(model, tx, ema_decay=0.999)
+    return schedule, state, make_train_step(model, tx, schedule, ema_decay=0.999), model
+
+
+def state_tensors(state) -> dict:
+    out = {f"param {k}": v.detach() for k, v in state.params.items()}
+    for part in ("mu", "nu"):
+        out.update({f"{part} {k}": v for k, v in state.opt_state[part].items()})
+    out.update({f"ema {k}": v for k, v in state.ema_params.items()})
+    out["step"], out["count"] = state.step, state.opt_state["count"]
+    return out
+
+
+def lockstep(train_inputs, kind: str, buckets: list[int], lrs=None, graphs=None):
+    """``TRAIN_STEPS`` train steps of three runs from one initialisation in
+    lockstep, eager, eager again and replayed from ``graphs`` (a
+    ``StepGraphs``, made here when None), on the fixed batches of
+    ``buckets`` in turn, each step's timesteps and noise drawn before it
+    from one seeded generator and the learning rate ``lrs[i]`` written into
+    the device tensor before step i.  Every step of "again" and "captured"
+    starts from the eager run's state, copied into theirs in place, so that
+    every replay is held to the eager step.  Returns ``(steps, runs,
+    graphs)``: ``steps[i][name]`` is ``(differing tensors, differing
+    metrics)`` of "captured" or "again" against "eager" after step i."""
+    from tsdiff_tpu_torch.diffusion.objective import draw_timesteps_and_noise
+    from tsdiff_tpu_torch.train.captured import StepGraphs
+    from tsdiff_tpu_torch.train.trainer import on_device
+
+    _, batches = train_inputs
+    lrs = lrs or [5e-4] * TRAIN_STEPS
+    graphs = graphs or StepGraphs("cuda")
+    runs = {}
+    for name in ("eager", "again", "captured"):
+        schedule, state, step, _ = make_trainer(train_inputs, kind)
+        on_device(state)
+        lr = torch.tensor(lrs[0], dtype=torch.float32, device="cuda")
+        fn = (lambda step, state, lr: lambda b, t, noise: step(state, b, lr, t=t,
+                                                                noise=noise)[1])(step, state, lr)
+        runs[name] = dict(state=state, lr=lr, fn=fn, gen=torch.Generator(device="cuda"),
+                          metrics=[])
+        runs[name]["gen"].manual_seed(7)
+    steps = []
+    for i in range(TRAIN_STEPS):
+        n = buckets[i % len(buckets)]
+        start = {k: v.clone() for k, v in state_tensors(runs["eager"]["state"]).items()}
+        with torch.no_grad():
+            for name in ("again", "captured"):
+                for k, v in state_tensors(runs[name]["state"]).items():
+                    v.copy_(start[k])
+        for name, r in runs.items():
+            r["lr"].fill_(lrs[i])
+            t, noise = draw_timesteps_and_noise(r["gen"], (TRAIN_B, n, 3), 0,
+                                                len(schedule.alphas), "cuda")
+            args = (batches[n], t, noise)
+            m = graphs(("train", n), r["fn"], *args) if name == "captured" else r["fn"](*args)
+            r["metrics"].append(m)
+        ref = state_tensors(runs["eager"]["state"])
+        row = {}
+        for name in ("captured", "again"):
+            got = state_tensors(runs[name]["state"])
+            row[name] = ([k for k in ref if not torch.equal(got[k], ref[k])],
+                         [k for k, v in runs[name]["metrics"][-1].items()
+                          if not torch.equal(v, runs["eager"]["metrics"][-1][k])])
+        steps.append(row)
+    return steps, runs, graphs
+
+
+def assert_as_eager(name: str, steps: list) -> None:
+    """On every step, the captured step equals the eager one from the same
+    state bit for bit in every metric (the gradient norm sums the bond
+    table's gradient too) and in every tensor outside ``BOND_CHAIN``; the
+    second eager run shows how often two eager steps differ there."""
+    differ = {who: [(i, row[who]) for i, row in enumerate(steps) if row[who] != ([], [])]
+              for who in ("captured", "again")}
+    print(f"{name}: steps differing from the eager step: captured {differ['captured']}, eager "
+          f"again {differ['again']}")
+    for i, (tensors, metrics) in differ["captured"]:
+        assert not metrics and set(tensors) <= BOND_CHAIN, (i, tensors, metrics)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["use_pallas", "packed_train"])
+def test_captured_train_steps_equal_eager(cuda, train_inputs, kind):
+    """10 steps at N=24: parameters, moments, EMA, counters and metrics."""
+    calls = (ss.schnet_stack_fwd.launches, ss.schnet_stack_bwd.launches)
+    steps, runs, graphs = lockstep(train_inputs, kind, [24])
+    assert graphs.recorded == [("train", 24)] and graphs.replays[("train", 24)] == \
+        TRAIN_STEPS - 1
+    state = runs["captured"]["state"]
+    assert int(state.step) == int(state.opt_state["count"]) == TRAIN_STEPS
+    if kind == "use_pallas":   # eager: 2 runs x 10 steps; captured: the first step, the recording
+        assert (ss.schnet_stack_fwd.launches, ss.schnet_stack_bwd.launches) == \
+            (calls[0] + 2 * TRAIN_STEPS + 2, calls[1] + 2 * TRAIN_STEPS + 2)
+    assert_as_eager(kind, steps)
+
+
+@pytest.mark.cuda
+def test_lr_changed_between_replays_takes_effect(cuda, train_inputs):
+    lrs = [5e-4] * 5 + [2e-3] * 5
+    steps, runs, _ = lockstep(train_inputs, "packed_train", [24], lrs=lrs)
+    assert_as_eager("lr changed", steps)
+    fixed, fixed_runs, _ = lockstep(train_inputs, "packed_train", [24])
+    got, kept = state_tensors(runs["captured"]["state"]), \
+        state_tensors(fixed_runs["captured"]["state"])
+    assert max(float((got[k] - kept[k]).abs().max()) for k in got if k.startswith("param")) > 0
+
+
+@pytest.mark.cuda
+def test_buckets_alternating_equal_each_alone(cuda, train_inputs):
+    """The graphs of two buckets in one memory pool: train steps alternating
+    N=24 (recorded first) and N=16 equal the eager alternation, and the eval
+    graphs replayed in alternation give what each gives replayed alone."""
+    from tsdiff_tpu_torch.diffusion.objective import draw_timesteps_and_noise
+    from tsdiff_tpu_torch.train import make_eval_step
+
+    steps, runs, graphs = lockstep(train_inputs, "use_pallas", [24, 16])
+    assert graphs.recorded == [("train", 24), ("train", 16)]
+    assert_as_eager("alternating", steps)
+
+    _, batches = train_inputs
+    schedule, _, _, model = make_trainer(train_inputs, "use_pallas")
+    ev = make_eval_step(model, schedule)
+    fn = lambda b, t, noise: ev(b, t=t, noise=noise)  # noqa: E731
+    draws = {n: draw_timesteps_and_noise(torch.Generator(device="cuda").manual_seed(n),
+                                         (TRAIN_B, n, 3), 0, len(schedule.alphas), "cuda")
+             for n in (16, 24)}
+    for n in (24, 16):      # recorded in this order; the first call is eager
+        graphs(("eval", n), fn, batches[n], *draws[n])
+    alone = {n: [torch.stack(graphs(("eval", n), fn, batches[n], *draws[n]))
+                 for _ in range(3)] for n in (16, 24)}
+    mixed = {16: [], 24: []}
+    for _ in range(3):
+        for n in (24, 16):
+            mixed[n].append(torch.stack(graphs(("eval", n), fn, batches[n], *draws[n])))
+    for n in (16, 24):
+        for a, m in zip(alone[n], mixed[n]):
+            assert torch.equal(a, alone[n][0]) and torch.equal(m, a), n

@@ -19,6 +19,14 @@ incremental (``samples_not_all.pkl``) and final (``samples_all.pkl``)
 results.  Each result records ``sampling_attempts``, the number of sampling
 runs its batch took.
 
+The walk of each (bucket, tier, clip) is one ``WalkRunner``
+(``diffusion/captured.py``), as the JAX CLI compiles one program per
+(bucket, tier, clip): on CUDA each step replays one CUDA graph of the
+sampling step, recorded at the first batch of that shape, every graph from
+one memory pool; on the CPU the same step runs eagerly.  The step noise is
+drawn before the walk, one draw per step from the batch's generator, so the
+samples are those of the eager loop (``dynamic_sampling``).
+
 Runs on CUDA unless ``--device cpu`` is given.  Not ported: multi-device
 meshes (ROADMAP §A.5).
 """
@@ -90,19 +98,17 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def main(argv=None) -> str:
+def main(argv=None, capture: bool = True) -> str:
+    """Sample; returns the path of ``samples_all.pkl``.  ``capture=False``
+    walks eagerly on CUDA too."""
     args = parse_args(argv)
 
     from tsdiff_tpu_torch.core.graph import from_numpy_graphs
     from tsdiff_tpu_torch.data.dataset import default_buckets, load_dataset, pick_bucket, tier_ladder
     from tsdiff_tpu_torch.data.featurize import featurize_smarts_list
-    from tsdiff_tpu_torch.diffusion.ensemble import load_members, make_ensemble_score_fn
-    from tsdiff_tpu_torch.diffusion.sampler import (
-        SamplingSettings,
-        dynamic_sampling,
-        final_frame_scale,
-        rescale_trajectory,
-    )
+    from tsdiff_tpu_torch.diffusion.captured import WalkRunner
+    from tsdiff_tpu_torch.diffusion.ensemble import load_members, make_ensemble
+    from tsdiff_tpu_torch.diffusion.sampler import SamplingSettings, rescale_trajectory
     from tsdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
     from tsdiff_tpu_torch.utils.misc import get_logger, resolve_device
 
@@ -167,7 +173,20 @@ def main(argv=None) -> str:
             timestep_respacing=args.timestep_respacing,
         )
 
+    ensemble = make_ensemble(members)
+    capture = capture and device.type == "cuda"
+    pool = torch.cuda.graph_pool_handle() if capture else None
+    runners: dict[tuple, WalkRunner] = {}
+
+    def get_runner(n_pad: int, tier: int, clip: float) -> WalkRunner:
+        key = (n_pad, tier, clip)
+        if key not in runners:
+            runners[key] = WalkRunner(ensemble, schedule, make_settings(clip), capture, pool,
+                                      step_draws=True)
+        return runners[key]
+
     def sample_batch(gpad: list[dict], n_pad: int, clip: float):
+        """``(physical-frame positions, NaN flag, trajectory or None)``."""
         batch = from_numpy_graphs(gpad, max_nodes=n_pad, device=device)
         settings = make_settings(clip)
         gen = torch.Generator(device=device)
@@ -188,17 +207,19 @@ def main(argv=None) -> str:
             gen.manual_seed(args.seed + len(results))
             pos_init = torch.randn((len(gpad), n_pad, 3), generator=gen, device=device)
         gen.manual_seed(args.seed * 7919 + len(results))
-        score_fn = make_ensemble_score_fn(members, batch)
-        res = dynamic_sampling(score_fn, schedule, pos_init, batch.node_mask, settings,
-                               generator=gen)
-        return res, settings
+        runner = get_runner(n_pad, len(gpad), clip)
+        pos, nan = runner.run(batch, pos_init, gen)
+        traj = None
+        if args.save_traj:
+            traj = rescale_trajectory(runner.trajectory(len(gpad)), schedule,
+                                      settings).cpu().numpy()
+        return pos, nan, traj
 
     for graphs in batching(test_set, args.batch_size, args.repeat):
         gpad = list(graphs) + [graphs[-1]] * (_tier(len(graphs)) - len(graphs))
         n_pad = max(pick_bucket(int(g["atom_type"].shape[0]), buckets) for g in gpad)
         for attempt, clip in enumerate([args.clip, 20.0]):  # retry at clip=20 on NaN
-            res, settings = sample_batch(gpad, n_pad, clip)
-            nan_persisted = bool(res.nan_detected.item())  # the loop's one host sync
+            pos, nan_persisted, traj = sample_batch(gpad, n_pad, clip)
             if not nan_persisted:
                 break
             if attempt == 0:
@@ -206,10 +227,6 @@ def main(argv=None) -> str:
         if nan_persisted:
             logger.error("NaN persisted after the clip-20 retry; batch results are "
                          "flagged nan_persisted=True.")
-        pos = res.pos.cpu().numpy() * final_frame_scale(schedule, settings)
-        traj = None
-        if args.save_traj and res.traj is not None:
-            traj = rescale_trajectory(res.traj, schedule, settings).cpu().numpy()
         for b, g in enumerate(graphs):
             n = int(g["atom_type"].shape[0])
             out = dict(g)
@@ -221,6 +238,10 @@ def main(argv=None) -> str:
         with open(os.path.join(args.save_dir, "samples_not_all.pkl"), "wb") as f:
             pickle.dump(results, f)
 
+    if capture:
+        logger.info("CUDA graphs recorded: %d, one per (bucket, tier, clip): %s" % (
+            sum(r.captures for r in runners.values()),
+            ", ".join(str(k) for k, r in runners.items() if r.captures)))
     save_path = os.path.join(args.save_dir, "samples_all.pkl")
     partial = os.path.join(args.save_dir, "samples_not_all.pkl")
     if os.path.exists(partial):

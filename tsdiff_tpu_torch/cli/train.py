@@ -50,6 +50,8 @@ import os
 import shutil
 import time
 
+import torch
+
 #: flags of the JAX package's CLI that the port refuses, with their ROADMAP item
 _NOT_PORTED = {
     "multihost": ("--multihost", "§A.5"),
@@ -94,19 +96,37 @@ def parse_args(argv=None):
     return args
 
 
-def resident_steps(res, start_iter: int):
-    """``(arrays, plan, cursor, real graphs)`` of every training step from
-    ``start_iter`` on: the epoch's bucket schedule walked in order, a fresh
-    plan per bucket and epoch, a cursor per bucket (wrapped by the gather)."""
-    schedule = res.epoch_schedule()
-    epoch, pos = divmod(start_iter - 1, len(schedule))
-    cursors = {b: schedule[:pos].count(b) for b in res.buckets}
-    while True:
-        plans = {b: res.make_plan(b, epoch) for b in res.buckets}
-        for b in schedule[pos:]:
-            yield res.buckets[b], plans[b], cursors[b], res.real_graphs(b, cursors[b])
-            cursors[b] += 1
-        epoch, pos = epoch + 1, 0
+class ResidentLoop:
+    """The resident loop's state, as the JAX CLI keeps it
+    (``tsdiff_tpu/cli/train.py:459-490``): the epoch's bucket schedule walked
+    in order, one plan per bucket made anew each epoch (copied into the
+    bucket's plan buffer, whose address a captured step holds), one device
+    cursor per bucket that the step advances and the gather wraps.  Nothing
+    but a new epoch's plans crosses from the host to the device."""
+
+    def __init__(self, res, start_iter: int):
+        self.res = res
+        self.schedule = res.epoch_schedule()
+        self.epoch, self.pos = divmod(start_iter - 1, len(self.schedule))
+        # the host's mirror of the cursors counts the real graphs of a batch
+        self._host = {b: self.schedule[:self.pos].count(b) for b in res.buckets}
+        self.plans = {b: res.make_plan(b, self.epoch) for b in res.buckets}
+        self.cursors = {b: torch.tensor(self._host[b], device=res.device) for b in res.buckets}
+
+    def next(self) -> tuple:
+        """``(bucket, arrays, plan, cursor, real graphs)`` of the next step;
+        the step advances ``cursor``.  A new epoch's plans are copied in
+        before its first step is queued, behind the last step that reads the
+        old ones."""
+        if self.pos == len(self.schedule):
+            self.epoch, self.pos = self.epoch + 1, 0
+            for b, plan in self.plans.items():
+                plan.copy_(self.res.make_plan(b, self.epoch))
+        b = self.schedule[self.pos]
+        self.pos += 1
+        real = self.res.real_graphs(b, self._host[b])
+        self._host[b] += 1
+        return b, self.res.buckets[b], self.plans[b], self.cursors[b], real
 
 
 def _config_path(log_dir: str) -> str:
@@ -117,28 +137,27 @@ def _config_path(log_dir: str) -> str:
     raise FileNotFoundError(f"no config file in {log_dir}")
 
 
-def main(argv=None) -> str:
-    """Train; returns the run's log directory."""
+def main(argv=None, capture: bool = True) -> str:
+    """Train; returns the run's log directory.  On CUDA each step replays a
+    CUDA graph of it (``train/captured.py``) unless ``capture`` is False or
+    ``--debug_nans`` is given (its checks read the card inside the step);
+    on the CPU the steps run eagerly."""
     args = parse_args(argv)
-
-    import torch
-
     anomaly = torch.is_anomaly_enabled()
     torch.autograd.set_detect_anomaly(args.debug_nans or anomaly)
     try:
-        return _train(args)
+        return _train(args, capture)
     finally:
         torch.autograd.set_detect_anomaly(anomaly)
 
 
-def _train(args) -> str:
-    import torch
-
+def _train(args, capture: bool) -> str:
     from tsdiff_tpu_torch.config import Config, load_config
     from tsdiff_tpu_torch.convert import params_from_jax
     from tsdiff_tpu_torch.data import PaddedBatchLoader, TSDataset, inf_iterator
     from tsdiff_tpu_torch.data.prefetch import Prefetcher, to_device
     from tsdiff_tpu_torch.data.resident import CorpusTooLarge, DeviceResidentData
+    from tsdiff_tpu_torch.diffusion.objective import draw_timesteps_and_noise
     from tsdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
     from tsdiff_tpu_torch.models import get_model
     from tsdiff_tpu_torch.train import (
@@ -154,6 +173,7 @@ def _train(args) -> str:
         opt_state_from_checkpoint,
         save_checkpoint,
     )
+    from tsdiff_tpu_torch.train.captured import StepGraphs
     from tsdiff_tpu_torch.train.scheduler import get_scheduler
     from tsdiff_tpu_torch.utils.misc import (
         count_parameters,
@@ -274,25 +294,57 @@ def _train(args) -> str:
         model.load_state_dict(warm)
         ema = {k: v.to(device) for k, v in warm.items()} if ema_decay else None
         state = TrainState(dict(model.named_parameters()), state.opt_state, state.step, ema)
-    if train_res is not None:
-        train_iter = resident_steps(train_res, start_iter)
+    loop = ResidentLoop(train_res, start_iter) if train_res is not None else None
     logger.info(f"Parameters: {count_parameters(model):,} on {device}, {args.dtype}, "
                 f"use_pallas={model.use_pallas}, packed_train={model.packed_train}")
 
-    def val_batches():
+    # JAX runs every step as one compiled program: here one CUDA graph per
+    # (step kind, bucket), where its checks do not read the card
+    graphs = StepGraphs(device) if capture and device.type == "cuda" and not args.debug_nans \
+        else None
+    if graphs is not None:
+        logger.info("Steps replay CUDA graphs, one per (step kind, bucket)")
+    t_end = len(schedule.alphas) if t1 is None else t1
+    # the learning rate on the device, refreshed only when the scheduler moves it
+    lr_host = scheduler.lr
+    lr = torch.tensor(lr_host, dtype=torch.float32, device=device)
+
+    def run(key, fn, *inputs):
+        """``fn(*inputs)``, eagerly or from the graph of ``key``."""
+        return fn(*inputs) if graphs is None else graphs(key, fn, *inputs)
+
+    def draws(gen, bucket: int):
+        return draw_timesteps_and_noise(gen, (batch_size, bucket, 3), t0, t_end, device)
+
+    if val_res is not None:
+        val_cursors = {b: torch.zeros((), dtype=torch.int64, device=device)
+                       for b in val_res.buckets}
+
+    def val_losses():
+        """``(loss_sum, n_nodes)`` of every validation batch, in the JAX
+        CLI's order, each batch's draws seeded ``10_000_000 + vi``."""
+        vi = 0
         if val_res is None:
-            yield from ((batch,) for batch in val_loader)
-        else:
-            for b, arrays in val_res.buckets.items():
-                for cursor in range(val_res.n_batches[b]):
-                    yield arrays, val_plans[b], cursor
+            for batch in val_loader:
+                gen = torch.Generator(device=device).manual_seed(10_000_000 + vi)
+                yield run(("eval", batch.pos.shape[1]),
+                          lambda b, t, noise: eval_step(b, t=t, noise=noise),
+                          batch, *draws(gen, batch.pos.shape[1]))
+                vi += 1
+            return
+        for b, arrays in val_res.buckets.items():
+            cursor = val_cursors[b]
+            cursor.zero_()
+            for _ in range(val_res.n_batches[b]):
+                gen = torch.Generator(device=device).manual_seed(10_000_000 + vi)
+                yield run(("eval", b), lambda t, noise, arrays=arrays, b=b, cursor=cursor:
+                          res_eval_step(arrays, val_plans[b], cursor, t=t, noise=noise),
+                          *draws(gen, b))
+                vi += 1
 
     def validate(it: int) -> float:
         sum_loss = sum_n = 0.0
-        step = eval_step if val_res is None else res_eval_step
-        for vi, batch in enumerate(val_batches()):
-            gen = torch.Generator(device=device).manual_seed(10_000_000 + vi)
-            ls, nn = step(*batch, generator=gen)
+        for ls, nn in val_losses():
             sum_loss += float(ls)
             sum_n += float(nn)
         avg = sum_loss / max(sum_n, 1.0)
@@ -302,6 +354,28 @@ def _train(args) -> str:
             wandb.log({"val/loss": avg}, step=it)
         return avg
 
+    def train_once(gen) -> tuple[dict, int]:
+        """One training step: ``(metrics, real graphs)``."""
+        if loop is None:
+            with phase("data"):
+                batch, indices = next(train_iter)
+            bucket, real = batch.pos.shape[1], int((indices >= 0).sum())
+            with phase("train_step"):
+                metrics = run(("train", bucket),
+                              lambda b, t, noise: train_step(state, b, lr, t=t, noise=noise)[1],
+                              batch, *draws(gen, bucket))
+                if timer is not None:
+                    float(metrics["loss"])  # --profile: the step waits for the card
+            return metrics, real
+        with phase("data"):
+            bucket, arrays, plan, cursor, real = loop.next()
+        with phase("train_step"):
+            metrics = run(("train", bucket), lambda t, noise: res_train_step(
+                state, arrays, plan, cursor, lr, t=t, noise=noise)[1], *draws(gen, bucket))
+            if timer is not None:
+                float(metrics["loss"])
+        return metrics, real
+
     gen = torch.Generator(device=device).manual_seed(config.train.seed + 1)
     # summed on the device between log lines, so the loop does not wait on the card
     loss_sum = n_sum = grad_norm_sum = 0.0
@@ -310,7 +384,7 @@ def _train(args) -> str:
     # throughput over the iterations after the first (kernel builds and
     # warm-up), validation and checkpoints included; padding graphs not counted
     t_first = None
-    graphs = 0
+    n_graphs = 0
     timer = PhaseTimer() if args.profile else None
 
     def phase(name: str):
@@ -318,27 +392,15 @@ def _train(args) -> str:
 
     try:
         for it in range(start_iter, config.train.max_iters + 1):
-            with phase("data"):
-                item = next(train_iter)
             try:
-                with phase("train_step"):
-                    if train_res is None:
-                        batch, indices = item
-                        real = int((indices >= 0).sum())
-                        state, metrics = train_step(state, batch, scheduler.lr, generator=gen)
-                    else:
-                        arrays, plan, cursor, real = item
-                        state, metrics, _ = res_train_step(state, arrays, plan, cursor,
-                                                           scheduler.lr, generator=gen)
-                    if timer is not None:
-                        float(metrics["loss"])  # --profile: the step waits for the card
+                metrics, real = train_once(gen)
             except FloatingPointError as e:  # --debug_nans
                 raise FloatingPointError(f"iteration {it}: {e}") from e
             if t_first is None:
                 float(metrics["loss_sum"])  # wait for the first step
                 t_first = time.monotonic()
             else:
-                graphs += real
+                n_graphs += real
             loss_sum = loss_sum + metrics["loss_sum"]
             n_sum = n_sum + metrics["n_nodes"]
             grad_norm_sum = grad_norm_sum + metrics["grad_norm"]
@@ -356,6 +418,9 @@ def _train(args) -> str:
                 window = 0
             if it % config.train.val_freq == 0 or last:
                 avg_val_loss = validate(it)
+                if scheduler.lr != lr_host:
+                    lr_host = scheduler.lr
+                    lr.fill_(lr_host)
                 if avg_val_loss < best_loss:
                     best_loss = avg_val_loss
                     save_checkpoint(os.path.join(ckpt_dir, f"{it}.ckpt"), config, state,
@@ -363,11 +428,16 @@ def _train(args) -> str:
                                     avg_val_loss=avg_val_loss)
                     logger.info(f"Saved checkpoint at iter {it} (val {avg_val_loss:.6f})")
     finally:
-        train_iter.close()  # ends the prefetcher's worker
-    if graphs:  # the last iteration's log line and validation waited for the card
+        if loop is None:
+            train_iter.close()  # ends the prefetcher's worker
+    if graphs is not None:
+        logger.info("[Train] CUDA graphs | recorded %d: %s | replays %s" % (
+            len(graphs.recorded), ", ".join(f"{k} {b}" for k, b in graphs.recorded),
+            ", ".join(f"{k} {b} {n}" for (k, b), n in sorted(graphs.replays.items()))))
+    if n_graphs:  # the last iteration's log line and validation waited for the card
         seconds = time.monotonic() - t_first
         logger.info("[Train] Throughput | Iters %05d-%05d | %d graphs in %.3f s | %.1f graphs/s" % (
-            start_iter + 1, config.train.max_iters, graphs, seconds, graphs / seconds))
+            start_iter + 1, config.train.max_iters, n_graphs, seconds, n_graphs / seconds))
     if timer is not None:
         logger.info("Phase timings:\n%s", timer.summary())
     return log_dir

@@ -14,8 +14,12 @@ pieces:
   a ``torch.Generator`` seeded from (seed, epoch, bucket); JAX's PRNG cannot
   be reproduced in torch, so the draw differs from the JAX package's (the
   plan's form, the schedule and the validation plans are the same);
-* ``gather_batch`` slices a plan at a cursor, a Python integer counting
-  batches, and gathers the batch from the resident arrays on their device.
+* ``gather_batch`` slices a plan at a cursor counting batches and gathers
+  the batch from the resident arrays on their device.  The cursor is a
+  0-dim device tensor, read on the device as JAX's traced cursor is, so a
+  CUDA graph of the step replays it at every cursor; the plan is then a
+  buffer whose address stays, a new epoch's plan copied into it.  A Python
+  int cursor slices on the host.
 
 Per step nothing crosses between host and device; a plan moves once per
 bucket and epoch, from pinned memory, without the host waiting for it.
@@ -156,14 +160,18 @@ class DeviceResidentData:
         return self._padded(bsize, torch.arange(self.n_graphs[bsize]))
 
 
-def gather_batch(arrays: dict, plan: torch.Tensor, cursor: int,
+def gather_batch(arrays: dict, plan: torch.Tensor, cursor: int | torch.Tensor,
                  batch_size: int) -> ReactionBatch:
     """Batch ``cursor`` (wrapped modulo the plan's batches) of ``plan``,
     gathered from the resident ``arrays`` on their device, in the dtypes of
     ``from_numpy_graphs``: int64 atom and bond types, uint8 features, float32
-    positions, a bool mask."""
+    positions, a bool mask.  ``cursor``: a 0-dim integer tensor on the
+    plan's device (the slot computed there) or a Python int."""
     slot = (cursor % (plan.shape[0] // batch_size)) * batch_size
-    idx = plan[slot:slot + batch_size]
+    if isinstance(slot, torch.Tensor):
+        idx = plan.index_select(0, slot + torch.arange(batch_size, device=plan.device))
+    else:
+        idx = plan[slot:slot + batch_size]
     rows = {k: arrays[k].index_select(0, idx) for k in FIELDS}
     rows["atom_type"] = rows["atom_type"].long()
     rows["bond_mat"] = rows["bond_mat"].long()

@@ -1,12 +1,14 @@
-"""The reverse walk of one served (bucket, respacing, clip), replayed from
-one CUDA graph of its step per batch tier.
+"""The reverse walk of one (bucket, respacing, clip), replayed from one CUDA
+graph of its step per batch tier.
 
-The JAX service compiles the whole reverse diffusion once per (bucket,
-tier) and reruns the compiled program (``tsdiff_tpu/serve.py``).  Here a
+The JAX service and sampling CLI compile the whole reverse diffusion once
+per (bucket, tier, clip) and rerun the compiled program
+(``tsdiff_tpu/serve.py``, ``tsdiff_tpu/cli/sampling.py:270-345``).  Here a
 ``WalkRunner`` holds, for each tier, the buffers a round reads and writes:
 the batch's statics (``PackedEnsemble.prepare``/``DenseEnsemble.prepare``),
 the positions, the round's noise ``(n_walk, tier, bucket, 3)``, the step
-counter and the NaN flag.  With ``capture`` it records ``walk_step`` on
+counter, the NaN flag and, with ``save_traj``, the trajectory ``(n_walk,
+tier, bucket, 3)``, written at the counter inside the step.  With ``capture`` it records ``walk_step`` on
 those buffers in one CUDA graph, after one eager warm-up step (which builds
 the kernel library, sets the kernel's attributes and settles the
 allocator), and a round replays the graph ``n_walk`` times; without it the
@@ -18,7 +20,11 @@ noise buffer from the caller's generator (or copies the caller's noise into
 it), resets the counter and the flag, walks, and synchronises once, to read
 the flag.  No random number is drawn inside a step: the round's noise is
 drawn before it, so a captured and an eager round on the same noise are
-equal bit for bit.
+equal bit for bit.  From a generator, the re-noising draw of
+``noise_from_time_t`` comes first, then the step noise: one draw of the
+whole round (the service), or with ``step_draws`` one draw of ``(tier,
+bucket, 3)`` per step in step order, as ``dynamic_sampling`` draws it (the
+sampling CLI, whose samples stay those of its eager loop).
 """
 
 from __future__ import annotations
@@ -69,6 +75,7 @@ class _TierBuffers:
     noise: torch.Tensor         # (n_walk, tier, bucket, 3) float32
     counter: torch.Tensor       # () int64
     nan_flag: torch.Tensor      # () bool
+    traj: torch.Tensor | None   # (n_walk, tier, bucket, 3) float32 with save_traj
     graph: torch.cuda.CUDAGraph | None = None
     rounds: int = 0             # rounds walked at this tier
 
@@ -78,12 +85,13 @@ class WalkRunner:
     any batch tier; ``run`` is one round."""
 
     def __init__(self, ensemble, schedule: DiffusionSchedule, settings: SamplingSettings,
-                 capture: bool, pool=None):
+                 capture: bool, pool=None, step_draws: bool = False):
         self.ensemble = ensemble
         self.schedule = schedule
         self.settings = settings
         self.capture = capture
         self.pool = pool
+        self.step_draws = step_draws
         coeffs = build_step_coeffs(schedule, settings)
         self.n_walk = len(coeffs.a)
         self.scale = final_frame_scale(schedule, settings)
@@ -97,11 +105,18 @@ class WalkRunner:
         """Rounds walked so far, by tier."""
         return {tier: buf.rounds for tier, buf in self._tiers.items()}
 
+    def trajectory(self, tier: int) -> torch.Tensor:
+        """The scaled-frame trajectory ``(n_walk, tier, bucket, 3)`` of the
+        last round at ``tier`` (``save_traj``), step k's positions in row k."""
+        return self._tiers[tier].traj
+
     def _step(self, buf: _TierBuffers) -> None:
         step_noise = at_counter(buf.noise, buf.counter)
         pos = walk_step(buf.step_fn, buf.pos, buf.statics.node_mask, self._coef, buf.counter,
                         step_noise, buf.nan_flag, self.settings.clip, self.settings.clip_pos)
         buf.pos.copy_(pos)
+        if buf.traj is not None:   # the counter has moved past this step
+            buf.traj.index_copy_(0, buf.counter.view(1) - 1, pos[None])
 
     def _reset(self, buf: _TierBuffers, start: torch.Tensor) -> None:
         buf.pos.copy_(start)
@@ -130,9 +145,11 @@ class WalkRunner:
             noise: torch.Tensor | torch.Generator) -> tuple[np.ndarray, bool]:
         """One round: ``pos_init`` (tier, bucket, 3) the unit-variance start;
         ``noise`` the step noise (n_walk, tier, bucket, 3), or the generator
-        that fills the round's noise buffer in place (as ``torch.randn`` of
-        that shape would draw it).  Returns the final physical-frame
-        positions as numpy and the NaN flag."""
+        that draws ``noise_from_time_t``'s re-noising and then fills the
+        round's noise buffer in place (as ``torch.randn`` of that shape would
+        draw it, or of each step's shape in turn with ``step_draws``).
+        Returns the final physical-frame positions as numpy and the NaN
+        flag."""
         tier = pos_init.shape[0]
         noise_shape = (self.n_walk, *pos_init.shape)
         if isinstance(noise, torch.Tensor) and noise.shape != noise_shape:
@@ -148,16 +165,21 @@ class WalkRunner:
                 pos=torch.empty_like(pos_init), noise=pos_init.new_empty(noise_shape),
                 counter=torch.zeros((), dtype=torch.int64, device=dev),
                 nan_flag=torch.zeros((), dtype=torch.bool, device=dev),
+                traj=pos_init.new_zeros(noise_shape) if self.settings.save_traj else None,
             )
             self._tiers[tier] = buf
         else:
             copy_into(buf.statics, statics)
         mask = buf.statics.node_mask[..., None].to(pos_init.dtype)
-        start = initial_position(self.schedule, self.settings, pos_init) * mask
-        if isinstance(noise, torch.Tensor):
+        gen = None if isinstance(noise, torch.Tensor) else noise
+        start = initial_position(self.schedule, self.settings, pos_init, generator=gen) * mask
+        if gen is None:
             buf.noise.copy_(noise)
+        elif self.step_draws:
+            for step_noise in buf.noise:
+                step_noise.normal_(generator=gen)
         else:
-            buf.noise.normal_(generator=noise)
+            buf.noise.normal_(generator=gen)
         self._reset(buf, start)
         if self.capture:
             if buf.graph is None:

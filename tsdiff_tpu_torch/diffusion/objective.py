@@ -11,7 +11,9 @@ batches.
    atoms.
 
 The timesteps and the noise come from a ``torch.Generator``, or are passed
-in (``t``, ``noise``), so a test can feed the JAX package's own draws.  A
+in (``t``, ``noise``), so a test can feed the JAX package's own draws and a
+captured step can read them from its buffers (``draw_timesteps_and_noise``
+makes the same draws before the step).  A
 ``fused_score`` model takes its unfused path here: the fused score kernel is
 inference-only.  A ``packed_train`` model takes steps 3-4 on offset-packed
 pair rows (``score_step_packed_xla``, ``eq_transform_packed``): the same
@@ -37,6 +39,16 @@ def sample_antithetic_timesteps(
     half_1 = torch.randint(t0, t1, (sz,), generator=generator, device=device)
     half_2 = t0 + t1 - 1 - half_1
     return torch.cat([half_1, half_2])[:num_graphs]
+
+
+def draw_timesteps_and_noise(
+    generator: torch.Generator | None, pos_shape, t0: int, t1: int, device="cpu"
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(t, noise)`` of a batch of positions ``pos_shape``, drawn from
+    ``generator`` as ``diffusion_loss`` draws them: the timesteps, then the
+    float32 noise."""
+    t = sample_antithetic_timesteps(generator, pos_shape[0], t0, t1, device)
+    return t, torch.randn(pos_shape, generator=generator, device=device)
 
 
 def diffusion_loss(

@@ -124,7 +124,7 @@ def select_params(ck: dict, use_ema: bool) -> tuple[dict, bool]:
 
 def opt_state_to_jax(opt: dict, weight_decay: float = 0.0) -> tuple:
     """The port's Adam state in the JAX package's optax-chain layout."""
-    adam = {"count": np.asarray(opt["count"], dtype=np.int32),
+    adam = {"count": np.asarray(int(opt["count"]), dtype=np.int32),
             "mu": params_to_jax(opt["mu"]), "nu": params_to_jax(opt["nu"])}
     return ((), adam, ()) if weight_decay else ((), adam)
 

@@ -14,15 +14,23 @@ them (``clip_by_global_norm`` -> ``scale_by_adam`` -> optional
 * EMA of the parameters with the warmed decay ``min(decay, (1 + step) /
   (10 + step))``.
 
-The parameters are the model's own float32 tensors, updated in place; the
-optimizer state is ``{"count": int, "mu": {name: tensor}, "nu": {...}}``.
+Everything a step reads or writes stays on the device, at the address it
+had, so that a CUDA graph of the step replays it (``train/captured.py``), as
+JAX runs its jitted step: the parameters are the model's own float32
+tensors, updated in place; the optimizer state is ``{"count": 0-dim int32
+tensor, "mu": {name: tensor}, "nu": {...}}``, the moments updated in place
+and the bias corrections computed on the device from the count; the step
+counter (``TrainState.step``, a 0-dim int32 tensor) gives the EMA's decay
+on the device; the learning rate may be a 0-dim float32 tensor that its
+owner refreshes in place.  ``int()`` reads the step and the count; a state
+made with Python ints (a test, a resumed checkpoint) is moved to the device
+by the first step.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from tsdiff_tpu_torch.data.resident import gather_batch
@@ -34,8 +42,23 @@ from tsdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
 class TrainState:
     params: dict[str, torch.Tensor]   # the model's parameters (live references)
     opt_state: dict
-    step: int = 0
+    step: int | torch.Tensor = 0      # a 0-dim int32 device tensor once a step ran
     ema_params: dict[str, torch.Tensor] | None = None
+
+
+def _counter(value, device) -> torch.Tensor:
+    if isinstance(value, torch.Tensor) and value.device == device and value.dtype == torch.int32:
+        return value
+    return torch.tensor(int(value), dtype=torch.int32, device=device)
+
+
+def on_device(state: TrainState) -> TrainState:
+    """``state`` with its step and the optimizer's count as 0-dim int32
+    tensors on the parameters' device, in place; a no-op once they are."""
+    device = next(iter(state.params.values())).device
+    state.step = _counter(state.step, device)
+    state.opt_state["count"] = _counter(state.opt_state["count"], device)
+    return state
 
 
 class Adam:
@@ -50,31 +73,37 @@ class Adam:
         self.weight_decay = weight_decay
 
     def init(self, params: dict[str, torch.Tensor]) -> dict:
+        device = next(iter(params.values())).device
         return {
-            "count": 0,
+            "count": torch.zeros((), dtype=torch.int32, device=device),
             "mu": {k: torch.zeros_like(p) for k, p in params.items()},
             "nu": {k: torch.zeros_like(p) for k, p in params.items()},
         }
 
     @torch.no_grad()
     def update(self, grads: dict, opt_state: dict, params: dict):
-        """``(updates, opt_state, grad_norm)``; ``grad_norm`` is before clipping."""
+        """``(updates, opt_state, grad_norm)``; ``grad_norm`` is before
+        clipping.  The count (a 0-dim int32 device tensor) and the moments are
+        advanced in place, and ``opt_state`` itself is returned."""
         norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
         keep = norm < self.max_grad_norm
-        count = opt_state["count"] + 1
+        count = opt_state["count"]
+        count.add_(1)
         # optax computes the corrections in float32
-        bc1 = float(np.float32(1) - np.float32(self.b1) ** np.float32(count))
-        bc2 = float(np.float32(1) - np.float32(self.b2) ** np.float32(count))
-        mu, nu, updates = {}, {}, {}
+        c = count.to(torch.float32)
+        bc1 = 1 - torch.full_like(c, self.b1) ** c
+        bc2 = 1 - torch.full_like(c, self.b2) ** c
+        updates = {}
         for k, g in grads.items():
             g = torch.where(keep, g, g / norm * self.max_grad_norm)
-            mu[k] = (1 - self.b1) * g + self.b1 * opt_state["mu"][k]
-            nu[k] = (1 - self.b2) * (g * g) + self.b2 * opt_state["nu"][k]
-            u = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + self.EPS)
+            mu, nu = opt_state["mu"][k], opt_state["nu"][k]
+            mu.copy_((1 - self.b1) * g + self.b1 * mu)
+            nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.EPS)
             if self.weight_decay:
                 u = u + self.weight_decay * params[k]
             updates[k] = u
-        return updates, {"count": count, "mu": mu, "nu": nu}, norm
+        return updates, opt_state, norm
 
 
 def make_optimizer(opt_config, max_grad_norm: float) -> Adam:
@@ -96,59 +125,77 @@ def make_train_step(model, tx: Adam, schedule: DiffusionSchedule, t0: int = 0,
                     debug_nans: bool = False):
     """``train_step(state, batch, lr, generator=None, t=None, noise=None) ->
     (state, metrics)``: one loss and gradient, the optimizer update applied
-    to the model's parameters in place, and the EMA.  ``t`` and ``noise``
-    override the draws from ``generator``.  The metrics stay on the device.
-    ``debug_nans`` checks the loss before the backward and the gradient norm
-    before the update, and raises ``FloatingPointError`` on a non-finite one
-    (two reads of the card per step)."""
+    in place to the model's parameters and the optimizer state, the step
+    counter advanced and the EMA, all on the device.  ``lr`` is a float or a
+    0-dim float32 device tensor.  ``t`` and ``noise`` override the draws
+    from ``generator``.  The metrics stay on the device.  ``debug_nans``
+    checks the loss before the backward and the gradient norm before the
+    update, and raises ``FloatingPointError`` on a non-finite one (two reads
+    of the card per step, so such a step cannot be captured)."""
 
-    def check(what: str, value: torch.Tensor, step: int) -> None:
+    def check(what: str, value: torch.Tensor, state: TrainState) -> None:
         if debug_nans and not bool(torch.isfinite(value)):
-            raise FloatingPointError(f"non-finite {what} ({float(value)}) in train step {step}")
+            raise FloatingPointError(
+                f"non-finite {what} ({float(value)}) in train step {int(state.step) + 1}")
 
-    def train_step(state: TrainState, batch, lr: float, generator=None, t=None, noise=None):
+    def train_step(state: TrainState, batch, lr, generator=None, t=None, noise=None):
+        state = on_device(state)
         loss, aux = diffusion_loss(model, schedule, batch, t0, t1, generator, t, noise)
-        check("loss", loss.detach(), state.step + 1)
+        check("loss", loss.detach(), state)
         names = list(state.params)
         grads = torch.autograd.grad(loss, [state.params[k] for k in names])
         updates, opt_state, grad_norm = tx.update(dict(zip(names, grads)), state.opt_state,
                                                   state.params)
-        check("gradient norm", grad_norm, state.step + 1)
-        step = state.step + 1
+        check("gradient norm", grad_norm, state)
         with torch.no_grad():
+            neg_lr = -lr
             for k in names:
-                state.params[k].add_(updates[k] * -lr)
+                state.params[k].add_(updates[k] * neg_lr)
+            state.step.add_(1)
             ema = state.ema_params
             if ema_decay is not None and ema is not None:
-                d = min(np.float32(ema_decay), np.float32(1 + step) / np.float32(10 + step))
+                s = state.step.to(torch.float32)
+                d = torch.clamp((1 + s) / (10 + s), max=ema_decay)
+                keep = 1 - d
                 for k in names:
-                    ema[k].mul_(float(d)).add_(state.params[k] * float(np.float32(1) - d))
+                    ema[k].mul_(d).add_(state.params[k] * keep)
         metrics = {"loss": loss.detach(), "loss_sum": aux["loss_sum"].detach(),
                    "n_nodes": aux["n_nodes"], "grad_norm": grad_norm}
-        return TrainState(state.params, opt_state, step, ema), metrics
+        return TrainState(state.params, opt_state, state.step, ema), metrics
 
     return train_step
+
+
+def _advance(cursor):
+    if isinstance(cursor, torch.Tensor):
+        cursor.add_(1)
+        return cursor
+    return cursor + 1
 
 
 def make_resident_train_step(train_step, batch_size: int):
     """``step(state, arrays, plan, cursor, lr, **kw) -> (state, metrics,
     cursor + 1)``: ``train_step`` on batch ``cursor`` of ``plan``, gathered
     on the device from a bucket's resident arrays (``data.resident``).
-    ``cursor`` is a Python integer: the step reads nothing back from the card."""
+    ``cursor`` is a 0-dim integer device tensor, advanced in place and
+    returned, so the step reads nothing from the host, or a Python int."""
 
-    def step(state, arrays, plan, cursor: int, lr: float, **kw):
+    def step(state, arrays, plan, cursor, lr, **kw):
         state, metrics = train_step(state, gather_batch(arrays, plan, cursor, batch_size), lr, **kw)
-        return state, metrics, cursor + 1
+        return state, metrics, _advance(cursor)
 
     return step
 
 
 def make_resident_eval_step(eval_step, batch_size: int):
     """Validation twin of ``make_resident_train_step``: ``(loss_sum,
-    n_nodes)`` of batch ``cursor`` of a fixed plan."""
+    n_nodes)`` of batch ``cursor`` of a fixed plan; a tensor ``cursor`` is
+    advanced in place."""
 
-    def step(arrays, plan, cursor: int, **kw):
-        return eval_step(gather_batch(arrays, plan, cursor, batch_size), **kw)
+    def step(arrays, plan, cursor, **kw):
+        out = eval_step(gather_batch(arrays, plan, cursor, batch_size), **kw)
+        _advance(cursor)
+        return out
 
     return step
 
