@@ -135,7 +135,30 @@ Phases (any failure exits non-zero):
    and ``train_step``; (d) the 100 true geometries plus N(0, 0.3 A) noise
    attached by the post-processing CLI as ``ts_guess`` and refined with
    ``--from_ts_guess --denoise_from_time_t 1500`` (the 1500-step window in
-   625 calls) through B1, counted as in (a): finite, mean D-MAE < 0.6.
+   625 calls) through B1, counted as in (a): finite, mean D-MAE < 0.6;
+11. the native packer and the mesh of ranks: (a) ``from_numpy_graphs``
+   through the C++ packer (sparse edges; phase 4's test set and phase 6's
+   corpus are written so) against the numpy packer (dense ``bond_mat``) on
+   the training corpus's batches (B=200, N=16 and 24) and the sampling
+   CLI's (B=100, N=24): equal bit for bit, host ms per batch (median of 20),
+   and phase 6's streamed graphs/s beside the numpy packer's; B1 and B5 at
+   the mesh's call shapes (4 members at B=100, 8 at B=50) and B3 at B=100
+   against their plain versions, timed; then two rank processes on the card
+   over Gloo
+   (this script with ``--mesh-rank``), on the (1, 2) and the (2, 1) mesh:
+   (b) one step of the packed ensemble's score against 8 members in one
+   process on the same inputs (``MESH_STEP_RTOL`` of max|ref| at ens=2, bit
+   for bit at dp=2), then the sampling CLI on phase 4's command against
+   phase 4's samples (bit for bit at dp=2; at ens=2 the 90th percentile of
+   the per-reaction difference within ``MESH_WALK_P90``, beside a control
+   run with another seed, and D-MAE within ``MESH_DMAE_DELTA``), B1 counted
+   by kernel name on each rank (625 per walk) with its members per launch;
+   (c) the train CLI ``--multihost`` with ``use_pallas``, bf16, 20
+   iterations, its logged losses within ``CLI_LOSS_RTOL`` of one process's,
+   B3 counted by name on each rank; (d) a served draft round at tier 8 on
+   each mesh against one process's; (e) with two or more GPUs, the same over
+   NCCL with the collectives captured, else a line that it was not run
+   (``python3 chip_smoke.py --mesh-nccl`` runs that part alone).
 
 The second-to-last lines are a JSON object of per-kernel numbers and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -924,13 +947,16 @@ def walk_shapes(results: list, batch_size: int, test_set: list) -> set:
     return shapes
 
 
-def profiled_call(fn):
+def profiled_call(fn, device_only: bool = False):
     """``(fn(), prof)``: ``fn`` run under torch.profiler, the card
-    synchronised before the trace ends."""
+    synchronised before the trace ends; ``device_only`` traces the card's
+    activity alone (what ``kernel_counts`` reads; much less to process)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] if device_only else [ProfilerActivity.CPU,
+                                                              ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         out = fn()
         torch.cuda.synchronize()
     return out, prof
@@ -1011,7 +1037,7 @@ def phase_main_path(quant: str = "none") -> dict:
 
     from tsdiff_tpu_torch.cli import evaluate, sampling
     from tsdiff_tpu_torch.data.dataset import save_dataset
-    from tsdiff_tpu_torch.data.synthetic import make_corpus
+    from tsdiff_tpu_torch.data.synthetic import make_corpus, sparse_edges
     from tsdiff_tpu_torch.diffusion.sampler import SamplingSettings, build_step_coeffs
     from tsdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
     from tsdiff_tpu_torch.eval.dmae import calc_dmae, dmae_for_graph
@@ -1024,7 +1050,8 @@ def phase_main_path(quant: str = "none") -> dict:
     shutil.rmtree(OUT_DIR, ignore_errors=True)
     os.makedirs(OUT_DIR)
     test_set = os.path.join(OUT_DIR, "test_data.pkl")
-    save_dataset(test_set, make_corpus(200, seed=2024))
+    # sparse edges, the on-disk form of real test sets: the C++ packer packs them
+    save_dataset(test_set, sparse_edges(make_corpus(200, seed=2024)))
     ckpts = [os.path.join(CKPT_DIR, f"seed{s}_best.ckpt") for s in MEMBER_SEEDS]
     n_steps, respacing, batch_size = 5000, 625, 100
     argv = ckpts + [
@@ -1131,7 +1158,8 @@ def phase_main_path(quant: str = "none") -> dict:
         fail(f"the evaluate CLI scored {len(written['dmae'])} of {len(results)} samples")
     if not gap <= 1e-9:
         fail(f"the evaluate CLI's mean D-MAE differs from the phase's by {gap:.3g}")
-    return dict(launches=by_name[int8], wall=wall, dmae_mean=float(dmae.mean()))
+    return dict(launches=by_name[int8], wall=wall, dmae_mean=float(dmae.mean()), argv=argv,
+                samples=results, respacing=respacing, steps=steps)
 
 
 def phase_dense_path() -> dict:
@@ -1229,12 +1257,14 @@ def train_setup() -> tuple[dict, dict, dict, list]:
     trained checkpoints embed it: ``packed_train``, no ``use_pallas``) with
     EMA and a 40-iteration run: ``(model_cfg, train_cfg, paths, buckets)``."""
     from tsdiff_tpu_torch.data import save_dataset
-    from tsdiff_tpu_torch.data.synthetic import make_corpus
+    from tsdiff_tpu_torch.data.synthetic import make_corpus, sparse_edges
     from tsdiff_tpu_torch.train import load_checkpoint
 
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     os.makedirs(TRAIN_DIR)
-    corpus = make_corpus(1200, seed=31)
+    # sparse edges, the on-disk form of real datasets: the streamed loader
+    # packs them with the C++ packer
+    corpus = sparse_edges(make_corpus(1200, seed=31))
     paths = {"train": os.path.join(TRAIN_DIR, "train_data.pkl"),
              "val": os.path.join(TRAIN_DIR, "valid_data.pkl")}
     save_dataset(paths["train"], corpus[:1000])
@@ -1738,7 +1768,8 @@ def phase_train(setup: tuple) -> dict:
     torch.cuda.empty_cache()
     return dict(launches=measured[:2], xty_launches=measured[2], b4_launches=measured[3],
                 wall=run["wall"], ms_per_step=fixed["ms_per_step"],
-                cli_graphs_per_s=timed[0]["graphs_per_s"], final_loss=run["losses"][-1][2])
+                cli_graphs_per_s=timed[0]["graphs_per_s"], final_loss=run["losses"][-1][2],
+                graphs_per_s=gps)
 
 
 def phase_train_packed(setup: tuple) -> dict:
@@ -2439,6 +2470,546 @@ def phase_serving() -> dict:
                 by_tier=by_tier, peak_gib=peak, **results)
 
 
+
+# -- phase 11: the native packer, and the mesh of ranks on one card ----------
+
+MESH_DIR = os.path.join(ROOT, ".scratch", "chip_smoke_mesh")
+MESH_RANKS = 2
+MESH_SHAPES = ("1,2", "2,1")
+MESH_TRAIN_ITERS = 20
+MESH_SERVE_TIER = 8
+# the two rank processes' whole programme; a hang fails the phase, not the run
+MESH_TIMEOUT_S = 420
+PACKER_REPEATS = 20
+# the mesh against one process on the same inputs.  dp only (2, 1): rows
+# are independent, so equal bit for bit.  ens=2 (1, 2): the member sum over
+# the ranks adds in another order than one rank's mean over 8, so one step's
+# score differs at float32 rounding: held to the CPU test's f32 tolerance,
+# 1e-5 of its largest magnitude.  Over a 625-step bf16 walk a difference
+# flips bf16 roundings, which the walk carries on: per reaction the largest
+# |difference| had median 0.0042 A and 90th percentile 0.019 A on an H100
+# (a few reactions diverge further, 1.23 A at most, of 200), against a
+# minimum of 1.46 A and a 10th percentile of 4.72 A for the same command
+# with another seed (the control, printed each run); so the 90th percentile
+# is held to 0.1 A and the mean D-MAE to 0.005 of one process's (it moved
+# 0.0002; the mean's standard error is ~0.03)
+MESH_STEP_RTOL = 1e-5
+MESH_STEP_SEED = 4242
+MESH_WALK_P90 = 0.1
+MESH_DMAE_DELTA = 0.005
+# phase 6's streamed (--device_data off) CLI graphs/s when its corpus (dense
+# bond_mat) went through the numpy packer, on an NVIDIA H100 80GB HBM3 at
+# 700 W (PERF.md section 5): 6a use_pallas, 6b production
+NUMPY_PACKER_OFF_GRAPHS_PER_S = {"6a": (7901.8, 6697.4), "6b": (2786.4, 7012.8)}
+
+
+def median_ms(fn, repeats: int = PACKER_REPEATS) -> float:
+    """Median host wall time of ``repeats`` calls of ``fn``, in ms."""
+    import numpy as np
+
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase_packer(train_gps: dict, packed_gps: dict) -> dict:
+    """(a) ``from_numpy_graphs`` through the C++ packer (graphs with sparse
+    edges, the on-disk form) against the numpy packer (the same graphs with
+    a dense ``bond_mat``) on the training corpus's batches (B=200, N=16 and
+    24) and the sampling CLI's (B=100, N=24): equal bit for bit, host ms per
+    batch (median of 20, the casts and the tensors included); then phase 6's
+    streamed graphs/s beside the numpy packer's."""
+    import torch
+
+    from tsdiff_tpu_torch.core.graph import from_numpy_graphs
+    from tsdiff_tpu_torch.data import native
+    from tsdiff_tpu_torch.data.synthetic import make_corpus, sparse_edges
+
+    t0 = time.monotonic()
+    native.native_available()
+    print(f"[packer] C++ packer {os.path.relpath(native.library_path(), ROOT)} ready in "
+          f"{time.monotonic() - t0:.3f} s (built at first use, phase 4)")
+    train = make_corpus(1200, seed=31)[:1000]
+    sample = sorted(make_corpus(200, seed=2024), key=lambda g: len(g["atom_type"]))
+    cases = {
+        "training B=200 N=16": ([g for g in train if len(g["atom_type"]) <= 16][:200], 16),
+        "training B=200 N=24": ([g for g in train if len(g["atom_type"]) > 16][:200], 24),
+        "sampling B=100 N=24": (sample[100:], 24),
+    }
+    out = {}
+    for tag, (dense, n) in cases.items():
+        sparse = sparse_edges(dense)
+        a, b = from_numpy_graphs(sparse, max_nodes=n), from_numpy_graphs(dense, max_nodes=n)
+        equal = all(torch.equal(getattr(a, f), getattr(b, f)) and
+                    getattr(a, f).dtype == getattr(b, f).dtype
+                    for f in ("atom_type", "r_feat", "p_feat", "pos", "bond_mat", "node_mask"))
+        ms_native = median_ms(lambda: from_numpy_graphs(sparse, max_nodes=n))
+        ms_numpy = median_ms(lambda: from_numpy_graphs(dense, max_nodes=n))
+        ms_raw = median_ms(lambda: native.pack_batch_native(sparse, n))
+        print(f"[packer] {tag} ({len(dense)} graphs): host ms per batch, median of "
+              f"{PACKER_REPEATS}: C++ packer {ms_native:.4f} (of it pack_batch_native alone "
+              f"{ms_raw:.4f}), numpy packer {ms_numpy:.4f}, numpy/C++ {ms_numpy / ms_native:.3f}x; "
+              f"the batches equal bit for bit, dtypes included: {equal}")
+        if not equal:
+            fail(f"[packer] {tag}: the C++ and numpy packers' batches differ")
+        out[tag] = dict(native_ms=ms_native, numpy_ms=ms_numpy, raw_ms=ms_raw)
+    print(f"[packer] phase 6's streamed (--device_data off) CLI graphs/s with the C++ packer: "
+          f"6a {train_gps['off']}, 6b {packed_gps['off']}; with the numpy packer (PERF.md "
+          f"section 5): 6a {list(NUMPY_PACKER_OFF_GRAPHS_PER_S['6a'])}, 6b "
+          f"{list(NUMPY_PACKER_OFF_GRAPHS_PER_S['6b'])}")
+    return out
+
+
+def phase_mesh_kernels() -> dict:
+    """B1 and B5 at the call shapes of the mesh (4 members at B=100 with
+    ens=2, 8 members at B=50 with dp=2) and B3 at half the training batch
+    (B=100, N=16 and 24), bf16, against their plain versions, timed."""
+    import torch
+
+    from tsdiff_tpu_torch.diffusion.ensemble import stack_params
+    from tsdiff_tpu_torch.ops import packed_score as ps
+    from tsdiff_tpu_torch.ops import packed_score_int8 as p8
+    from tsdiff_tpu_torch.ops import schnet_stack as ss
+
+    out = {}
+    dname, dtype = "bfloat16", torch.bfloat16
+    members = load_members(dtype, torch.device("cuda"))
+    for M, B in ((4, 100), (8, 50)):
+        batch, pos = kernel_batch(24, seed=4000 + M, count=B)
+        model = members[0]
+        pp = model.precompute_packed_pairs(batch.bond_mat, batch.node_mask)
+        info = model.build_packed_pair_info(pos, batch.node_mask, pp)
+        with torch.no_grad():
+            z = torch.stack([m.node_states(batch.atom_type, batch.r_feat, batch.p_feat,
+                                           batch.node_mask) for m in members[:M]]).contiguous()
+        rest = (z, info.d_in.contiguous(), info.cmask.contiguous(), pp.type_r_in,
+                pp.type_p_in, pp.type_r_out, pp.type_p_out)
+        L = model.num_convs
+        ops = [("packed_score", ps.packed_score, ps.packed_score_reference,
+                stack_params([m.kernel_weights() for m in members[:M]]), TOL[dname],
+                ps.packed_score_cost)]
+        if M == 4:
+            ops.append(("packed_score_int8", p8.packed_score_int8,
+                        p8.packed_score_int8_reference,
+                        stack_params([m.kernel_weights_int8() for m in members[:M]]), TOL_INT8,
+                        p8.packed_score_int8_cost))
+        for name, kernel, plain, w, tol, cost in ops:
+            tag = f"{name} M={M} B={B} N=24 {dname} (mesh shape)"
+            got, ref = kernel(w, *rest, num_blocks=L), plain(w, *rest, num_blocks=L)
+            torch.cuda.synchronize()
+            err = check_close(f"{tag} out", got, ref, dname, tol=tol)
+            out[(name, M, B)] = dict(time_and_bound(
+                tag, lambda: kernel(w, *rest, num_blocks=L), lambda: plain(w, *rest, num_blocks=L),
+                cost(w, z, L), dname), max_abs_err=err)
+            del got, ref
+    del members
+    for n_bucket in (16, 24):
+        B = 100
+        w, h, ea, c, g = stack_inputs(B, n_bucket, dname, seed=800 + n_bucket)
+        _, N, H = h.shape
+        L = w["f1w"].shape[0]
+        tag = f"B={B} N={N} {dname} (dp=2 shape)"
+        image, ea_img = ss.stack_wg_operands(w, h, ea, c)
+        o, hs = ss.schnet_stack_fwd(w, h, ea, c, image=image, ea_img=ea_img)
+        r, rhs = ss.schnet_stack_fwd_reference(w, h, ea, c)
+        e_fwd = max(check_close(f"schnet_stack_fwd {tag} out", o, r, dname),
+                    check_close(f"schnet_stack_fwd {tag} hs", hs, rhs, dname))
+        dh, dea, grads = ss.schnet_stack_bwd(w, ea, c, rhs, g, image=image, ea_img=ea_img)
+        rdh, rdea, rgrads = ss.schnet_stack_bwd_reference(w, ea, c, rhs, g)
+        e_bwd = max([check_close(f"schnet_stack_bwd {tag} dh", dh, rdh, dname),
+                     check_close(f"schnet_stack_bwd {tag} dea", dea, rdea, dname)]
+                    + [check_close(f"schnet_stack_bwd {tag} d{k}", grads[k], rgrads[k], dname)
+                       for k in ss.W_KEYS])
+        out[("fwd", N)] = dict(time_and_bound(
+            f"schnet_stack_fwd {tag}",
+            lambda: ss.schnet_stack_fwd(w, h, ea, c, image=image, ea_img=ea_img),
+            lambda: ss.schnet_stack_fwd_reference(w, h, ea, c),
+            ss.schnet_stack_cost(B, N, H, L, dtype, "fwd"), dname), max_abs_err=e_fwd)
+        out[("bwd", N)] = dict(time_and_bound(
+            f"schnet_stack_bwd {tag}", lambda: ss.schnet_stack_bwd(w, ea, c, rhs, g),
+            lambda: ss.schnet_stack_bwd_reference(w, ea, c, rhs, g),
+            ss.schnet_stack_cost(B, N, H, L, dtype, "bwd"), dname), max_abs_err=e_bwd)
+        del w, h, ea, c, g, image, ea_img, o, hs, r, rhs, dh, dea, grads, rdh, rdea, rgrads
+        torch.cuda.empty_cache()
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_mesh_ranks(plan: dict, backend: str) -> list[dict]:
+    """Start the ``MESH_RANKS`` rank processes (this script with
+    ``--mesh-rank``) on ``plan`` over ``backend`` and return what each saw;
+    their logs go to ``MESH_DIR/<backend>/rank<r>.log``."""
+    d = os.path.join(MESH_DIR, backend)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    with open(os.path.join(d, "plan.json"), "w") as f:
+        json.dump(plan, f)
+    port = free_port()
+    env = dict(os.environ, TSDIFF_DIST_TIMEOUT_S="300")
+    logs = [open(os.path.join(d, f"rank{r}.log"), "w") for r in range(MESH_RANKS)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+                               str(port), d, backend], stdout=log, stderr=subprocess.STDOUT,
+                              cwd=ROOT, env=env) for r, log in enumerate(logs)]
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.wait()
+        fail(f"[mesh {backend}] the rank processes did not finish in {MESH_TIMEOUT_S} s "
+             f"(logs in {os.path.relpath(d, ROOT)})")
+    finally:
+        for log in logs:
+            log.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(d, f"rank{r}.log")) as f:
+                tail = f.read()[-4000:]
+            fail(f"[mesh {backend}] rank {r} exited {p.returncode}:\n{tail}")
+    out = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def mesh_rank(rank: int, port: int, d: str, backend: str) -> None:
+    """One rank of phase 11's mesh runs: the sampling CLI on each mesh of
+    ``MESH_SHAPES`` (its run under torch.profiler, B1 counted by name and its
+    members per launch), the train CLI with ``use_pallas`` (B3 counted by
+    name), and a served round on the (1, 2) mesh (rank 0 batching, rank 1 in
+    ``worker_loop``); writes ``rank<r>.json`` in ``d``."""
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from tsdiff_tpu_torch.cli import sampling
+    from tsdiff_tpu_torch.cli import train as train_cli
+    from tsdiff_tpu_torch.models import condensenc
+    from tsdiff_tpu_torch.ops import packed_score as ps
+    from tsdiff_tpu_torch.parallel import make_mesh, multihost
+    from tsdiff_tpu_torch.serve import SamplerService
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(d, "plan.json")) as f:
+        plan = json.load(f)
+    coordinator = f"127.0.0.1:{port}"
+    cluster = ["--multihost", "--coordinator", coordinator, "--nprocs", str(MESH_RANKS),
+               "--procid", str(rank), "--dist_backend", backend]
+    t_start = time.monotonic()
+    device = multihost.initialize(coordinator, MESH_RANKS, rank, device="cuda", backend=backend)
+    out = {"rank": rank, "device": str(device), "backend": backend,
+           "seconds": {"initialize": time.monotonic() - t_start}}
+    seen: list[int] = []
+    real = condensenc.packed_score
+
+    def spy(weights, z, *args, **kwargs):   # the members of every B1 call
+        seen.append(int(z.shape[0]))
+        return real(weights, z, *args, **kwargs)
+
+    condensenc.packed_score = spy
+    # one step of the packed ensemble's score on fixed inputs, per mesh
+    from tsdiff_tpu_torch.diffusion.ensemble import load_members as load_ckpts
+    from tsdiff_tpu_torch.diffusion.ensemble import make_ensemble
+    from tsdiff_tpu_torch.parallel import shard_batch
+    from tsdiff_tpu_torch.parallel.sharding import batch_spec
+
+    batch, pos = kernel_batch(24, seed=MESH_STEP_SEED)
+    for flag in plan["meshes"]:
+        mesh = make_mesh(*(int(x) for x in flag.split(",")), device=device)
+        members, _ = load_ckpts(plan["ckpts"], device, torch.bfloat16, fused_score=True,
+                                mesh=mesh)
+        ensemble = make_ensemble(members, mesh)
+        rows = batch_spec(mesh).slice(pos.shape[0])
+        node_eq = ensemble.step_fn(ensemble.prepare(shard_batch(batch, mesh)))(pos[rows])
+        out[f"step_{flag}"] = dict(rows=[rows.start, rows.stop], members=len(members),
+                                   node_eq=node_eq.cpu().tolist())
+        del members, ensemble
+    seen.clear()
+    for flag in plan["meshes"]:
+        save = os.path.join(d, f"sample_{flag}", f"rank{rank}")
+        seen.clear()
+        ps.packed_score.launches = 0
+        t0 = time.monotonic()
+        path, prof = profiled_call(lambda: sampling.main(
+            plan["sample_argv"] + ["--save_dir", save, "--mesh", flag, *cluster]),
+            device_only=True)
+        wall = time.monotonic() - t0
+        counts = kernel_counts(prof)
+        del prof
+        out.setdefault("seconds", {})[f"sample_{flag}"] = time.monotonic() - t0
+        by_name = score_launches(counts)
+        log = ""
+        if os.path.exists(os.path.join(save, "log.txt")):
+            with open(os.path.join(save, "log.txt")) as f:
+                log = f.read()
+        out[f"sample_{flag}"] = dict(path=path, wall=wall, b1=by_name[False], b5=by_name[True],
+                                     wrapper=ps.packed_score.launches, calls=len(seen),
+                                     members=sorted(set(seen)), log=log)
+    from tsdiff_tpu_torch.ops import schnet_stack as ss
+
+    ss.schnet_stack_fwd_reference.calls = ss.schnet_stack_bwd_reference.calls = 0
+    t0 = time.monotonic()
+    run, prof = profiled_call(lambda: train_cli.main(
+        [plan["train_cfg"], "--logdir", os.path.join(d, "train"), "--dtype", "bfloat16",
+         "--device", "cuda", *cluster]), device_only=True)
+    wall = time.monotonic() - t0
+    counts = kernel_counts(prof)
+    del prof
+    out["seconds"]["train"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    with open(os.path.join(run, "log.txt")) as f:
+        log = f.read()
+    out["train"] = dict(
+        run=run, wall=wall, log=log,
+        named={k: sum(n for name, n in counts.items() if k in name)
+               for k in ("schnet_fwd_wg_kernel<true>", "schnet_fwd_wg_kernel<false>",
+                         "schnet_bwd_rows_wg_kernel", "schnet_bwd_xty_wg_kernel")},
+        plain=[ss.schnet_stack_fwd_reference.calls, ss.schnet_stack_bwd_reference.calls])
+    for flag in plan["meshes"]:
+        svc = SamplerService(plan["ckpts"], n_steps=5000, dtype="bfloat16", fused_score=True,
+                             draft_respacing=625, max_batch=MESH_SERVE_TIER, device="cuda",
+                             capture=backend == "nccl",
+                             mesh=make_mesh(*(int(x) for x in flag.split(",")), device=device))
+        if rank == 0:
+            with open(plan["serve_graphs"], "rb") as f:
+                graphs = pickle.load(f)
+            results = svc.generate(graphs, quality="draft")
+            svc.close()
+            out[f"serve_{flag}"] = [r["pos_gen"].tolist() for r in results]
+        else:
+            svc.worker_loop()
+        out[f"served_graphs_{flag}"] = svc._graphs_captured
+        del svc
+    out["seconds"]["serve"] = time.monotonic() - t0
+    torch.distributed.destroy_process_group()
+    with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_mesh(main_path: dict, setup: tuple, backends: list | None = None) -> dict:
+    """(b)-(e): two ranks on one card over Gloo (the walk and the steps
+    eager: Gloo's collectives cannot be captured): the sampling CLI on the
+    (1, 2) and (2, 1) meshes against phase 4's one-process run of the same
+    command and seed, B1 counted by name on each rank with its members per
+    launch; the train CLI data-parallel over 2 ranks (``use_pallas``, bf16,
+    20 iterations) against the one-process run, B3 counted by name on each
+    rank; one served draft round at tier 8 on the (1, 2) mesh against the
+    one-process service's; with two or more GPUs, the same over NCCL with
+    the collectives captured."""
+    import numpy as np
+    import torch
+
+    from tsdiff_tpu_torch import serve
+    from tsdiff_tpu_torch.data import PaddedBatchLoader, TSDataset
+    from tsdiff_tpu_torch.data.synthetic import make_corpus
+    from tsdiff_tpu_torch.eval.dmae import calc_dmae
+
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    ckpts = [os.path.join(CKPT_DIR, f"seed{s}_best.ckpt") for s in MEMBER_SEEDS]
+    serve_graphs = os.path.join(MESH_DIR, "serve_graphs.pkl")
+    with open(serve_graphs, "wb") as f:
+        pickle.dump(make_corpus(200, seed=2024)[:MESH_SERVE_TIER], f)
+    model_cfg, train_cfg, paths, buckets = setup
+    mesh_train_cfg = {**train_cfg, "max_iters": MESH_TRAIN_ITERS}
+    cfg_path = write_train_config("mesh_train_config",
+                                  {**model_cfg, "packed_train": False, "use_pallas": True},
+                                  mesh_train_cfg, paths, buckets)
+    plan = dict(sample_argv=main_path["argv"] + ["--timestep_respacing",
+                                                 str(main_path["respacing"])],
+                meshes=list(MESH_SHAPES), train_cfg=cfg_path, ckpts=ckpts,
+                serve_graphs=serve_graphs)
+    # the one-process references: phase 4's samples; the train CLI and a served round here
+    one_train = run_train_cli("mesh train, 1 process", cfg_path, mesh_train_cfg,
+                              ["--dtype", "bfloat16"], "logs_mesh_one")
+    svc = serve.SamplerService(ckpts, n_steps=5000, dtype="bfloat16", fused_score=True,
+                               draft_respacing=625, max_batch=MESH_SERVE_TIER)
+    with open(serve_graphs, "rb") as f:
+        graphs8 = pickle.load(f)
+    one_serve = [r["pos_gen"] for r in svc.generate(graphs8, quality="draft")]
+    svc.close()
+    del svc
+    # one step of the 8-member packed ensemble in one process on the ranks' inputs
+    from tsdiff_tpu_torch.diffusion.ensemble import PackedEnsemble
+    from tsdiff_tpu_torch.diffusion.ensemble import load_members as load_ckpts
+
+    batch, pos = kernel_batch(24, seed=MESH_STEP_SEED)
+    ensemble = PackedEnsemble(load_ckpts(ckpts, torch.device("cuda"), torch.bfloat16,
+                                         fused_score=True)[0])
+    one_step = ensemble.step_fn(ensemble.prepare(batch))(pos).cpu().numpy()
+    del ensemble, batch, pos
+    torch.cuda.empty_cache()
+    val_batches = len(PaddedBatchLoader(TSDataset(paths["val"]), train_cfg["batch_size"],
+                                        bucket_sizes=buckets))
+    one = main_path["samples"]
+    batch_size = int(main_path["argv"][main_path["argv"].index("--batch_size") + 1])
+    # the control of the samples' limit: the same command with another seed
+    from tsdiff_tpu_torch.cli import sampling
+
+    with open(sampling.main(plan["sample_argv"] + ["--save_dir", os.path.join(MESH_DIR, "seed"),
+                                                   "--seed", "2023"]), "rb") as f:
+        control = np.array([np.abs(g["pos_gen"] - o["pos_gen"]).max()
+                            for g, o in zip(pickle.load(f), one)])
+    print(f"[mesh] control: phase 4's command with --seed 2023 against phase 4's samples, max "
+          f"|pos_gen difference| per reaction: min {control.min():.6g} A, 10th percentile "
+          f"{np.percentile(control, 10):.6g}, median {np.median(control):.6g}")
+    steps = main_path["steps"]
+    L = model_cfg["encoder"]["num_convs"]
+    result = {"b1": 0, "b3_fwd": 0, "b3_bwd": 0, "backends": []}
+    if backends is None:
+        backends = ["gloo"] + (["nccl"] if torch.cuda.device_count() >= 2 else [])
+    for backend in backends:
+        t0 = time.monotonic()
+        ranks = run_mesh_ranks(plan, backend)
+        wall = time.monotonic() - t0
+        result["backends"].append(backend)
+        captured = backend == "nccl"
+        print(f"[mesh {backend}] 2 ranks on {[r['device'] for r in ranks]}, the walk and the "
+              f"steps {'captured in CUDA graphs' if captured else 'eager'}: {wall:.3f} s for "
+              f"both ranks' programme")
+        print(f"[mesh {backend}] seconds per part, per rank: {[r['seconds'] for r in ranks]}")
+        # (b) one step of the score, then the sampling CLI
+        for flag in MESH_SHAPES:
+            dp, ens = (int(x) for x in flag.split(","))
+            parts = [r[f"step_{flag}"] for r in ranks]
+            scale = float(np.abs(one_step).max())
+            errs = [float(np.abs(np.asarray(p["node_eq"], np.float32)
+                                 - one_step[p["rows"][0]:p["rows"][1]]).max()) for p in parts]
+            print(f"[mesh {backend}] one step of the packed ensemble's score, --mesh {flag} "
+                  f"(rows per rank {[p['rows'] for p in parts]}, members per rank "
+                  f"{[p['members'] for p in parts]}), bf16, {len(one_step)} reactions at N=24, "
+                  f"against {len(ckpts)} members in one process on the same inputs: max abs "
+                  f"difference per rank "
+                  f"{errs} of max|ref| {scale:.6g} (limit: "
+                  + ("0, bit for bit)" if ens == 1 else f"{MESH_STEP_RTOL} of it, f32 rounding "
+                                                       f"of the member sum)"))
+            if ens == 1 and any(e != 0.0 for e in errs):
+                fail(f"[mesh {backend}] --mesh {flag}: one step's score differs from one "
+                     f"process's")
+            if ens > 1 and not max(errs) <= MESH_STEP_RTOL * scale:
+                fail(f"[mesh {backend}] --mesh {flag}: one step's score differs from one "
+                     f"process's by {max(errs):.6g}")
+            with open(ranks[0][f"sample_{flag}"]["path"], "rb") as f:
+                got = pickle.load(f)
+            walks = sum(1 for i in range(0, len(got), batch_size)
+                        for _ in range(got[i]["sampling_attempts"]))
+            # the same command sorts alike: reaction i is phase 4's reaction i
+            if [len(g["atom_type"]) for g in got] != [len(g["atom_type"]) for g in one]:
+                fail(f"[mesh {backend}] --mesh {flag}: the samples are not phase 4's reactions")
+            diffs = np.array([np.abs(g["pos_gen"] - o["pos_gen"]).max()
+                              for g, o in zip(got, one)])
+            dmae = np.array([calc_dmae(g["pos"], g["pos_gen"]) for g in got])
+            dmae_one = np.array([calc_dmae(o["pos"], o["pos_gen"]) for o in one])
+            graphs = 0
+            found = re.findall(r"CUDA graphs recorded: (\d+)", ranks[0][f"sample_{flag}"]["log"])
+            if found:
+                graphs = int(found[-1])
+            want_b1 = steps * walks + graphs
+            side = [r[f"sample_{flag}"] for r in ranks]
+            p90 = float(np.percentile(diffs, 90))
+            print(f"[mesh {backend}] sampling CLI --mesh {flag} (dp={dp}, ens={ens}): "
+                  f"{len(got)} samples in {walks} walks, wall per rank "
+                  f"{[round(s['wall'], 3) for s in side]} s under torch.profiler; B1 by kernel "
+                  f"name per rank {[s['b1'] for s in side]} (expected {want_b1}: {steps} per "
+                  f"walk{', and each graph once more' if graphs else ''}), B5 "
+                  f"{[s['b5'] for s in side]}; B1 calls per rank {[s['calls'] for s in side]} "
+                  f"with members per call {[s['members'] for s in side]} (expected "
+                  f"[{len(ckpts) // ens}]); against phase 4's one-process samples of the same "
+                  f"command, "
+                  f"max |pos_gen difference| per reaction: max {diffs.max():.6g} A, 90th "
+                  f"percentile {p90:.6g} (limit "
+                  + ("0, bit for bit" if ens == 1 else f"{MESH_WALK_P90}") +
+                  f"), median {np.median(diffs):.6g}, {int((diffs == 0).sum())} of {len(diffs)} "
+                  f"equal bit for bit; D-MAE mean {dmae.mean():.6f} against {dmae_one.mean():.6f}, "
+                  f"|difference| {abs(dmae.mean() - dmae_one.mean()):.3g} (limit "
+                  f"{MESH_DMAE_DELTA})")
+            if any(s["b1"] != want_b1 or s["b5"] != 0 for s in side):
+                fail(f"[mesh {backend}] --mesh {flag}: B1 did not run once per walk step")
+            if any(s["members"] != [len(ckpts) // ens] for s in side):
+                fail(f"[mesh {backend}] --mesh {flag}: B1 did not run on {len(ckpts) // ens} "
+                     f"members")
+            if not np.isfinite(diffs).all() or (diffs.max() if ens == 1 else p90) > (
+                    0.0 if ens == 1 else MESH_WALK_P90):
+                fail(f"[mesh {backend}] --mesh {flag}: the samples differ from the one-process "
+                     f"run's (max {diffs.max():.6g} A, 90th percentile {p90:.6g} A)")
+            if abs(dmae.mean() - dmae_one.mean()) > MESH_DMAE_DELTA:
+                fail(f"[mesh {backend}] --mesh {flag}: D-MAE moved by "
+                     f"{abs(dmae.mean() - dmae_one.mean()):.3g}")
+            result["b1"] += sum(s["b1"] for s in side)
+        # (c) training
+        losses = []
+        for r in ranks:
+            losses.append([(kind, int(it), float(v)) for kind, it, v in re.findall(
+                r"\[(Train|Validate)\] Iter (\d+) \| Loss (\S+)", r["train"]["log"])])
+        want = [x for x in one_train["losses"]]
+        rel = max(abs(a[2] - b[2]) / max(abs(b[2]), 1e-12)
+                  for side in losses for a, b in zip(side, want))
+        named = [r["train"]["named"] for r in ranks]
+        ran_fwd, ran_bwd = MESH_TRAIN_ITERS + val_batches, MESH_TRAIN_ITERS
+        print(f"[mesh {backend}] train CLI --multihost, dp=2 (batch {train_cfg['batch_size']}, "
+              f"{train_cfg['batch_size'] // 2} rows per rank), use_pallas, bf16, "
+              f"{MESH_TRAIN_ITERS} iterations: wall per rank "
+              f"{[round(r['train']['wall'], 3) for r in ranks]} s under torch.profiler; "
+              f"logged losses per rank {losses}, one process {want}: largest relative "
+              f"difference {rel:.6g} (limit {CLI_LOSS_RTOL}); B3 by kernel name per rank "
+              f"{named} (expected forward {ran_fwd} = {MESH_TRAIN_ITERS} train + {val_batches} "
+              f"validation forwards, row and weight-gradient kernels {L} x {ran_bwd}"
+              f"{', each graph once more' if captured else ''}); plain-version calls "
+              f"{[r['train']['plain'] for r in ranks]}")
+        if any([x[:2] for x in side] != [x[:2] for x in want] for side in losses):
+            fail(f"[mesh {backend}] the 2-rank train CLI logged other lines than one process")
+        if not rel <= CLI_LOSS_RTOL:
+            fail(f"[mesh {backend}] the 2-rank losses differ from one process's by {rel:.6g}")
+        if any(r["train"]["plain"] != [0, 0] for r in ranks):
+            fail(f"[mesh {backend}] the plain stack ran on the mesh's training path")
+        for n in named:
+            fwd, rows, xty = (n["schnet_fwd_wg_kernel<true>"], n["schnet_bwd_rows_wg_kernel"],
+                              n["schnet_bwd_xty_wg_kernel"])
+            if captured:
+                ok = fwd >= ran_fwd and rows >= L * ran_bwd and xty >= L * ran_bwd
+            else:
+                ok = (fwd, rows, xty) == (ran_fwd, L * ran_bwd, L * ran_bwd)
+            if not ok or n["schnet_fwd_wg_kernel<false>"] != 0:
+                fail(f"[mesh {backend}] B3's kernels by name {n} do not match the steps")
+            result["b3_fwd"] += fwd
+            result["b3_bwd"] += rows // L
+        # (d) serving
+        for flag in MESH_SHAPES:
+            ens = int(flag.split(",")[1])
+            got = [np.asarray(p, np.float32) for p in ranks[0][f"serve_{flag}"]]
+            diffs = np.array([float(np.abs(a - b).max()) for a, b in zip(got, one_serve)])
+            print(f"[mesh {backend}] served draft round, tier {MESH_SERVE_TIER}, --mesh {flag} "
+                  f"(rank 0 batching, rank 1 in worker_loop; graphs recorded per rank "
+                  f"{[r[f'served_graphs_{flag}'] for r in ranks]}): max |pos_gen difference| "
+                  f"per request against the one-process service's round {diffs.tolist()} A "
+                  f"(limit: " + ("0, bit for bit)" if ens == 1 else
+                                 f"median {MESH_WALK_P90})"))
+            if len(got) != MESH_SERVE_TIER or not np.isfinite(diffs).all() or (
+                    diffs.max() != 0.0 if ens == 1 else np.median(diffs) > MESH_WALK_P90):
+                fail(f"[mesh {backend}] --mesh {flag}: the 2-rank served round differs from one "
+                     f"process's")
+    if "nccl" not in backends:
+        print(f"[mesh] NCCL with captured collectives not run here: this machine shows "
+              f"{torch.cuda.device_count()} GPU, and NCCL takes one GPU per rank")
+    else:
+        print(f"[mesh] NCCL with captured collectives run here, ranks on 2 of "
+              f"{torch.cuda.device_count()} GPUs")
+    return result
+
+
 def main() -> None:
     try:
         import torch
@@ -2472,6 +3043,9 @@ def main() -> None:
         fail(f"the int8 run's mean D-MAE differs from the bf16 run's by {delta:.4f}")
     served = phase_serving()
     interop = phase_reference_interop(setup, packed)
+    phase_packer(tr["graphs_per_s"], packed["graphs_per_s"])
+    mk = phase_mesh_kernels()
+    mesh = phase_mesh(main_path, setup)
 
     def entry(name, source, replaces, launches, numbers, by_path=None):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_by",
@@ -2486,24 +3060,41 @@ def main() -> None:
     vjp = "tsdiff_tpu/ops/pallas/schnet_stack_vjp.py"
     bf = sk[(24, "bfloat16")]
     serving = f"serving, profiled captured rounds of {PROFILED_WALK} steps"
+    mesh_path = "sampling CLI on the (1, 2) and (2, 1) meshes, 2 ranks over gloo, both ranks"
     b1 = entry("packed_score", "tsdiff_tpu_torch/csrc/packed_score.cu",
                "tsdiff_tpu/ops/pallas/condensed_score_packed.py:164",
-               main_path["launches"] + served["b1_launches"] + interop["launches"],
+               main_path["launches"] + served["b1_launches"] + interop["launches"] + mesh["b1"],
                k[(24, "bfloat16")],
                {"sampling CLI": main_path["launches"], serving: served["b1_launches"],
-                "reference interop (phase 10)": interop["launches"]})
+                "reference interop (phase 10)": interop["launches"], mesh_path: mesh["b1"]})
     # every launch here is counted by kernel name in a profiled run of its
     # path; the served requests' walk steps, not all profiled, stand apart
     b1["serving_walk_steps"] = served["walk_steps"]
     b1["serving_max_abs_err"] = served["b1_err"]
+    shape_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
+
+    def at_shape(numbers: dict, what: str) -> dict:
+        return {"what": what, **{key: numbers[key] for key in shape_keys}}
+
+    b1["mesh_shapes"] = [at_shape(mk[("packed_score", 4, 100)], "M=4 B=100 N=24 bf16 (ens=2)"),
+                         at_shape(mk[("packed_score", 8, 50)], "M=8 B=50 N=24 bf16 (dp=2)")]
+    mesh_train = "train CLI, 2 ranks over gloo (dp=2), both ranks"
+    b3_fwd = entry("schnet_stack_fwd", stack_src, f"{vjp}:44", tr["launches"][0] + mesh["b3_fwd"],
+                   bf["fwd"], {"train CLI": tr["launches"][0], mesh_train: mesh["b3_fwd"]})
+    b3_fwd["mesh_shapes"] = [at_shape(mk[("fwd", n)], f"B=100 N={n} bf16 (dp=2)")
+                             for n in (16, 24)]
+    b3_bwd = entry("schnet_stack_bwd", stack_src, f"{vjp}:72", tr["launches"][1] + mesh["b3_bwd"],
+                   bf["bwd"], {"train CLI": tr["launches"][1], mesh_train: mesh["b3_bwd"]})
+    b3_bwd["mesh_shapes"] = [at_shape(mk[("bwd", n)], f"B=100 N={n} bf16 (dp=2)")
+                             for n in (16, 24)]
     print(json.dumps({"kernels": [
         b1,
         entry("condensed_score", "tsdiff_tpu_torch/csrc/condensed_score.cu",
               "tsdiff_tpu/ops/pallas/condensed_score.py:152", dense_path["launches"],
               dk[(24, "bfloat16")]),
         # the train CLI's calls, eager and replayed, counted by kernel name
-        entry("schnet_stack_fwd", stack_src, f"{vjp}:44", tr["launches"][0], bf["fwd"]),
-        entry("schnet_stack_bwd", stack_src, f"{vjp}:72", tr["launches"][1], bf["bwd"]),
+        b3_fwd,
+        b3_bwd,
         # the backward's weight gradients alone: a launch is one backward call's
         # products, its time the 7 blocks' (the library call: torch.mm for each)
         entry("schnet_stack_bwd_xty", stack_src, f"{vjp}:72", tr["xty_launches"], bf["xty"]),
@@ -2514,7 +3105,9 @@ def main() -> None:
               "tsdiff_tpu/ops/pallas/condensed_score_packed_int8.py:188",
               int8_path["launches"] + served["b5_launches"], k[("int8", 24, "bfloat16")],
               {"sampling CLI": int8_path["launches"], serving: served["b5_launches"]})
-        | {"serving_max_abs_err": served["b5_err"]},
+        | {"serving_max_abs_err": served["b5_err"],
+           "mesh_shapes": [at_shape(mk[("packed_score_int8", 4, 100)],
+                                    "M=4 B=100 N=24 bf16 (ens=2)")]},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -2523,5 +3116,30 @@ def main() -> None:
     }}))
 
 
+def mesh_nccl() -> None:
+    """``python3 chip_smoke.py --mesh-nccl``, on a machine with two or more
+    GPUs: phase 11's mesh runs over NCCL alone, two ranks on two GPUs with
+    their collectives captured, after what they are held against (the
+    build, phase 4's one-process run, the training corpus)."""
+    import torch
+
+    if torch.cuda.device_count() < 2:
+        fail(f"--mesh-nccl needs two GPUs; this machine shows {torch.cuda.device_count()}")
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = phase_card()
+    phase_build()
+    main_path = phase_main_path()
+    phase_mesh(main_path, train_setup(), backends=["nccl"])
+    print(smi)
+    print(json.dumps({"ok": True, "mesh": "nccl"}))
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-rank"]:   # one rank of phase 11, started by phase_mesh
+        mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+    elif sys.argv[1:2] == ["--mesh-nccl"]:
+        mesh_nccl()
+    else:
+        main()

@@ -244,7 +244,8 @@ class EagerLoop:
     ``dynamic_sampling`` on the batch's score function, its start and step
     noise drawn from the batch's generator."""
 
-    def __init__(self, ensemble, schedule, settings, capture, pool=None, step_draws=False):
+    def __init__(self, ensemble, schedule, settings, capture, pool=None, step_draws=False,
+                 mesh=None):
         self.ensemble, self.schedule, self.settings = ensemble, schedule, settings
         self.captures = 0
         self._traj = None

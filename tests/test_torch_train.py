@@ -230,11 +230,18 @@ def test_schedule_alphas_copied_to_a_device_once():
 
 
 def test_cli_train_rejects_what_is_not_ported(tmp_path):
+    """orbax (§A.2) and sidechain datasets (§A.7) are refused; the mesh flags
+    are ported (tests/test_torch_parallel.py) and refuse what the JAX CLI's
+    refuse: a cluster neither named by the three flags nor started by
+    torchrun, and more slices than ranks."""
     cfg = tiny_config(str(tmp_path))
     base = [cfg, "--logdir", str(tmp_path / "logs"), "--device", "cpu"]
-    for flag in (["--multihost"], ["--ckpt_backend", "orbax"], ["--mesh_layout", "flat"]):
-        with pytest.raises(NotImplementedError, match=r"not yet ported \(ROADMAP §A\.[25]"):
-            train_cli.main(base + flag)
+    with pytest.raises(NotImplementedError, match=r"not yet ported \(ROADMAP §A\.2"):
+        train_cli.main(base + ["--ckpt_backend", "orbax"])
+    with pytest.raises(ValueError, match="environment torchrun sets"):
+        train_cli.main(base + ["--multihost"])
+    with pytest.raises(ValueError, match="not divisible by 2 slices"):
+        train_cli.main(base + ["--mesh_layout", "hybrid", "--num_slices", "2"])
     with open(cfg) as f:
         sidechain = json.load(f)
     sidechain["dataset"]["type"] = "sidechain"

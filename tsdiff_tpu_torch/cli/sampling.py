@@ -27,13 +27,27 @@ one memory pool; on the CPU the same step runs eagerly.  The step noise is
 drawn before the walk, one draw per step from the batch's generator, so the
 samples are those of the eager loop (``dynamic_sampling``).
 
-Runs on CUDA unless ``--device cpu`` is given.  Not ported: multi-device
-meshes (ROADMAP §A.5).
+Runs on CUDA unless ``--device cpu`` is given.
+
+Several GPUs: one process (rank) per GPU on a ``(dp, ens)`` mesh
+(``parallel/``), as the JAX CLI runs one process over a device mesh.  The
+members split over ``ens`` (each rank loads its block), the batch rows over
+``dp`` (each rank packs its rows; every tier is a multiple of ``dp``); a
+batch's start and step noise are drawn for the whole tier on every rank, so
+the samples are those of one rank with the same seed up to the order of the
+member sum.  ``--mesh auto`` (the default) takes ``ens = gcd(ranks,
+checkpoints)``.  Start the ranks with ``torchrun --nproc_per_node G -m
+tsdiff_tpu_torch.cli.sampling ...`` or pass ``--multihost --coordinator H:P
+--nprocs n --procid i`` to each; NCCL on CUDA (the walk's collective
+captured in its CUDA graph), Gloo on the CPU or with ``--dist_backend gloo``
+(the walk then runs eagerly).  Only rank 0 logs progress and writes the
+pickles.
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 import pickle
 
@@ -95,7 +109,57 @@ def parse_args(argv=None):
                         help="with --fused_score: int8 pair-row products (per-row dynamic "
                              "activation scales, per-tensor weight scales)")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--mesh", type=str, default="auto",
+                        help="'DP,ENS' mesh of ranks, '1,1' to disable, or 'auto' (default): "
+                             "ENS = gcd(#ranks, #ckpts) with the rest as data parallelism. "
+                             "Members split over ENS, the batch over DP")
+    parser.add_argument("--multihost", action="store_true", default=False,
+                        help="multi-process sampling, one rank per GPU; only rank 0 writes "
+                             "results. Pass --coordinator/--nprocs/--procid, or omit all three "
+                             "under torchrun")
+    parser.add_argument("--coordinator", type=str, default=None, help="host:port of rank 0")
+    parser.add_argument("--nprocs", type=int, default=None, help="number of ranks")
+    parser.add_argument("--procid", type=int, default=None, help="this process's rank")
+    parser.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
+                        help="collectives' backend (default: nccl on cuda, gloo on cpu; gloo "
+                             "lets two ranks share one card)")
     return parser.parse_args(argv)
+
+
+def setup_mesh(args, n_ckpts: int, device):
+    """``(mesh or None, device)`` of the sampling CLI's mesh flags, with the
+    JAX CLI's checks (``tsdiff_tpu/cli/sampling.py:174-212``); joins the
+    process group first under ``--multihost`` or ``torchrun``."""
+    import math
+
+    from tsdiff_tpu_torch.parallel import multihost
+
+    if args.multihost or multihost.launched_by_torchrun():
+        device = multihost.initialize(args.coordinator, args.nprocs, args.procid,
+                                      device=device, backend=args.dist_backend)
+    n_ranks = multihost.process_count()
+    if args.mesh == "auto":
+        ens = math.gcd(n_ranks, n_ckpts)
+        dp = n_ranks // ens
+    else:
+        dp, ens = (int(x) for x in args.mesh.split(","))
+    if n_ranks > 1 and dp * ens != n_ranks:
+        raise SystemExit(
+            f"--multihost sampling requires the mesh to span all "
+            f"{n_ranks} global devices (got dp={dp} x ens={ens})"
+        )
+    if dp * ens == 1:
+        return None, device
+    if n_ranks == 1:
+        raise SystemExit(
+            f"--mesh {dp},{ens} needs {dp * ens} ranks, one per device; start them under "
+            "torchrun, or each with --multihost --coordinator/--nprocs/--procid"
+        )
+    if n_ckpts % ens:
+        raise SystemExit(f"--mesh {dp},{ens}: {n_ckpts} checkpoints not divisible by ens={ens}")
+    from tsdiff_tpu_torch.parallel import make_mesh
+
+    return make_mesh(dp=dp, ens=ens, device=device), device
 
 
 def main(argv=None, capture: bool = True) -> str:
@@ -106,23 +170,34 @@ def main(argv=None, capture: bool = True) -> str:
     from tsdiff_tpu_torch.core.graph import from_numpy_graphs
     from tsdiff_tpu_torch.data.dataset import default_buckets, load_dataset, pick_bucket, tier_ladder
     from tsdiff_tpu_torch.data.featurize import featurize_smarts_list
-    from tsdiff_tpu_torch.diffusion.captured import WalkRunner
+    from tsdiff_tpu_torch.diffusion.captured import WalkRunner, can_capture
     from tsdiff_tpu_torch.diffusion.ensemble import load_members, make_ensemble
     from tsdiff_tpu_torch.diffusion.sampler import SamplingSettings, rescale_trajectory
     from tsdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
+    from tsdiff_tpu_torch.parallel import multihost
+    from tsdiff_tpu_torch.parallel.sharding import batch_spec, take
     from tsdiff_tpu_torch.utils.misc import get_logger, resolve_device
 
     device = resolve_device(args.device)
     if args.quant != "none" and not args.fused_score:
         raise ValueError("--quant requires --fused_score")
+    mesh, device = setup_mesh(args, len(args.ckpt), device)
+    is_coord = multihost.is_coordinator()
     os.makedirs(args.save_dir, exist_ok=True)
-    logger = get_logger("sampling", args.save_dir)
+    # only rank 0 logs progress (and writes the results)
+    logger = get_logger("sampling", args.save_dir if is_coord else None)
+    if not is_coord:
+        logger.setLevel(logging.WARNING)
     logger.info(args)
+    if mesh is not None:
+        logger.info("Sampling on a (dp=%d, ens=%d) mesh of %d ranks over %s"
+                    % (mesh.dp, mesh.ens, multihost.process_count(), mesh.backend))
 
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     logger.info("Loading checkpoints...")
     members, model_cfg = load_members(args.ckpt, device, dtype, fused_score=args.fused_score,
-                                      quant=args.quant, use_ema=args.use_ema, logger=logger)
+                                      quant=args.quant, use_ema=args.use_ema, logger=logger,
+                                      mesh=mesh)
     schedule = DiffusionSchedule.from_config(model_cfg)
 
     logger.info("Loading test set...")
@@ -144,6 +219,14 @@ def main(argv=None, capture: bool = True) -> str:
 
     results = []
     if args.resume is not None:
+        if multihost.process_count() > 1 and not os.path.exists(args.resume):
+            # every rank derives the remaining reactions from the same file;
+            # a pickle on rank 0's disk alone would desync the ranks
+            raise SystemExit(
+                f"--resume {args.resume}: not found on rank {torch.distributed.get_rank()}. "
+                "Under --multihost the resume pickle must be on a path visible to ALL "
+                "ranks (shared filesystem, or copy it to each host first)."
+            )
         with open(args.resume, "rb") as f:
             results = pickle.load(f)
         done_smiles = {g.get("smiles") for g in results}
@@ -154,11 +237,14 @@ def main(argv=None, capture: bool = True) -> str:
 
     buckets = default_buckets(max((int(g["atom_type"].shape[0]) for g in test_set), default=8))
     # each batch is padded up to a row tier with duplicates of its last
-    # reaction (dropped when unbatching), so only a few shapes occur
-    tiers = tier_ladder(args.batch_size, 1, max_tiers=3)
+    # reaction (dropped when unbatching), so only a few shapes occur; every
+    # tier is a multiple of dp, so that the rows split evenly
+    dp = mesh.dp if mesh is not None else 1
+    base_tier = _ceil_to(args.batch_size, dp)
+    tiers = tier_ladder(base_tier, dp, max_tiers=3)
 
     def _tier(n: int) -> int:
-        return min((t for t in tiers if t >= n), default=args.batch_size)
+        return min((t for t in tiers if t >= n), default=base_tier)
 
     def make_settings(clip: float) -> SamplingSettings:
         return SamplingSettings(
@@ -173,8 +259,10 @@ def main(argv=None, capture: bool = True) -> str:
             timestep_respacing=args.timestep_respacing,
         )
 
-    ensemble = make_ensemble(members)
-    capture = capture and device.type == "cuda"
+    ensemble = make_ensemble(members, mesh)
+    if capture and device.type == "cuda" and not can_capture(device, mesh):
+        logger.info("Gloo collectives cannot be captured in a CUDA graph: walking eagerly")
+    capture = capture and can_capture(device, mesh)
     pool = torch.cuda.graph_pool_handle() if capture else None
     runners: dict[tuple, WalkRunner] = {}
 
@@ -182,12 +270,14 @@ def main(argv=None, capture: bool = True) -> str:
         key = (n_pad, tier, clip)
         if key not in runners:
             runners[key] = WalkRunner(ensemble, schedule, make_settings(clip), capture, pool,
-                                      step_draws=True)
+                                      step_draws=True, mesh=mesh)
         return runners[key]
 
     def sample_batch(gpad: list[dict], n_pad: int, clip: float):
-        """``(physical-frame positions, NaN flag, trajectory or None)``."""
-        batch = from_numpy_graphs(gpad, max_nodes=n_pad, device=device)
+        """``(physical-frame positions, NaN flag, trajectory or None)``; on a
+        mesh this rank packs and walks its rows and gets every rank's."""
+        rows = gpad if mesh is None else take(gpad, batch_spec(mesh))
+        batch = from_numpy_graphs(rows, max_nodes=n_pad, device=device)
         settings = make_settings(clip)
         gen = torch.Generator(device=device)
         if args.from_ts_guess:
@@ -235,20 +325,22 @@ def main(argv=None, capture: bool = True) -> str:
             if nan_persisted:
                 out["nan_persisted"] = True
             results.append(out)
-        with open(os.path.join(args.save_dir, "samples_not_all.pkl"), "wb") as f:
-            pickle.dump(results, f)
+        if is_coord:
+            with open(os.path.join(args.save_dir, "samples_not_all.pkl"), "wb") as f:
+                pickle.dump(results, f)
 
     if capture:
         logger.info("CUDA graphs recorded: %d, one per (bucket, tier, clip): %s" % (
             sum(r.captures for r in runners.values()),
             ", ".join(str(k) for k, r in runners.items() if r.captures)))
     save_path = os.path.join(args.save_dir, "samples_all.pkl")
-    partial = os.path.join(args.save_dir, "samples_not_all.pkl")
-    if os.path.exists(partial):
-        os.remove(partial)
-    logger.info("Saving samples to: %s" % save_path)
-    with open(save_path, "wb") as f:
-        pickle.dump(results, f)
+    if is_coord:
+        partial = os.path.join(args.save_dir, "samples_not_all.pkl")
+        if os.path.exists(partial):
+            os.remove(partial)
+        logger.info("Saving samples to: %s" % save_path)
+        with open(save_path, "wb") as f:
+            pickle.dump(results, f)
     return save_path
 
 

@@ -36,9 +36,24 @@ The flags and defaults are the JAX package's CLI's:
   step's loss, so each step waits for the card, and logs ``Phase timings:``
   at the end.
 
-Not ported: ``--multihost`` and ``--mesh_layout`` (ROADMAP §A.5),
-``--ckpt_backend orbax`` (§A.2, blocked) and ``dataset.type: sidechain``
-(§A.7).
+Data parallelism: one process (rank) per GPU, as the JAX CLI runs one
+process over its devices.  ``dp`` is the largest divisor of the batch size
+that is at most the number of ranks (``--mesh_layout flat``), or
+``dp_dcn x dp`` over nodes and their ranks (``--mesh_layout hybrid
+--num_slices S``).  Every rank builds the same global plan of batches and
+feeds its rows of each (the resident corpus whole on every rank, gathered
+at the rank's offset; the streamed loader packing only the rank's rows);
+the gradients and the loss's sums are all-reduced inside the step, so
+every rank logs the global loss.  Start the ranks with ``torchrun
+--nproc_per_node G -m tsdiff_tpu_torch.cli.train ...`` or pass
+``--multihost --coordinator H:P --nprocs n --procid i`` to each; NCCL on
+CUDA (its collectives captured in the steps' CUDA graphs), Gloo on the CPU
+or with ``--dist_backend gloo`` (the steps then run eagerly).  Only rank 0
+writes checkpoints and wandb; every other rank logs to its own run
+directory, tagged ``_proc<rank>``.
+
+Not ported: ``--ckpt_backend orbax`` (§A.2, blocked) and ``dataset.type:
+sidechain`` (§A.7).
 """
 
 from __future__ import annotations
@@ -54,8 +69,6 @@ import torch
 
 #: flags of the JAX package's CLI that the port refuses, with their ROADMAP item
 _NOT_PORTED = {
-    "multihost": ("--multihost", "§A.5"),
-    "mesh_layout": ("--mesh_layout", "§A.5"),
     "ckpt_backend": ("--ckpt_backend orbax", "§A.2, blocked: orbax needs JAX"),
 }
 #: ``--device_data auto`` keeps the corpus on the device up to this many bytes
@@ -84,9 +97,19 @@ def parse_args(argv=None):
                         help="warm-start params and EMA from a checkpoint (.ckpt or reference .pt)")
     parser.add_argument("--profile", action="store_true",
                         help="log per-phase timings (data, train_step), the device synced per step")
-    # flags of the JAX package's CLI that are not ported: they raise
-    parser.add_argument("--multihost", action="store_true")
-    parser.add_argument("--mesh_layout", choices=["flat", "hybrid"], default=None)
+    parser.add_argument("--multihost", action="store_true", default=False,
+                        help="multi-process data parallelism, one rank per GPU; pass "
+                             "--coordinator/--nprocs/--procid, or omit all three under torchrun")
+    parser.add_argument("--mesh_layout", choices=["flat", "hybrid"], default="flat",
+                        help="hybrid: (dp_dcn, dp) data parallelism, the outer axis over nodes")
+    parser.add_argument("--num_slices", type=int, default=None,
+                        help="hybrid layout: node count (default: world / LOCAL_WORLD_SIZE)")
+    parser.add_argument("--coordinator", type=str, default=None, help="host:port of rank 0")
+    parser.add_argument("--nprocs", type=int, default=None, help="number of ranks")
+    parser.add_argument("--procid", type=int, default=None, help="this process's rank")
+    parser.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
+                        help="collectives' backend (default: nccl on cuda, gloo on cpu)")
+    # a flag of the JAX package's CLI that is not ported: it raises
     parser.add_argument("--ckpt_backend", choices=["pickle", "orbax"], default="pickle")
     args = parser.parse_args(argv)
     for attr, (flag, item) in _NOT_PORTED.items():
@@ -129,6 +152,33 @@ class ResidentLoop:
         return b, self.res.buckets[b], self.plans[b], self.cursors[b], real
 
 
+def make_train_mesh(args, batch_size: int, nproc: int, device):
+    """The data-parallel mesh of the ranks, None for one rank, with the JAX
+    CLI's checks (``tsdiff_tpu/cli/train.py:250-272``)."""
+    from tsdiff_tpu_torch.parallel import make_hybrid_mesh, make_mesh
+
+    if args.mesh_layout == "hybrid":
+        if nproc == 1:
+            if args.num_slices not in (None, 1):
+                raise ValueError(f"1 ranks not divisible by {args.num_slices} slices")
+            return None
+        mesh = make_hybrid_mesh(ens=1, num_slices=args.num_slices, device=device)
+        if batch_size % mesh.dp != 0:
+            raise SystemExit(
+                f"--mesh_layout hybrid: batch_size ({batch_size}) "
+                f"not divisible by dp_dcn x dp = {mesh.dp}"
+            )
+        return mesh
+    dp = max(d for d in range(1, nproc + 1) if batch_size % d == 0)
+    if nproc > 1 and dp != nproc:
+        # every rank must hold a block of each batch
+        raise SystemExit(
+            f"--multihost requires batch_size ({batch_size}) "
+            f"divisible by the {nproc} global devices"
+        )
+    return make_mesh(dp=dp, ens=1, device=device) if nproc > 1 else None
+
+
 def _config_path(log_dir: str) -> str:
     for suffix in ("json", "yml", "yaml"):
         found = sorted(glob.glob(os.path.join(log_dir, f"*.{suffix}")))
@@ -160,6 +210,7 @@ def _train(args, capture: bool) -> str:
     from tsdiff_tpu_torch.diffusion.objective import draw_timesteps_and_noise
     from tsdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
     from tsdiff_tpu_torch.models import get_model
+    from tsdiff_tpu_torch.parallel import multihost
     from tsdiff_tpu_torch.train import (
         TrainState,
         get_checkpoint_path,
@@ -173,6 +224,7 @@ def _train(args, capture: bool) -> str:
         opt_state_from_checkpoint,
         save_checkpoint,
     )
+    from tsdiff_tpu_torch.diffusion.captured import can_capture
     from tsdiff_tpu_torch.train.captured import StepGraphs
     from tsdiff_tpu_torch.train.scheduler import get_scheduler
     from tsdiff_tpu_torch.utils.misc import (
@@ -185,6 +237,11 @@ def _train(args, capture: bool) -> str:
     from tsdiff_tpu_torch.utils.profiling import PhaseTimer
 
     device = resolve_device(args.device)
+    if args.multihost or multihost.launched_by_torchrun():
+        device = multihost.initialize(args.coordinator, args.nprocs, args.procid,
+                                      device=device, backend=args.dist_backend)
+    nproc = multihost.process_count()
+    is_coord = multihost.is_coordinator()
     resume = os.path.isdir(args.config)
     config_path = _config_path(args.config) if resume else args.config
     config = load_config(config_path)
@@ -196,6 +253,11 @@ def _train(args, capture: bool) -> str:
 
     config_name = os.path.splitext(os.path.basename(config_path))[0]
     tag = args.tag if args.tag is not None else args.name
+    if not is_coord:
+        # every rank keeps its own log dir; only the coordinator writes
+        # checkpoints and wandb
+        rank = torch.distributed.get_rank()
+        tag = f"{tag}_proc{rank}" if tag else f"proc{rank}"
     log_dir = get_new_log_dir(args.logdir, prefix=config_name,
                               tag=f"{tag}_resume" if resume else tag)
     ckpt_dir = os.path.join(log_dir, "checkpoints")
@@ -206,7 +268,7 @@ def _train(args, capture: bool) -> str:
     shutil.copyfile(config_path, os.path.join(log_dir, os.path.basename(config_path)))
 
     wandb = None
-    if args.name and args.project:
+    if args.name and args.project and is_coord:
         try:
             import wandb
 
@@ -224,6 +286,14 @@ def _train(args, capture: bool) -> str:
     if len(val_set) == 0:
         raise SystemExit(f"validation set is empty ({config.dataset.val})")
     batch_size = config.train.batch_size
+    mesh = make_train_mesh(args, batch_size, nproc, device)
+    rows = None
+    if mesh is not None:
+        from tsdiff_tpu_torch.parallel.sharding import batch_spec
+
+        rows = batch_spec(mesh).slice(batch_size)
+    logger.info(f"Ranks: {nproc} -> mesh " + (f"{mesh.shape} over {mesh.backend}"
+                                              if mesh is not None else "none"))
     train_res = val_res = None
     if args.device_data != "off":
         budget = DEVICE_DATA_BUDGET if args.device_data == "auto" else None
@@ -246,11 +316,11 @@ def _train(args, capture: bool) -> str:
                         f"bucket: train {train_res.n_batches}, val {val_res.n_batches})")
     if train_res is None:
         loader = PaddedBatchLoader(train_set, batch_size, shuffle=True, bucket_sizes=bucket_sizes,
-                                   seed=config.train.seed, with_indices=True)
+                                   seed=config.train.seed, with_indices=True, rows=rows)
         train_iter = iter(Prefetcher(inf_iterator(loader), depth=2,
                                      transfer=lambda item: (to_device(item[0], device), item[1])))
         val_loader = PaddedBatchLoader(val_set, batch_size, shuffle=False,
-                                       bucket_sizes=bucket_sizes, device=device)
+                                       bucket_sizes=bucket_sizes, device=device, rows=rows)
     else:
         val_plans = {b: val_res.fixed_plan(b) for b in val_res.buckets}
 
@@ -265,10 +335,10 @@ def _train(args, capture: bool) -> str:
     t0, t1 = config.model.get("t0", 0), config.model.get("t1", None)
     ema_decay = config.train.get("ema_decay", None)
     train_step = make_train_step(model, tx, schedule, t0=t0, t1=t1, ema_decay=ema_decay,
-                                 debug_nans=args.debug_nans)
-    eval_step = make_eval_step(model, schedule, t0=t0, t1=t1)
-    res_train_step = make_resident_train_step(train_step, batch_size)
-    res_eval_step = make_resident_eval_step(eval_step, batch_size)
+                                 debug_nans=args.debug_nans, mesh=mesh)
+    eval_step = make_eval_step(model, schedule, t0=t0, t1=t1, mesh=mesh)
+    res_train_step = make_resident_train_step(train_step, batch_size, mesh)
+    res_eval_step = make_resident_eval_step(eval_step, batch_size, mesh)
     scheduler = get_scheduler(config.train.scheduler, config.train.optimizer.lr)
     state = init_train_state(model, tx, ema_decay=ema_decay)
     start_iter = 1
@@ -300,10 +370,12 @@ def _train(args, capture: bool) -> str:
 
     # JAX runs every step as one compiled program: here one CUDA graph per
     # (step kind, bucket), where its checks do not read the card
-    graphs = StepGraphs(device) if capture and device.type == "cuda" and not args.debug_nans \
+    graphs = StepGraphs(device) if capture and can_capture(device, mesh) and not args.debug_nans \
         else None
     if graphs is not None:
         logger.info("Steps replay CUDA graphs, one per (step kind, bucket)")
+    elif capture and device.type == "cuda" and not can_capture(device, mesh):
+        logger.info("Gloo collectives cannot be captured in a CUDA graph: steps run eagerly")
     t_end = len(schedule.alphas) if t1 is None else t1
     # the learning rate on the device, refreshed only when the scheduler moves it
     lr_host = scheduler.lr
@@ -423,10 +495,11 @@ def _train(args, capture: bool) -> str:
                     lr.fill_(lr_host)
                 if avg_val_loss < best_loss:
                     best_loss = avg_val_loss
-                    save_checkpoint(os.path.join(ckpt_dir, f"{it}.ckpt"), config, state,
-                                    scheduler.state_dict(), iteration=it,
-                                    avg_val_loss=avg_val_loss)
-                    logger.info(f"Saved checkpoint at iter {it} (val {avg_val_loss:.6f})")
+                    if is_coord:  # only the coordinator writes checkpoints
+                        save_checkpoint(os.path.join(ckpt_dir, f"{it}.ckpt"), config, state,
+                                        scheduler.state_dict(), iteration=it,
+                                        avg_val_loss=avg_val_loss)
+                        logger.info(f"Saved checkpoint at iter {it} (val {avg_val_loss:.6f})")
     finally:
         if loop is None:
             train_iter.close()  # ends the prefetcher's worker

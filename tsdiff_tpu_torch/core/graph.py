@@ -10,8 +10,9 @@ A batch is a stack of fixed-size padded graphs:
                                ``r_type * NUM_BOND_TYPES + p_type``, 0 = none
   * ``node_mask``  (B, N)      bool    True for real atoms
 
-``N`` is a bucket size.  Packing runs in numpy on the host; the batch is then
-moved to its device in one go.
+``N`` is a bucket size.  Packing runs on the host, in the C++ packer
+(``data/native.py``) for graphs with sparse edges and in numpy for graphs
+with a dense ``bond_mat``; the batch is then moved to its device in one go.
 """
 
 from __future__ import annotations
@@ -39,9 +40,34 @@ def from_numpy_graphs(
 
     Each graph dict has ``atom_type (n,)``, ``r_feat (n,F)``, ``p_feat
     (n,F)``, optional ``pos (n,3)``, and either ``bond_mat (n,n)`` or sparse
-    ``edge_index (2,E)`` + ``edge_type (E,)``.
+    ``edge_index (2,E)`` + ``edge_type (E,)``.  Graphs with sparse edges only
+    (the on-disk form) go through the C++ packer, as the JAX package packs
+    them (``tsdiff_tpu/core/graph.py:98-110``); a dense ``bond_mat`` takes
+    ``pack_numpy``.  Both give the same arrays.
     """
     n_max = max_nodes or max(int(g["atom_type"].shape[0]) for g in graphs)
+    for g in graphs:
+        n = int(g["atom_type"].shape[0])
+        if n > n_max:
+            raise ValueError(f"graph with {n} atoms exceeds max_nodes={n_max}")
+    if any("bond_mat" in g for g in graphs):
+        arrays = pack_numpy(graphs, n_max)
+    else:
+        from tsdiff_tpu_torch.data.native import pack_batch_native
+
+        atom_type, r_feat, p_feat, pos, bond_mat, node_mask = pack_batch_native(graphs, n_max)
+        # the C++ packer writes int32 types and float32 features
+        arrays = dict(
+            atom_type=atom_type.astype(np.int64), r_feat=r_feat.astype(np.uint8),
+            p_feat=p_feat.astype(np.uint8), pos=pos, bond_mat=bond_mat.astype(np.int64),
+            node_mask=node_mask,
+        )
+    return ReactionBatch(**{k: torch.from_numpy(v).to(device) for k, v in arrays.items()})
+
+
+def pack_numpy(graphs: list[dict], n_max: int) -> dict[str, np.ndarray]:
+    """The numpy packer: the batch's arrays as ``from_numpy_graphs`` returns
+    them, from graphs with a dense ``bond_mat`` or sparse edges."""
     B = len(graphs)
     feat_dim = int(graphs[0]["r_feat"].shape[-1])
 
@@ -68,8 +94,7 @@ def from_numpy_graphs(
             bond_mat[b, ei[0], ei[1]] = np.asarray(g["edge_type"])
         node_mask[b, :n] = True
 
-    arrays = dict(
+    return dict(
         atom_type=atom_type, r_feat=r_feat, p_feat=p_feat, pos=pos,
         bond_mat=bond_mat, node_mask=node_mask,
     )
-    return ReactionBatch(**{k: torch.from_numpy(v).to(device) for k, v in arrays.items()})

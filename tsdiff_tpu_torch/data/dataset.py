@@ -128,7 +128,9 @@ class PaddedBatchLoader:
     that fits, then emit batches of exactly ``batch_size`` graphs per bucket,
     a partial tail padded with empty graphs (or dropped with ``drop_tail``).
     With ``with_indices`` each batch comes with its dataset indices (-1 for
-    padding)."""
+    padding).  ``rows``: pack only these rows of every batch (a data-parallel
+    rank's block of the global plan, which every rank makes alike); the
+    indices stay the whole batch's."""
 
     def __init__(
         self,
@@ -140,6 +142,7 @@ class PaddedBatchLoader:
         drop_tail: bool = False,
         with_indices: bool = False,
         device="cpu",
+        rows: slice | None = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -148,6 +151,7 @@ class PaddedBatchLoader:
         self.drop_tail = drop_tail
         self.with_indices = with_indices
         self.device = device
+        self.rows = rows if rows is not None else slice(None)
         if bucket_sizes is None:
             bucket_sizes = default_buckets(dataset.max_nodes)
         self.bucket_sizes = sorted(bucket_sizes)
@@ -178,7 +182,7 @@ class PaddedBatchLoader:
             while len(graphs) < self.batch_size:
                 graphs.append(_empty_graph(self.feat_dim))
                 indices.append(-1)
-            batch = from_numpy_graphs(graphs, max_nodes=bsize, device=self.device)
+            batch = from_numpy_graphs(graphs[self.rows], max_nodes=bsize, device=self.device)
             yield (batch, np.asarray(indices)) if self.with_indices else batch
 
 

@@ -161,17 +161,20 @@ class DeviceResidentData:
 
 
 def gather_batch(arrays: dict, plan: torch.Tensor, cursor: int | torch.Tensor,
-                 batch_size: int) -> ReactionBatch:
+                 batch_size: int, rows: slice | None = None) -> ReactionBatch:
     """Batch ``cursor`` (wrapped modulo the plan's batches) of ``plan``,
     gathered from the resident ``arrays`` on their device, in the dtypes of
     ``from_numpy_graphs``: int64 atom and bond types, uint8 features, float32
     positions, a bool mask.  ``cursor``: a 0-dim integer tensor on the
-    plan's device (the slot computed there) or a Python int."""
-    slot = (cursor % (plan.shape[0] // batch_size)) * batch_size
+    plan's device (the slot computed there) or a Python int.  ``rows``: only
+    these rows of the batch (a data-parallel rank's block; every rank holds
+    the whole corpus and gathers at ``slot + rows.start``)."""
+    start, stop = (0, batch_size) if rows is None else (rows.start, rows.stop)
+    slot = (cursor % (plan.shape[0] // batch_size)) * batch_size + start
     if isinstance(slot, torch.Tensor):
-        idx = plan.index_select(0, slot + torch.arange(batch_size, device=plan.device))
+        idx = plan.index_select(0, slot + torch.arange(stop - start, device=plan.device))
     else:
-        idx = plan[slot:slot + batch_size]
+        idx = plan[slot:slot + stop - start]
     rows = {k: arrays[k].index_select(0, idx) for k in FIELDS}
     rows["atom_type"] = rows["atom_type"].long()
     rows["bond_mat"] = rows["bond_mat"].long()

@@ -73,3 +73,18 @@ def make_corpus(count: int, seed: int) -> list[dict]:
     table = _bend_table()
     rng = np.random.default_rng(seed)
     return [make_reaction(rng, table) for _ in range(count)]
+
+
+def sparse_edges(graphs: list[dict]) -> list[dict]:
+    """The graphs in the on-disk form of featurized and converted datasets:
+    ``bond_mat`` replaced by ``edge_index (2, E)`` int32 and ``edge_type
+    (E,)`` int32 over its nonzero entries, in row-major order."""
+    out = []
+    for g in graphs:
+        g = dict(g)
+        bm = np.asarray(g.pop("bond_mat"))
+        row, col = np.nonzero(bm)
+        g["edge_index"] = np.stack([row, col]).astype(np.int32)
+        g["edge_type"] = bm[row, col].astype(np.int32)
+        out.append(g)
+    return out

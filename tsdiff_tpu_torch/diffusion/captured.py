@@ -25,6 +25,16 @@ equal bit for bit.  From a generator, the re-noising draw of
 whole round (the service), or with ``step_draws`` one draw of ``(tier,
 bucket, 3)`` per step in step order, as ``dynamic_sampling`` draws it (the
 sampling CLI, whose samples stay those of its eager loop).
+
+On a mesh (``parallel/sharding.py``) a round's start and noise are drawn
+for the global tier, identically on every rank, and each rank walks its own
+rows of them (``batch_spec``) with its block of the members, so a ``dp=2``
+run walks the rows of the one-rank run of the same seed.  The NaN flag is
+an ``all_reduce(MAX)`` over the world, so a NaN on one rank sends every
+rank to the clip-20 retry, and the final positions are gathered onto every
+rank (``replicate_output``).  A step's collective (the member sum over
+``ens``) is captured in the graph on NCCL; Gloo's collectives cannot be
+captured, so on a Gloo mesh the caller walks eagerly (``capture=False``).
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tsdiff_tpu_torch.diffusion.sampler import (
     SamplingSettings,
@@ -44,6 +55,13 @@ from tsdiff_tpu_torch.diffusion.sampler import (
     walk_step,
 )
 from tsdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
+
+
+def can_capture(device, mesh=None) -> bool:
+    """Whether a step can run as a CUDA graph: on CUDA, and not with a Gloo
+    mesh, whose collectives cannot be captured (decided by the mesh's
+    backend, ``dist.get_backend()``)."""
+    return torch.device(device).type == "cuda" and (mesh is None or mesh.backend != "gloo")
 
 
 def copy_into(dst, src) -> None:
@@ -82,11 +100,15 @@ class _TierBuffers:
 
 class WalkRunner:
     """The reverse walk of one (bucket, respacing, clip) of a service, for
-    any batch tier; ``run`` is one round."""
+    any batch tier; ``run`` is one round.  ``mesh``: this rank's rows of
+    every tier, its block of the members in ``ensemble``."""
 
     def __init__(self, ensemble, schedule: DiffusionSchedule, settings: SamplingSettings,
-                 capture: bool, pool=None, step_draws: bool = False):
+                 capture: bool, pool=None, step_draws: bool = False, mesh=None):
+        if capture and not can_capture("cuda", mesh):
+            raise ValueError("Gloo collectives cannot be captured: walk with capture=False")
         self.ensemble = ensemble
+        self.mesh = mesh
         self.schedule = schedule
         self.settings = settings
         self.capture = capture
@@ -107,8 +129,37 @@ class WalkRunner:
 
     def trajectory(self, tier: int) -> torch.Tensor:
         """The scaled-frame trajectory ``(n_walk, tier, bucket, 3)`` of the
-        last round at ``tier`` (``save_traj``), step k's positions in row k."""
-        return self._tiers[tier].traj
+        last round at ``tier`` (``save_traj``), step k's positions in row k;
+        on a mesh every rank's rows (a collective)."""
+        traj = self._tiers[tier].traj
+        if self.mesh is None:
+            return traj
+        from tsdiff_tpu_torch.parallel.multihost import replicate_output
+
+        return replicate_output(traj.transpose(0, 1).contiguous(), self.mesh).transpose(0, 1)
+
+    def _rows(self, tier: int) -> slice | None:
+        if self.mesh is None:
+            return None
+        from tsdiff_tpu_torch.parallel.sharding import batch_spec
+
+        return batch_spec(self.mesh).slice(tier)
+
+    def _draw_noise(self, buf: _TierBuffers, gen: torch.Generator, shape, rows) -> None:
+        """Fill the noise buffer from ``gen``: ``shape`` is a step's global
+        shape, of which this rank keeps ``rows``."""
+        if rows is None:
+            if self.step_draws:
+                for step_noise in buf.noise:
+                    step_noise.normal_(generator=gen)
+            else:
+                buf.noise.normal_(generator=gen)
+        elif self.step_draws:
+            for step_noise in buf.noise:
+                step_noise.copy_(torch.randn(shape, generator=gen, device=buf.noise.device)[rows])
+        else:
+            buf.noise.copy_(torch.randn((self.n_walk, *shape), generator=gen,
+                                        device=buf.noise.device)[:, rows])
 
     def _step(self, buf: _TierBuffers) -> None:
         step_noise = at_counter(buf.noise, buf.counter)
@@ -149,37 +200,42 @@ class WalkRunner:
         round's noise buffer in place (as ``torch.randn`` of that shape would
         draw it, or of each step's shape in turn with ``step_draws``).
         Returns the final physical-frame positions as numpy and the NaN
-        flag."""
+        flag.  On a mesh ``pos_init`` and ``noise`` are the global tier's,
+        ``batch`` this rank's rows of it, and every rank returns the whole
+        tier's positions and the flag of any rank."""
         tier = pos_init.shape[0]
         noise_shape = (self.n_walk, *pos_init.shape)
         if isinstance(noise, torch.Tensor) and noise.shape != noise_shape:
             raise ValueError(f"noise must be {noise_shape}, got {tuple(noise.shape)}")
+        rows = self._rows(tier)
         statics = self.ensemble.prepare(batch)
         buf = self._tiers.get(tier)
         if buf is None:
             dev = pos_init.device
             if self._coef is None:
                 self._coef = step_coeff_table(self._coeffs, dev)
+            local = pos_init if rows is None else pos_init[rows]
+            local_noise = (self.n_walk, *local.shape)
             buf = _TierBuffers(
                 statics=statics, step_fn=self.ensemble.step_fn(statics),
-                pos=torch.empty_like(pos_init), noise=pos_init.new_empty(noise_shape),
+                pos=torch.empty_like(local), noise=local.new_empty(local_noise),
                 counter=torch.zeros((), dtype=torch.int64, device=dev),
                 nan_flag=torch.zeros((), dtype=torch.bool, device=dev),
-                traj=pos_init.new_zeros(noise_shape) if self.settings.save_traj else None,
+                traj=local.new_zeros(local_noise) if self.settings.save_traj else None,
             )
             self._tiers[tier] = buf
         else:
             copy_into(buf.statics, statics)
         mask = buf.statics.node_mask[..., None].to(pos_init.dtype)
         gen = None if isinstance(noise, torch.Tensor) else noise
-        start = initial_position(self.schedule, self.settings, pos_init, generator=gen) * mask
+        start = initial_position(self.schedule, self.settings, pos_init, generator=gen)
+        if rows is not None:
+            start = start[rows]
+        start = start * mask
         if gen is None:
-            buf.noise.copy_(noise)
-        elif self.step_draws:
-            for step_noise in buf.noise:
-                step_noise.normal_(generator=gen)
+            buf.noise.copy_(noise if rows is None else noise[:, rows])
         else:
-            buf.noise.normal_(generator=gen)
+            self._draw_noise(buf, gen, pos_init.shape, rows)
         self._reset(buf, start)
         if self.capture:
             if buf.graph is None:
@@ -190,5 +246,11 @@ class WalkRunner:
             for _ in range(self.n_walk):
                 self._step(buf)
         buf.rounds += 1
-        nan = bool(buf.nan_flag.item())
-        return (buf.pos * self.scale).cpu().numpy(), nan
+        pos = buf.pos * self.scale
+        if self.mesh is None:
+            return pos.cpu().numpy(), bool(buf.nan_flag.item())
+        from tsdiff_tpu_torch.parallel.multihost import replicate_output
+
+        flag = buf.nan_flag.to(torch.int32)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return replicate_output(pos, self.mesh).cpu().numpy(), bool(flag.item())

@@ -15,6 +15,13 @@ ensemble (packed).
 * ``DenseEnsemble`` — the member-invariant radius mask and distances are
   built once per step, each member's unfused ``score_step`` runs on them,
   and the scores are averaged.
+* On a mesh (``parallel/sharding.py``) each rank holds its block of the
+  members (``load_members(..., mesh=)``), and the mean over members is the
+  rank's member sum, an ``all_reduce(SUM)`` over the ``ens`` group, then
+  ÷ M: what XLA runs for ``jnp.mean(jax.vmap(member)(...), axis=0)`` on an
+  ``ens``-sharded stack (``tsdiff_tpu/diffusion/ensemble.py:99``).  The
+  partial sums add in another order than one rank's mean (f32 differences
+  of ~1e-7 relative).  Without a mesh the mean is ``.mean(dim=0)``.
 * Both split into ``prepare(batch)``, the per-batch statics, and
   ``step_fn(statics)``, the per-step function that reads them; the service's
   captured walk keeps the statics in tensors of its own
@@ -30,6 +37,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from tsdiff_tpu_torch.core.graph import ReactionBatch
 from tsdiff_tpu_torch.core.packed import PackedPairs, eq_transform_packed
@@ -45,6 +53,17 @@ def _precompute_static(model, batch: ReactionBatch):
         return model.precompute_static(
             batch.atom_type, batch.r_feat, batch.p_feat, batch.bond_mat, batch.node_mask
         )
+
+
+def member_mean(stack: torch.Tensor, group=None, n_members: int | None = None) -> torch.Tensor:
+    """The mean over the leading member axis of ``stack``; with ``group``
+    (the ``ens`` axis) over the members of every rank of the group:
+    ``n_members`` in all, each rank holding its block."""
+    if group is None:
+        return stack.mean(dim=0)
+    total = stack.sum(dim=0)
+    dist.all_reduce(total, group=group)
+    return total / n_members
 
 
 def make_score_fn(model, batch: ReactionBatch):
@@ -75,11 +94,14 @@ class PackedEnsemble:
     members' kernel weights are stacked once, ``prepare`` makes one batch's
     ``PackedStatics``, and the function of ``step_fn`` reads them on every
     step.  A caller that keeps the statics in tensors of its own (a CUDA
-    graph reads fixed addresses) copies each new batch's into them."""
+    graph reads fixed addresses) copies each new batch's into them.
+    ``group``/``n_members``: the ``ens`` group and the ensemble's size when
+    ``members`` are this rank's block of them (``member_mean``)."""
 
-    def __init__(self, members: list):
+    def __init__(self, members: list, group=None, n_members: int | None = None):
         self.model = members[0]
         self.members = members
+        self.group, self.n_members = group, n_members or len(members)
         ops, member_weights = zip(*(m.packed_score_op() for m in members))
         self.score_op, self.weights = ops[0], stack_params(list(member_weights))
 
@@ -105,7 +127,8 @@ class PackedEnsemble:
                 self.weights, statics.z, info.d_in.contiguous(), info.cmask.contiguous(),
                 pp.type_r_in, pp.type_p_in, pp.type_r_out, pp.type_p_out,
                 num_blocks=model.num_convs,
-            ).mean(dim=0)
+            )
+            score = member_mean(score, self.group, self.n_members)
             return eq_transform_packed(score, pos, info.m_eq, info.d_out)
 
         node_eq_fn.returns_node_eq = True
@@ -133,9 +156,10 @@ class DenseEnsemble:
     member's unfused dense ``score_step`` on the step's shared pair info,
     and the mean over members."""
 
-    def __init__(self, members: list):
+    def __init__(self, members: list, group=None, n_members: int | None = None):
         self.model = members[0]
         self.members = members
+        self.group, self.n_members = group, n_members or len(members)
 
     def prepare(self, batch: ReactionBatch) -> DenseStatics:
         return DenseStatics(node_mask=batch.node_mask.clone(),
@@ -149,20 +173,24 @@ class DenseEnsemble:
         @torch.no_grad()
         def score(pos: torch.Tensor):
             pair_info = model.build_pair_info(pos, node_mask, pairs)
-            edge_inv = torch.stack([
+            edge_inv = member_mean(torch.stack([
                 m.score_step(pos, node_mask, st, pair_info)[0]
                 for m, st in zip(self.members, statics.members)
-            ]).mean(dim=0)
+            ]), self.group, self.n_members)
             _, _, edges_out, d_out = pair_info
             return edge_inv, edges_out.mask_global, d_out
 
         return score
 
 
-def make_ensemble(members: list) -> PackedEnsemble | DenseEnsemble:
+def make_ensemble(members: list, mesh=None) -> PackedEnsemble | DenseEnsemble:
     """The packed ensemble for ``fused_score`` members (the same contract for
-    the sampler, half the pair rows), else the dense one."""
-    return PackedEnsemble(members) if members[0].fused_score else DenseEnsemble(members)
+    the sampler, half the pair rows), else the dense one.  On a ``mesh``
+    with ``ens > 1``, ``members`` are this rank's block of the ensemble."""
+    kind = PackedEnsemble if members[0].fused_score else DenseEnsemble
+    if mesh is None or mesh.ens == 1:
+        return kind(members)
+    return kind(members, mesh.group("ens"), len(members) * mesh.ens)
 
 
 def make_ensemble_score_fn(members: list, batch: ReactionBatch):
@@ -173,11 +201,16 @@ def make_ensemble_score_fn(members: list, batch: ReactionBatch):
 
 
 def load_members(paths: list[str], device, dtype, fused_score: bool = False,
-                 quant: str | None = None, use_ema: bool = False, logger=None):
+                 quant: str | None = None, use_ema: bool = False, logger=None, mesh=None):
     """``(members, model_cfg)``: one CondenseEncoderEpsNetwork per checkpoint,
     rebuilt from its embedded config with ``fused_score`` and ``quant``
     (``score_quant``) set where given, on ``device`` in eval mode; the
-    config is the first member's."""
+    config is the first member's.  On a ``mesh`` only this rank's block of
+    ``paths`` over the ``ens`` axis is loaded."""
+    if mesh is not None:
+        from tsdiff_tpu_torch.parallel.sharding import shard_ensemble_params
+
+        paths = shard_ensemble_params(list(paths), mesh)
     from tsdiff_tpu_torch.config import Config
     from tsdiff_tpu_torch.convert import params_from_jax
     from tsdiff_tpu_torch.models import CondenseEncoderEpsNetwork

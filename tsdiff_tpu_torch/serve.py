@@ -24,8 +24,20 @@ Each round draws its start and its step noise from a ``torch.Generator``
 seeded with ``seed * 7919 + served``, as the JAX service derives its key;
 JAX's random stream itself cannot be reproduced in torch, so the two services
 give different samples of the same distribution.  Runs on CUDA unless
-``device="cpu"`` (``--device cpu``) is given.  Not ported yet: device meshes
-and multi-process serving (ROADMAP A.5).
+``device="cpu"`` (``--device cpu``) is given.
+
+Several GPUs (``mesh``, ``--mesh DP,ENS --multihost``): one process (rank)
+per GPU on a ``(dp, ens)`` mesh (``parallel/``).  Rank 0 runs the HTTP
+front and the batcher; every round it broadcasts a header ``(command,
+bucket, tier, served, respacing)`` and the packed batch, and the other
+ranks follow in ``worker_loop``.  Each rank walks its rows of the tier with
+its block of the members; the start and the noise of a round are drawn for
+the whole tier from the round's seed on every rank, the NaN flag and the
+positions gathered over the ranks, so every rank records its graph of a
+(bucket, tier, respacing) in the same round and the collectives line up.
+On a Gloo mesh (``--dist_backend gloo``, or the CPU) the walk runs eagerly:
+Gloo's collectives cannot be captured.  A shutdown header releases the
+workers.
 """
 
 from __future__ import annotations
@@ -33,6 +45,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import queue
+import sys
 import threading
 import time
 from concurrent.futures import Future
@@ -84,6 +97,7 @@ class SamplerService:
         draft_respacing: int | None = None,
         device: str = "cuda",
         capture: bool = True,
+        mesh=None,
     ):
         """``max_pending``: bound on queued (not-yet-running) requests; a full
         queue makes ``submit`` raise :class:`ServiceOverloaded`
@@ -103,29 +117,58 @@ class SamplerService:
 
         ``device``: ``"cuda"`` (default; raises without a card) or ``"cpu"``.
         ``capture``: walk by replaying a CUDA graph of the step (CUDA only);
-        ``False`` runs the same step eagerly."""
+        ``False`` runs the same step eagerly.
+
+        ``mesh``: a ``parallel.Mesh`` of the ranks — the batch rows split
+        over ``dp``, the members over ``ens`` (``dp`` must divide
+        ``max_batch`` and the tier ladder, ``ens`` the checkpoints); the
+        service runs on the mesh's device.  Every rank constructs the
+        service alike; rank 0 serves requests, the others call
+        ``worker_loop``."""
         import torch
 
+        from tsdiff_tpu_torch.diffusion.captured import can_capture
         from tsdiff_tpu_torch.diffusion.ensemble import load_members, make_ensemble
         from tsdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
-        from tsdiff_tpu_torch.utils.misc import resolve_device
+        from tsdiff_tpu_torch.parallel import multihost
+        from tsdiff_tpu_torch.utils.misc import get_logger, resolve_device
 
         if quant is not None and not fused_score:
             raise ValueError("quant requires fused_score")
         self.device = resolve_device(device)
         if capture and self.device.type != "cuda":
             raise ValueError("capture records CUDA graphs: pass capture=False on the CPU")
+        self.mesh = mesh
+        self._dp = 1
+        self._nproc = multihost.process_count()
+        self._is_coord = multihost.is_coordinator()
+        if self._nproc > 1 and mesh is None:
+            raise ValueError(
+                "multi-process serving requires a mesh spanning all ranks (e.g. "
+                "SamplerService(..., mesh=make_mesh(dp=D, ens=E)); the CLI flag is --mesh D,E)"
+            )
+        if mesh is not None:
+            self._dp = mesh.dp
+            if len(ckpt_paths) % mesh.ens:
+                raise ValueError(
+                    f"{len(ckpt_paths)} ensemble members not divisible by ens={mesh.ens}")
+            if max_batch % self._dp:
+                raise ValueError(f"max_batch {max_batch} not divisible by dp={self._dp}")
+            self.device = mesh.device
+            if capture and not can_capture(self.device, mesh):
+                get_logger("serve").info(
+                    "Gloo collectives cannot be captured in a CUDA graph: rounds walk eagerly")
+                capture = False
         if draft_respacing is not None and not (1 <= draft_respacing <= n_steps):
             raise ValueError(
                 f"draft_respacing={draft_respacing} must be in [1, n_steps={n_steps}]"
             )
         members, model_cfg = load_members(
             ckpt_paths, self.device, torch.bfloat16 if dtype == "bfloat16" else torch.float32,
-            fused_score=fused_score, quant=quant, use_ema=use_ema,
+            fused_score=fused_score, quant=quant, use_ema=use_ema, mesh=mesh,
         )
-        self.ensemble = make_ensemble(members)
+        self.ensemble = make_ensemble(members, mesh)
         self.schedule = DiffusionSchedule.from_config(model_cfg)
-        self._dp = 1
         self._feat_dim = int(model_cfg.feat_dim)
         self.n_steps = n_steps
         self.sampling_type = sampling_type
@@ -154,8 +197,12 @@ class SamplerService:
         # setting _closed, so no request can land behind the shutdown
         # sentinel (its future would never resolve)
         self._submit_lock = threading.Lock()
-        self._worker = threading.Thread(target=self._loop, daemon=True)
-        self._worker.start()
+        self._worker = None
+        if self._is_coord:
+            # the other ranks never batch requests: they follow rank 0's
+            # broadcasts in worker_loop() instead
+            self._worker = threading.Thread(target=self._loop, daemon=True)
+            self._worker.start()
 
     @property
     def _graphs_captured(self) -> int:
@@ -199,7 +246,14 @@ class SamplerService:
         deadline = time.monotonic() + timeout_s if timeout_s is not None else None
         req = _Request(graph=graph, future=fut, n_atoms=n, deadline=deadline,
                        respacing=respacing)
-        # validate the shape contract here, failing only this request
+        if not self._is_coord:
+            raise RuntimeError(
+                "submit() on a worker rank — only rank 0 accepts requests; this "
+                "process should run worker_loop()"
+            )
+        # validate the shape contract here, failing only this request: a
+        # malformed graph reaching the batcher would desync the broadcast
+        # against the workers' placeholders
         for feat in ("r_feat", "p_feat"):
             width = int(np.asarray(graph[feat]).shape[-1])
             if width != self._feat_dim:
@@ -256,7 +310,8 @@ class SamplerService:
             except queue.Empty:
                 pass
         self._q.put(None)
-        self._worker.join(timeout=600)
+        if self._worker is not None:
+            self._worker.join(timeout=600)
 
     # -- worker -------------------------------------------------------------
 
@@ -283,6 +338,9 @@ class SamplerService:
         while True:
             reqs = self._collect()
             if reqs is None:
+                if self._nproc > 1:
+                    # release the worker ranks out of worker_loop()
+                    self._broadcast_header(1, 0, 0, 0, 0)
                 return
             # group key: (bucket, respacing) — draft- and full-quality
             # requests walk different step counts, so they batch apart
@@ -375,6 +433,11 @@ class SamplerService:
         graphs = [r.graph for r in group]
         gpad = graphs + [graphs[-1]] * (tier - len(graphs))
         batch = from_numpy_graphs(gpad, max_nodes=bucket, device=self.device)
+        if self._nproc > 1:
+            # the workers mirror this round from the broadcasts: the header,
+            # then the batch; the start and noise derive from ``served``
+            self._broadcast_header(0, bucket, tier, self._served, respacing)
+            self._broadcast_batch(batch)
         pos, nan = self._execute(bucket, tier, batch, respacing)
         self._served += len(group)
         for b, r in enumerate(group):
@@ -398,16 +461,22 @@ class SamplerService:
                 timestep_respacing=key[1] or None,
             )
             runner = WalkRunner(self.ensemble, self.schedule, settings, self.capture,
-                                self._pool)
+                                self._pool, mesh=self.mesh)
             self._runners[key] = runner
         return runner
 
     def _execute(self, bucket: int, tier: int, batch, respacing: int = 0):
-        """Device side of one round.  Returns ``(pos (tier, bucket, 3) np,
-        nan bool)``.  The start and the step noise are drawn before the walk
-        from the service's generator, seeded per round."""
+        """Device side of one round, the same on every rank (the NaN retry
+        reads a flag reduced over the ranks, so all take it or none).
+        Returns ``(pos (tier, bucket, 3) np, nan bool)``.  The start and the
+        step noise are drawn before the walk from the service's generator,
+        seeded per round; on a mesh this rank walks its rows of ``batch``."""
         import torch
 
+        if self.mesh is not None:
+            from tsdiff_tpu_torch.parallel.multihost import make_global_batch
+
+            batch = make_global_batch(batch, self.mesh)
         self._gen.manual_seed(self.seed * 7919 + self._served)
         pos_init = torch.randn((tier, bucket, 3), generator=self._gen, device=self.device)
         pos, nan = self._runner((bucket, respacing)).run(batch, pos_init, self._gen)
@@ -416,6 +485,75 @@ class SamplerService:
             retry = self._runner((bucket, respacing, "retry"))
             pos, nan = retry.run(batch, pos_init, self._gen)
         return pos, nan
+
+    def _broadcast_header(self, cmd: int, bucket: int, tier: int, served: int,
+                          respacing: int) -> None:
+        import torch
+        import torch.distributed as dist
+
+        dist.broadcast(torch.tensor([cmd, bucket, tier, served, respacing], device=self.device),
+                       src=0)
+
+    @staticmethod
+    def _broadcast_batch(batch) -> None:
+        """Rank 0's batch into every rank's ``batch`` (a collective)."""
+        import torch
+        import torch.distributed as dist
+
+        for f in dataclasses.fields(batch):
+            t = getattr(batch, f.name)
+            dist.broadcast(t.view(torch.uint8) if t.dtype == torch.bool else t, src=0)
+
+    def _placeholder_batch(self, bucket: int, tier: int):
+        """A (tier, bucket) batch of zeros in the dtypes of
+        ``from_numpy_graphs``, on the device: what a worker rank receives
+        rank 0's batch into."""
+        import torch
+
+        from tsdiff_tpu_torch.core.graph import ReactionBatch
+
+        def zeros(*shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        return ReactionBatch(
+            atom_type=zeros(tier, bucket, dtype=torch.int64),
+            r_feat=zeros(tier, bucket, self._feat_dim, dtype=torch.uint8),
+            p_feat=zeros(tier, bucket, self._feat_dim, dtype=torch.uint8),
+            pos=zeros(tier, bucket, 3, dtype=torch.float32),
+            bond_mat=zeros(tier, bucket, bucket, dtype=torch.int64),
+            node_mask=zeros(tier, bucket, dtype=torch.bool),
+        )
+
+    def worker_loop(self) -> None:
+        """The entry point of every rank but 0 in multi-process serving:
+        follow rank 0's broadcasts (one header and one batch per round) and
+        run the same round, until the shutdown header arrives."""
+        import torch
+        import torch.distributed as dist
+
+        if self._is_coord:
+            raise RuntimeError("worker_loop() is for the ranks other than 0")
+        if self._nproc == 1:
+            raise RuntimeError("worker_loop() needs a multi-process mesh")
+        placeholders: dict[tuple[int, int], object] = {}
+        header = torch.zeros(5, dtype=torch.int64, device=self.device)
+        while True:
+            dist.broadcast(header, src=0)
+            cmd, bucket, tier, served, respacing = header.tolist()
+            if cmd == 1:
+                return
+            batch = placeholders.get((bucket, tier))
+            if batch is None:
+                batch = placeholders[(bucket, tier)] = self._placeholder_batch(bucket, tier)
+            self._broadcast_batch(batch)
+            self._served = served  # the round's seed derives from it
+            try:
+                self._execute(bucket, tier, batch, respacing)
+            except Exception as e:  # noqa: BLE001
+                # the round failed after both broadcasts, on every rank alike:
+                # rank 0 fails its requests and serves on, and so does this
+                # rank, instead of leaving the broadcasts unanswered
+                print(f"worker round failed (contained): {e!r}", file=sys.stderr)
 
 
 # -- HTTP front end ---------------------------------------------------------
@@ -521,27 +659,42 @@ def parse_args(argv=None):
                              "requests opt in with quality='draft'")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default: CUDA graphs of the step) or cpu (eager)")
-    # the JAX service's parallel and compile-cache flags: refused, not ignored
     parser.add_argument("--mesh", type=str, default="none",
-                        help="not ported: only 'none' (ROADMAP A.5)")
+                        help="DP,ENS mesh of ranks (e.g. '2,4'), or 'none'")
+    parser.add_argument("--multihost", action="store_true", default=False,
+                        help="multi-process serving, one rank per GPU: rank 0 runs the HTTP "
+                             "server and the batcher, the others follow its broadcasts "
+                             "(worker_loop). Pass --coordinator/--nprocs/--procid, or omit all "
+                             "three under torchrun")
+    parser.add_argument("--coordinator", type=str, default=None, help="host:port of rank 0")
+    parser.add_argument("--nprocs", type=int, default=None, help="number of ranks")
+    parser.add_argument("--procid", type=int, default=None, help="this process's rank")
+    parser.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
+                        help="collectives' backend (default: nccl on cuda, gloo on cpu; gloo "
+                             "walks eagerly)")
+    # the JAX service's compile-cache flag: refused, not ignored
     parser.add_argument("--compile_cache", type=str, default=None,
                         help="not ported: graphs are recorded per process and the "
                              "kernels are cached in tsdiff_tpu_torch/_build/")
-    parser.add_argument("--multihost", action="store_true", default=False,
-                        help="not ported (ROADMAP A.5)")
-    parser.add_argument("--coordinator", type=str, default=None, help="not ported (ROADMAP A.5)")
-    parser.add_argument("--nprocs", type=int, default=None, help="not ported (ROADMAP A.5)")
-    parser.add_argument("--procid", type=int, default=None, help="not ported (ROADMAP A.5)")
     args = parser.parse_args(argv)
-    parallel = [f"--{k}" for k in ("coordinator", "nprocs", "procid")
-                if getattr(args, k) is not None]
-    if args.mesh != "none":
-        parallel.insert(0, "--mesh")
-    if args.multihost:
-        parallel.insert(0, "--multihost")
-    if parallel:
-        raise SystemExit(f"{', '.join(parallel)}: device meshes and multi-process serving "
-                         f"are not ported yet (ROADMAP A.5)")
+    from tsdiff_tpu_torch.parallel.multihost import launched_by_torchrun
+
+    distributed = args.multihost or launched_by_torchrun()
+    if args.multihost and args.mesh == "none":
+        raise SystemExit(
+            "--multihost requires --mesh DP,ENS spanning all ranks "
+            "(e.g. --mesh 8,1 for eight GPUs)"
+        )
+    if args.mesh != "none" and not distributed:
+        dp, _, ens = args.mesh.partition(",")
+        raise SystemExit(f"--mesh {args.mesh} needs {int(dp) * int(ens or 1)} ranks, one per "
+                         "device: start them under torchrun, or each with --multihost "
+                         "--coordinator/--nprocs/--procid")
+    cluster = [f"--{k}" for k in ("coordinator", "nprocs", "procid")
+               if getattr(args, k) is not None]
+    if cluster and not args.multihost:
+        raise SystemExit(f"{', '.join(cluster)} name a cluster: pass them with --multihost "
+                         "and --mesh DP,ENS")
     if args.compile_cache is not None:
         raise SystemExit("--compile_cache: there is no compilation cache to keep; CUDA graphs "
                          "are recorded once per process and (bucket, tier), and the kernels "
@@ -551,15 +704,28 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    device = args.device
+    mesh = None
+    if args.mesh != "none":
+        from tsdiff_tpu_torch.parallel import make_mesh, multihost
+
+        device = multihost.initialize(args.coordinator, args.nprocs, args.procid,
+                                      device=device, backend=args.dist_backend)
+        dp, _, ens = args.mesh.partition(",")
+        mesh = make_mesh(dp=int(dp), ens=int(ens) if ens else 1, device=device)
     service = SamplerService(
         args.ckpt, n_steps=args.n_steps, sampling_type=args.sampling_type,
         step_lr=args.step_lr, clip=args.clip, dtype=args.dtype,
         fused_score=args.fused_score, use_ema=args.use_ema,
         max_batch=args.max_batch, max_wait_s=args.max_wait_ms / 1e3,
         max_pending=args.max_pending, default_timeout_s=args.timeout_s,
-        draft_respacing=args.draft_respacing, device=args.device,
-        capture=args.device != "cpu",
+        draft_respacing=args.draft_respacing, device=device,
+        capture=args.device != "cpu", mesh=mesh,
     )
+    if not service._is_coord:
+        # a worker rank: no HTTP, follow rank 0's broadcasts until it shuts down
+        service.worker_loop()
+        return
     httpd = make_http_server(service, args.host, args.port)
     print(f"tsdiff_tpu_torch sampler serving on http://{args.host}:{args.port} "
           f"(POST /generate, GET /healthz)")

@@ -35,6 +35,11 @@ twin for the sampling step.
 * Wrapper counters (``.launches`` and the like) advance at the eager call
   and at recording, never on replay: a replay's kernels show under
   torch.profiler.
+* On a data-parallel mesh (NCCL) the step's all-reduces (the loss's sums,
+  the gradients) are recorded with it; their communicators exist before,
+  made by ``parallel.sharding.Mesh``'s eager warm-up collective and by the
+  key's eager first call.  A Gloo mesh's steps run eagerly (the train CLI
+  makes no ``StepGraphs``): Gloo's collectives cannot be captured.
 """
 
 from __future__ import annotations
@@ -45,20 +50,7 @@ import dataclasses
 import torch
 
 from tsdiff_tpu_torch.diffusion.captured import copy_into
-
-
-def _map(fn, x):
-    """``fn`` applied to every tensor of ``x``: tensors, dataclasses, dicts,
-    lists and tuples of them; other leaves kept."""
-    if isinstance(x, torch.Tensor):
-        return fn(x)
-    if dataclasses.is_dataclass(x):
-        return type(x)(**{f.name: _map(fn, getattr(x, f.name)) for f in dataclasses.fields(x)})
-    if isinstance(x, dict):
-        return {k: _map(fn, v) for k, v in x.items()}
-    if isinstance(x, (list, tuple)):
-        return type(x)(_map(fn, v) for v in x)
-    return x
+from tsdiff_tpu_torch.utils.misc import map_tree
 
 
 @dataclasses.dataclass
@@ -93,8 +85,8 @@ class StepGraphs:
             copy_into(g.inputs, inputs)
             g.graph.replay()
             self.replays[key] += 1
-            return _map(torch.clone, g.outputs)
-        buffers = _map(torch.clone, inputs)
+            return map_tree(torch.clone, g.outputs)
+        buffers = map_tree(torch.clone, inputs)
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(device=self.device)
         side.wait_stream(current)
@@ -103,7 +95,7 @@ class StepGraphs:
         current.wait_stream(side)
         # the caller reads these on the current stream: keep their memory
         # from side-stream reuse until it has
-        _map(lambda t: t.record_stream(current), out)
+        map_tree(lambda t: t.record_stream(current), out)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
             outputs = fn(*buffers)

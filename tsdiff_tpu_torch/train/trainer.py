@@ -25,6 +25,15 @@ on the device; the learning rate may be a 0-dim float32 tensor that its
 owner refreshes in place.  ``int()`` reads the step and the count; a state
 made with Python ints (a test, a resumed checkpoint) is moved to the device
 by the first step.
+
+Data parallelism (a mesh, ``parallel/sharding.py``): each rank takes the
+step on its rows of the global batch, with the global batch's timesteps and
+noise.  The JAX loss is the global sum over real atoms over the global
+count (``tsdiff_tpu/diffusion/objective.py:118-124``), so the step first
+all-reduces ``(loss_sum, n_nodes)`` over the data axes, differentiates its
+own sum over the global count, and all-reduces the gradients (one flat
+buffer) before the optimizer, whose global-norm clip then sees the global
+gradient.  The metrics are the global ones on every rank.
 """
 
 from __future__ import annotations
@@ -32,9 +41,10 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from tsdiff_tpu_torch.data.resident import gather_batch
-from tsdiff_tpu_torch.diffusion.objective import diffusion_loss
+from tsdiff_tpu_torch.diffusion.objective import diffusion_loss, draw_timesteps_and_noise
 from tsdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
 
 
@@ -120,9 +130,24 @@ def init_train_state(model: torch.nn.Module, tx: Adam,
     return TrainState(params=params, opt_state=tx.init(params), step=0, ema_params=ema)
 
 
+def _data_parallel(mesh):
+    """``(data group or None, blocks, this rank's block)`` of a mesh."""
+    if mesh is None or mesh.dp == 1:
+        return None, 1, 0
+    return mesh.data_group, mesh.dp, mesh.dp_index
+
+
+def _global_draws(generator, pos, t0, t1, blocks, block):
+    """This rank's rows of the timesteps and noise of the global batch."""
+    rows = pos.shape[0]
+    t, noise = draw_timesteps_and_noise(generator, (rows * blocks, *pos.shape[1:]), t0, t1,
+                                        pos.device)
+    return t[block * rows:(block + 1) * rows], noise[block * rows:(block + 1) * rows]
+
+
 def make_train_step(model, tx: Adam, schedule: DiffusionSchedule, t0: int = 0,
                     t1: int | None = None, ema_decay: float | None = None,
-                    debug_nans: bool = False):
+                    debug_nans: bool = False, mesh=None):
     """``train_step(state, batch, lr, generator=None, t=None, noise=None) ->
     (state, metrics)``: one loss and gradient, the optimizer update applied
     in place to the model's parameters and the optimizer state, the step
@@ -131,7 +156,12 @@ def make_train_step(model, tx: Adam, schedule: DiffusionSchedule, t0: int = 0,
     from ``generator``.  The metrics stay on the device.  ``debug_nans``
     checks the loss before the backward and the gradient norm before the
     update, and raises ``FloatingPointError`` on a non-finite one (two reads
-    of the card per step, so such a step cannot be captured)."""
+    of the card per step, so such a step cannot be captured).  On a
+    ``mesh`` the batch is this rank's rows of the global batch, and ``t``
+    and ``noise`` (or the generator's draws) are the global batch's
+    (module docstring)."""
+    group, blocks, block = _data_parallel(mesh)
+    t_end = len(schedule.alphas) if t1 is None else t1
 
     def check(what: str, value: torch.Tensor, state: TrainState) -> None:
         if debug_nans and not bool(torch.isfinite(value)):
@@ -140,10 +170,26 @@ def make_train_step(model, tx: Adam, schedule: DiffusionSchedule, t0: int = 0,
 
     def train_step(state: TrainState, batch, lr, generator=None, t=None, noise=None):
         state = on_device(state)
+        if group is not None:
+            rows = batch.pos.shape[0]
+            if t is None or noise is None:
+                t, noise = _global_draws(generator, batch.pos, t0, t_end, blocks, block)
+            else:
+                t, noise = (x[block * rows:(block + 1) * rows] for x in (t, noise))
         loss, aux = diffusion_loss(model, schedule, batch, t0, t1, generator, t, noise)
+        if group is not None:
+            totals = torch.stack([aux["loss_sum"].detach(), aux["n_nodes"]])
+            dist.all_reduce(totals, group=group)
+            n_nodes = totals[1]
+            loss = aux["loss_sum"] / torch.clamp(n_nodes, min=1.0)
+            aux = {"loss_sum": totals[0], "n_nodes": n_nodes}
         check("loss", loss.detach(), state)
         names = list(state.params)
         grads = torch.autograd.grad(loss, [state.params[k] for k in names])
+        if group is not None:
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(flat, group=group)
+            grads = [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
         updates, opt_state, grad_norm = tx.update(dict(zip(names, grads)), state.opt_state,
                                                   state.params)
         check("gradient norm", grad_norm, state)
@@ -159,6 +205,8 @@ def make_train_step(model, tx: Adam, schedule: DiffusionSchedule, t0: int = 0,
                 keep = 1 - d
                 for k in names:
                     ema[k].mul_(d).add_(state.params[k] * keep)
+        if group is not None:
+            loss = aux["loss_sum"] / torch.clamp(aux["n_nodes"], min=1.0)
         metrics = {"loss": loss.detach(), "loss_sum": aux["loss_sum"].detach(),
                    "n_nodes": aux["n_nodes"], "grad_norm": grad_norm}
         return TrainState(state.params, opt_state, state.step, ema), metrics
@@ -173,40 +221,67 @@ def _advance(cursor):
     return cursor + 1
 
 
-def make_resident_train_step(train_step, batch_size: int):
+def make_resident_train_step(train_step, batch_size: int, mesh=None):
     """``step(state, arrays, plan, cursor, lr, **kw) -> (state, metrics,
     cursor + 1)``: ``train_step`` on batch ``cursor`` of ``plan``, gathered
     on the device from a bucket's resident arrays (``data.resident``).
     ``cursor`` is a 0-dim integer device tensor, advanced in place and
-    returned, so the step reads nothing from the host, or a Python int."""
+    returned, so the step reads nothing from the host, or a Python int.
+    On a ``mesh`` each rank gathers its rows of the batch."""
+    rows = _row_block(batch_size, mesh)
 
     def step(state, arrays, plan, cursor, lr, **kw):
-        state, metrics = train_step(state, gather_batch(arrays, plan, cursor, batch_size), lr, **kw)
+        batch = gather_batch(arrays, plan, cursor, batch_size, rows)
+        state, metrics = train_step(state, batch, lr, **kw)
         return state, metrics, _advance(cursor)
 
     return step
 
 
-def make_resident_eval_step(eval_step, batch_size: int):
+def make_resident_eval_step(eval_step, batch_size: int, mesh=None):
     """Validation twin of ``make_resident_train_step``: ``(loss_sum,
     n_nodes)`` of batch ``cursor`` of a fixed plan; a tensor ``cursor`` is
     advanced in place."""
+    rows = _row_block(batch_size, mesh)
 
     def step(arrays, plan, cursor, **kw):
-        out = eval_step(gather_batch(arrays, plan, cursor, batch_size), **kw)
+        out = eval_step(gather_batch(arrays, plan, cursor, batch_size, rows), **kw)
         _advance(cursor)
         return out
 
     return step
 
 
-def make_eval_step(model, schedule: DiffusionSchedule, t0: int = 0, t1: int | None = None):
+def _row_block(batch_size: int, mesh) -> slice | None:
+    if mesh is None or mesh.dp == 1:
+        return None
+    from tsdiff_tpu_torch.parallel.sharding import batch_spec
+
+    return batch_spec(mesh).slice(batch_size)
+
+
+def make_eval_step(model, schedule: DiffusionSchedule, t0: int = 0, t1: int | None = None,
+                   mesh=None):
     """``eval_step(batch, generator=None, t=None, noise=None) -> (loss_sum,
-    n_nodes)`` without gradients, so a caller can average over a whole set."""
+    n_nodes)`` without gradients, so a caller can average over a whole set.
+    On a ``mesh``, as ``make_train_step``: the rank's rows, the global
+    draws, and the sums over the data axes."""
+    group, blocks, block = _data_parallel(mesh)
+    t_end = len(schedule.alphas) if t1 is None else t1
 
     @torch.no_grad()
     def eval_step(batch, generator=None, t=None, noise=None):
+        if group is not None:
+            rows = batch.pos.shape[0]
+            if t is None or noise is None:
+                t, noise = _global_draws(generator, batch.pos, t0, t_end, blocks, block)
+            else:
+                t, noise = (x[block * rows:(block + 1) * rows] for x in (t, noise))
         _, aux = diffusion_loss(model, schedule, batch, t0, t1, generator, t, noise)
-        return aux["loss_sum"], aux["n_nodes"]
+        if group is None:
+            return aux["loss_sum"], aux["n_nodes"]
+        totals = torch.stack([aux["loss_sum"], aux["n_nodes"]])
+        dist.all_reduce(totals, group=group)
+        return totals[0], totals[1]
 
     return eval_step

@@ -1,7 +1,9 @@
-"""Infra utilities: device resolution, seeding, log directories, logging."""
+"""Infra utilities: device resolution, seeding, log directories, logging,
+mapping over nested tensors."""
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import random
@@ -74,3 +76,17 @@ def get_new_log_dir(root: str = "./logs", prefix: str = "", tag: str = "") -> st
 def count_parameters(model: torch.nn.Module) -> int:
     """Number of scalars in a module's parameters."""
     return sum(t.numel() for t in model.parameters())
+
+
+def map_tree(fn, x):
+    """``fn`` of every tensor or numpy array in ``x`` (a tensor, an array, or
+    a dataclass, dict, list or tuple of them); other leaves kept."""
+    if isinstance(x, (torch.Tensor, np.ndarray)):
+        return fn(x)
+    if dataclasses.is_dataclass(x):
+        return type(x)(**{f.name: map_tree(fn, getattr(x, f.name)) for f in dataclasses.fields(x)})
+    if isinstance(x, dict):
+        return {k: map_tree(fn, v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(map_tree(fn, v) for v in x)
+    return x
