@@ -43,6 +43,11 @@ Phases (any failure exits non-zero):
    JSON line (``ms_by``, ``library_ms_by``: "profiler"); errors, times
    (CUDA events: the median and the minimum of five timings of 20 launches,
    with the SM clock and temperature before and after) and the bound of each;
+   then B3's forward and backward on the smooth cutoff's fractional mask
+   (``0.5 (cos(pi d / cutoff) + 1)`` on the synthetic batch's distances, as
+   a ``smooth_conv`` model feeds it) at B=200, N=24 in bf16 (the ``wgmma``
+   kernels) and B=16 in f32, every output and gradient against the plain
+   stack, with the share of edges whose mask is fractional;
 4. sampling main path: the port's sampling CLI on 200 synthetic reactions
    with the 8 members, bf16, fused packed score, ``ld`` over the 5000-step
    schedule walked in 625 model calls, each step a replay of the CUDA graph
@@ -158,7 +163,25 @@ Phases (any failure exits non-zero):
    B3 counted by name on each rank; (d) a served draft round at tier 8 on
    each mesh against one process's; (e) with two or more GPUs, the same over
    NCCL with the collectives captured, else a line that it was not run
-   (``python3 chip_smoke.py --mesh-nccl`` runs that part alone).
+   (``python3 chip_smoke.py --mesh-nccl`` runs that part alone);
+12. the GeoDiff-legacy family, configs/geodiff_legacy/qm9_default.yml at
+   full width (H=128, 6 SchNet blocks, 4 GIN layers, edge order 3, cutoff
+   10 A, batch 64, f32, TF32 off) on a synthetic conformer corpus (200 +
+   20 + 50 molecules of 9-29 atoms with hydrogens, 5 conformers each):
+   the train CLI, 40 iterations, for ``type: diffusion`` and a ``type: dsm``
+   copy (finite losses, the last validation loss below the first, every
+   step a graph replay) and one train step eager and captured; the card's
+   ``make_dual_eps_fn`` and both losses against the port on the CPU
+   (weights, inputs and draws injected; ``TS`` false and true and a
+   ``smooth_conv`` copy; within ``LEGACY_AGREE`` of max|CPU|); the sampling
+   CLI on 50 molecules x 10 samples, ``ld`` in 625 calls of 5000 steps,
+   and the DSM checkpoint with ``--n_steps 20 --sigma_respacing 10`` (no
+   NaN flag, finite, walks captured; ms per step, samples/s); the
+   clustering CLI on sample 0's molecule; the evaluate CLI's ``--covmat``
+   on the samples grouped with their reference stacks (COV-R/MAT-R,
+   COV-P/MAT-P); self-checks: the references against themselves give COV
+   1.0 and MAT < 1e-6, and ``cluster_conformers`` finds G clusters in G
+   known groups.
 
 The second-to-last lines are a JSON object of per-kernel numbers and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -626,17 +649,19 @@ def phase_dense_kernels() -> dict:
     return result
 
 
-def stack_inputs(B: int, n_bucket: int, dname: str, seed: int):
+def stack_inputs(B: int, n_bucket: int, dname: str, seed: int, smooth: bool = False):
     """seed106's SchNet stack weights and the stack's inputs from the port's
     dense model on ``B`` synthetic reactions of the ``n_bucket`` bucket,
     prepared in ``dname`` as ``(w, h, ea, c)``, and a seeded normal
-    cotangent ``g``."""
+    cotangent ``g``.  ``smooth``: the cutoff mask is the smooth cosine one,
+    ``0.5 (cos(pi d / cutoff) + 1)`` on the edges (``smooth_conv: true``)."""
     import torch
 
     from tsdiff_tpu_torch.ops import schnet_stack as ss
 
     dtype = getattr(torch, dname)
     model = load_member(106, dtype, torch.device("cuda"))
+    model.encoder.smooth = smooth
     batch, pos = kernel_batch(n_bucket, seed=seed, count=B)
     with torch.no_grad():
         static = model.precompute_static(batch.atom_type, batch.r_feat, batch.p_feat,
@@ -878,6 +903,62 @@ def phase_stack_kernels() -> dict:
           "6e-3), as a flipped rounding can flip an int8 code, 1/127 of its row's maximum or "
           "two bf16 ulps of it")
     smi_clocks("kernels")
+    return result
+
+
+def phase_stack_smooth() -> dict:
+    """B3's forward and backward on the smooth cutoff's fractional mask (a
+    condensed or dual encoder with ``smooth_conv: true`` feeds B3 such masks
+    in training): bf16 at B=200, N=24 (the ``wgmma`` kernels) and f32 at
+    B=16 (``mma.sync``), the outputs and every gradient against the plain
+    stack (``interaction_stack_reference``, ``schnet_stack_fwd_reference``,
+    ``schnet_stack_bwd_reference``) under ``TOL``.  Returns the largest
+    error by dtype."""
+    import torch
+
+    from tsdiff_tpu_torch.ops import schnet_stack as ss
+
+    result = {}
+    for B, dname in ((200, "bfloat16"), (16, "float32")):
+        dtype = getattr(torch, dname)
+        w, h, ea, c, g = stack_inputs(B, 24, dname, seed=900 + B, smooth=True)
+        _, N, _ = h.shape
+        tag = f"smooth mask B={B} N={N} {dname}"
+        edges = int((c > 0).sum())
+        fractional = int(((c > 0) & (c < 1)).sum())
+        print(f"[kernels] schnet_stack {tag}: cutoff mask 0.5 (cos(pi d / 10) + 1) on the "
+              f"synthetic batch's encoder edges: {fractional} of {edges} edges "
+              f"({fractional / max(edges, 1):.4f}) strictly between 0 and 1, of {c.numel()} "
+              f"pair slots; values in [{float(c[c > 0].min()):.4g}, {float(c.max()):.4g}]")
+        if fractional < edges // 2:
+            fail(f"schnet_stack {tag}: the smooth mask is fractional on only {fractional} "
+                 f"of {edges} edges")
+        image, ea_img = ss.stack_wg_operands(w, h, ea, c)
+        fwd, bwd = ss.schnet_stack_fwd, ss.schnet_stack_bwd
+        before = (fwd.wg_launches, bwd.wg_launches, bwd.xty_wg_launches)
+        ref_hs = ss.schnet_stack_fwd_reference(w, h, ea, c)[1]
+        out, hs = fwd(w, h, ea, c, image=image, ea_img=ea_img)
+        # the backward on the plain forward's states, as the plain backward
+        dh, dea, grads = bwd(w, ea, c, ref_hs, g, image=image, ea_img=ea_img)
+        torch.cuda.synchronize()
+        took = (fwd.wg_launches - before[0], bwd.wg_launches - before[1],
+                bwd.xty_wg_launches - before[2])
+        want = (1, 1, 1) if dtype == torch.bfloat16 else (0, 0, 0)
+        print(f"[kernels] schnet_stack {tag}: wgmma launches (forward, backward rows, weight "
+              f"gradients) {took}, expected {want}")
+        if took != want:
+            fail(f"schnet_stack {tag}: the wgmma kernels took {took} of the calls")
+        e_fwd = max(check_close(f"schnet_stack_fwd {tag} out", out,
+                                ss.interaction_stack_reference(w, h, ea, c), dname),
+                    check_close(f"schnet_stack_fwd {tag} hs", hs, ref_hs, dname))
+        rdh, rdea, rgrads = ss.schnet_stack_bwd_reference(w, ea, c, ref_hs, g)
+        e_bwd = max([check_close(f"schnet_stack_bwd {tag} dh", dh, rdh, dname),
+                     check_close(f"schnet_stack_bwd {tag} dea", dea, rdea, dname)]
+                    + [check_close(f"schnet_stack_bwd {tag} d{k}", grads[k], rgrads[k], dname)
+                       for k in ss.W_KEYS])
+        result[dname] = {"fwd": e_fwd, "bwd": e_bwd, "fractional_share": fractional / edges}
+        del w, h, ea, c, g, image, ea_img, out, hs, dh, dea, grads, ref_hs, rdh, rdea, rgrads
+        torch.cuda.empty_cache()
     return result
 
 
@@ -1377,7 +1458,8 @@ def state_tensors(state) -> dict:
     out = {f"param {k}": v.detach() for k, v in state.params.items()}
     for part in ("mu", "nu"):
         out.update({f"{part} {k}": v for k, v in state.opt_state[part].items()})
-    out.update({f"ema {k}": v for k, v in state.ema_params.items()})
+    if state.ema_params is not None:
+        out.update({f"ema {k}": v for k, v in state.ema_params.items()})
     out["step"], out["count"] = state.step, state.opt_state["count"]
     return out
 
@@ -3010,6 +3092,416 @@ def phase_mesh(main_path: dict, setup: tuple, backends: list | None = None) -> d
     return result
 
 
+LEGACY_DIR = os.path.join(ROOT, ".scratch", "chip_smoke_legacy")  # gitignored
+#: configs/geodiff_legacy/qm9_default.yml's model and train blocks, written
+#: out so that the script needs no PyYAML
+#: (tests/test_torch_legacy_objective.py holds them equal to the file)
+QM9_DEFAULT = {
+    "model": {"type": "diffusion", "network": "dualenc", "hidden_dim": 128, "num_convs": 6,
+              "num_convs_local": 4, "cutoff": 10.0, "mlp_act": "ReLU",
+              "beta_schedule": "sigmoid", "beta_start": 1e-7, "beta_end": 2e-3,
+              "num_diffusion_timesteps": 5000, "edge_order": 3, "edge_encoder": "mlp",
+              "smooth_conv": False},
+    "train": {"seed": 2021, "batch_size": 64, "val_freq": 5000, "log_freq": 1000,
+              "max_iters": 3000000, "max_grad_norm": 10000.0, "anneal_power": 2.0,
+              "optimizer": {"type": "adam", "lr": 1e-3, "weight_decay": 0.0, "beta1": 0.95,
+                            "beta2": 0.999},
+              "scheduler": {"type": "plateau", "min_lr": 2e-5, "factor": 0.6, "patience": 10}},
+}
+#: phase 12's sizes: molecules of the synthetic conformer corpus (train,
+#: validation, test) with ``conformers`` each; the train runs' iterations and
+#: validation interval; samples per test molecule (twice the conformers, as
+#: COV/MAT scores 2 K); the diffusion walk's 5000 steps in ``respacing``
+#: calls; the DSM walk's ``dsm_steps`` per level over ``sigma_respacing`` of
+#: its 50 levels; the sampling batch; the known groups of the clustering
+#: self-check
+LEGACY_SIZES = dict(train=200, val=20, test=50, conformers=5, iters=40, val_freq=10,
+                    samples=10, respacing=625, dsm_steps=20, sigma_respacing=10, batch=100,
+                    groups=4)
+#: the card's dual-encoder results against the port's on the CPU (of max|CPU|)
+LEGACY_AGREE = 1e-4
+
+
+def legacy_train_run(tag: str, cfg: dict, sizes: dict, device: str) -> dict:
+    """The train CLI on the dual-encoder ``cfg`` (JSON): finite losses, the
+    last validation loss below the first, a checkpoint, on CUDA every step a
+    replay of its (kind, bucket) graph; its graphs/s."""
+    import numpy as np
+
+    from tsdiff_tpu_torch.cli import train as train_cli
+    from tsdiff_tpu_torch.train import get_checkpoint_path
+
+    path = os.path.join(LEGACY_DIR, f"{tag}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=1)
+    t0 = time.monotonic()
+    log_dir = train_cli.main([path, "--logdir", os.path.join(LEGACY_DIR, "logs"),
+                              "--device", device])
+    wall = time.monotonic() - t0
+    with open(os.path.join(log_dir, "log.txt")) as f:
+        log = f.read()
+    train = [float(v) for v in re.findall(r"\[Train\] Iter \d+ \| Loss (\S+)", log)]
+    val = [float(v) for v in re.findall(r"\[Validate\] Iter \d+ \| Loss (\S+)", log)]
+    tput = re.search(r"\| (\d+) graphs in (\S+) s \| (\S+) graphs/s", log)
+    graphs = re.search(r"\[Train\] CUDA graphs \| recorded (\d+): .* \| replays (.*)", log)
+    print(f"[legacy] {tag} train CLI: {sizes['iters']} iterations in {wall:.3f} s, train losses "
+          f"{train}, validation losses {val}; "
+          + (f"{float(tput.group(3)):.4f} graphs/s ({tput.group(1)} graphs in {tput.group(2)} s "
+             f"after the first step, validations and checkpoints included)" if tput else "")
+          + (f"; CUDA graphs recorded {graphs.group(1)}, replays {graphs.group(2)}"
+             if graphs else ""))
+    if len(val) != sizes["iters"] // sizes["val_freq"] or not np.isfinite(train + val).all():
+        fail(f"legacy {tag}: non-finite or missing losses")
+    if not val[-1] < val[0]:
+        fail(f"legacy {tag}: the last validation loss {val[-1]} is not below the first {val[0]}")
+    if tput is None or (device == "cuda" and graphs is None):
+        fail(f"legacy {tag}: no throughput line, or the steps were not replayed from graphs")
+    ckpt, _ = get_checkpoint_path(os.path.join(log_dir, "checkpoints"))
+    return dict(ckpt=ckpt, val=val, graphs_per_s=float(tput.group(3)), wall=wall)
+
+
+def legacy_steps(model_cfg: dict, graphs: list, device: str, steps: int = 5) -> dict:
+    """The dual encoder's train step on one batch of ``graphs`` (the largest
+    bucket), eager and replayed from its CUDA graph (``train/captured.py``),
+    from one seeded initialisation in lockstep: before every step the
+    captured run takes the eager run's state, in place; its first step runs
+    eagerly and records, the later ones replay.  Every step's loss equal
+    bit for bit (the forward has no atomics), the parameters after it
+    within 1e-5 of max|param| (F.embedding's backward sums with float
+    atomics); then ms per step of each (medians of five timings of 10)."""
+    import torch
+
+    from tsdiff_tpu_torch.config import Config
+    from tsdiff_tpu_torch.core.graph import from_numpy_graphs
+    from tsdiff_tpu_torch.diffusion.objective import draw_timesteps_and_noise
+    from tsdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
+    from tsdiff_tpu_torch.models import get_model
+    from tsdiff_tpu_torch.train import (get_objective, init_train_state, make_optimizer,
+                                        make_train_step)
+    from tsdiff_tpu_torch.train.captured import StepGraphs
+    from tsdiff_tpu_torch.train.trainer import on_device
+
+    cfg = Config(model_cfg)
+    schedule = DiffusionSchedule.from_config(cfg)
+    n = max(len(g["atom_type"]) for g in graphs)
+    batch = from_numpy_graphs(graphs, max_nodes=-(-n // 8) * 8, device=device)
+    lr = torch.tensor(1e-4, device=device)
+    runs = {}
+    for name in ("eager", "captured"):
+        model = get_model(cfg, generator=torch.Generator().manual_seed(0)).to(device)
+        tx = make_optimizer(Config(QM9_DEFAULT["train"]["optimizer"]),
+                            QM9_DEFAULT["train"]["max_grad_norm"])
+        state = on_device(init_train_state(model, tx))
+        step = make_train_step(model, tx, schedule, anneal_power=2.0)
+        runs[name] = dict(state=state, fn=(lambda step, state: lambda b, t, noise: step(
+            state, b, lr, t=t, noise=noise)[1])(step, state))
+    _, (lo, hi) = get_objective(model, schedule)
+    gen = torch.Generator(device=device).manual_seed(0)
+    t, noise = draw_timesteps_and_noise(gen, batch.pos.shape, lo, hi, device)
+    eager = lambda: runs["eager"]["fn"](batch, t, noise)  # noqa: E731
+    if device != "cuda":
+        t0 = time.monotonic()
+        eager()
+        return dict(eager_ms=(time.monotonic() - t0) * 1e3, captured_ms=None)
+
+    graphs_ = StepGraphs(device)
+    key = ("train", batch.pos.shape[1])
+    captured = lambda: graphs_(key, runs["captured"]["fn"], batch, t, noise)  # noqa: E731
+    losses, worst = [], 0.0
+    for _ in range(steps):
+        with torch.no_grad():
+            ref = state_tensors(runs["eager"]["state"])
+            for k, v in state_tensors(runs["captured"]["state"]).items():
+                v.copy_(ref[k])
+        m_e, m_c = eager(), captured()
+        got, ref = state_tensors(runs["captured"]["state"]), state_tensors(runs["eager"]["state"])
+        worst = max(worst, max(float((got[k] - ref[k]).abs().max()) /
+                               max(float(ref[k].abs().max()), 1e-30)
+                               for k in ref if k.startswith("param")))
+        losses.append((float(m_e["loss"]), float(m_c["loss"])))
+    same = all(a == b for a, b in losses[1:])
+    print(f"[legacy] {model_cfg['type']} train step in lockstep, eager against its CUDA graph "
+          f"({steps} steps, the first recording, then {graphs_.replays[key]} replays): losses "
+          f"{losses}, equal bit for bit on the replays: {same}; parameters after a step within "
+          f"{worst:.3g} of max|param|")
+    if not same or worst > 1e-5 or graphs_.replays[key] != steps - 1:
+        fail(f"legacy {model_cfg['type']}: the captured train step is not the eager step")
+    return dict(eager_ms=cuda_time_ms(eager, 10)[0], captured_ms=cuda_time_ms(captured, 10)[0])
+
+
+def legacy_agreement(model_cfg: dict, graphs: list, device: str) -> float:
+    """The card's ``make_dual_eps_fn`` and both losses against the port's on
+    the CPU: weights, inputs and draws injected (seeded), for ``TS`` false and
+    true and a ``smooth_conv`` copy (as drugs_default), each as a diffusion
+    and a DSM model.  Returns the largest error over max|CPU|."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from tsdiff_tpu_torch.chem import NUM_BOND_TYPES
+    from tsdiff_tpu_torch.config import Config
+    from tsdiff_tpu_torch.core.graph import from_numpy_graphs
+    from tsdiff_tpu_torch.diffusion.dual_objective import (dual_diffusion_loss, dual_dsm_loss,
+                                                           make_dual_eps_fn)
+    from tsdiff_tpu_torch.diffusion.objective import draw_timesteps_and_noise
+    from tsdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
+    from tsdiff_tpu_torch.models import get_model
+
+    worst = 0.0
+    n = -(-max(len(g["atom_type"]) for g in graphs) // 8) * 8
+    for name, extra in (("TS false", {}), ("TS true", {"TS": True}),
+                        ("smooth_conv", {"smooth_conv": True, "beta_end": 9e-3})):
+        gs = [dict(g) for g in graphs]
+        if extra.get("TS"):   # a reaction's condensed codes r * 22 + p: one bond broken
+            for g in gs:
+                ei = np.asarray(g["edge_index"])
+                code = np.asarray(g["edge_type"]) * (NUM_BOND_TYPES + 1)
+                a, b = ei[:, 0]
+                broken = ((ei[0] == a) & (ei[1] == b)) | ((ei[0] == b) & (ei[1] == a))
+                code[broken] = code[broken] // (NUM_BOND_TYPES + 1) * NUM_BOND_TYPES
+                g["edge_type"] = code
+        cpu_b = from_numpy_graphs(gs, max_nodes=n)
+        dev_b = from_numpy_graphs(gs, max_nodes=n, device=device)
+        gen = torch.Generator().manual_seed(5)
+        for kind in ("diffusion", "dsm"):
+            cfg = Config({**model_cfg, **extra, "type": kind})
+            cpu_m = get_model(cfg, generator=torch.Generator().manual_seed(6)).eval()
+            dev_m = copy.deepcopy(cpu_m).to(device)
+            levels = 50 if kind == "dsm" else cfg.num_diffusion_timesteps
+            t, noise = draw_timesteps_and_noise(gen, cpu_b.pos.shape, 0, levels)
+            pos = cpu_b.pos + 0.3 * torch.randn(cpu_b.pos.shape, generator=gen)
+            pos = pos * cpu_b.node_mask[..., None]
+            outs = []
+            for m, b in ((cpu_m, cpu_b), (dev_m, dev_b)):
+                dv = b.pos.device
+                with torch.no_grad():
+                    eps = make_dual_eps_fn(m, b, clip=1000.0)(
+                        pos.to(dv), torch.tensor(1.0, device=dv), time_step=t.to(dv))
+                    if kind == "dsm":
+                        loss = dual_dsm_loss(m, b, t=t.to(dv), noise=noise.to(dv))[0]
+                    else:
+                        loss = dual_diffusion_loss(m, DiffusionSchedule.from_config(cfg), b,
+                                                   t=t.to(dv), noise=noise.to(dv))[0]
+                outs.append((eps.cpu(), loss.cpu()))
+            for what, i in (("make_dual_eps_fn", 0), (f"{kind} loss", 1)):
+                ref, got = outs[0][i], outs[1][i]
+                err = float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+                worst = max(worst, err)
+                print(f"[legacy] {name}, {kind} model: {what} on {device} against the CPU: "
+                      f"max|CPU| {float(ref.abs().max()):.6g}, max err / max|CPU| {err:.3g} "
+                      f"(limit {LEGACY_AGREE})")
+                if not (err <= LEGACY_AGREE and torch.isfinite(got).all()):
+                    fail(f"legacy {name} {kind}: {what} on {device} disagrees with the CPU")
+    return worst
+
+
+def legacy_sample(tag: str, ckpt: str, test_set: str, sizes: dict, device: str,
+                  extra: list) -> tuple[list, dict]:
+    """The sampling CLI on a dual-encoder checkpoint, ``samples`` per test
+    molecule: finite, no walk flagged NaN, on CUDA every walk captured;
+    ``(results, numbers)`` with ms per walk step and samples/s."""
+    import numpy as np
+
+    from tsdiff_tpu_torch.cli import sampling
+
+    save_dir = os.path.join(LEGACY_DIR, f"gen_{tag}")
+    t0 = time.monotonic()
+    path = sampling.main([ckpt, "--test_set", test_set, "--save_dir", save_dir,
+                          "--device", device, "--repeat", str(sizes["samples"]),
+                          "--batch_size", str(sizes["batch"]), "--sort_by_size", *extra])
+    wall = time.monotonic() - t0
+    with open(path, "rb") as f:
+        results = pickle.load(f)
+    attempts = [results[i]["sampling_attempts"] for i in range(0, len(results), sizes["batch"])]
+    steps = int(extra[extra.index("--n_steps") + 1])
+    if "--timestep_respacing" in extra:
+        steps = int(extra[extra.index("--timestep_respacing") + 1])
+    if "--sigma_respacing" in extra:
+        steps *= int(extra[extra.index("--sigma_respacing") + 1])
+    walk_steps = steps * sum(attempts)
+    recorded = cli_graphs(save_dir)[0] if device == "cuda" else 0
+    numbers = dict(wall=wall, walk_steps=walk_steps, ms_per_step=wall * 1e3 / walk_steps,
+                   samples_per_s=len(results) / wall, graphs=recorded)
+    print(f"[legacy] {tag} sampling CLI {' '.join(extra)}: {len(results)} samples in "
+          f"{wall:.3f} s (checkpoint and test set loaded, sampled, written), attempts {attempts}, "
+          f"{walk_steps} walk steps ({numbers['ms_per_step']:.3f} ms per step, "
+          f"{numbers['samples_per_s']:.3f} samples/s), CUDA graphs recorded {recorded}")
+    if any(a != 1 for a in attempts) or any(r.get("nan_persisted") for r in results):
+        fail(f"legacy {tag}: a walk flagged NaN")
+    if not all(np.isfinite(r["pos_gen"]).all() and r["pos_gen"].shape == (len(r["atom_type"]), 3)
+               for r in results):
+        fail(f"legacy {tag}: non-finite or misshaped samples")
+    if device == "cuda" and recorded == 0:
+        fail(f"legacy {tag}: the walk was not captured")
+    return results, numbers
+
+
+def legacy_walk_equal(tag: str, ckpt: str, graphs: list, device: str, extra: list) -> None:
+    """The sampling CLI's walk replayed from its CUDA graphs against the
+    same command run eagerly (``main(argv, capture=False)``) on ``graphs``,
+    one batch: the samples equal bit for bit."""
+    import numpy as np
+
+    from tsdiff_tpu_torch.cli import sampling
+    from tsdiff_tpu_torch.data import save_dataset
+
+    test_set = os.path.join(LEGACY_DIR, f"walk_{tag}.pkl")
+    save_dataset(test_set, graphs)
+    out = {}
+    for capture in (True, False):
+        argv = [ckpt, "--test_set", test_set, "--device", device, "--repeat", "5",
+                "--batch_size", str(5 * len(graphs)), *extra,
+                "--save_dir", os.path.join(LEGACY_DIR, f"walk_{tag}_{capture}")]
+        t0 = time.monotonic()
+        with open(sampling.main(argv, capture=capture), "rb") as f:
+            out[capture] = ([r["pos_gen"] for r in pickle.load(f)], time.monotonic() - t0)
+    same = all(np.array_equal(a, b) for a, b in zip(out[True][0], out[False][0]))
+    print(f"[legacy] {tag} walk, {len(out[True][0])} samples in one batch: replayed from CUDA "
+          f"graphs {out[True][1]:.3f} s, eager {out[False][1]:.3f} s; samples equal bit for "
+          f"bit: {same}")
+    if not same:
+        fail(f"legacy {tag}: the captured walk differs from the eager one")
+
+
+def phase_legacy(smi: str, device: str = "cuda", sizes: dict = LEGACY_SIZES) -> dict:
+    """Phase 12: the GeoDiff-legacy family on the card, at the full width of
+    configs/geodiff_legacy/qm9_default.yml (H=128, 6 SchNet blocks, 4 GIN
+    layers, edge order 3, cutoff 10 A, batch 64, f32) on a synthetic
+    conformer corpus of 9-29 atoms: both objectives through the train CLI,
+    the card against the CPU, both walks through the sampling CLI, the
+    clustering CLI and COV/MAT through the evaluate CLI, with their
+    self-checks.  ``device="cpu"`` and smaller ``sizes`` rehearse it on
+    the CPU."""
+    import numpy as np
+
+    from tsdiff_tpu_torch.cli import clustering as clustering_cli
+    from tsdiff_tpu_torch.cli import evaluate as evaluate_cli
+    from tsdiff_tpu_torch.data import save_dataset
+    from tsdiff_tpu_torch.data.synthetic import (conformers_of, make_conformer_corpus,
+                                                 make_molecule)
+    from tsdiff_tpu_torch.eval.clustering import cluster_conformers
+    from tsdiff_tpu_torch.eval.covmat import CovMatEvaluator
+
+    t_phase = time.monotonic()
+    shutil.rmtree(LEGACY_DIR, ignore_errors=True)
+    os.makedirs(LEGACY_DIR)
+    K = sizes["conformers"]
+    corpus = {name: make_conformer_corpus(sizes[name], seed=seed, conformers=K)
+              for name, seed in (("train", 61), ("val", 62), ("test", 63))}
+    paths = {name: os.path.join(LEGACY_DIR, f"{name}.pkl") for name in ("train", "val")}
+    for name in ("train", "val"):
+        save_dataset(paths[name], corpus[name])
+    test_set = os.path.join(LEGACY_DIR, "test.pkl")
+    save_dataset(test_set, corpus["test"][::K])   # one graph per test molecule
+    n_atoms = [len(g["atom_type"]) for g in corpus["train"][::K]]
+    print(f"[legacy] {smi}: synthetic conformer corpus, {sizes['train']} + {sizes['val']} + "
+          f"{sizes['test']} molecules of {min(n_atoms)}-{max(n_atoms)} atoms (train), {K} "
+          f"conformers each; qm9_default at full width: {QM9_DEFAULT['model']}")
+
+    train = {**QM9_DEFAULT["train"], "max_iters": sizes["iters"], "val_freq": sizes["val_freq"],
+             "log_freq": sizes["val_freq"]}
+    dataset = {"train": paths["train"], "val": paths["val"]}
+    runs = {}
+    for kind in ("diffusion", "dsm"):
+        cfg = {"model": {**QM9_DEFAULT["model"], "type": kind}, "train": train, "dataset": dataset}
+        runs[kind] = legacy_train_run(kind, cfg, sizes, device)
+        runs[kind].update(legacy_steps(cfg["model"], corpus["train"][-train["batch_size"]:],
+                                       device))
+        eager, captured = runs[kind]["eager_ms"], runs[kind]["captured_ms"]
+        print(f"[legacy] {smi}: {kind} train step, batch {train['batch_size']} of the largest "
+              f"bucket: {eager:.3f} ms eager, "
+              + (f"{captured:.3f} ms replayed from its CUDA graph" if captured else
+                 "not captured (CPU)"))
+
+    agree = legacy_agreement(QM9_DEFAULT["model"], corpus["test"][: 16 * K: K], device)
+
+    diffusion, dnum = legacy_sample("diffusion", runs["diffusion"]["ckpt"], test_set, sizes,
+                                    device, ["--sampling_type", "ld", "--n_steps", "5000",
+                                             "--timestep_respacing", str(sizes["respacing"])])
+    _, snum = legacy_sample("dsm", runs["dsm"]["ckpt"], test_set, sizes, device,
+                            ["--n_steps", str(sizes["dsm_steps"]),
+                             "--sigma_respacing", str(sizes["sigma_respacing"])])
+
+    walk_graphs = corpus["test"][: 4 * K: K]
+    legacy_walk_equal("diffusion", runs["diffusion"]["ckpt"], walk_graphs, device,
+                      ["--n_steps", "5000", "--timestep_respacing", str(sizes["respacing"])])
+    legacy_walk_equal("dsm", runs["dsm"]["ckpt"], walk_graphs, device,
+                      ["--n_steps", str(sizes["dsm_steps"]),
+                       "--sigma_respacing", str(sizes["sigma_respacing"])])
+
+    printed = io.StringIO()
+    clu_dir = os.path.join(LEGACY_DIR, "clustering")
+    with contextlib.redirect_stdout(printed):
+        clustering_cli.main(["--sample_path", os.path.join(LEGACY_DIR, "gen_diffusion",
+                                                           "samples_all.pkl"),
+                             "--sample_index", "0", "--save_dir", clu_dir])
+    with open(os.path.join(clu_dir, "stat_clustering.pkl"), "rb") as f:
+        n_clusters = pickle.load(f)["num_clusters"]
+    xyz = sorted(f for f in os.listdir(clu_dir) if f.endswith(".xyz"))
+    print(f"[legacy] clustering CLI on sample 0's molecule: {n_clusters} clusters, {len(xyz)} "
+          f"xyz files; " + " / ".join(printed.getvalue().strip().splitlines()))
+    if n_clusters < 1 or len(xyz) != n_clusters:
+        fail("legacy: the clustering CLI wrote no clusters")
+
+    # COV/MAT: the generated conformers grouped by smiles with the test
+    # molecule's reference stack, as the evaluate CLI's --covmat takes them
+    refs = {g["smiles"]: [] for g in corpus["test"]}
+    for g in corpus["test"]:
+        refs[g["smiles"]].append(g["pos"])
+    gen = {}
+    for r in diffusion:
+        gen.setdefault(r["smiles"], []).append(r["pos_gen"])
+    packed = [dict(g, pos_ref=np.stack(refs[g["smiles"]]), pos_gen=np.stack(gen[g["smiles"]]))
+              for g in corpus["test"][::K]]
+    covmat_path = os.path.join(LEGACY_DIR, "covmat.pkl")
+    with open(covmat_path, "wb") as f:
+        pickle.dump(packed, f)
+    printed = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(printed):
+        stats = evaluate_cli.main(["--samples", covmat_path, "--covmat"])
+    cm = stats["covmat"]
+    th = list(np.round(cm.thresholds, 2))
+    at = {t: th.index(t) for t in (0.5, 1.0, 1.25)}
+    summary = ", ".join(f"COV-R@{t} {cm.CoverageR[:, k].mean():.4f} COV-P@{t} "
+                        f"{cm.CoverageP[:, k].mean():.4f}" for t, k in at.items())
+    print(f"[legacy] evaluate CLI --covmat on {len(packed)} molecules ({K} reference and "
+          f"{2 * K} generated conformers each) in {time.monotonic() - t0:.3f} s: {summary}; "
+          f"MAT-R {cm.MatchingR.mean():.4f} A, MAT-P {cm.MatchingP.mean():.4f} A (mean)")
+    if cm.CoverageR.shape[0] != len(packed) or not np.isfinite(cm.MatchingR).all():
+        fail("legacy: COV/MAT did not score every molecule")
+
+    quiet = lambda *_: None  # noqa: E731
+    self_cov = CovMatEvaluator(num_workers=1, print_fn=quiet)(
+        [dict(p, pos_gen=np.concatenate([p["pos_ref"], p["pos_ref"]])) for p in packed])
+    cov_one = bool((self_cov.CoverageR == 1).all() and (self_cov.CoverageP == 1).all())
+    mat = max(self_cov.MatchingR.max(), self_cov.MatchingP.max())
+    rng = np.random.default_rng(64)
+    mol = make_molecule(rng, 0)
+    confs = []
+    for _ in range(sizes["groups"]):
+        base = dict(mol, pos=mol["pos"] + rng.normal(scale=0.8, size=mol["pos"].shape))
+        confs += [c["pos"] for c in conformers_of(rng, base, 4, scale=0.005)]
+    found = cluster_conformers(confs, [tuple(range(len(mol["atom_type"])))], 0.1)["num_clusters"]
+    print(f"[legacy] self-checks: the reference stacks against themselves COV 1.0 at every "
+          f"threshold {cov_one}, MAT {mat:.3g} (limit 1e-6); {sizes['groups']} known groups of "
+          f"4 conformers: {found} clusters")
+    if not (cov_one and mat < 1e-6):
+        fail("legacy: COV/MAT of the references against themselves is not 1.0 / 0")
+    if found != sizes["groups"]:
+        fail(f"legacy: cluster_conformers found {found} clusters for {sizes['groups']} groups")
+
+    wall = time.monotonic() - t_phase
+    print(f"[legacy] {smi}: phase 12 wall {wall:.3f} s; train diffusion "
+          f"{runs['diffusion']['graphs_per_s']:.4f} graphs/s, dsm {runs['dsm']['graphs_per_s']:.4f}"
+          f" graphs/s; sampling diffusion {dnum['ms_per_step']:.3f} ms/step "
+          f"{dnum['samples_per_s']:.3f} samples/s, dsm {snum['ms_per_step']:.3f} ms/step "
+          f"{snum['samples_per_s']:.3f} samples/s; card against CPU {agree:.3g} of max|CPU|")
+    return dict(runs=runs, agree=agree, diffusion=dnum, dsm=snum, clusters=n_clusters,
+                covmat=cm, wall=wall)
+
+
 def main() -> None:
     try:
         import torch
@@ -3028,6 +3520,7 @@ def main() -> None:
     k = phase_kernels()
     dk = phase_dense_kernels()
     sk = phase_stack_kernels()
+    smooth = phase_stack_smooth()
     main_path = phase_main_path()
     phase_profile()
     setup = train_setup()
@@ -3046,6 +3539,7 @@ def main() -> None:
     phase_packer(tr["graphs_per_s"], packed["graphs_per_s"])
     mk = phase_mesh_kernels()
     mesh = phase_mesh(main_path, setup)
+    phase_legacy(smi)
 
     def entry(name, source, replaces, launches, numbers, by_path=None):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_by",
@@ -3087,6 +3581,9 @@ def main() -> None:
                    bf["bwd"], {"train CLI": tr["launches"][1], mesh_train: mesh["b3_bwd"]})
     b3_bwd["mesh_shapes"] = [at_shape(mk[("bwd", n)], f"B=100 N={n} bf16 (dp=2)")
                              for n in (16, 24)]
+    # phase 3's check on the smooth cutoff's fractional mask, N=24
+    for b3, part in ((b3_fwd, "fwd"), (b3_bwd, "bwd")):
+        b3["smooth_mask_max_abs_err"] = {d: smooth[d][part] for d in smooth}
     print(json.dumps({"kernels": [
         b1,
         entry("condensed_score", "tsdiff_tpu_torch/csrc/condensed_score.cu",

@@ -3,7 +3,9 @@
 ``--out`` pickle must be equal, with and without ``--no-automorphisms``, on a
 ``samples_all.pkl`` written by the port's sampling CLI and on a hand-made
 pickle holding graphs with symmetric atoms, a trajectory and entries that are
-skipped.  ``--covmat`` and ``--protein`` are not ported and raise."""
+skipped.  ``--protein`` is not ported and raises; ``--covmat`` on samples
+with no ``pos_ref`` stack prints and returns what the JAX CLI does
+(``tests/test_torch_conformer_eval.py`` runs it on conformer stacks)."""
 
 import pickle
 
@@ -96,6 +98,14 @@ def test_evaluate_matches_over_automorphisms(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--covmat", "--protein"])
-def test_evaluate_rejects_what_is_not_ported(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        evaluate.main(["--samples", hand_made_samples(tmp_path), flag])
+def test_evaluate_rejects_what_is_not_ported(tmp_path, flag, capsys):
+    samples = hand_made_samples(tmp_path)
+    if flag == "--protein":
+        with pytest.raises(NotImplementedError, match=r"not yet ported \(ROADMAP §A\.7c\)"):
+            evaluate.main(["--samples", samples, flag])
+        return
+    stats = evaluate.main(["--samples", samples, flag])
+    text = capsys.readouterr().out
+    want = jax_evaluate.main(["--samples", samples, flag])
+    assert text == capsys.readouterr().out
+    assert "skipping COV/MAT" in text and "covmat" not in stats and "covmat" not in want

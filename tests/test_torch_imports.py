@@ -16,7 +16,10 @@ def test_port_imports_without_jax():
     for name in ("ops.packed_score", "ops.schnet_stack", "ops.condensed_score",
                  "ops.packed_score_int8", "cli.sampling", "cli.train",
                  "train.trainer", "diffusion.objective", "models.schnet",
-                 "parallel", "parallel.sharding", "parallel.multihost", "data.native"):
+                 "parallel", "parallel.sharding", "parallel.multihost", "data.native",
+                 "eval.align", "eval.clustering", "eval.covmat", "cli.clustering",
+                 "models.gin", "models.dualenc", "models.edge", "diffusion.dual_objective",
+                 "data.legacy", "data.synthetic"):
         assert f"tsdiff_tpu_torch.{name}" in names
     code = f"""
 import importlib, sys
@@ -28,6 +31,7 @@ for name in {names!r}:
 bad = sorted(m for m in sys.modules if m == "tsdiff_tpu" or m.startswith("tsdiff_tpu."))
 assert not bad, bad
 assert "triton" not in sys.modules
+assert "scipy" not in sys.modules
 print(len({names!r}))
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)

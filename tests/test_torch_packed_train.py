@@ -218,18 +218,22 @@ def test_packed_train_steps_match_jax(setup):
 
 
 def test_packed_needs_mlp_encoder_and_hard_cutoff(setup):
-    """JAX asserts in ``score_step_packed_xla``; the port builds no such model,
-    and its packed forward refuses a soft cutoff."""
+    """JAX asserts in ``score_step_packed_xla``; the port builds such models,
+    as JAX does, and its packed forward refuses them: a soft cutoff, the
+    gaussian edge encoder, an activation other than swish."""
     s = setup
     smooth = s["jmodel"].clone(packed_train=True, smooth_conv=True)
     with pytest.raises(AssertionError):
         jax_loss(smooth, s["params"], SCHEDULE_J, s["jb"], jax.random.key(0))
-    for change in ({"smooth_conv": True}, {"edge_encoder": "gaussian"}):
+    for change, what in (({"smooth_conv": True}, "hard cutoff"),
+                         ({"edge_encoder": "gaussian"}, "mlp edge encoder"),
+                         ({"mlp_act": "relu"}, "swish")):
         cfg = {**PACKED_CFG, **change}
         if "smooth_conv" in change:
             cfg["encoder"] = {**cfg["encoder"], "smooth_conv": True}
-        with pytest.raises(NotImplementedError):
-            CondenseEncoderEpsNetwork.from_config(Config(cfg))
+        model = CondenseEncoderEpsNetwork.from_config(Config(cfg))
+        with pytest.raises(ValueError, match=what):
+            diffusion_loss(model, SCHEDULE_T, s["tb"], t=s["t"], noise=s["noise"])
     model = port_model(s["params"])
     model.encoder.smooth = True
     with pytest.raises(ValueError, match="hard cutoff"):

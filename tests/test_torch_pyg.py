@@ -145,9 +145,13 @@ def test_sampling_cli_on_pyg_pickle_equals_native(tmp_path):
         assert np.isfinite(a["pos_gen"]).all()
 
 
-def test_uninstall_removes_only_the_stubs():
+def test_uninstall_removes_only_the_stubs(monkeypatch):
     """``torch.ops`` and ``torch.classes`` answer any attribute, the stub
-    mark included: they must stay in ``sys.modules``."""
+    mark included: they must stay in ``sys.modules``.  The test puts them
+    there itself: another test may have run the JAX package's
+    ``uninstall_pyg_stubs``, which drops them."""
+    monkeypatch.setitem(sys.modules, "torch.ops", torch.ops)
+    monkeypatch.setitem(sys.modules, "torch.classes", torch.classes)
     assert getattr(sys.modules["torch.ops"], "__tsdiff_tpu_stub__", False)
     installed = pyg_compat.install_pyg_stubs()
     assert "torch_geometric" in installed

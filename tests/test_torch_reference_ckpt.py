@@ -154,11 +154,17 @@ def test_load_checkpoint_reads_a_pt_and_the_model_scores_as_jax(tmp_path):
 
 
 def test_dualenc_pt_raises(tmp_path):
+    """A dual-encoder ``.pt`` converts (``tests/test_torch_legacy_model.py``
+    loads one and scores it against JAX); one whose weights are not the dual
+    encoder's (here the condensed encoder's) raises, in the port as in JAX."""
     _, (params,), *_ = small_setup(seed=23)
     pt = str(tmp_path / "dual.pt")
-    write_reference_pt(pt, {"model": {**MODEL_CFG.to_dict(), "network": "dualenc"}}, params)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §A\.7"):
+    cfg = {**MODEL_CFG.to_dict(), "network": "dualenc", "num_convs": 2, "num_convs_local": 2}
+    write_reference_pt(pt, {"model": cfg}, params)
+    with pytest.raises(KeyError, match="edge_encoder_global"):
         load_checkpoint(pt)
+    with pytest.raises(KeyError):
+        jconvert.convert_reference_checkpoint(pt)
 
 
 @pytest.mark.parametrize("cmd", ["ckpt", "dataset"])

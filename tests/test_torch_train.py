@@ -230,7 +230,7 @@ def test_schedule_alphas_copied_to_a_device_once():
 
 
 def test_cli_train_rejects_what_is_not_ported(tmp_path):
-    """orbax (§A.2) and sidechain datasets (§A.7) are refused; the mesh flags
+    """orbax (§A.2) and sidechain datasets (§A.7c) are refused; the mesh flags
     are ported (tests/test_torch_parallel.py) and refuse what the JAX CLI's
     refuse: a cluster neither named by the three flags nor started by
     torchrun, and more slices than ranks."""
@@ -247,7 +247,7 @@ def test_cli_train_rejects_what_is_not_ported(tmp_path):
     sidechain["dataset"]["type"] = "sidechain"
     with open(cfg, "w") as f:
         json.dump(sidechain, f)
-    with pytest.raises(NotImplementedError, match=r"not yet ported \(ROADMAP §A\.7\)"):
+    with pytest.raises(NotImplementedError, match=r"not yet ported \(ROADMAP §A\.7c\)"):
         train_cli.main(base)
 
 

@@ -12,10 +12,15 @@ the identity only).  Prints the count, the mean, median and standard
 deviation, and the fraction at or under each threshold; ``--out`` writes
 ``{"dmae": array, "thresholds": list}`` as a pickle.  ``--samples`` is the
 sampling CLI's ``samples_all.pkl``, a ``tsdiff_tpu.v1`` dataset, or the
-reference's PyG ``samples_all.pkl``.  Numpy only: nothing runs on a device.
+reference's PyG ``samples_all.pkl``.
 
-Not ported: ``--covmat`` (the COV/MAT evaluator, ROADMAP §A.8) and
-``--protein`` (§A.7).
+``--covmat`` also scores the samples that carry a multi-conformer
+``pos_ref`` stack and their generated ``pos_gen`` stack with the COV/MAT
+evaluator (``eval/covmat.py``, one worker), prints its table and adds
+``"covmat"`` (a ``CovMatResults``) to the stats.  Numpy only: nothing runs
+on a device.
+
+Not ported: ``--protein`` (ROADMAP §A.7c).
 """
 
 from __future__ import annotations
@@ -32,13 +37,13 @@ def main(argv=None) -> dict:
     parser.add_argument("--samples", type=str, required=True)
     parser.add_argument("--thresholds", type=float, nargs="+", default=[0.1, 0.2, 0.3])
     parser.add_argument("--no-automorphisms", action="store_true")
-    parser.add_argument("--covmat", action="store_true", help="not yet ported")
+    parser.add_argument("--covmat", action="store_true",
+                        help="run the COV/MAT conformer-ensemble evaluator")
     parser.add_argument("--protein", action="store_true", help="not yet ported")
     parser.add_argument("--out", type=str, default=None, help="write stats pickle here")
     args = parser.parse_args(argv)
-    for flag, item in (("covmat", "§A.8"), ("protein", "§A.7")):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} is not yet ported (ROADMAP {item})")
+    if args.protein:
+        raise NotImplementedError("--protein is not yet ported (ROADMAP §A.7c)")
 
     from tsdiff_tpu_torch.data.dataset import load_dataset
     from tsdiff_tpu_torch.eval.dmae import dmae_for_graph
@@ -69,6 +74,16 @@ def main(argv=None) -> dict:
             print(f"  fraction with D-MAE <= {t:.2f}: {(dmaes <= t).mean():.3f}")
 
     stats = {"dmae": dmaes, "thresholds": args.thresholds}
+    if args.covmat:
+        from tsdiff_tpu_torch.eval.covmat import CovMatEvaluator, print_covmat_results
+
+        packed = [g for g in samples if "pos_ref" in g and "pos_gen" in g]
+        if packed:
+            res = CovMatEvaluator(num_workers=1)(packed)
+            print_covmat_results(res)
+            stats["covmat"] = res
+        else:
+            print("no multi-conformer samples with pos_ref; skipping COV/MAT")
     if args.out:
         with open(args.out, "wb") as f:
             pickle.dump(stats, f)

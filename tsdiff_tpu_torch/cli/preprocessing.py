@@ -11,7 +11,7 @@ fwd/rev-paired 80/10/10 split (seed 42, banned indices [20568, 20569, 20580,
 20581]), as ``tsdiff_tpu/cli/preprocessing.py`` does: ``train_data.pkl``,
 ``valid_data.pkl``, ``test_data.pkl``, ``feat_dict.pkl`` and
 ``index_dict.pkl``.  Needs RDKit; numpy otherwise, nothing runs on a device.
-The ``--pdb_glob`` protein branch is not ported (ROADMAP §A.7).
+The ``--pdb_glob`` protein branch is not ported (ROADMAP §A.7c).
 """
 
 from __future__ import annotations
@@ -36,11 +36,11 @@ def main(argv=None):
     parser.add_argument("--smarts_column", type=str, default="AAM")
     parser.add_argument("--ban_index", type=int, nargs="+", default=[20568, 20569, 20580, 20581])
     parser.add_argument("--pdb_glob", type=str, default=None,
-                        help="protein mode: not ported (ROADMAP §A.7)")
+                        help="protein mode: not ported (ROADMAP §A.7c)")
     args = parser.parse_args(argv)
     if args.pdb_glob:
         raise NotImplementedError("--pdb_glob (the protein dataset) is not yet ported "
-                                  "(ROADMAP §A.7)")
+                                  "(ROADMAP §A.7c)")
 
     from tsdiff_tpu_torch.data.dataset import save_dataset
     from tsdiff_tpu_torch.data.featurize import (

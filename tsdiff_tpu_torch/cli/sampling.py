@@ -29,6 +29,16 @@ samples are those of the eager loop (``dynamic_sampling``).
 
 Runs on CUDA unless ``--device cpu`` is given.
 
+A dual-encoder ensemble (the GeoDiff-legacy family, ``network: dualenc``)
+averages its members' per-atom scores (the local branch plus the clipped,
+down-weighted global branch, ``diffusion/dual_objective.py``) and walks a
+``DualWalk`` on the same runners: a ``type: diffusion`` model the DDPM walk of
+``--sampling_type`` (``--timestep_respacing`` applies), a ``type: dsm`` model
+annealed Langevin over its sigma ladder, ``--n_steps`` steps per level, from
+unit-variance noise and with no final rescale; ``--sigma_respacing M`` walks
+an evenly strided M-level subsequence of the ladder, its ends kept.
+``--fused_score`` and ``--quant`` apply to condensed models only.
+
 Several GPUs: one process (rank) per GPU on a ``(dp, ens)`` mesh
 (``parallel/``), as the JAX CLI runs one process over a device mesh.  The
 members split over ``ens`` (each rank loads its block), the batch rows over
@@ -93,6 +103,9 @@ def parse_args(argv=None):
                         help="ld | ddpm | ddpm_noisy | ddpm_det | generalized")
     parser.add_argument("--timestep_respacing", type=int, default=None,
                         help="walk an evenly-strided M-step subsequence of the n_steps window")
+    parser.add_argument("--sigma_respacing", type=int, default=None,
+                        help="dsm models: anneal through an evenly-strided M-level subsequence "
+                             "of the sigma ladder (ends kept), --n_steps steps per level")
     parser.add_argument("--eta", type=float, default=1.0)
     parser.add_argument("--step_lr", type=float, default=1e-7)
     parser.add_argument("--seed", type=int, default=2022)
@@ -171,6 +184,7 @@ def main(argv=None, capture: bool = True) -> str:
     from tsdiff_tpu_torch.data.dataset import default_buckets, load_dataset, pick_bucket, tier_ladder
     from tsdiff_tpu_torch.data.featurize import featurize_smarts_list
     from tsdiff_tpu_torch.diffusion.captured import WalkRunner, can_capture
+    from tsdiff_tpu_torch.diffusion.dual_objective import DualWalk
     from tsdiff_tpu_torch.diffusion.ensemble import load_members, make_ensemble
     from tsdiff_tpu_torch.diffusion.sampler import SamplingSettings, rescale_trajectory
     from tsdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
@@ -198,7 +212,14 @@ def main(argv=None, capture: bool = True) -> str:
     members, model_cfg = load_members(args.ckpt, device, dtype, fused_score=args.fused_score,
                                       quant=args.quant, use_ema=args.use_ema, logger=logger,
                                       mesh=mesh)
-    schedule = DiffusionSchedule.from_config(model_cfg)
+    # dsm models walk their sigma ladder and may have no beta schedule
+    schedule = DiffusionSchedule.from_config(model_cfg) if "beta_schedule" in model_cfg else None
+    dual = model_cfg.network == "dualenc"
+    dsm = dual and model_cfg.type == "dsm"
+    if dsm and args.timestep_respacing is not None:
+        logger.warning("--timestep_respacing only applies to the DDPM schedule walk; dsm models "
+                       "respace their sigma ladder instead: pass --sigma_respacing M or reduce "
+                       "--n_steps per level")
 
     logger.info("Loading test set...")
     if args.test_set.endswith((".pkl", ".pck")):
@@ -266,11 +287,21 @@ def main(argv=None, capture: bool = True) -> str:
     pool = torch.cuda.graph_pool_handle() if capture else None
     runners: dict[tuple, WalkRunner] = {}
 
+    def walk_of(settings: SamplingSettings) -> dict:
+        """The dual encoder's walk of ``settings`` as the runner's ``walk``;
+        the condensed model takes the runner's default."""
+        if dsm:
+            return {"walk": DualWalk.dsm(ensemble.model.sigmas, n_steps=args.n_steps,
+                                         step_lr=args.step_lr, clip=settings.clip,
+                                         sigma_respacing=args.sigma_respacing)}
+        return {"walk": DualWalk.diffusion(schedule, settings)} if dual else {}
+
     def get_runner(n_pad: int, tier: int, clip: float) -> WalkRunner:
         key = (n_pad, tier, clip)
         if key not in runners:
-            runners[key] = WalkRunner(ensemble, schedule, make_settings(clip), capture, pool,
-                                      step_draws=True, mesh=mesh)
+            settings = make_settings(clip)
+            runners[key] = WalkRunner(ensemble, schedule, settings, capture, pool,
+                                      step_draws=True, mesh=mesh, **walk_of(settings))
         return runners[key]
 
     def sample_batch(gpad: list[dict], n_pad: int, clip: float):
@@ -301,8 +332,10 @@ def main(argv=None, capture: bool = True) -> str:
         pos, nan = runner.run(batch, pos_init, gen)
         traj = None
         if args.save_traj:
-            traj = rescale_trajectory(runner.trajectory(len(gpad)), schedule,
-                                      settings).cpu().numpy()
+            traj = runner.trajectory(len(gpad))
+            if not dsm:  # a dsm walk has no frame to rescale
+                traj = rescale_trajectory(traj, schedule, settings)
+            traj = traj.cpu().numpy()
         return pos, nan, traj
 
     for graphs in batching(test_set, args.batch_size, args.repeat):

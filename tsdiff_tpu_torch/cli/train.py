@@ -13,7 +13,12 @@ the validation loss improves; at the end, graphs/s over every iteration after
 the first (validation and checkpoints included).  Runs on CUDA unless
 ``--device cpu`` is given.  With ``model.use_pallas`` the SchNet stack runs
 through the fused CUDA kernels; ``--packed_train`` (or ``model.packed_train``
-in the config) trains through the offset-packed forward.
+in the config) trains through the offset-packed forward.  A config with
+``network: dualenc`` trains the GeoDiff-legacy dual encoder on its DDPM
+(``type: diffusion``) or annealed score-matching (``type: dsm``,
+``train.anneal_power``) objective, on torch ops, through the same input
+pipelines and the same captured steps; the legacy conformer graphs have
+zero-width features.
 
 The flags and defaults are the JAX package's CLI's:
 
@@ -53,7 +58,7 @@ writes checkpoints and wandb; every other rank logs to its own run
 directory, tagged ``_proc<rank>``.
 
 Not ported: ``--ckpt_backend orbax`` (§A.2, blocked) and ``dataset.type:
-sidechain`` (§A.7).
+sidechain`` (§A.7c).
 """
 
 from __future__ import annotations
@@ -214,6 +219,7 @@ def _train(args, capture: bool) -> str:
     from tsdiff_tpu_torch.train import (
         TrainState,
         get_checkpoint_path,
+        get_objective,
         init_train_state,
         load_checkpoint,
         make_eval_step,
@@ -246,7 +252,7 @@ def _train(args, capture: bool) -> str:
     config_path = _config_path(args.config) if resume else args.config
     config = load_config(config_path)
     if config.get("dataset", Config()).get("type") == "sidechain":
-        raise NotImplementedError("dataset.type: sidechain is not yet ported (ROADMAP §A.7)")
+        raise NotImplementedError("dataset.type: sidechain is not yet ported (ROADMAP §A.7c)")
     seed_all(config.train.seed)
     if args.max_iters is not None:
         config.train.max_iters = args.max_iters
@@ -334,9 +340,11 @@ def _train(args, capture: bool) -> str:
     tx = make_optimizer(config.train.optimizer, config.train.max_grad_norm)
     t0, t1 = config.model.get("t0", 0), config.model.get("t1", None)
     ema_decay = config.train.get("ema_decay", None)
+    anneal_power = config.train.get("anneal_power", 2.0)
     train_step = make_train_step(model, tx, schedule, t0=t0, t1=t1, ema_decay=ema_decay,
-                                 debug_nans=args.debug_nans, mesh=mesh)
-    eval_step = make_eval_step(model, schedule, t0=t0, t1=t1, mesh=mesh)
+                                 debug_nans=args.debug_nans, mesh=mesh, anneal_power=anneal_power)
+    eval_step = make_eval_step(model, schedule, t0=t0, t1=t1, mesh=mesh,
+                               anneal_power=anneal_power)
     res_train_step = make_resident_train_step(train_step, batch_size, mesh)
     res_eval_step = make_resident_eval_step(eval_step, batch_size, mesh)
     scheduler = get_scheduler(config.train.scheduler, config.train.optimizer.lr)
@@ -366,7 +374,8 @@ def _train(args, capture: bool) -> str:
         state = TrainState(dict(model.named_parameters()), state.opt_state, state.step, ema)
     loop = ResidentLoop(train_res, start_iter) if train_res is not None else None
     logger.info(f"Parameters: {count_parameters(model):,} on {device}, {args.dtype}, "
-                f"use_pallas={model.use_pallas}, packed_train={model.packed_train}")
+                f"{type(model).__name__}, use_pallas={getattr(model, 'use_pallas', False)}, "
+                f"packed_train={getattr(model, 'packed_train', False)}")
 
     # JAX runs every step as one compiled program: here one CUDA graph per
     # (step kind, bucket), where its checks do not read the card
@@ -376,7 +385,8 @@ def _train(args, capture: bool) -> str:
         logger.info("Steps replay CUDA graphs, one per (step kind, bucket)")
     elif capture and device.type == "cuda" and not can_capture(device, mesh):
         logger.info("Gloo collectives cannot be captured in a CUDA graph: steps run eagerly")
-    t_end = len(schedule.alphas) if t1 is None else t1
+    # the levels of the model family's objective: timesteps or sigma levels
+    _, (t_lo, t_hi) = get_objective(model, schedule, t0, t1, anneal_power)
     # the learning rate on the device, refreshed only when the scheduler moves it
     lr_host = scheduler.lr
     lr = torch.tensor(lr_host, dtype=torch.float32, device=device)
@@ -386,7 +396,7 @@ def _train(args, capture: bool) -> str:
         return fn(*inputs) if graphs is None else graphs(key, fn, *inputs)
 
     def draws(gen, bucket: int):
-        return draw_timesteps_and_noise(gen, (batch_size, bucket, 3), t0, t_end, device)
+        return draw_timesteps_and_noise(gen, (batch_size, bucket, 3), t_lo, t_hi, device)
 
     if val_res is not None:
         val_cursors = {b: torch.zeros((), dtype=torch.int64, device=device)

@@ -7,10 +7,15 @@ The flax tree of a condensed-encoder checkpoint looks like::
     params/edge_enc/bond_emb/embedding            (vocab, H)
     params/encoder/stack/f1w                      (L, H, F)
 
-and maps to torch names by these rules:
+and a dual encoder's adds, per branch, ``encoder_global/node_emb`` and
+``encoder_global/stack/*`` (SchNet), ``encoder_local/node_emb`` and
+``encoder_local/convs_<i>/nn/layers_<j>`` (GIN), the edge encoders
+``edge_encoder_{global,local}``, the heads ``grad_{global,local}_dist_mlp``
+and in TS mode ``edge_cat_{global,local}/lin{0,1}``.  They map to torch names
+by these rules:
 
-* the ``Dense_0`` level disappears and ``layers_<i>`` becomes ``layers.<i>``
-  (an ``nn.ModuleList``);
+* the ``Dense_0`` level disappears, and ``layers_<i>`` and ``convs_<i>``
+  become ``layers.<i>`` and ``convs.<i>`` (an ``nn.ModuleList``);
 * a ``kernel`` becomes the ``weight`` of an ``nn.Linear``, transposed from
   flax ``(in, out)`` to torch ``(out, in)``;
 * an ``embedding`` becomes the ``weight`` of an ``nn.Embedding`` (same layout);
@@ -30,9 +35,9 @@ from typing import Mapping
 import numpy as np
 import torch
 
-_LAYER = re.compile(r"^layers_(\d+)$")
+_LAYER = re.compile(r"^(layers|convs)_(\d+)$")
 #: torch modules whose ``weight`` is a flax ``embedding``
-EMBEDDINGS = ("atom_embedding", "bond_emb")
+EMBEDDINGS = ("atom_embedding", "bond_emb", "node_emb")
 
 
 def _leaves(tree: Mapping, prefix: tuple = ()):
@@ -50,7 +55,7 @@ def torch_name(path: tuple) -> str:
         if p == "Dense_0":
             continue
         m = _LAYER.match(p)
-        parts.extend(("layers", m.group(1)) if m else (p,))
+        parts.extend((m.group(1), m.group(2)) if m else (p,))
     if parts[-1] in ("kernel", "embedding"):
         parts[-1] = "weight"
     return ".".join(parts)
@@ -78,8 +83,8 @@ def flax_path(name: str) -> tuple[str, ...]:
     parts = name.split(".")
     path = []
     for i, p in enumerate(parts):
-        if p.isdigit() and i and parts[i - 1] == "layers":
-            path[-1] = f"layers_{p}"
+        if p.isdigit() and i and parts[i - 1] in ("layers", "convs"):
+            path[-1] = f"{parts[i - 1]}_{p}"
         else:
             path.append(p)
     if path[-1] == "weight" and path[-2] in EMBEDDINGS:

@@ -1,5 +1,5 @@
-"""Dense geometry: pairwise distances, the distance-score chain rule, and the
-per-atom helpers of the sampling loop.
+"""Dense geometry: pairwise distances, the distance-score chain rule, the
+per-atom helpers of the sampling loop, and bond and dihedral angles.
 
 A dense entry (b, i, j) is the directed edge i -> j; every edge set is
 symmetric, so both directions are present.
@@ -62,3 +62,30 @@ def clip_norm(vec: torch.Tensor, limit: float) -> torch.Tensor:
         norm > limit, limit / torch.clamp(norm, min=1e-30), torch.ones_like(norm)
     )
     return vec * denom
+
+
+def get_angle(pos: torch.Tensor, angle_index: torch.Tensor) -> torch.Tensor:
+    """Angles (A, 1) in radians at the centres of (3, A) index triples
+    (left, centre, right) into ``pos`` (n, 3)."""
+    n1, ctr, n2 = angle_index
+    v1 = pos[n1] - pos[ctr]
+    v2 = pos[n2] - pos[ctr]
+    inner = torch.sum(v1 * v2, dim=-1, keepdim=True)
+    lp = (torch.linalg.vector_norm(v1, dim=-1, keepdim=True)
+          * torch.linalg.vector_norm(v2, dim=-1, keepdim=True))
+    return torch.arccos(inner / lp)
+
+
+def get_dihedral(pos: torch.Tensor, dihedral_index: torch.Tensor) -> torch.Tensor:
+    """Unsigned dihedral angles (A, 1) in radians of (4, A) index quadruples
+    (n1, c1, c2, n2) into ``pos`` (n, 3)."""
+    n1, c1, c2, n2 = dihedral_index
+    v_ctr = pos[c2] - pos[c1]
+    v1 = pos[n1] - pos[c1]
+    v2 = pos[n2] - pos[c2]
+    m1 = torch.linalg.cross(v_ctr, v1)
+    m2 = torch.linalg.cross(v_ctr, v2)
+    inner = torch.sum(m1 * m2, dim=-1, keepdim=True)
+    lp = (torch.linalg.vector_norm(m1, dim=-1, keepdim=True)
+          * torch.linalg.vector_norm(m2, dim=-1, keepdim=True))
+    return torch.arccos(inner / lp)

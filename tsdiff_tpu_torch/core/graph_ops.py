@@ -9,8 +9,11 @@ Given condensed bond types T = r*22 + p on the 2D reaction graph:
     separate ``type_r``/``type_p`` (0 where that side has no edge).
 
 The message-passing edge set is the local set united with a radius graph on
-the current coordinates (``radius_edge_mask``).  Everything is (B, N, N)
-dense.  The adjacency powers run as float matmuls on
+the current coordinates (``radius_edge_mask``; ``extend_condensed_graph_edge``
+builds both).  The GeoDiff-legacy single graph has its own extension
+(``extend_graph_order``, ``extend_graph_order_radius``): the bond codes kept
+as they are, k-hop codes offset past the whole condensed vocabulary.
+Everything is (B, N, N) dense.  The adjacency powers run as float matmuls on
 0/1 matrices (exact: every entry is an integer <= N), since CUDA has no
 integer matmul.
 """
@@ -114,3 +117,53 @@ def radius_edge_mask(pos: torch.Tensor, node_mask: torch.Tensor, cutoff: float) 
     diff = pos[:, :, None, :] - pos[:, None, :, :]
     sq = torch.sum(diff * diff, dim=-1)
     return (sq <= cutoff * cutoff) & pair_mask(node_mask)
+
+
+def extend_condensed_graph_edge(
+    bond_mat: torch.Tensor, pos: torch.Tensor, node_mask: torch.Tensor, order: int,
+    cutoff: float,
+) -> GraphEdges:
+    """The condensed model's edge sets on ``pos``: the order-extended local
+    set, and the global set, local united with the radius graph, each global
+    edge carrying its local ``type_r``/``type_p`` (0 if none)."""
+    mask_local, type_r, type_p = extend_ts_graph(bond_mat, node_mask, order)
+    mask_global = mask_local | radius_edge_mask(pos, node_mask, cutoff)
+    return GraphEdges(mask_global=mask_global, mask_local=mask_local, type_r=type_r,
+                      type_p=type_p)
+
+
+def extend_graph_order(
+    type_mat: torch.Tensor, node_mask: torch.Tensor, order: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """GeoDiff-legacy single-graph order extension: ``(mask, types)``, bond
+    codes kept, k-hop (k >= 2) pairs typed ``NUM_BOND_TYPES**2 + k - 1``
+    (past the whole condensed vocabulary)."""
+    pm = pair_mask(node_mask)
+    type_mat = torch.where(pm, type_mat, torch.zeros_like(type_mat)).to(torch.int64)
+    hop = higher_order_adj(type_mat > 0, order)
+    type_high = torch.where(hop > 1, NUM_BOND_TYPES**2 + hop - 1, torch.zeros_like(hop))
+    type_new = type_mat + type_high
+    return (type_new > 0) & pm, type_new
+
+
+def extend_graph_order_radius(
+    type_mat: torch.Tensor,
+    pos: torch.Tensor,
+    node_mask: torch.Tensor,
+    order: int,
+    cutoff: float,
+    extend_order: bool = True,
+    extend_radius: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The legacy edge set: the order-extended edges united with the radius
+    graph on ``pos``; radius-only edges have type 0."""
+    pm = pair_mask(node_mask)
+    if extend_order:
+        mask, types = extend_graph_order(type_mat, node_mask, order)
+    else:
+        types = torch.where(pm, type_mat, torch.zeros_like(type_mat)).to(torch.int64)
+        mask = types > 0
+    if extend_radius:
+        mask = mask | radius_edge_mask(pos, node_mask, cutoff)
+        types = torch.where(mask, types, torch.zeros_like(types))
+    return mask, types

@@ -26,6 +26,20 @@ Name mapping for CondenseEncoderEpsNetwork (torch Linear weights are
   encoder.interactions.{l}.lin.*              -> encoder/stack/o{w,b}[l]
   grad_dist_mlp.layers.{i}.*                  -> grad_dist_mlp/layers_{i}/Dense_0/*
 
+and for DualEncoderEpsNetwork (``dualenc_params_from_state_dict``; the mlp
+edge encoder only, as the JAX package converts it):
+
+  edge_encoder_{global,local}.bond_emb.weight -> edge_encoder_*/bond_emb/embedding
+  edge_encoder_*.mlp.layers.{i}.*             -> edge_encoder_*/mlp/layers_{i}/Dense_0/*
+  edge_cat_{global,local}.{0,2}.*             -> edge_cat_*/{lin0,lin1}/Dense_0/* (TS)
+  encoder_global.node_emb.weight              -> encoder_global/node_emb/embedding
+  encoder_global.interactions.{l}.*           -> encoder_global/stack/* (as above)
+  encoder_local.node_emb.weight               -> encoder_local/node_emb/embedding
+  encoder_local.convs.{i}.nn.layers.{j}.*     -> encoder_local/convs_{i}/nn/layers_{j}/Dense_0/*
+  grad_{global,local}_dist_mlp.layers.{i}.*   -> grad_*_dist_mlp/layers_{i}/Dense_0/*
+
+GIN's ``convs.{i}.eps`` buffers are dropped (eps is fixed at 0).
+
 Usage:
     python -m tsdiff_tpu_torch.data.convert ckpt <iter>.pt OUT.ckpt
     python -m tsdiff_tpu_torch.data.convert dataset PYG.pkl OUT.pkl
@@ -43,23 +57,22 @@ def _t(w):
     return np.ascontiguousarray(np.asarray(w).T)
 
 
-def condensenc_params_from_state_dict(state_dict: dict, num_convs: int) -> dict:
-    """Reference CondenseEncoderEpsNetwork state_dict (numpy arrays) -> flax
-    parameter tree ``{"params": {...}}`` of the condensed encoder."""
-    sd = {k: np.asarray(v) for k, v in state_dict.items()}
+def _dense(sd: dict, prefix: str) -> dict:
+    out = {"kernel": _t(sd[f"{prefix}.weight"])}
+    if f"{prefix}.bias" in sd:
+        out["bias"] = sd[f"{prefix}.bias"]
+    return {"Dense_0": out}
 
-    def dense(prefix):
-        out = {"kernel": _t(sd[f"{prefix}.weight"])}
-        if f"{prefix}.bias" in sd:
-            out["bias"] = sd[f"{prefix}.bias"]
-        return {"Dense_0": out}
+
+def _schnet_stack(sd: dict, encoder: str, num_convs: int) -> dict:
+    """The layer-stacked SchNet weights of ``<encoder>.interactions.*``."""
 
     def per_layer(name, transpose):
         return np.stack([_t(sd[name.format(l)]) if transpose else sd[name.format(l)]
                          for l in range(num_convs)])
 
-    conv = "encoder.interactions.{}.conv."
-    stack = {
+    conv = encoder + ".interactions.{}.conv."
+    return {
         "f1w": per_layer(conv + "mlp.0.weight", True),
         "f1b": per_layer(conv + "mlp.0.bias", False),
         "f2w": per_layer(conv + "mlp.2.weight", True),
@@ -67,9 +80,20 @@ def condensenc_params_from_state_dict(state_dict: dict, num_convs: int) -> dict:
         "l1w": per_layer(conv + "lin1.weight", True),
         "l2w": per_layer(conv + "lin2.weight", True),
         "l2b": per_layer(conv + "lin2.bias", False),
-        "ow": per_layer("encoder.interactions.{}.lin.weight", True),
-        "ob": per_layer("encoder.interactions.{}.lin.bias", False),
+        "ow": per_layer(encoder + ".interactions.{}.lin.weight", True),
+        "ob": per_layer(encoder + ".interactions.{}.lin.bias", False),
     }
+
+
+def condensenc_params_from_state_dict(state_dict: dict, num_convs: int) -> dict:
+    """Reference CondenseEncoderEpsNetwork state_dict (numpy arrays) -> flax
+    parameter tree ``{"params": {...}}`` of the condensed encoder."""
+    sd = {k: np.asarray(v) for k, v in state_dict.items()}
+
+    def dense(prefix):
+        return _dense(sd, prefix)
+
+    stack = _schnet_stack(sd, "encoder", num_convs)
     params = {
         "atom_embedding": {"embedding": sd["atom_embedding.weight"]},
         "atom_feat_embedding": {"Dense_0": {"kernel": _t(sd["atom_feat_embedding.weight"])}},
@@ -81,6 +105,52 @@ def condensenc_params_from_state_dict(state_dict: dict, num_convs: int) -> dict:
         "encoder": {"stack": stack},
         "grad_dist_mlp": {f"layers_{i}": dense(f"grad_dist_mlp.layers.{i}") for i in range(3)},
     }
+    return {"params": params}
+
+
+def dualenc_params_from_state_dict(state_dict: dict, config: dict) -> dict:
+    """Reference DualEncoderEpsNetwork state_dict (numpy arrays) -> flax
+    parameter tree ``{"params": {...}}`` of the dual encoder (the mlp edge
+    encoder only; the gaussian one raises)."""
+    sd = {k: np.asarray(v) for k, v in state_dict.items()}
+    model = config["model"]
+    if model.get("edge_encoder", "mlp") != "mlp":
+        raise NotImplementedError(
+            "dualenc conversion supports the mlp edge encoder only, as the JAX package's")
+
+    def dense(prefix):
+        return _dense(sd, prefix)
+
+    def edge_encoder(side):
+        return {
+            "bond_emb": {"embedding": sd[f"edge_encoder_{side}.bond_emb.weight"]},
+            "mlp": {f"layers_{i}": dense(f"edge_encoder_{side}.mlp.layers.{i}")
+                    for i in range(2)},
+        }
+
+    def mlp3(prefix):
+        return {f"layers_{i}": dense(f"{prefix}.layers.{i}") for i in range(3)}
+
+    params = {
+        "edge_encoder_global": edge_encoder("global"),
+        "edge_encoder_local": edge_encoder("local"),
+        "encoder_global": {
+            "node_emb": {"embedding": sd["encoder_global.node_emb.weight"]},
+            "stack": _schnet_stack(sd, "encoder_global", model["num_convs"]),
+        },
+        "encoder_local": {
+            "node_emb": {"embedding": sd["encoder_local.node_emb.weight"]},
+            **{f"convs_{i}": {"nn": {f"layers_{j}": dense(f"encoder_local.convs.{i}.nn.layers.{j}")
+                                     for j in range(2)}}
+               for i in range(model["num_convs_local"])},
+        },
+        "grad_global_dist_mlp": mlp3("grad_global_dist_mlp"),
+        "grad_local_dist_mlp": mlp3("grad_local_dist_mlp"),
+    }
+    if model.get("TS", False):
+        for side in ("global", "local"):
+            params[f"edge_cat_{side}"] = {"lin0": dense(f"edge_cat_{side}.0"),
+                                          "lin1": dense(f"edge_cat_{side}.2")}
     return {"params": params}
 
 
@@ -139,15 +209,15 @@ def convert_reference_checkpoint(pt_path: str, out_path: str | None = None) -> d
     config = _plain(ck["config"])
     model_cfg = config["model"]
     network = model_cfg.get("network", "condensenc")
-    if network.startswith("dualenc"):
-        raise NotImplementedError(
-            f"{pt_path}: network {network}: the dual encoder is not ported (ROADMAP §A.7)"
-        )
     sd = {
         k: np.asarray(v) for k, v in ck["model"].items()
         if not k.startswith(("betas", "alphas", "sigmas")) and not k.endswith(".eps")
     }
-    params = condensenc_params_from_state_dict(sd, num_convs=model_cfg["encoder"]["num_convs"])
+    if network.startswith("dualenc"):
+        params = dualenc_params_from_state_dict(sd, config)
+    else:
+        params = condensenc_params_from_state_dict(sd,
+                                                   num_convs=model_cfg["encoder"]["num_convs"])
     payload = {
         "format": "tsdiff_tpu.ckpt.v1",
         "config": config,

@@ -88,3 +88,85 @@ def sparse_edges(graphs: list[dict]) -> list[dict]:
         g["edge_type"] = bm[row, col].astype(np.int32)
         out.append(g)
     return out
+
+
+#: heavy-atom types of the conformer corpus and their shares: C, N, O
+CONFORMER_HEAVY_TYPES = (6, 7, 8)
+CONFORMER_HEAVY_SHARES = (0.7, 0.15, 0.15)
+
+
+def _place(rng: np.random.Generator, pos: np.ndarray, anchor: int, length: float) -> np.ndarray:
+    """A point ``length`` from atom ``anchor`` in a random direction, the one
+    of 20 tries farthest from every placed atom."""
+    best, best_gap = None, -1.0
+    for _ in range(20):
+        v = rng.normal(size=3)
+        p = pos[anchor] + length * v / np.linalg.norm(v)
+        gap = float(np.min(np.linalg.norm(pos - p, axis=1)))
+        if gap > best_gap:
+            best, best_gap = p, gap
+    return best
+
+
+def make_molecule(rng: np.random.Generator, index: int) -> dict:
+    """One synthetic molecule of 9 to 29 atoms in the legacy graph schema:
+    a tree of ceil(n / 3) heavy atoms (C, N, O; 1.5 A bonds, 1 in 5 of them
+    double) with 0 to 2 hydrogens each (atom type 1, 1.09 A), and its
+    geometry."""
+    n = int(rng.integers(9, 30))
+    h = -(-n // 3)
+    heavy = rng.choice(CONFORMER_HEAVY_TYPES, size=h, p=CONFORMER_HEAVY_SHARES)
+    n_h = np.full(h, (n - h) // h)
+    n_h[rng.permutation(h)[: (n - h) % h]] += 1     # n - h <= 2h hydrogens
+    types = np.concatenate([heavy, np.ones(n - h, np.int64)]).astype(np.int32)
+    pos = np.zeros((n, 3))
+    bonds = []
+    for i in range(1, h):
+        j = int(rng.integers(0, i))
+        pos[i] = _place(rng, pos[:i], j, 1.5)
+        bonds.append((j, i, 2 if rng.random() < 0.2 else 1))
+    k = h
+    for i in range(h):
+        for _ in range(int(n_h[i])):
+            pos[k] = _place(rng, pos[:k], i, 1.09)
+            bonds.append((i, k, 1))
+            k += 1
+    row = [a for a, b, _ in bonds] + [b for a, b, _ in bonds]
+    col = [b for a, b, _ in bonds] + [a for a, b, _ in bonds]
+    code = [c for *_, c in bonds] * 2
+    order = np.argsort(np.asarray(row) * n + np.asarray(col), kind="stable")
+    return dict(
+        atom_type=types,
+        r_feat=np.zeros((n, 0), np.float32),
+        p_feat=np.zeros((n, 0), np.float32),
+        pos=(pos - pos.mean(axis=0)).astype(np.float32),
+        edge_index=np.stack([np.asarray(row)[order], np.asarray(col)[order]]).astype(np.int32),
+        edge_type=np.asarray(code, np.int32)[order],
+        smiles=f"synthetic-conformer-{index}-{n}",
+    )
+
+
+def conformers_of(rng: np.random.Generator, mol: dict, k: int, scale: float = 0.15) -> list[dict]:
+    """``k`` conformers of ``mol``: its geometry moved by N(0, ``scale``)
+    per coordinate, rotated at random and centred."""
+    out = []
+    for _ in range(k):
+        q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        p = (np.asarray(mol["pos"], np.float64) + rng.normal(scale=scale, size=mol["pos"].shape)) @ q
+        g = dict(mol)
+        g["pos"] = (p - p.mean(axis=0)).astype(np.float32)
+        out.append(g)
+    return out
+
+
+def make_conformer_corpus(n_molecules: int, seed: int, conformers: int = 5) -> list[dict]:
+    """GeoDiff-legacy conformer graphs from ``np.random.default_rng(seed)``:
+    ``conformers`` graphs per molecule, sharing its ``smiles``, in the
+    schema of ``data/legacy.py`` (zero-width ``r_feat``/``p_feat``, plain
+    bond codes as sparse ``edge_index``/``edge_type``).  Test data: the
+    GEOM pickles and RDKit are not in the repository."""
+    rng = np.random.default_rng(seed)
+    graphs = []
+    for i in range(n_molecules):
+        graphs.extend(conformers_of(rng, make_molecule(rng, i), conformers))
+    return graphs

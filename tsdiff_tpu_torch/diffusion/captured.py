@@ -8,8 +8,13 @@ per (bucket, tier, clip) and rerun the compiled program
 the batch's statics (``PackedEnsemble.prepare``/``DenseEnsemble.prepare``),
 the positions, the round's noise ``(n_walk, tier, bucket, 3)``, the step
 counter, the NaN flag and, with ``save_traj``, the trajectory ``(n_walk,
-tier, bucket, 3)``, written at the counter inside the step.  With ``capture`` it records ``walk_step`` on
-those buffers in one CUDA graph, after one eager warm-up step (which builds
+tier, bucket, 3)``, written at the counter inside the step.  What a step
+computes is the runner's walk: the condensed model's ``DiffusionWalk`` by
+default, or the dual encoder's ``dual_objective.DualWalk`` (its DDPM or
+DSM walk, the JAX package's ``dual_dynamic_sampling`` and
+``dsm_annealed_sampling``), each a table read at the counter.  With
+``capture`` it records the walk's step on those buffers in one CUDA graph,
+after one eager warm-up step (which builds
 the kernel library, sets the kernel's attributes and settles the
 allocator), and a round replays the graph ``n_walk`` times; without it the
 same step runs eagerly on the same buffers.  Every graph of a runner comes
@@ -45,15 +50,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from tsdiff_tpu_torch.diffusion.sampler import (
-    SamplingSettings,
-    at_counter,
-    build_step_coeffs,
-    final_frame_scale,
-    initial_position,
-    step_coeff_table,
-    walk_step,
-)
+from tsdiff_tpu_torch.diffusion.sampler import DiffusionWalk, SamplingSettings, at_counter
 from tsdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
 
 
@@ -101,10 +98,13 @@ class _TierBuffers:
 class WalkRunner:
     """The reverse walk of one (bucket, respacing, clip) of a service, for
     any batch tier; ``run`` is one round.  ``mesh``: this rank's rows of
-    every tier, its block of the members in ``ensemble``."""
+    every tier, its block of the members in ``ensemble``.  ``walk``: the
+    walk's table, start, update and final scale, by default the condensed
+    model's ``DiffusionWalk(schedule, settings)``; the dual encoder's is a
+    ``dual_objective.DualWalk``."""
 
     def __init__(self, ensemble, schedule: DiffusionSchedule, settings: SamplingSettings,
-                 capture: bool, pool=None, step_draws: bool = False, mesh=None):
+                 capture: bool, pool=None, step_draws: bool = False, mesh=None, walk=None):
         if capture and not can_capture("cuda", mesh):
             raise ValueError("Gloo collectives cannot be captured: walk with capture=False")
         self.ensemble = ensemble
@@ -114,11 +114,10 @@ class WalkRunner:
         self.capture = capture
         self.pool = pool
         self.step_draws = step_draws
-        coeffs = build_step_coeffs(schedule, settings)
-        self.n_walk = len(coeffs.a)
-        self.scale = final_frame_scale(schedule, settings)
-        self._coeffs = coeffs
-        self._coef: torch.Tensor | None = None
+        self.walk = walk if walk is not None else DiffusionWalk(schedule, settings)
+        self.n_walk = self.walk.n_walk
+        self.scale = self.walk.scale
+        self._tables: tuple | None = None
         self._tiers: dict[int, _TierBuffers] = {}
         #: CUDA graphs recorded, one per tier at most
         self.captures = 0
@@ -163,8 +162,8 @@ class WalkRunner:
 
     def _step(self, buf: _TierBuffers) -> None:
         step_noise = at_counter(buf.noise, buf.counter)
-        pos = walk_step(buf.step_fn, buf.pos, buf.statics.node_mask, self._coef, buf.counter,
-                        step_noise, buf.nan_flag, self.settings.clip, self.settings.clip_pos)
+        pos = self.walk.step(buf.step_fn, buf.pos, buf.statics.node_mask, self._tables,
+                             buf.counter, step_noise, buf.nan_flag)
         buf.pos.copy_(pos)
         if buf.traj is not None:   # the counter has moved past this step
             buf.traj.index_copy_(0, buf.counter.view(1) - 1, pos[None])
@@ -212,8 +211,8 @@ class WalkRunner:
         buf = self._tiers.get(tier)
         if buf is None:
             dev = pos_init.device
-            if self._coef is None:
-                self._coef = step_coeff_table(self._coeffs, dev)
+            if self._tables is None:
+                self._tables = self.walk.tables(dev)
             local = pos_init if rows is None else pos_init[rows]
             local_noise = (self.n_walk, *local.shape)
             buf = _TierBuffers(
@@ -228,7 +227,7 @@ class WalkRunner:
             copy_into(buf.statics, statics)
         mask = buf.statics.node_mask[..., None].to(pos_init.dtype)
         gen = None if isinstance(noise, torch.Tensor) else noise
-        start = initial_position(self.schedule, self.settings, pos_init, generator=gen)
+        start = self.walk.start(pos_init, generator=gen)
         if rows is not None:
             start = start[rows]
         start = start * mask

@@ -28,6 +28,11 @@ ensemble (packed).
   (``diffusion/captured.py``).  ``make_packed_ensemble_eps_fn`` and
   ``make_ensemble_score_fn`` (packed for ``fused_score`` members) do both
   for one batch.
+* ``DualEnsemble`` — the dual encoder's members: each member's per-atom
+  score (``dual_objective.dual_eps``, the global branch clipped) on the
+  batch's order-extended bond graph, made once per batch, and the mean over
+  members, as the JAX sampling CLI averages its members' eps
+  (``tsdiff_tpu/cli/sampling.py:298-305``).
 * ``load_members`` — the members from checkpoints, as the sampling CLI and
   the service load them.
 """
@@ -183,11 +188,62 @@ class DenseEnsemble:
         return score
 
 
-def make_ensemble(members: list, mesh=None) -> PackedEnsemble | DenseEnsemble:
-    """The packed ensemble for ``fused_score`` members (the same contract for
-    the sampler, half the pair rows), else the dense one.  On a ``mesh``
-    with ``ens > 1``, ``members`` are this rank's block of the ensemble."""
-    kind = PackedEnsemble if members[0].fused_score else DenseEnsemble
+@dataclasses.dataclass(frozen=True)
+class DualStatics:
+    """Per-batch inputs of the dual ensemble's step: the batch's atoms, bond
+    codes and node mask, and its order-extended bond graph."""
+
+    node_mask: torch.Tensor   # (B, N) bool
+    atom_type: torch.Tensor   # (B, N) int64
+    bond_mat: torch.Tensor    # (B, N, N) int64
+    mask_typed: torch.Tensor  # (B, N, N) bool
+    types: torch.Tensor       # (B, N, N) int64 legacy codes
+
+
+class DualEnsemble:
+    """The dual encoder's ensemble, split as ``PackedEnsemble`` is: the
+    function of ``step_fn`` is ``eps(pos, gate, time_step, clip,
+    w_global)`` -> (B, N, 3), the mean of the members' ``dual_eps``, for
+    ``dual_objective.DualWalk``."""
+
+    def __init__(self, members: list, group=None, n_members: int | None = None):
+        self.model = members[0]
+        self.members = members
+        self.group, self.n_members = group, n_members or len(members)
+
+    @torch.no_grad()
+    def prepare(self, batch: ReactionBatch) -> DualStatics:
+        mask_typed, types = self.model.typed_edges(batch.bond_mat, batch.node_mask)
+        return DualStatics(node_mask=batch.node_mask.clone(), atom_type=batch.atom_type.clone(),
+                           bond_mat=batch.bond_mat.clone(), mask_typed=mask_typed, types=types)
+
+    def step_fn(self, statics: DualStatics):
+        from tsdiff_tpu_torch.diffusion.dual_objective import dual_eps
+
+        typed = (statics.mask_typed, statics.types)
+
+        @torch.no_grad()
+        def eps_fn(pos, gate, time_step, clip: float, w_global: float):
+            return member_mean(torch.stack([
+                dual_eps(m, statics.atom_type, statics.bond_mat, statics.node_mask, pos, gate,
+                         time_step, w_global, clip, typed=typed)
+                for m in self.members
+            ]), self.group, self.n_members)
+
+        return eps_fn
+
+
+def make_ensemble(members: list, mesh=None) -> PackedEnsemble | DenseEnsemble | DualEnsemble:
+    """The dual ensemble for dual-encoder members; else the packed ensemble
+    for ``fused_score`` members (the same contract for the sampler, half the
+    pair rows), else the dense one.  On a ``mesh`` with ``ens > 1``,
+    ``members`` are this rank's block of the ensemble."""
+    from tsdiff_tpu_torch.models.dualenc import DualEncoderEpsNetwork
+
+    if isinstance(members[0], DualEncoderEpsNetwork):
+        kind = DualEnsemble
+    else:
+        kind = PackedEnsemble if members[0].fused_score else DenseEnsemble
     if mesh is None or mesh.ens == 1:
         return kind(members)
     return kind(members, mesh.group("ens"), len(members) * mesh.ens)
@@ -202,28 +258,32 @@ def make_ensemble_score_fn(members: list, batch: ReactionBatch):
 
 def load_members(paths: list[str], device, dtype, fused_score: bool = False,
                  quant: str | None = None, use_ema: bool = False, logger=None, mesh=None):
-    """``(members, model_cfg)``: one CondenseEncoderEpsNetwork per checkpoint,
-    rebuilt from its embedded config with ``fused_score`` and ``quant``
-    (``score_quant``) set where given, on ``device`` in eval mode; the
-    config is the first member's.  On a ``mesh`` only this rank's block of
-    ``paths`` over the ``ens`` axis is loaded."""
+    """``(members, model_cfg)``: one model per checkpoint, rebuilt from its
+    embedded config (``network``: condensenc or dualenc) with ``fused_score``
+    and ``quant`` (``score_quant``) set where given, on ``device`` in eval
+    mode; the config is the first member's.  A dual encoder has no fused
+    score: ``fused_score`` is ignored for it with a warning, as the JAX CLI
+    does.  On a ``mesh`` only this rank's block of ``paths`` over the
+    ``ens`` axis is loaded."""
     if mesh is not None:
         from tsdiff_tpu_torch.parallel.sharding import shard_ensemble_params
 
         paths = shard_ensemble_params(list(paths), mesh)
     from tsdiff_tpu_torch.config import Config
     from tsdiff_tpu_torch.convert import params_from_jax
-    from tsdiff_tpu_torch.models import CondenseEncoderEpsNetwork
+    from tsdiff_tpu_torch.models import get_model
     from tsdiff_tpu_torch.train import load_checkpoint, select_params
 
     members, model_cfg = [], None
     for path in paths:
         ck = load_checkpoint(path)
         cfg = Config(ck["config"]).model
-        if cfg.get("network", "condensenc") != "condensenc":
-            raise NotImplementedError(
-                f"{path}: network {cfg.network} is not ported yet (ROADMAP §A.7)")
-        if fused_score:
+        cfg.setdefault("network", "condensenc")
+        if fused_score and cfg.network == "dualenc":
+            if logger is not None and not members:
+                logger.warning("--fused_score only applies to condensenc models; ignored "
+                               "for DualEncoderEpsNetwork")
+        elif fused_score:
             cfg.fused_score = True
         if quant not in (None, "none"):
             cfg.score_quant = quant
@@ -232,7 +292,7 @@ def load_members(paths: list[str], device, dtype, fused_score: bool = False,
         params, used_ema = select_params(ck, use_ema)
         if use_ema and not used_ema and logger is not None:
             logger.warning("--use_ema: %s has no EMA weights; using raw params", path)
-        model = CondenseEncoderEpsNetwork.from_config(cfg, dtype=dtype)
+        model = get_model(cfg, dtype=dtype)
         model.load_state_dict(params_from_jax(params))
         members.append(model.to(device).eval())
     return members, model_cfg

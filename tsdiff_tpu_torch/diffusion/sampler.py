@@ -264,6 +264,29 @@ def dynamic_sampling(
     )
 
 
+class DiffusionWalk:
+    """The condensed model's reverse walk for ``WalkRunner``
+    (``diffusion/captured.py``): its step table, start, update and final
+    scale.  ``dual_objective.DualWalk`` is the dual encoder's, with the
+    same interface."""
+
+    def __init__(self, schedule: DiffusionSchedule, settings: SamplingSettings):
+        self.schedule, self.settings = schedule, settings
+        self._coeffs = build_step_coeffs(schedule, settings)
+        self.n_walk = len(self._coeffs.a)
+        self.scale = float(np.sqrt(self._coeffs.alphas_i[-1]))
+
+    def start(self, pos_init, generator=None, noise=None):
+        return initial_position(self.schedule, self.settings, pos_init, noise, generator)
+
+    def tables(self, device) -> tuple[torch.Tensor]:
+        return (step_coeff_table(self._coeffs, device),)
+
+    def step(self, score_fn, pos, node_mask, tables, counter, step_noise, nan_flag):
+        return walk_step(score_fn, pos, node_mask, tables[0], counter, step_noise, nan_flag,
+                         self.settings.clip, self.settings.clip_pos)
+
+
 def final_frame_scale(schedule: DiffusionSchedule, settings: SamplingSettings) -> float:
     """Scaled-frame -> physical-frame factor of the final positions:
     sqrt(alphas[t_end - n_steps])."""

@@ -1,4 +1,7 @@
-"""Activations: "swish" is x * sigmoid(x); "ssp" the shifted softplus."""
+"""Activations by name, as the JAX package's registry maps them: "swish"
+is x * sigmoid(x), "ssp" the shifted softplus, "leakyrelu" has slope 0.01
+and "gelu" is the tanh approximation (``jax.nn.gelu``'s default).  Names are
+case-insensitive ("ReLU" in the legacy configs)."""
 
 from __future__ import annotations
 
@@ -17,6 +20,13 @@ def shifted_softplus(x: torch.Tensor) -> torch.Tensor:
 _ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "swish": F.silu,
     "silu": F.silu,
+    "relu": F.relu,
+    "leakyrelu": lambda x: F.leaky_relu(x, 0.01),
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+    "elu": F.elu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "softplus": F.softplus,
     "ssp": shifted_softplus,
 }
 

@@ -5,8 +5,9 @@ Structure (hidden H = 256 in the trained checkpoints):
   node state   z = concat[atom_emb(Z) + feat_emb(r_feat),
                           feat_emb(p_feat) - feat_emb(r_feat)]   (B,N,H)
   edges        condensed R/P extension at ``edge_order`` + radius graph
-  edge attr    edge_cat(concat[d_emb(d) * bond_emb(type_r),
-                               d_emb(d) * bond_emb(type_p)])
+  edge attr    edge_cat(concat[e(d, type_r), e(d, type_p)]), e the edge
+               encoder: d_emb(d) * bond_emb(type) (mlp) or
+               concat[RBF(d), bond_emb(type)] (gaussian)
   encoder      L SchNet interaction blocks over the global edge set
   head         re-extended at ``pred_edge_order``, then
                edge_inv = grad_dist_mlp(concat[h_i * h_j, edge_attr])
@@ -26,7 +27,14 @@ stay float32; each use casts them to the working dtype.  Two paths:
   branch): the differentiable offset-packed forward ``ops.packed_score_xla``
   in torch ops, on the module's own parameters.
 
-The Gaussian edge encoder is not ported yet.
+Every configuration the JAX model accepts builds: the mlp or gaussian edge
+encoder, a hard or smooth (cosine) cutoff, any activation of
+``models.activations``.  The three kernel paths (the fused dense score, the
+packed sampling score and the packed training forward) need the trained
+configuration, mlp with swish and the hard cutoff, and refuse any other, as
+the JAX model asserts it on the same paths.  With ``use_pallas`` the
+training path runs B3 on whatever cutoff mask the encoder gives, the smooth
+cutoff's fractional one included.
 """
 
 from __future__ import annotations
@@ -53,7 +61,7 @@ from tsdiff_tpu_torch.core.packed import (
     packed_valid_mask,
 )
 from tsdiff_tpu_torch.models.activations import activation_loader
-from tsdiff_tpu_torch.models.edge import MLPEdgeEncoder
+from tsdiff_tpu_torch.models.edge import make_edge_encoder
 from tsdiff_tpu_torch.models.init import init_params_
 from tsdiff_tpu_torch.models.mlp import MLP, linear
 from tsdiff_tpu_torch.models.schnet import SchNetEncoder
@@ -142,11 +150,6 @@ class CondenseEncoderEpsNetwork(nn.Module):
         Parameters are initialised from ``generator``
         (``models.init``)."""
         super().__init__()
-        if edge_encoder != "mlp" or smooth_conv or mlp_act != "swish" or edge_cat_act != "swish":
-            raise NotImplementedError(
-                "the port supports the mlp edge encoder with swish activations and a "
-                "hard cutoff (the trained configuration) only"
-            )
         if hidden_dim % 2:
             raise ValueError("hidden_dim must be even")
         self.hidden_dim = hidden_dim
@@ -160,11 +163,13 @@ class CondenseEncoderEpsNetwork(nn.Module):
         self.packed_train = packed_train
         self.score_quant = score_quant
         self.dtype = dtype or torch.float32
+        self.edge_encoder = edge_encoder
+        self.mlp_act, self.edge_cat_act = mlp_act, edge_cat_act
         half = hidden_dim // 2
         self.atom_embedding = nn.Embedding(NUM_ATOM_TYPES, half)
         self.atom_feat_embedding = nn.Linear(feat_dim, half, bias=False)
-        self.edge_enc = MLPEdgeEncoder(hidden_dim, mlp_act)
-        self.edge_cat = EdgeCat(hidden_dim, edge_cat_act)
+        self.edge_enc = make_edge_encoder(edge_encoder, hidden_dim, mlp_act, cutoff)
+        self.edge_cat = EdgeCat(self.edge_enc.out_channels, edge_cat_act)
         self.encoder = SchNetEncoder(
             hidden_channels=hidden_dim, num_filters=hidden_dim, num_interactions=num_convs,
             cutoff=cutoff, smooth=smooth_conv, use_pallas=use_pallas,
@@ -197,6 +202,17 @@ class CondenseEncoderEpsNetwork(nn.Module):
             dtype=dtype,
             generator=generator,
         )
+
+    def require_kernel_configuration(self, path: str) -> None:
+        """Raise ``ValueError`` unless this model has the configuration the
+        kernel paths compute: the mlp edge encoder, swish activations and
+        the hard cutoff (the JAX model asserts the same on these paths)."""
+        if self.edge_encoder != "mlp":
+            raise ValueError(f"the {path} needs the mlp edge encoder")
+        if self.encoder.smooth:
+            raise ValueError(f"the {path} needs the hard cutoff")
+        if self.mlp_act != "swish" or self.edge_cat_act != "swish":
+            raise ValueError(f"the {path} needs swish activations")
 
     def node_states(self, atom_type, r_feat, p_feat, node_mask) -> torch.Tensor:
         """Condensed node states z = [a + af_r, af_p - af_r] (B, N, H) in the
@@ -258,6 +274,7 @@ class CondenseEncoderEpsNetwork(nn.Module):
         """The fused dense score's weights in the working dtype, with the
         matrices arranged once more as the warp-specialised kernel's tile
         images (``WG_IMAGE``) where a kernel takes them: bfloat16 at H = 256."""
+        self.require_kernel_configuration("fused score")
         w = extract_weights(self.state_dict())
         w = {k: v.to(self.dtype).contiguous() for k, v in w.items()}
         if self.dtype == torch.bfloat16 and w["dw1"].shape[-1] == 256:
@@ -345,6 +362,7 @@ class CondenseEncoderEpsNetwork(nn.Module):
     def packed_score_op(self):
         """``(op, weights)`` of the packed score step: the op this model's
         ``score_quant`` picks and this member's weights for it."""
+        self.require_kernel_configuration("packed score")
         if self.score_quant == "int8":
             return packed_score_int8, self.kernel_weights_int8()
         if self.score_quant is not None:
@@ -411,10 +429,8 @@ class CondenseEncoderEpsNetwork(nn.Module):
         """Differentiable packed score ``(edge_inv (B, K, N) float32,
         PackedPairInfo)`` (``ops.packed_score_xla``): the packed training
         forward, with the gradient of every parameter.  Needs the mlp edge
-        encoder and swish, which the constructor enforces, and the hard
-        cutoff, as the JAX package's."""
-        if self.encoder.smooth:
-            raise ValueError("the packed score needs the hard cutoff")
+        encoder, swish and the hard cutoff, as the JAX package's."""
+        self.require_kernel_configuration("packed score")
         if pair_info is None:
             pair_info = self.build_packed_pair_info(pos, node_mask, pp)
         score = packed_score_xla(

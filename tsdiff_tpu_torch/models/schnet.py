@@ -9,8 +9,13 @@ The continuous-filter convolution is a masked dense contraction over the
 The encoder owns the layer-stacked weights (``InteractionStack``), which
 drive two paths: ``interaction_stack_xla``, the plain differentiable stack,
 and, with ``use_pallas``, the fused CUDA kernels with their own backward
-(``ops.schnet_stack.interaction_stack_pallas_trainable``).  The legacy
-internal atom embedding is not ported yet.
+(``ops.schnet_stack.interaction_stack_pallas_trainable``).
+
+With ``embedding`` (the dual encoder's global branch) the encoder embeds atom
+types itself: a 100-row table ``node_emb`` whose looked-up rows are scaled to
+an L2 norm of at most 10.  That is a clip at lookup; the table itself is
+never changed (``nn.Embedding(max_norm=10)`` would renormalise its rows in
+place during the forward).
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from tsdiff_tpu_torch.models.activations import shifted_softplus
@@ -67,6 +73,10 @@ def interaction_stack_xla(
     return h
 
 
+#: rows of the internal atom embedding are clipped to this L2 norm at lookup
+EMBEDDING_MAX_NORM = 10.0
+
+
 class SchNetEncoder(nn.Module):
     """Residual stack of interaction blocks over node states."""
 
@@ -78,14 +88,26 @@ class SchNetEncoder(nn.Module):
         cutoff: float = 10.0,
         smooth: bool = False,
         use_pallas: bool = False,
+        embedding: bool = False,
     ):
         super().__init__()
         self.cutoff = cutoff
         self.smooth = smooth
         self.use_pallas = use_pallas
+        if embedding:
+            self.node_emb = nn.Embedding(100, hidden_channels)
         # the edge features come in at the node width (edge_cat's output)
         self.stack = InteractionStack(num_interactions, hidden_channels, num_filters,
                                       hidden_channels)
+
+    def embed(self, z: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """Atom types (B, N) -> rows of ``node_emb`` in ``dtype``, each scaled
+        to an L2 norm of at most ``EMBEDDING_MAX_NORM`` (the norm taken in
+        float32)."""
+        emb = F.embedding(z, self.node_emb.weight.to(dtype))
+        norm = torch.linalg.vector_norm(emb.float(), dim=-1, keepdim=True)
+        scale = torch.clamp(EMBEDDING_MAX_NORM / torch.clamp(norm, min=1e-12), max=1.0)
+        return emb * scale.to(dtype)
 
     def cutoff_mask(self, edge_length: torch.Tensor, emask: torch.Tensor) -> torch.Tensor:
         """C(d) * edge mask, float32."""
@@ -97,12 +119,19 @@ class SchNetEncoder(nn.Module):
 
     def forward(
         self,
-        z: torch.Tensor,          # (B, N, H) node states
+        z: torch.Tensor,          # (B, N, H) node states, or (B, N) int atom types
         edge_attr: torch.Tensor,  # (B, N, N, E)
         edge_length: torch.Tensor,
         emask: torch.Tensor,
         dtype: torch.dtype = torch.float32,
+        node_mask: torch.Tensor | None = None,
     ) -> torch.Tensor:
+        """The node states after the stack; atom types are embedded first
+        (``embed``) and masked by ``node_mask``."""
+        if hasattr(self, "node_emb") and z.dim() == 2:
+            z = self.embed(z, dtype)
+            if node_mask is not None:
+                z = z * node_mask[..., None].to(dtype)
         weights = self.stack.weights()
         cmask = self.cutoff_mask(edge_length, emask)
         if self.use_pallas:

@@ -167,6 +167,11 @@ class SamplerService:
             ckpt_paths, self.device, torch.bfloat16 if dtype == "bfloat16" else torch.float32,
             fused_score=fused_score, quant=quant, use_ema=use_ema, mesh=mesh,
         )
+        if model_cfg.network != "condensenc":
+            # the JAX service builds its batches with the condensed model's
+            # features and walks its score: a dual encoder is not served
+            raise NotImplementedError(
+                f"the service serves condensed-encoder members, not {model_cfg.network}")
         self.ensemble = make_ensemble(members, mesh)
         self.schedule = DiffusionSchedule.from_config(model_cfg)
         self._feat_dim = int(model_cfg.feat_dim)

@@ -7,6 +7,7 @@ from tsdiff_tpu_torch.train.checkpoint import (  # noqa: F401
 )
 from tsdiff_tpu_torch.train.trainer import (  # noqa: F401
     TrainState,
+    get_objective,
     init_train_state,
     make_eval_step,
     make_optimizer,

@@ -48,6 +48,40 @@ from tsdiff_tpu_torch.diffusion.objective import diffusion_loss, draw_timesteps_
 from tsdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
 
 
+def get_objective(model, schedule: DiffusionSchedule | None, t0: int = 0,
+                  t1: int | None = None, anneal_power: float = 2.0):
+    """``(objective, (lo, hi))``: the loss of the model's family,
+    ``objective(batch, generator=None, t=None, noise=None) -> (loss, aux)``,
+    and the range its levels are drawn from (``draw_timesteps_and_noise``):
+
+    * the condensed model: the DDPM ``diffusion_loss`` over [t0, t1);
+    * the dual encoder (``type: diffusion``): ``dual_diffusion_loss`` over the
+      whole schedule;
+    * the dual encoder (``type: dsm``): ``dual_dsm_loss`` over its sigma
+      ladder, weighted by ``sigma^anneal_power``."""
+    from tsdiff_tpu_torch.models.dualenc import DualEncoderEpsNetwork
+
+    if isinstance(model, DualEncoderEpsNetwork):
+        from tsdiff_tpu_torch.diffusion.dual_objective import dual_diffusion_loss, dual_dsm_loss
+
+        if model.model_type == "diffusion":
+            def objective(batch, generator=None, t=None, noise=None):
+                return dual_diffusion_loss(model, schedule, batch, generator, t, noise,
+                                           anneal_power)
+
+            return objective, (0, len(schedule.alphas))
+
+        def objective(batch, generator=None, t=None, noise=None):
+            return dual_dsm_loss(model, batch, generator, t, noise, anneal_power)
+
+        return objective, (0, model.num_noise_level)
+
+    def objective(batch, generator=None, t=None, noise=None):
+        return diffusion_loss(model, schedule, batch, t0, t1, generator, t, noise)
+
+    return objective, (t0, len(schedule.alphas) if t1 is None else t1)
+
+
 @dataclasses.dataclass
 class TrainState:
     params: dict[str, torch.Tensor]   # the model's parameters (live references)
@@ -147,7 +181,7 @@ def _global_draws(generator, pos, t0, t1, blocks, block):
 
 def make_train_step(model, tx: Adam, schedule: DiffusionSchedule, t0: int = 0,
                     t1: int | None = None, ema_decay: float | None = None,
-                    debug_nans: bool = False, mesh=None):
+                    debug_nans: bool = False, mesh=None, anneal_power: float = 2.0):
     """``train_step(state, batch, lr, generator=None, t=None, noise=None) ->
     (state, metrics)``: one loss and gradient, the optimizer update applied
     in place to the model's parameters and the optimizer state, the step
@@ -159,9 +193,9 @@ def make_train_step(model, tx: Adam, schedule: DiffusionSchedule, t0: int = 0,
     of the card per step, so such a step cannot be captured).  On a
     ``mesh`` the batch is this rank's rows of the global batch, and ``t``
     and ``noise`` (or the generator's draws) are the global batch's
-    (module docstring)."""
+    (module docstring).  The loss is the model family's (``get_objective``)."""
     group, blocks, block = _data_parallel(mesh)
-    t_end = len(schedule.alphas) if t1 is None else t1
+    objective, (lo, hi) = get_objective(model, schedule, t0, t1, anneal_power)
 
     def check(what: str, value: torch.Tensor, state: TrainState) -> None:
         if debug_nans and not bool(torch.isfinite(value)):
@@ -173,10 +207,10 @@ def make_train_step(model, tx: Adam, schedule: DiffusionSchedule, t0: int = 0,
         if group is not None:
             rows = batch.pos.shape[0]
             if t is None or noise is None:
-                t, noise = _global_draws(generator, batch.pos, t0, t_end, blocks, block)
+                t, noise = _global_draws(generator, batch.pos, lo, hi, blocks, block)
             else:
                 t, noise = (x[block * rows:(block + 1) * rows] for x in (t, noise))
-        loss, aux = diffusion_loss(model, schedule, batch, t0, t1, generator, t, noise)
+        loss, aux = objective(batch, generator, t, noise)
         if group is not None:
             totals = torch.stack([aux["loss_sum"].detach(), aux["n_nodes"]])
             dist.all_reduce(totals, group=group)
@@ -261,23 +295,23 @@ def _row_block(batch_size: int, mesh) -> slice | None:
 
 
 def make_eval_step(model, schedule: DiffusionSchedule, t0: int = 0, t1: int | None = None,
-                   mesh=None):
+                   mesh=None, anneal_power: float = 2.0):
     """``eval_step(batch, generator=None, t=None, noise=None) -> (loss_sum,
     n_nodes)`` without gradients, so a caller can average over a whole set.
     On a ``mesh``, as ``make_train_step``: the rank's rows, the global
     draws, and the sums over the data axes."""
     group, blocks, block = _data_parallel(mesh)
-    t_end = len(schedule.alphas) if t1 is None else t1
+    objective, (lo, hi) = get_objective(model, schedule, t0, t1, anneal_power)
 
     @torch.no_grad()
     def eval_step(batch, generator=None, t=None, noise=None):
         if group is not None:
             rows = batch.pos.shape[0]
             if t is None or noise is None:
-                t, noise = _global_draws(generator, batch.pos, t0, t_end, blocks, block)
+                t, noise = _global_draws(generator, batch.pos, lo, hi, blocks, block)
             else:
                 t, noise = (x[block * rows:(block + 1) * rows] for x in (t, noise))
-        _, aux = diffusion_loss(model, schedule, batch, t0, t1, generator, t, noise)
+        _, aux = objective(batch, generator, t, noise)
         if group is None:
             return aux["loss_sum"], aux["n_nodes"]
         totals = torch.stack([aux["loss_sum"], aux["n_nodes"]])
