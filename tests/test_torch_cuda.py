@@ -1095,3 +1095,48 @@ def test_buckets_alternating_equal_each_alone(cuda, train_inputs):
     for n in (16, 24):
         for a, m in zip(alone[n], mixed[n]):
             assert torch.equal(a, alone[n][0]) and torch.equal(m, a), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sidechain", [True, False])
+def test_rank_of_padding_replays_the_bucket_step(cuda, sidechain):
+    """A data-parallel rank's rows of a tail batch that are all padding
+    replay the train step its bucket recorded on a full batch: the dual
+    encoder's DSM step on protein subgraphs (the mask carried) and on the
+    same graphs as molecules (no mask)."""
+    from tsdiff_tpu_torch.config import Config
+    from tsdiff_tpu_torch.data.dataset import PaddedBatchLoader
+    from tsdiff_tpu_torch.data.pdb import cover_protein_with_subgraphs, pdb_to_graph
+    from tsdiff_tpu_torch.data.synthetic import compact_protein_pdb
+    from tsdiff_tpu_torch.diffusion.objective import draw_timesteps_and_noise
+    from tsdiff_tpu_torch.models import get_model
+    from tsdiff_tpu_torch.train import init_train_state, make_train_step
+    from tsdiff_tpu_torch.train.captured import StepGraphs
+    from tsdiff_tpu_torch.train.trainer import Adam, on_device
+
+    g = pdb_to_graph(compact_protein_pdb(16, seed=1))
+    subs = (cover_protein_with_subgraphs(g, np.random.default_rng(0), 6.0) * 5)[:5]
+    if not sidechain:
+        subs = [{k: v for k, v in s.items() if k != "is_sidechain"} for s in subs]
+    cfg = dict(network="dualenc", hidden_dim=16, num_convs=2, num_convs_local=2, cutoff=10.0,
+               mlp_act="relu", edge_order=3, edge_encoder="mlp", smooth_conv=False, type="dsm",
+               sigma_begin=2.0, sigma_end=0.01, num_noise_level=5, beta_schedule="sigmoid",
+               beta_start=1e-7, beta_end=2e-3, num_diffusion_timesteps=40)
+    model = get_model(Config(cfg), generator=torch.Generator().manual_seed(0)).to(cuda)
+    tx = Adam(0.9, 0.999, float("inf"))
+    state = on_device(init_train_state(model, tx))
+    step = make_train_step(model, tx, None, anneal_power=2.0)
+    lr = torch.tensor(1e-4, device=cuda)
+    fn = lambda b, t, noise: step(state, b, lr, t=t, noise=noise)[1]  # noqa: E731
+    n_pad = 8 * ((max(len(s["atom_type"]) for s in subs) + 7) // 8)
+    loader = PaddedBatchLoader(subs, batch_size=4, bucket_sizes=[n_pad], with_indices=True,
+                               device=cuda, rows=slice(2, 4))   # rank 1 of dp=2
+    graphs = StepGraphs(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    indices = []
+    for batch, idx in loader:
+        indices.append(idx)
+        t, noise = draw_timesteps_and_noise(gen, batch.pos.shape, 0, 5, cuda)
+        graphs(("train", n_pad), fn, batch, t, noise)
+        assert (batch.is_sidechain is not None) == sidechain
+    assert (indices[-1][2:] == -1).all() and graphs.replays[("train", n_pad)] == 1

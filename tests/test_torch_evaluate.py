@@ -3,9 +3,11 @@
 ``--out`` pickle must be equal, with and without ``--no-automorphisms``, on a
 ``samples_all.pkl`` written by the port's sampling CLI and on a hand-made
 pickle holding graphs with symmetric atoms, a trajectory and entries that are
-skipped.  ``--protein`` is not ported and raises; ``--covmat`` on samples
-with no ``pos_ref`` stack prints and returns what the JAX CLI does
-(``tests/test_torch_conformer_eval.py`` runs it on conformer stacks)."""
+skipped.  ``--covmat`` on samples with no ``pos_ref`` stack and
+``--protein`` on a hand-made protein results pickle print and return what
+the JAX CLI does (``tests/test_torch_conformer_eval.py`` runs ``--covmat`` on
+conformer stacks, ``tests/test_torch_pdb.py`` ``--protein`` on sampled
+proteins)."""
 
 import pickle
 
@@ -100,9 +102,24 @@ def test_evaluate_matches_over_automorphisms(tmp_path):
 @pytest.mark.parametrize("flag", ["--covmat", "--protein"])
 def test_evaluate_rejects_what_is_not_ported(tmp_path, flag, capsys):
     samples = hand_made_samples(tmp_path)
-    if flag == "--protein":
-        with pytest.raises(NotImplementedError, match=r"not yet ported \(ROADMAP §A\.7c\)"):
-            evaluate.main(["--samples", samples, flag])
+    if flag == "--protein":   # ported: the JAX CLI's lines and stats
+        results = [
+            dict(name="a", pos_gen=np.ones((6, 3), np.float32) * 2,
+                 pos_gt=np.ones((6, 3), np.float32),
+                 is_sidechain=np.array([0, 0, 1, 1, 0, 1], bool),
+                 coverage_counts=np.array([0, 0, 1, 1, 0, 0]), nan=False),
+            dict(name="b", pos_gen=np.zeros((4, 3), np.float32),
+                 pos_gt=np.zeros((4, 3), np.float32), is_sidechain=np.array([0, 1, 0, 0], bool),
+                 coverage_counts=np.zeros(4, int), nan=True)]
+        samples = str(tmp_path / "proteins_gen.pkl")
+        with open(samples, "wb") as f:
+            pickle.dump(results, f)
+        stats = evaluate.main(["--samples", samples, flag])
+        text = capsys.readouterr().out
+        want = jax_evaluate.main(["--samples", samples, flag])
+        assert text == capsys.readouterr().out
+        assert "1 proteins evaluated" in text and stats["nan_flagged"] == want["nan_flagged"] == 1
+        np.testing.assert_array_equal(stats["sidechain_rmsd"], want["sidechain_rmsd"])
         return
     stats = evaluate.main(["--samples", samples, flag])
     text = capsys.readouterr().out

@@ -236,7 +236,9 @@ def test_preprocessing_cli_writes_jax_files(tmp_path, fake_rdkit, capsys):
 
 
 def test_preprocessing_pdb_branch_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §A\.7"):
+    """The ``--pdb_glob`` branch is ported (``tests/test_torch_pdb.py``); a
+    glob that matches no file raises as the JAX CLI's does."""
+    with pytest.raises(SystemExit, match="no PDB files match"):
         preprocessing.main(["--pdb_glob", str(tmp_path / "*.pdb")])
 
 

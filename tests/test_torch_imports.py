@@ -19,12 +19,15 @@ def test_port_imports_without_jax():
                  "parallel", "parallel.sharding", "parallel.multihost", "data.native",
                  "eval.align", "eval.clustering", "eval.covmat", "cli.clustering",
                  "models.gin", "models.dualenc", "models.edge", "diffusion.dual_objective",
-                 "data.legacy", "data.synthetic"):
+                 "data.legacy", "data.synthetic", "data.pdb", "eval.protein",
+                 "diffusion.protein", "cli.protein_sampling", "ops.basis", "models.egnn",
+                 "models.dimenetpp", "models.comenet"):
         assert f"tsdiff_tpu_torch.{name}" in names
     code = f"""
 import importlib, sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
+sys.modules["optax"] = None
 sys.path.insert(0, {REPO!r})
 for name in {names!r}:
     importlib.import_module(name)
@@ -32,6 +35,7 @@ bad = sorted(m for m in sys.modules if m == "tsdiff_tpu" or m.startswith("tsdiff
 assert not bad, bad
 assert "triton" not in sys.modules
 assert "scipy" not in sys.modules
+assert "sympy" not in sys.modules
 print(len({names!r}))
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)

@@ -17,10 +17,14 @@ reference's PyG ``samples_all.pkl``.
 ``--covmat`` also scores the samples that carry a multi-conformer
 ``pos_ref`` stack and their generated ``pos_gen`` stack with the COV/MAT
 evaluator (``eval/covmat.py``, one worker), prints its table and adds
-``"covmat"`` (a ``CovMatResults``) to the stats.  Numpy only: nothing runs
-on a device.
+``"covmat"`` (a ``CovMatResults``) to the stats.
 
-Not ported: ``--protein`` (ROADMAP §A.7c).
+``--protein`` reads a ``protein_sampling`` results pickle instead and
+reports, over the covered sidechain atoms of each protein, the sidechain
+RMSD (mean, median, standard deviation) and the chi1 accuracy at 40 degrees
+over every measurable chi1 (``eval/protein.py``); ``--out`` writes
+``{"sidechain_rmsd", "nan_flagged", "chi1_accuracy", "chi1_n"}``.  Numpy
+only: nothing runs on a device.
 """
 
 from __future__ import annotations
@@ -39,11 +43,11 @@ def main(argv=None) -> dict:
     parser.add_argument("--no-automorphisms", action="store_true")
     parser.add_argument("--covmat", action="store_true",
                         help="run the COV/MAT conformer-ensemble evaluator")
-    parser.add_argument("--protein", action="store_true", help="not yet ported")
+    parser.add_argument("--protein", action="store_true",
+                        help="samples are protein_sampling results: report sidechain RMSD "
+                             "and chi1 accuracy instead of D-MAE")
     parser.add_argument("--out", type=str, default=None, help="write stats pickle here")
     args = parser.parse_args(argv)
-    if args.protein:
-        raise NotImplementedError("--protein is not yet ported (ROADMAP §A.7c)")
 
     from tsdiff_tpu_torch.data.dataset import load_dataset
     from tsdiff_tpu_torch.eval.dmae import dmae_for_graph
@@ -53,6 +57,8 @@ def main(argv=None) -> dict:
     except ValueError:
         with open(args.samples, "rb") as f:
             samples = pickle.load(f)
+    if args.protein:
+        return _protein_stats(samples, args.out)
 
     dmaes = []
     skipped = 0
@@ -84,9 +90,50 @@ def main(argv=None) -> dict:
             stats["covmat"] = res
         else:
             print("no multi-conformer samples with pos_ref; skipping COV/MAT")
-    if args.out:
-        with open(args.out, "wb") as f:
+    _write_stats(stats, args.out)
+    return stats
+
+
+def _write_stats(stats: dict, out: str | None) -> None:
+    if out:
+        with open(out, "wb") as f:
             pickle.dump(stats, f)
+
+
+def _protein_stats(samples, out: str | None) -> dict:
+    """Sidechain RMSD and chi1 accuracy over a ``protein_sampling`` results
+    pickle (``tsdiff_tpu/cli/evaluate.py:97-134``)."""
+    from tsdiff_tpu_torch.eval.protein import chi1_accuracy
+
+    rmsds, uncovered, nans = [], 0, 0
+    chi1_hits, chi1_total = 0.0, 0
+    for r in samples:
+        nans += bool(r.get("nan"))
+        sc = np.asarray(r["is_sidechain"], bool)
+        cov = np.asarray(r["coverage_counts"])[sc] > 0
+        if not cov.any():
+            uncovered += 1
+            continue
+        d = np.asarray(r["pos_gen"])[sc][cov] - np.asarray(r["pos_gt"])[sc][cov]
+        rmsds.append(float(np.sqrt((d ** 2).sum(-1).mean())))
+        if "atom_name" in r:
+            acc, n_ang = chi1_accuracy(r["pos_gen"], r["pos_gt"], r,
+                                       coverage_counts=r.get("coverage_counts"))
+            if n_ang:
+                chi1_hits += acc * n_ang
+                chi1_total += n_ang
+    rmsds = np.asarray(rmsds)
+    print(f"{len(rmsds)} proteins evaluated ({uncovered} with no covered "
+          f"sidechains, {nans} NaN-flagged)")
+    if len(rmsds):
+        print(f"sidechain RMSD  mean {rmsds.mean():.4f} | median "
+              f"{np.median(rmsds):.4f} | std {rmsds.std():.4f}")
+    chi1 = chi1_hits / chi1_total if chi1_total else float("nan")
+    if chi1_total:
+        print(f"chi1 accuracy (40 deg): {chi1:.3f} over {chi1_total} angles")
+    stats = {"sidechain_rmsd": rmsds, "nan_flagged": nans,
+             "chi1_accuracy": chi1, "chi1_n": chi1_total}
+    _write_stats(stats, out)
     return stats
 
 

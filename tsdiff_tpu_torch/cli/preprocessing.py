@@ -11,7 +11,12 @@ fwd/rev-paired 80/10/10 split (seed 42, banned indices [20568, 20569, 20580,
 20581]), as ``tsdiff_tpu/cli/preprocessing.py`` does: ``train_data.pkl``,
 ``valid_data.pkl``, ``test_data.pkl``, ``feat_dict.pkl`` and
 ``index_dict.pkl``.  Needs RDKit; numpy otherwise, nothing runs on a device.
-The ``--pdb_glob`` protein branch is not ported (ROADMAP §A.7c).
+
+``--pdb_glob`` builds a protein sidechain dataset instead: every PDB file
+matching the glob (sorted) featurized by ``data/pdb.py::pdb_file_to_graph``,
+the ones without a sidechain atom or a bond skipped, written to
+``<save_dir>/proteins.pkl`` in the ``tsdiff_tpu.v1`` format.  It needs no
+RDKit (RDKit's bonds are used where it imports).
 """
 
 from __future__ import annotations
@@ -36,11 +41,11 @@ def main(argv=None):
     parser.add_argument("--smarts_column", type=str, default="AAM")
     parser.add_argument("--ban_index", type=int, nargs="+", default=[20568, 20569, 20580, 20581])
     parser.add_argument("--pdb_glob", type=str, default=None,
-                        help="protein mode: not ported (ROADMAP §A.7c)")
+                        help="protein mode: featurize PDB files matching this glob into a "
+                             "sidechain dataset at --save_dir/proteins.pkl")
     args = parser.parse_args(argv)
     if args.pdb_glob:
-        raise NotImplementedError("--pdb_glob (the protein dataset) is not yet ported "
-                                  "(ROADMAP §A.7c)")
+        return _build_protein_dataset(args.pdb_glob, args.save_dir)
 
     from tsdiff_tpu_torch.data.dataset import save_dataset
     from tsdiff_tpu_torch.data.featurize import (
@@ -100,6 +105,31 @@ def main(argv=None):
         f"graphs to {args.save_dir} (feat_dim="
         f"{sum(len(v) for v in feat_dict.values())})"
     )
+
+
+def _build_protein_dataset(pdb_glob: str, save_dir: str) -> str:
+    """Featurize the PDB files of ``pdb_glob`` into ``<save_dir>/proteins.pkl``
+    (``tsdiff_tpu/cli/preprocessing.py:100-127``); returns its path."""
+    import glob
+
+    from tsdiff_tpu_torch.data.dataset import save_dataset
+    from tsdiff_tpu_torch.data.pdb import pdb_file_to_graph
+
+    paths = sorted(glob.glob(pdb_glob))
+    if not paths:
+        raise SystemExit(f"no PDB files match {pdb_glob!r}")
+    graphs, skipped = [], 0
+    for path in paths:
+        g = pdb_file_to_graph(path)
+        if g is None:
+            skipped += 1
+            continue
+        graphs.append(g)
+    os.makedirs(save_dir, exist_ok=True)
+    out = os.path.join(save_dir, "proteins.pkl")
+    save_dataset(out, graphs)
+    print(f"Wrote {len(graphs)} protein graphs to {out} ({skipped} skipped)")
+    return out
 
 
 if __name__ == "__main__":

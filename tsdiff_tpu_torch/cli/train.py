@@ -57,8 +57,17 @@ or with ``--dist_backend gloo`` (the steps then run eagerly).  Only rank 0
 writes checkpoints and wandb; every other rank logs to its own run
 directory, tagged ``_proc<rank>``.
 
-Not ported: ``--ckpt_backend orbax`` (§A.2, blocked) and ``dataset.type:
-sidechain`` (§A.7c).
+``dataset.type: sidechain`` trains the dual encoder on protein sidechains,
+as the JAX CLI does (``tsdiff_tpu/cli/train.py:156-201``): the corpora
+(``preprocessing --pdb_glob``) are loaded once; every epoch draws
+``dataset.subgraphs_per_protein`` residue-complete subgraphs of radius
+``dataset.cutoff`` per protein, seeded ``train.seed + epoch``; validation
+scores one fixed subgraph per protein (the middle backbone atom's ball).
+The batches carry ``is_sidechain``, so the dual objectives train in
+sidechain mode; they stream from the host (never device-resident) and each
+train step replays the captured step of its bucket.
+
+Not ported: ``--ckpt_backend orbax`` (§A.2, blocked).
 """
 
 from __future__ import annotations
@@ -184,6 +193,36 @@ def make_train_mesh(args, batch_size: int, nproc: int, device):
     return make_mesh(dp=dp, ens=1, device=device) if nproc > 1 else None
 
 
+def sidechain_draws(config):
+    """``draw(path, seed, fix) -> subgraphs`` of a ``dataset.type:
+    sidechain`` config: the corpus at ``path`` loaded once, then
+    ``subgraphs_per_protein`` residue-complete subgraphs per protein drawn
+    with ``np.random.default_rng(seed)`` (one, the middle backbone atom's,
+    with ``fix``), those without a sidechain atom dropped; the JAX CLI's
+    draws (``tsdiff_tpu/cli/train.py:167-183``)."""
+    from tsdiff_tpu_torch.data.dataset import load_dataset
+    from tsdiff_tpu_torch.data.pdb import SidechainConformationDataset
+
+    cutoff = config.dataset.get("cutoff", 10.0)
+    n_sub = config.dataset.get("subgraphs_per_protein", 50)
+    corpora: dict = {}
+
+    def draw(path: str, seed: int, fix: bool) -> list[dict]:
+        if path not in corpora:
+            corpora[path] = load_dataset(path)[0]
+        ds = SidechainConformationDataset(corpora[path], cutoff=cutoff, fix_subgraph=fix,
+                                          seed=seed)
+        out = []
+        for i in range(len(ds)):
+            for _ in range(1 if fix else n_sub):
+                s = ds[i]
+                if s is not None:
+                    out.append(s)
+        return out
+
+    return draw
+
+
 def _config_path(log_dir: str) -> str:
     for suffix in ("json", "yml", "yaml"):
         found = sorted(glob.glob(os.path.join(log_dir, f"*.{suffix}")))
@@ -251,8 +290,6 @@ def _train(args, capture: bool) -> str:
     resume = os.path.isdir(args.config)
     config_path = _config_path(args.config) if resume else args.config
     config = load_config(config_path)
-    if config.get("dataset", Config()).get("type") == "sidechain":
-        raise NotImplementedError("dataset.type: sidechain is not yet ported (ROADMAP §A.7c)")
     seed_all(config.train.seed)
     if args.max_iters is not None:
         config.train.max_iters = args.max_iters
@@ -287,8 +324,15 @@ def _train(args, capture: bool) -> str:
     # data: the corpus resident on the device where --device_data lets it,
     # else padded batches packed on the host by a background thread
     bucket_sizes = config.get("tpu", Config()).get("bucket_sizes", None)
-    train_set = TSDataset(config.dataset.train)
-    val_set = TSDataset(config.dataset.val)
+    sidechain_mode = config.dataset.get("type") == "sidechain"
+    if sidechain_mode:
+        draw_subgraphs = sidechain_draws(config)
+        val_set = TSDataset(draw_subgraphs(config.dataset.val, 0, True))
+        logger.info(f"sidechain mode: {len(val_set)} fixed val subgraphs; "
+                    f"train subgraphs redrawn every epoch")
+    else:
+        train_set = TSDataset(config.dataset.train)
+        val_set = TSDataset(config.dataset.val)
     if len(val_set) == 0:
         raise SystemExit(f"validation set is empty ({config.dataset.val})")
     batch_size = config.train.batch_size
@@ -301,7 +345,9 @@ def _train(args, capture: bool) -> str:
     logger.info(f"Ranks: {nproc} -> mesh " + (f"{mesh.shape} over {mesh.backend}"
                                               if mesh is not None else "none"))
     train_res = val_res = None
-    if args.device_data != "off":
+    if sidechain_mode:
+        logger.info("sidechain mode: batches stream through the prefetcher")
+    elif args.device_data != "off":
         budget = DEVICE_DATA_BUDGET if args.device_data == "auto" else None
         try:
             train_res = DeviceResidentData(train_set.graphs, batch_size, bucket_sizes,
@@ -321,9 +367,21 @@ def _train(args, capture: bool) -> str:
             logger.info(f"device-resident corpus: {total:,} bytes on {device} (batches per "
                         f"bucket: train {train_res.n_batches}, val {val_res.n_batches})")
     if train_res is None:
-        loader = PaddedBatchLoader(train_set, batch_size, shuffle=True, bucket_sizes=bucket_sizes,
-                                   seed=config.train.seed, with_indices=True, rows=rows)
-        train_iter = iter(Prefetcher(inf_iterator(loader), depth=2,
+        def loader(graphs, seed: int):
+            return PaddedBatchLoader(TSDataset(graphs), batch_size, shuffle=True,
+                                     bucket_sizes=bucket_sizes, seed=seed, with_indices=True,
+                                     rows=rows)
+
+        def sidechain_epochs():
+            epoch = 0
+            while True:
+                seed = config.train.seed + epoch
+                yield from loader(draw_subgraphs(config.dataset.train, seed, False), seed)
+                epoch += 1
+
+        stream = sidechain_epochs() if sidechain_mode else inf_iterator(
+            loader(train_set.graphs, config.train.seed))
+        train_iter = iter(Prefetcher(stream, depth=2,
                                      transfer=lambda item: (to_device(item[0], device), item[1])))
         val_loader = PaddedBatchLoader(val_set, batch_size, shuffle=False,
                                        bucket_sizes=bucket_sizes, device=device, rows=rows)

@@ -22,9 +22,18 @@ by these rules:
 * every other leaf — the layer-stacked ``encoder/stack/*`` arrays — keeps its
   name and its stacked flax layout.
 
-The way back needs to know which ``weight`` belongs to an embedding: the
-modules named in ``EMBEDDINGS``; every other ``weight``/``bias`` pair is a
-linear layer's ``Dense_0`` kernel and bias.
+The optional encoders (EGNN, DimeNet++, ComENet) add flax ``LayerNorm``
+leaves (``scale``, ``bias``: a torch ``nn.LayerNorm``'s ``weight`` and
+``bias``), kernels of a flax ``nn.Dense`` used directly, with no ``Dense_0``
+level (a ``models.mlp.Dense``), and bare parameters that keep their name and
+layout (``dist_emb/freq``, ``lin_sbf1``, GraphNorm's ``alpha``/``gamma``/
+``beta``).
+
+The way back needs to know what each ``weight`` is.  Given the torch
+``module``, ``params_to_jax`` reads it from the module types; without it,
+the modules named in ``EMBEDDINGS`` hold embeddings and every other
+``weight``/``bias`` pair is a linear layer's ``Dense_0`` kernel and bias,
+which covers the condensed and dual encoders.
 """
 
 from __future__ import annotations
@@ -56,7 +65,7 @@ def torch_name(path: tuple) -> str:
             continue
         m = _LAYER.match(p)
         parts.extend((m.group(1), m.group(2)) if m else (p,))
-    if parts[-1] in ("kernel", "embedding"):
+    if parts[-1] in ("kernel", "embedding", "scale"):
         parts[-1] = "weight"
     return ".".join(parts)
 
@@ -78,8 +87,34 @@ def params_from_jax(params_tree: Mapping) -> dict[str, torch.Tensor]:
     return out
 
 
-def flax_path(name: str) -> tuple[str, ...]:
-    """Flax leaf path of a torch parameter name (the inverse of ``torch_name``)."""
+def param_kinds(module: torch.nn.Module) -> dict[str, str]:
+    """Torch parameter name -> the flax leaf kind of its module: ``dense`` (a
+    ``models.mlp.Dense``), ``linear`` (any other ``nn.Linear``, under a
+    ``Dense_0``), ``layer_norm`` or ``embedding``; bare parameters absent."""
+    from torch import nn
+
+    from tsdiff_tpu_torch.models.mlp import Dense
+
+    kinds = {}
+    for mname, m in module.named_modules():
+        kind = ("dense" if isinstance(m, Dense) else "linear" if isinstance(m, nn.Linear)
+                else "layer_norm" if isinstance(m, nn.LayerNorm)
+                else "embedding" if isinstance(m, nn.Embedding) else None)
+        if kind is not None:
+            for pname, _ in m.named_parameters(recurse=False):
+                kinds[f"{mname}.{pname}" if mname else pname] = kind
+    return kinds
+
+
+_LEAVES = {"dense": {"weight": ["kernel"], "bias": ["bias"]},
+           "linear": {"weight": ["Dense_0", "kernel"], "bias": ["Dense_0", "bias"]},
+           "layer_norm": {"weight": ["scale"], "bias": ["bias"]},
+           "embedding": {"weight": ["embedding"]}}
+
+
+def flax_path(name: str, kinds: Mapping[str, str] | None = None) -> tuple[str, ...]:
+    """Flax leaf path of a torch parameter name (the inverse of
+    ``torch_name``); ``kinds``: ``param_kinds`` of the module."""
     parts = name.split(".")
     path = []
     for i, p in enumerate(parts):
@@ -87,7 +122,10 @@ def flax_path(name: str) -> tuple[str, ...]:
             path[-1] = f"{parts[i - 1]}_{p}"
         else:
             path.append(p)
-    if path[-1] == "weight" and path[-2] in EMBEDDINGS:
+    if kinds is not None:
+        if name in kinds:
+            path[-1:] = _LEAVES[kinds[name]][path[-1]]
+    elif path[-1] == "weight" and path[-2] in EMBEDDINGS:
         path[-1] = "embedding"
     elif path[-1] == "weight":
         path[-1:] = ["Dense_0", "kernel"]
@@ -96,14 +134,18 @@ def flax_path(name: str) -> tuple[str, ...]:
     return tuple(path)
 
 
-def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
+def params_to_jax(state_dict: Mapping[str, torch.Tensor],
+                  module: torch.nn.Module | None = None) -> dict:
     """Torch ``state_dict`` -> flax parameter tree ``{"params": {...}}`` of
     float32 numpy arrays, kernels transposed back to flax ``(in, out)``; the
-    exact inverse of ``params_from_jax``."""
+    exact inverse of ``params_from_jax``.  ``module``: the model the state
+    comes from, which says what each parameter is (needed for the optional
+    encoders)."""
+    kinds = None if module is None else param_kinds(module)
     tree: dict = {}
     for name, t in state_dict.items():
         arr = t.detach().to("cpu", torch.float32).numpy()
-        path = flax_path(name)
+        path = flax_path(name, kinds)
         if path[-1] == "kernel":
             arr = arr.T
         node = tree

@@ -9,6 +9,9 @@ A batch is a stack of fixed-size padded graphs:
   * ``bond_mat``   (B, N, N)   int64   condensed bond types
                                ``r_type * NUM_BOND_TYPES + p_type``, 0 = none
   * ``node_mask``  (B, N)      bool    True for real atoms
+  * ``is_sidechain`` (B, N)    bool    protein batches only (``data/pdb.py``):
+                               True for sidechain atoms, padding False;
+                               None for molecules
 
 ``N`` is a bucket size.  Packing runs on the host, in the C++ packer
 (``data/native.py``) for graphs with sparse edges and in numpy for graphs
@@ -31,6 +34,10 @@ class ReactionBatch:
     pos: torch.Tensor
     bond_mat: torch.Tensor
     node_mask: torch.Tensor
+    #: protein mode: carried inside the batch, so that the loaders, the
+    #: prefetcher, the mesh's sharding and the captured steps move it as
+    #: they move the rest
+    is_sidechain: torch.Tensor | None = None
 
 
 def from_numpy_graphs(
@@ -43,7 +50,10 @@ def from_numpy_graphs(
     ``edge_index (2,E)`` + ``edge_type (E,)``.  Graphs with sparse edges only
     (the on-disk form) go through the C++ packer, as the JAX package packs
     them (``tsdiff_tpu/core/graph.py:98-110``); a dense ``bond_mat`` takes
-    ``pack_numpy``.  Both give the same arrays.
+    ``pack_numpy``.  Both give the same arrays.  When every graph carries
+    ``is_sidechain`` (protein subgraphs, and the empty graphs padding their
+    tail), the batch does too, False on padding
+    (``tsdiff_tpu/core/graph.py:89-96``).
     """
     n_max = max_nodes or max(int(g["atom_type"].shape[0]) for g in graphs)
     for g in graphs:
@@ -62,6 +72,12 @@ def from_numpy_graphs(
             p_feat=p_feat.astype(np.uint8), pos=pos, bond_mat=bond_mat.astype(np.int64),
             node_mask=node_mask,
         )
+    if all("is_sidechain" in g for g in graphs):
+        sc = np.zeros((len(graphs), n_max), dtype=bool)
+        for b, g in enumerate(graphs):
+            m = np.asarray(g["is_sidechain"], bool)
+            sc[b, : len(m)] = m
+        arrays["is_sidechain"] = sc
     return ReactionBatch(**{k: torch.from_numpy(v).to(device) for k, v in arrays.items()})
 
 

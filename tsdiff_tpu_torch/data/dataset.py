@@ -109,9 +109,14 @@ class TSDataset:
         return max(int(g["atom_type"].shape[0]) for g in self.graphs)
 
 
-def _empty_graph(feat_dim: int) -> dict:
-    """A zero-atom graph that pads a tail batch to full size."""
-    return dict(
+def _empty_graph(feat_dim: int, sidechain: bool = False) -> dict:
+    """A zero-atom graph that pads a tail batch to full size.  ``sidechain``:
+    it also carries an empty ``is_sidechain``, so that a padded protein
+    batch keeps its mask (``from_numpy_graphs`` packs the mask when every
+    graph has one).  The caller decides from its corpus, never from one
+    batch: a data-parallel rank's rows of a tail batch may all be padding,
+    and a captured step replays only batches with the fields it recorded."""
+    graph = dict(
         atom_type=np.zeros((0,), np.int32),
         r_feat=np.zeros((0, feat_dim), np.float32),
         p_feat=np.zeros((0, feat_dim), np.float32),
@@ -119,6 +124,9 @@ def _empty_graph(feat_dim: int) -> dict:
         edge_index=np.zeros((2, 0), np.int32),
         edge_type=np.zeros((0,), np.int32),
     )
+    if sidechain:
+        graph["is_sidechain"] = np.zeros((0,), bool)
+    return graph
 
 
 class PaddedBatchLoader:
@@ -156,6 +164,8 @@ class PaddedBatchLoader:
             bucket_sizes = default_buckets(dataset.max_nodes)
         self.bucket_sizes = sorted(bucket_sizes)
         self.feat_dim = int(dataset[0]["r_feat"].shape[-1])
+        #: protein subgraphs: padding carries the mask too
+        self.sidechain = "is_sidechain" in dataset[0]
 
     def __len__(self) -> int:
         return sum(1 for _ in self._plan())
@@ -180,7 +190,7 @@ class PaddedBatchLoader:
             graphs = [self.dataset[i] for i in chunk]
             indices = list(chunk)
             while len(graphs) < self.batch_size:
-                graphs.append(_empty_graph(self.feat_dim))
+                graphs.append(_empty_graph(self.feat_dim, self.sidechain))
                 indices.append(-1)
             batch = from_numpy_graphs(graphs[self.rows], max_nodes=bsize, device=self.device)
             yield (batch, np.asarray(indices)) if self.with_indices else batch

@@ -22,10 +22,11 @@ def to_device(batch: ReactionBatch, device) -> ReactionBatch:
     blocking the host (the copy is ordered on the current stream)."""
     device = torch.device(device)
     if device.type != "cuda":
-        return ReactionBatch(**{f.name: getattr(batch, f.name).to(device)
-                                for f in dataclasses.fields(batch)})
-    return ReactionBatch(**{f.name: getattr(batch, f.name).pin_memory().to(device, non_blocking=True)
-                            for f in dataclasses.fields(batch)})
+        move = lambda t: t.to(device)  # noqa: E731
+    else:
+        move = lambda t: t.pin_memory().to(device, non_blocking=True)  # noqa: E731
+    return ReactionBatch(**{f.name: None if getattr(batch, f.name) is None
+                            else move(getattr(batch, f.name)) for f in dataclasses.fields(batch)})
 
 
 class Prefetcher:

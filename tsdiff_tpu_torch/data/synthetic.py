@@ -7,6 +7,17 @@ drawn once from seed 7.  Sizes follow a discretized normal (mean 14, sigma
 the product breaks; r_feat/p_feat are degree/type one-hots at feat_dim 25.
 The trained checkpoints under ``artifacts/seeds/ckpts`` were trained on a
 corpus drawn this way, so it serves as an unseen test set for them.
+
+Proteins, as PDB text for ``data/pdb.py``:
+
+* ``res_chain``: the protein quality gate's corpus
+  (``tests/test_protein_gate.py``): a straight SER/CYS/VAL chain whose every
+  chi1 sits at one canonical rotamer;
+* ``compact_protein_pdb``: a compact protein at about protein density (0.06
+  heavy atoms per cubic angstrom): chain segments of 3.8-A CA steps laid
+  back and forth through a box, 6 A apart, with the residue types' heavy
+  atoms built from ideal internal coordinates at random rotamers, so that
+  a 10-A covering ball holds a few hundred atoms, as in a real protein.
 """
 
 from __future__ import annotations
@@ -170,3 +181,129 @@ def make_conformer_corpus(n_molecules: int, seed: int, conformers: int = 5) -> l
     for i in range(n_molecules):
         graphs.extend(conformers_of(rng, make_molecule(rng, i), conformers))
     return graphs
+
+
+def pdb_atom_line(serial, name, resname, chain, resnum, x, y, z, element) -> str:
+    """One fixed-column ATOM record."""
+    nm = f" {name:<3s}" if len(name) < 4 else name
+    return (f"ATOM  {serial:>5d} {nm:<4s} {resname:<3s} {chain}{resnum:>4d}    "
+            f"{x:8.3f}{y:8.3f}{z:8.3f}{1.0:6.2f}{0.0:6.2f}          {element:>2s}")
+
+
+#: the gate's gamma atom per residue type: (name, element, bond length)
+GATE_GAMMAS = {"SER": ("OG", "O", 1.42), "CYS": ("SG", "S", 1.81), "VAL": ("CG1", "C", 1.53)}
+GATE_CYCLE = ("SER", "CYS", "VAL")
+
+
+def res_chain(n_res: int, seed: int, chi1: float = -60.0, noise: float = 0.02) -> str:
+    """The protein gate's synthetic chain (``tests/test_protein_gate.py::
+    res_chain``): residues cycling SER/CYS/VAL along x, each chi1 at one
+    rotamer (``chi1 = -60`` measures +60, gauche+), coordinates jittered by
+    ``noise``."""
+    from tsdiff_tpu_torch.eval.protein import place_dihedral
+
+    rng = np.random.default_rng(seed)
+    lines, serial = [], 1
+    for r in range(1, n_res + 1):
+        resname = GATE_CYCLE[(r - 1) % len(GATE_CYCLE)]
+        base = np.array([3.5 * r, 0.0, 0.0])
+        N = base
+        CA = base + np.array([1.4, 0, 0.0])
+        C = base + np.array([2.1, 1.2, 0.0])
+        O = base + np.array([1.6, 2.3, 0.0])
+        CB = place_dihedral(C, N, CA, 1.53, 110.5, 122.0)
+        atoms = [("N", N, "N"), ("CA", CA, "C"), ("C", C, "C"), ("O", O, "O"), ("CB", CB, "C")]
+        name, el, bond = GATE_GAMMAS[resname]
+        atoms.append((name, place_dihedral(N, CA, CB, bond, 110.5, chi1), el))
+        for name, xyz, el in atoms:
+            xyz = xyz + rng.normal(scale=noise, size=3)
+            lines.append(pdb_atom_line(serial, name, resname, "A", r, *xyz, el))
+            serial += 1
+    return "\n".join(lines) + "\nEND\n"
+
+
+#: sidechain atoms past CB: (name, element, (a, b, c) placed from, bond,
+#: angle, dihedral or a chi index); chi k takes the residue's k-th rotamer
+_SIDECHAINS = {
+    "ALA": (), "GLY": (),
+    "SER": (("OG", "O", ("N", "CA", "CB"), 1.42, 110.5, 0),),
+    "CYS": (("SG", "S", ("N", "CA", "CB"), 1.81, 113.8, 0),),
+    "VAL": (("CG1", "C", ("N", "CA", "CB"), 1.53, 110.5, 0),
+            ("CG2", "C", ("CG1", "CA", "CB"), 1.53, 110.5, 122.0)),
+    "THR": (("OG1", "O", ("N", "CA", "CB"), 1.43, 109.5, 0),
+            ("CG2", "C", ("OG1", "CA", "CB"), 1.52, 110.5, -120.0)),
+    "LEU": (("CG", "C", ("N", "CA", "CB"), 1.53, 116.0, 0),
+            ("CD1", "C", ("CA", "CB", "CG"), 1.52, 110.5, 1),
+            ("CD2", "C", ("CD1", "CB", "CG"), 1.52, 110.5, 122.0)),
+    "ILE": (("CG1", "C", ("N", "CA", "CB"), 1.53, 110.0, 0),
+            ("CG2", "C", ("CG1", "CA", "CB"), 1.53, 110.5, -122.0),
+            ("CD1", "C", ("CA", "CB", "CG1"), 1.52, 114.0, 1)),
+    "ASP": (("CG", "C", ("N", "CA", "CB"), 1.52, 113.0, 0),
+            ("OD1", "O", ("CA", "CB", "CG"), 1.25, 119.0, 1),
+            ("OD2", "O", ("OD1", "CB", "CG"), 1.25, 119.0, 180.0)),
+    "ASN": (("CG", "C", ("N", "CA", "CB"), 1.52, 113.0, 0),
+            ("OD1", "O", ("CA", "CB", "CG"), 1.23, 121.0, 1),
+            ("ND2", "N", ("OD1", "CB", "CG"), 1.33, 116.0, 180.0)),
+    "GLU": (("CG", "C", ("N", "CA", "CB"), 1.52, 114.0, 0),
+            ("CD", "C", ("CA", "CB", "CG"), 1.52, 113.0, 1),
+            ("OE1", "O", ("CB", "CG", "CD"), 1.25, 119.0, 2),
+            ("OE2", "O", ("OE1", "CG", "CD"), 1.25, 119.0, 180.0)),
+    "GLN": (("CG", "C", ("N", "CA", "CB"), 1.52, 114.0, 0),
+            ("CD", "C", ("CA", "CB", "CG"), 1.52, 113.0, 1),
+            ("OE1", "O", ("CB", "CG", "CD"), 1.23, 121.0, 2),
+            ("NE2", "N", ("OE1", "CG", "CD"), 1.33, 116.0, 180.0)),
+    "MET": (("CG", "C", ("N", "CA", "CB"), 1.52, 114.0, 0),
+            ("SD", "S", ("CA", "CB", "CG"), 1.81, 112.7, 1),
+            ("CE", "C", ("CB", "CG", "SD"), 1.79, 100.5, 2)),
+    "LYS": (("CG", "C", ("N", "CA", "CB"), 1.52, 114.0, 0),
+            ("CD", "C", ("CA", "CB", "CG"), 1.52, 111.5, 1),
+            ("CE", "C", ("CB", "CG", "CD"), 1.52, 111.5, 2),
+            ("NZ", "N", ("CG", "CD", "CE"), 1.49, 111.7, 3)),
+}
+#: the residue types of ``compact_protein_pdb``, drawn uniformly
+COMPACT_RESIDUES = tuple(sorted(_SIDECHAINS))
+#: canonical rotamer wells of every chi (degrees)
+ROTAMERS = (-60.0, 60.0, 180.0)
+
+
+def compact_protein_pdb(n_res: int = 128, seed: int = 0, row: int = 8,
+                        spacing: float = 6.0, noise: float = 0.05) -> str:
+    """A compact synthetic protein as PDB text: ``n_res`` residues of
+    random types (``COMPACT_RESIDUES``) in segments of ``row`` residues
+    (CA steps of 3.8 A along x, back and forth), the segments ``spacing``
+    apart on a square grid in y and z, so that there are about 137 cubic
+    angstroms per residue, a real protein's density.  Consecutive residues
+    of a segment are peptide-bonded; each segment is a chain break.  Each
+    residue's N, C, O and CB are set about its CA, its sidechain built from
+    ideal internal coordinates at rotamers drawn from ``ROTAMERS``
+    (+-10 degrees), every atom jittered by ``noise``."""
+    from tsdiff_tpu_torch.eval.protein import place_dihedral
+
+    rng = np.random.default_rng(seed)
+    n_rows = -(-n_res // row)
+    side = int(np.ceil(np.sqrt(n_rows)))
+    lines, serial = [], 1
+    for r in range(n_res):
+        seg, k = divmod(r, row)
+        d = np.array([1.0 if seg % 2 == 0 else -1.0, 0.0, 0.0])
+        e1, e2 = np.array([0.0, 1.0, 0.0]), np.array([0.0, 0.0, 1.0])
+        x0 = 0.0 if seg % 2 == 0 else 3.8 * (row - 1)
+        ca = np.array([x0, spacing * (seg % side), spacing * (seg // side)]) + 3.8 * k * d
+        resname = COMPACT_RESIDUES[rng.integers(len(COMPACT_RESIDUES))]
+        atoms = {"N": ca - 1.2 * d + 0.8 * e1, "CA": ca, "C": ca + 1.2 * d + 0.85 * e1}
+        atoms["O"] = atoms["C"] + 1.0 * e1 + 0.7 * d
+        elements = {"N": "N", "CA": "C", "C": "C", "O": "O"}
+        if resname != "GLY":
+            up = 1.0 if k % 2 == 0 else -1.0  # alternate sides, as in a strand
+            atoms["CB"] = ca - 0.5 * d - 0.9 * e1 + 1.2 * up * e2
+            elements["CB"] = "C"
+        chis = rng.choice(ROTAMERS, size=4) + rng.uniform(-10.0, 10.0, size=4)
+        for name, el, (a, b, c), bond, angle, dih in _SIDECHAINS[resname]:
+            dihedral = chis[dih] if isinstance(dih, int) else dih
+            atoms[name] = place_dihedral(atoms[a], atoms[b], atoms[c], bond, angle, dihedral)
+            elements[name] = el
+        for name, xyz in atoms.items():
+            xyz = xyz + rng.normal(scale=noise, size=3)
+            lines.append(pdb_atom_line(serial, name, resname, "A", r + 1, *xyz, elements[name]))
+            serial += 1
+    return "\n".join(lines) + "\nEND\n"

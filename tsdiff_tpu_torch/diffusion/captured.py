@@ -12,7 +12,10 @@ tier, bucket, 3)``, written at the counter inside the step.  What a step
 computes is the runner's walk: the condensed model's ``DiffusionWalk`` by
 default, or the dual encoder's ``dual_objective.DualWalk`` (its DDPM or
 DSM walk, the JAX package's ``dual_dynamic_sampling`` and
-``dsm_annealed_sampling``), each a table read at the counter.  With
+``dsm_annealed_sampling``), each a table read at the counter; on a batch of
+protein subgraphs the dual walk pins the backbone atoms to the batch's
+coordinates at the start and after every step (``DualStatics.pin``), as the
+JAX package's protein sampler does.  With
 ``capture`` it records the walk's step on those buffers in one CUDA graph,
 after one eager warm-up step (which builds
 the kernel library, sets the kernel's attributes and settles the
@@ -80,6 +83,13 @@ def copy_into(dst, src) -> None:
             copy_into(d, s)
     elif dst is not None or src is not None:
         raise TypeError(f"cannot copy a {type(src).__name__} into a {type(dst).__name__}")
+
+
+def _pin(statics) -> dict:
+    """The protein-mode arguments of a dual walk's step (``DualStatics.pin``:
+    the sidechain mask and the backbone's coordinates); none otherwise."""
+    pin = getattr(statics, "pin", None)
+    return pin() if pin is not None else {}
 
 
 @dataclasses.dataclass
@@ -163,7 +173,7 @@ class WalkRunner:
     def _step(self, buf: _TierBuffers) -> None:
         step_noise = at_counter(buf.noise, buf.counter)
         pos = self.walk.step(buf.step_fn, buf.pos, buf.statics.node_mask, self._tables,
-                             buf.counter, step_noise, buf.nan_flag)
+                             buf.counter, step_noise, buf.nan_flag, **_pin(buf.statics))
         buf.pos.copy_(pos)
         if buf.traj is not None:   # the counter has moved past this step
             buf.traj.index_copy_(0, buf.counter.view(1) - 1, pos[None])
@@ -231,6 +241,9 @@ class WalkRunner:
         if rows is not None:
             start = start[rows]
         start = start * mask
+        pin = _pin(buf.statics)
+        if pin:
+            start = torch.where(pin["sc3"], start, pin["pos_gt"])
         if gen is None:
             buf.noise.copy_(noise if rows is None else noise[:, rows])
         else:

@@ -9,6 +9,8 @@
   the gated, down-weighted (``w_global``), clipped global branch;
 * ``dual_dynamic_sampling``: the DDPM-family walk with the update rules and
   coefficients of ``diffusion/sampler.py``;
+* ``accumulate_protein_eps``: the per-atom eps of a whole protein, the
+  mean over its covering subgraphs (``diffusion/protein.py``);
 * ``dsm_annealed_sampling``: annealed Langevin over the sigma ladder,
   ``n_steps`` per level, optionally over an evenly strided subsequence of
   the levels (``sigma_respacing``, ``respaced_sigma_levels``).
@@ -186,6 +188,43 @@ def make_dual_eps_fn(model, batch: ReactionBatch, w_global: float = 0.2,
                         sigma_gate, time_step, w_global, clip, clip_local, is_sidechain)
 
     return eps_fn
+
+
+@torch.no_grad()
+def accumulate_protein_eps(model, graph: dict, time_step: int = 0, cutoff: float = 10.0,
+                           batch_size: int = 8, sigma_gate: float = 1.0, w_global: float = 0.2,
+                           clip: float = 1000.0, seed: int = 0,
+                           pos_override: np.ndarray | None = None):
+    """Per-atom eps of a whole protein through covering subgraphs: each
+    padded batch of them (``diffusion/protein.py::covering_batches``, on the
+    model's device) is scored by the dual eps (``make_dual_eps_fn``, the
+    radius graph restricted to sidechain-touching pairs) at level
+    ``time_step``, and each atom's eps is the mean over the subgraphs that
+    hold it.  ``(eps (n, 3) float32, counts (n,) int64)``; an atom in no
+    scored subgraph has count 0 and eps 0."""
+    from tsdiff_tpu_torch.diffusion.protein import covering_batches
+
+    g = dict(graph)
+    if pos_override is not None:
+        g["pos"] = np.asarray(pos_override, np.float32)
+    n = len(np.asarray(graph["atom_type"]))
+    eps_acc = np.zeros((n, 3), np.float32)
+    counts = np.zeros(n, np.int64)
+    device = next(model.parameters()).device
+    for chunk, batch in covering_batches(g, cutoff, batch_size, seed, device=device):
+        eps_fn = make_dual_eps_fn(model, batch, w_global=w_global, clip=clip,
+                                  is_sidechain=batch.is_sidechain)
+        B = batch.atom_type.shape[0]
+        eps = eps_fn(batch.pos, torch.tensor(sigma_gate, dtype=torch.float32, device=device),
+                     time_step=torch.full((B,), time_step, dtype=torch.int64, device=device))
+        eps = eps.cpu().numpy()
+        for b, s in enumerate(chunk):
+            m = len(s["atom_type"])
+            eps_acc[s["mapping"]] += eps[b, :m]
+            counts[s["mapping"]] += 1
+    nz = counts > 0
+    eps_acc[nz] /= counts[nz, None]
+    return eps_acc, counts
 
 
 def respaced_sigma_levels(lvl: np.ndarray, m: int | None) -> np.ndarray:

@@ -32,7 +32,9 @@ ensemble (packed).
   score (``dual_objective.dual_eps``, the global branch clipped) on the
   batch's order-extended bond graph, made once per batch, and the mean over
   members, as the JAX sampling CLI averages its members' eps
-  (``tsdiff_tpu/cli/sampling.py:298-305``).
+  (``tsdiff_tpu/cli/sampling.py:298-305``).  A batch of protein subgraphs
+  (``is_sidechain``) restricts the radius graph to sidechain-touching pairs
+  and pins the backbone in the walk (``DualStatics.pin``).
 * ``load_members`` — the members from checkpoints, as the sampling CLI and
   the service load them.
 """
@@ -191,31 +193,50 @@ class DenseEnsemble:
 @dataclasses.dataclass(frozen=True)
 class DualStatics:
     """Per-batch inputs of the dual ensemble's step: the batch's atoms, bond
-    codes and node mask, and its order-extended bond graph."""
+    codes and node mask, and its order-extended bond graph; for a batch of
+    protein subgraphs also its sidechain mask and the coordinates the
+    backbone is pinned to (``pin``)."""
 
     node_mask: torch.Tensor   # (B, N) bool
     atom_type: torch.Tensor   # (B, N) int64
     bond_mat: torch.Tensor    # (B, N, N) int64
     mask_typed: torch.Tensor  # (B, N, N) bool
     types: torch.Tensor       # (B, N, N) int64 legacy codes
+    is_sidechain: torch.Tensor | None = None  # (B, N) bool, protein mode
+    pos_gt: torch.Tensor | None = None        # (B, N, 3) float32, protein mode
+
+    def pin(self) -> dict:
+        """The walk step's protein-mode arguments: ``sc3`` (B, N, 1), the
+        atoms that move, and ``pos_gt``; empty for molecules."""
+        if self.is_sidechain is None:
+            return {}
+        return {"sc3": (self.is_sidechain & self.node_mask)[..., None], "pos_gt": self.pos_gt}
 
 
 class DualEnsemble:
     """The dual encoder's ensemble, split as ``PackedEnsemble`` is: the
     function of ``step_fn`` is ``eps(pos, gate, time_step, clip,
     w_global)`` -> (B, N, 3), the mean of the members' ``dual_eps``, for
-    ``dual_objective.DualWalk``."""
+    ``dual_objective.DualWalk``.  ``protein``: the batches are protein
+    subgraphs, whose sidechain mask and backbone the statics keep."""
 
-    def __init__(self, members: list, group=None, n_members: int | None = None):
+    def __init__(self, members: list, group=None, n_members: int | None = None,
+                 protein: bool = False):
         self.model = members[0]
         self.members = members
         self.group, self.n_members = group, n_members or len(members)
+        self.protein = protein
 
     @torch.no_grad()
     def prepare(self, batch: ReactionBatch) -> DualStatics:
         mask_typed, types = self.model.typed_edges(batch.bond_mat, batch.node_mask)
+        protein = self.protein
+        if protein and batch.is_sidechain is None:
+            raise ValueError("a protein walk needs a batch that carries is_sidechain")
         return DualStatics(node_mask=batch.node_mask.clone(), atom_type=batch.atom_type.clone(),
-                           bond_mat=batch.bond_mat.clone(), mask_typed=mask_typed, types=types)
+                           bond_mat=batch.bond_mat.clone(), mask_typed=mask_typed, types=types,
+                           is_sidechain=batch.is_sidechain.clone() if protein else None,
+                           pos_gt=batch.pos.clone() if protein else None)
 
     def step_fn(self, statics: DualStatics):
         from tsdiff_tpu_torch.diffusion.dual_objective import dual_eps
@@ -226,7 +247,8 @@ class DualEnsemble:
         def eps_fn(pos, gate, time_step, clip: float, w_global: float):
             return member_mean(torch.stack([
                 dual_eps(m, statics.atom_type, statics.bond_mat, statics.node_mask, pos, gate,
-                         time_step, w_global, clip, typed=typed)
+                         time_step, w_global, clip, is_sidechain=statics.is_sidechain,
+                         typed=typed)
                 for m in self.members
             ]), self.group, self.n_members)
 

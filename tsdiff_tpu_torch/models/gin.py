@@ -46,6 +46,17 @@ class GINEncoder(nn.Module):
             self.node_emb = nn.Embedding(NUM_ATOM_TYPES, hidden_dim)
         self.convs = nn.ModuleList(GINEConv(hidden_dim, activation) for _ in range(num_convs))
 
+    @classmethod
+    def from_config(cls, config, dtype=None, generator=None) -> "GINEncoder":
+        """An encoder sub-config's GIN (``load_encoder``): ``hidden_dim``,
+        ``num_convs``, ``mlp_act``; its parameters drawn from ``generator``."""
+        from tsdiff_tpu_torch.models.init import init_params_
+
+        enc = cls(config.hidden_dim, num_convs=config.num_convs,
+                  activation=config.get("mlp_act", "relu"))
+        init_params_(enc, generator)
+        return enc
+
     def forward(self, z: torch.Tensor, edge_attr: torch.Tensor, emask: torch.Tensor,
                 node_mask: torch.Tensor | None = None) -> torch.Tensor:
         """``z`` (B, N) int atom types with the embedding, else (B, N, H)

@@ -23,6 +23,13 @@ def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, layer.weight.to(x.dtype), bias)
 
 
+class Dense(nn.Linear):
+    """A linear layer that stands for a flax ``nn.Dense`` used directly, its
+    kernel and bias at the module's own level of the parameter tree (the
+    directional encoders'), where the JAX package's ``TorchLinear`` nests a
+    ``Dense_0``; ``tsdiff_tpu_torch.convert`` tells the two apart by type."""
+
+
 class MLP(nn.Module):
     def __init__(self, in_dim: int, hidden_dims: Sequence[int], activation: str = "relu"):
         super().__init__()

@@ -94,11 +94,24 @@ class SchNetEncoder(nn.Module):
         self.cutoff = cutoff
         self.smooth = smooth
         self.use_pallas = use_pallas
+        self.num_interactions = num_interactions
         if embedding:
             self.node_emb = nn.Embedding(100, hidden_channels)
         # the edge features come in at the node width (edge_cat's output)
         self.stack = InteractionStack(num_interactions, hidden_channels, num_filters,
                                       hidden_channels)
+
+    @classmethod
+    def from_config(cls, config, dtype=None, generator=None) -> "SchNetEncoder":
+        """An encoder sub-config's SchNet (``load_encoder``), its parameters
+        drawn from ``generator``."""
+        from tsdiff_tpu_torch.models.init import init_params_
+
+        enc = cls(hidden_channels=config.hidden_dim, num_filters=config.hidden_dim,
+                  num_interactions=config.num_convs, cutoff=config.cutoff,
+                  smooth=config.smooth_conv)
+        init_params_(enc, generator)
+        return enc
 
     def embed(self, z: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """Atom types (B, N) -> rows of ``node_emb`` in ``dtype``, each scaled

@@ -507,6 +507,8 @@ class SamplerService:
 
         for f in dataclasses.fields(batch):
             t = getattr(batch, f.name)
+            if t is None:
+                continue
             dist.broadcast(t.view(torch.uint8) if t.dtype == torch.bool else t, src=0)
 
     def _placeholder_batch(self, bucket: int, tier: int):

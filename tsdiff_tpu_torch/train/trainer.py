@@ -58,21 +58,27 @@ def get_objective(model, schedule: DiffusionSchedule | None, t0: int = 0,
     * the dual encoder (``type: diffusion``): ``dual_diffusion_loss`` over the
       whole schedule;
     * the dual encoder (``type: dsm``): ``dual_dsm_loss`` over its sigma
-      ladder, weighted by ``sigma^anneal_power``."""
+      ladder, weighted by ``sigma^anneal_power``;
+
+    both dual losses in protein mode on a batch that carries
+    ``is_sidechain``."""
     from tsdiff_tpu_torch.models.dualenc import DualEncoderEpsNetwork
 
     if isinstance(model, DualEncoderEpsNetwork):
         from tsdiff_tpu_torch.diffusion.dual_objective import dual_diffusion_loss, dual_dsm_loss
 
+        # a batch of protein subgraphs carries is_sidechain and trains in
+        # sidechain mode
         if model.model_type == "diffusion":
             def objective(batch, generator=None, t=None, noise=None):
                 return dual_diffusion_loss(model, schedule, batch, generator, t, noise,
-                                           anneal_power)
+                                           anneal_power, is_sidechain=batch.is_sidechain)
 
             return objective, (0, len(schedule.alphas))
 
         def objective(batch, generator=None, t=None, noise=None):
-            return dual_dsm_loss(model, batch, generator, t, noise, anneal_power)
+            return dual_dsm_loss(model, batch, generator, t, noise, anneal_power,
+                                 is_sidechain=batch.is_sidechain)
 
         return objective, (0, model.num_noise_level)
 
