@@ -211,7 +211,26 @@ Phases (any failure exits non-zero):
    output and every parameter's gradient on the card against the CPU
    (``ENCODER_AGREE``, or ``ENCODER_F32_FACTOR`` times the CPU's own float32
    error against float64 where larger), ms per forward and backward; whether
-   sympy imports there, for information.
+   sympy imports there, for information;
+15. checkpoint directories and the build cache: (a) the train CLI with 6a's
+   flags and ``--ckpt_backend orbax`` under torch.profiler, a ``.ckpt`` of
+   the same state written beside each save: every ``.orbax`` directory loads
+   through the port to that ``.ckpt``'s arrays bit for bit (params,
+   optimizer state, EMA), B3 at every step by kernel name; then unprofiled
+   with ``orbax``, ``pickle``, ``pickle``, ``orbax``: the ms each save held
+   the loop, each orbax write's ms and the wait at the loop's end, graphs/s;
+   (b) that run
+   resumed for 10 iterations from its ``.orbax`` and from its ``.ckpt``
+   files: logged losses within ``CLI_LOSS_RTOL`` (phase 6's F.embedding
+   caveat); (c) the 8 members written as ``.orbax`` directories and sampled
+   with phase 10's command on its 100 reactions: equal to phase 10's
+   ``.ckpt`` samples bit for bit, B1 once per walk step by kernel name; (d)
+   the JAX package's orbax directory committed in ``tests/torch_data``
+   (OCDBT, zstd) read to its ``.npz``, the zstd library named; (e) two
+   processes (``--cache-probe``) in turn on one empty
+   ``TSDIFF_COMPILE_CACHE``: each builds the kernels and the packer (or
+   finds them there) and launches B1 once; the second builds nothing
+   (``_build.build_info`` 0.0); ``tsdiff_tpu_torch/_build/`` untouched.
 
 The second-to-last lines are a JSON object of per-kernel numbers and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -220,16 +239,21 @@ card's ``nvidia-smi`` name and power limit; the last line is
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import io
 import json
 import os
 import pickle
 import re
+import resource
 import shutil
+import signal
 import subprocess
 import sys
 import time
+
+PROCESS_T0 = time.monotonic()   # phase 15's cache probes time their start from here
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CKPT_DIR = os.path.join(ROOT, "artifacts", "seeds", "ckpts")
@@ -283,7 +307,9 @@ DMAE_INT8_DELTA = 0.03
 
 
 def fail(msg: str) -> None:
+    """Print the failure on both streams (a caller may keep only one) and exit 1."""
     print(f"FAILED: {msg}", flush=True)
+    print(f"FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -2041,7 +2067,8 @@ def sample_cli(tag: str, ckpts: list, test_set: str, save_dir: str, n_steps: int
     save_path, prof = profiled_call(lambda: sampling.main(
         argv + ["--save_dir", save_dir, "--timestep_respacing", str(respacing)]))
     wall = time.monotonic() - t0
-    by_name = score_launches(kernel_counts(prof))
+    counts = kernel_counts(prof)
+    by_name = score_launches(counts)
     del prof
     with open(save_path, "rb") as f:
         results = pickle.load(f)
@@ -2061,7 +2088,11 @@ def sample_cli(tag: str, ckpts: list, test_set: str, save_dir: str, n_steps: int
     if graphs == 0 or launches != (expected, expected) or ps.packed_score_reference.calls:
         fail(f"{tag}: B1's wgmma kernel did not carry every recorded walk")
     if (by_name[False], by_name[True]) != (expected_run, 0):
-        fail(f"{tag}: the captured walk did not launch B1 once per step")
+        # the walk's other kernels tell a launch missing from a record lost by the trace
+        per_step = sorted(((n, name[:80]) for name, n in counts.items()
+                           if n >= respacing * sum(attempts)), reverse=True)
+        fail(f"{tag}: the captured walk did not launch B1 once per step; the trace's kernels "
+             f"with at least one launch per walk step: {per_step}")
     for r in results:
         if r["pos_gen"].shape != (len(r["atom_type"]), 3) or not np.isfinite(r["pos_gen"]).all():
             fail(f"{tag}: non-finite or misshaped pos_gen")
@@ -2198,7 +2229,7 @@ def phase_reference_interop(setup: tuple, packed: dict) -> dict:
     if not dmae_guess < DMAE_BOUND:
         fail(f"refined guesses' mean D-MAE {dmae_guess:.4f} >= {DMAE_BOUND}")
     print(f"[interop] phase 10 took {time.monotonic() - t_phase:.3f} s")
-    return dict(launches=n_pt + n_ck + n_guess)
+    return dict(launches=n_pt + n_ck + n_guess, test_set=native, ckpt_results=want)
 
 
 def profiled_round(svc, tier: int, batch, int8: bool) -> dict:
@@ -4253,6 +4284,357 @@ def phase_encoders(smi: str, device: str = "cuda", shapes=((8, 24), (8, 32))) ->
     return out
 
 
+# -- phase 15: checkpoint directories and the build cache ---------------------
+
+CKPT_PHASE_DIR = os.path.join(ROOT, ".scratch", "chip_smoke_ckpt")   # gitignored
+#: the JAX package's orbax directory committed with its leaves (.npz)
+ORBAX_FIXTURE = os.path.join(ROOT, "tests", "torch_data", "orbax_jax_small")
+RESUME_ITERS = 10
+
+
+def checkpoint_arrays(payload: dict) -> dict:
+    """Every array leaf of a payload's trees by its path joined with ``/``;
+    sequences by index, bfloat16 (a torch tensor) as its uint16 bits; the
+    optimizer chain's empty states hold none (as the fixture's .npz)."""
+    import numpy as np
+    import torch
+
+    out = {}
+
+    def walk(tree, path):
+        if isinstance(tree, dict) and tree:
+            for k in sorted(tree):
+                walk(tree[k], f"{path}/{k}")
+        elif isinstance(tree, (list, tuple)) and tree:
+            for i, v in enumerate(tree):
+                walk(v, f"{path}/{i}")
+        elif tree is not None and not isinstance(tree, (dict, list, tuple)):
+            out[path] = (tree.view(torch.int16).numpy().view(np.uint16)
+                         if isinstance(tree, torch.Tensor) else np.asarray(tree))
+
+    for part in ("params", "opt_state", "ema_params"):
+        walk(payload.get(part), part)
+    return out
+
+
+def same_arrays(a: dict, b: dict) -> bool:
+    import numpy as np
+
+    return set(a) == set(b) and all(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+                                    for k in a)
+
+
+def ckpt_log_numbers(log: str) -> dict:
+    """The train CLI's checkpoint lines: ms each save held the loop, and
+    with orbax the wait at the loop's end and each write's ms."""
+    held = [float(m) for m in re.findall(r"the loop held (\S+) ms\]", log)]
+    m = re.search(r"\[Train\] Checkpoint writes \| orbax, waited (\S+) ms at the loop's end \| "
+                  r"(\d+) written, ms from each save call to its directory: (.*)", log)
+    out = dict(held_ms=held)
+    if m:
+        out.update(wait_ms=float(m.group(1)), written=int(m.group(2)),
+                   write_ms=[float(x) for x in m.group(3).split(", ") if x])
+    return out
+
+
+def resume_losses(tag: str, run_dir: str, backend: str, logdir: str) -> tuple:
+    """The train CLI resumed from ``run_dir``'s best checkpoint for
+    ``RESUME_ITERS`` more iterations: ``(losses, checkpoint read, iteration)``."""
+    from tsdiff_tpu_torch.cli import train as train_cli
+    from tsdiff_tpu_torch.train import get_checkpoint_path
+
+    path, it = get_checkpoint_path(os.path.join(run_dir, "checkpoints"))
+    resumed = train_cli.main([run_dir, "--logdir", os.path.join(CKPT_PHASE_DIR, logdir),
+                              "--max_iters", str(it + RESUME_ITERS), "--dtype", "bfloat16",
+                              "--ckpt_backend", backend, "--device", "cuda"])
+    with open(os.path.join(resumed, "log.txt")) as f:
+        log = f.read()
+    if f"Resuming from {path} (iteration {it})" not in log:
+        fail(f"{tag}: the resumed run does not log reading {path}")
+    losses = [(kind, int(i), float(v))
+              for kind, i, v in re.findall(r"\[(Train|Validate)\] Iter (\d+) \| Loss (\S+)", log)]
+    import numpy as np
+
+    if not losses or not np.all(np.isfinite([v for _, _, v in losses])):
+        fail(f"{tag}: the resumed run logged no or non-finite losses")
+    return losses, path, it
+
+
+def cache_probe(cache: str) -> None:
+    """``python3 chip_smoke.py --cache-probe DIR``, run by phase 15 with
+    ``TSDIFF_COMPILE_CACHE`` set: enable the cache as the CLIs do, build the
+    kernels and the packer (or find them there), launch B1 once at the
+    sampling path's shape, and print one JSON line with the build seconds,
+    the roots and the time from this process's start to that launch."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from tsdiff_tpu_torch.data import native
+    from tsdiff_tpu_torch.diffusion.ensemble import stack_params
+    from tsdiff_tpu_torch.ops import _build
+    from tsdiff_tpu_torch.ops import packed_score as ps
+    from tsdiff_tpu_torch.utils.compile_cache import build_roots, maybe_enable_compile_cache
+
+    if not maybe_enable_compile_cache():
+        fail("--cache-probe: TSDIFF_COMPILE_CACHE is not set")
+    roots = build_roots()
+    if roots != {"kernels": os.path.abspath(cache), "packer": os.path.abspath(cache)}:
+        fail(f"--cache-probe: build roots {roots}, expected {cache}")
+    t0 = time.monotonic()
+    _build.build(list(SOURCES))
+    kernels_s = time.monotonic() - t0
+    packer_built = not os.path.exists(native.library_path())
+    t1 = time.monotonic()
+    native.build()
+    packer_s = time.monotonic() - t1
+    batch, pos = kernel_batch(24, seed=1234 + 24)
+    members = load_members(torch.bfloat16, torch.device("cuda"))
+    model = members[0]
+    pp = model.precompute_packed_pairs(batch.bond_mat, batch.node_mask)
+    info = model.build_packed_pair_info(pos, batch.node_mask, pp)
+    with torch.no_grad():
+        z = torch.stack([m.node_states(batch.atom_type, batch.r_feat, batch.p_feat,
+                                       batch.node_mask) for m in members]).contiguous()
+    w = stack_params([m.kernel_weights() for m in members])
+    out = ps.packed_score(w, z, info.d_in.contiguous(), info.cmask.contiguous(), pp.type_r_in,
+                          pp.type_p_in, pp.type_r_out, pp.type_p_out, num_blocks=model.num_convs)
+    torch.cuda.synchronize()
+    print(json.dumps({
+        "roots": roots, "build_seconds": {n: _build.build_info[n]["seconds"] for n in SOURCES},
+        "kernels_wall_s": kernels_s, "packer_built": packer_built, "packer_s": packer_s,
+        "b1_launches": ps.packed_score.launches, "b1_finite": bool(torch.isfinite(out).all()),
+        "start_to_first_launch_s": time.monotonic() - PROCESS_T0}))
+
+
+def stop_processes(procs: list) -> None:
+    """Kill each process still running, with the processes it started (each
+    leads its own session: a cache probe's nvcc children)."""
+    for proc in procs:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+
+def phase_checkpoints(smi: str, setup: tuple, interop: dict) -> dict:
+    """Phase 15: orbax checkpoint directories on the training and sampling
+    paths, the JAX package's directory read on the card, and the build
+    cache.  (a) the train CLI with 6a's flags and ``--ckpt_backend orbax``,
+    under torch.profiler with a ``.ckpt`` of the same state written beside
+    each save (every ``.orbax`` loads to that ``.ckpt``'s arrays bit for
+    bit; B3 counted by kernel name), then unprofiled with ``orbax``,
+    ``pickle``, ``pickle``, ``orbax`` (ms each save held the loop, the wait
+    at the loop's end, each write's ms, graphs/s); (b) the twin run resumed for ``RESUME_ITERS``
+    iterations from its ``.orbax`` and from its ``.ckpt`` files (logged
+    losses within ``CLI_LOSS_RTOL``: the F.embedding caveat of phase 6);
+    (c) the 8 members written as ``.orbax`` directories, sampled with phase
+    10's command on its 100 reactions: equal to phase 10's ``.ckpt`` samples
+    bit for bit, B1 once per walk step by kernel name; (d) the committed
+    JAX-written directory (OCDBT, zstd) against its ``.npz``; (e) two fresh
+    processes in turn on one empty ``TSDIFF_COMPILE_CACHE``: the second
+    builds nothing; ``tsdiff_tpu_torch/_build/`` untouched."""
+    import numpy as np
+    import torch
+
+    from tsdiff_tpu_torch.ops import _build
+    from tsdiff_tpu_torch.ops import schnet_stack as ss
+    from tsdiff_tpu_torch.train import get_checkpoint_path, load_checkpoint, save_checkpoint
+    from tsdiff_tpu_torch.train import orbax_io
+
+    t_phase = time.monotonic()
+    shutil.rmtree(CKPT_PHASE_DIR, ignore_errors=True)
+    os.makedirs(CKPT_PHASE_DIR)
+
+    # (a) the train CLI with orbax saves
+    model_cfg, train_cfg, paths, buckets = setup
+    model_cfg = {**model_cfg, "packed_train": False, "use_pallas": True}
+    cfg_path = write_train_config("train_config_ckpt", model_cfg, train_cfg, paths, buckets)
+    flags = ["--dtype", "bfloat16"]
+    real_save = orbax_io.save_checkpoint_orbax
+    twins = []
+
+    def save_with_twin(path, config, state, *args, **kwargs):
+        real_save(path, config, state, *args, **kwargs)
+        twin_dir = os.path.join(os.path.dirname(os.path.dirname(path)), "checkpoints_pickle")
+        os.makedirs(twin_dir, exist_ok=True)
+        twin = os.path.join(twin_dir, os.path.basename(path)[:-len(".orbax")] + ".ckpt")
+        save_checkpoint(twin, config, state, *args, **kwargs)
+        twins.append((path, twin))
+
+    ss.schnet_stack_fwd.launches = ss.schnet_stack_bwd.launches = 0
+    orbax_io.save_checkpoint_orbax = save_with_twin
+    try:
+        twin_run = run_train_cli("ckpt orbax+twin", cfg_path, train_cfg,
+                                 flags + ["--ckpt_backend", "orbax"], "ckpt_twin", profiled=True)
+    finally:
+        orbax_io.save_checkpoint_orbax = real_save
+    counters = (ss.schnet_stack_fwd.launches, ss.schnet_stack_bwd.launches)
+    L = model_cfg["encoder"]["num_convs"]
+    g = twin_run["graphs"]
+    n_train = sum(k == "train" for k, _ in g["recorded"])
+    n_eval = len(g["recorded"]) - n_train
+    rep = {kind: sum(n for (k, _), n in g["replays"].items() if k == kind)
+           for kind in ("train", "eval")}
+    ran_fwd, ran_bwd = n_train + n_eval + rep["train"] + rep["eval"], n_train + rep["train"]
+    named = {kernel: sum(n for name, n in twin_run["kernels"].items() if kernel in name)
+             for kernel in ("schnet_fwd_wg_kernel<true>", "schnet_bwd_rows_wg_kernel",
+                            "schnet_bwd_xty_wg_kernel")}
+    b3 = (named["schnet_fwd_wg_kernel<true>"], named["schnet_bwd_rows_wg_kernel"] // L,
+          named["schnet_bwd_xty_wg_kernel"] // L)
+    print(f"[ckpt] (a) B3 by kernel name in the orbax run: {named} (expected forward "
+          f"{ran_fwd}, row and weight-gradient kernels {L} x {ran_bwd}); wrapper counters "
+          f"{counters} (expected {2 * (n_train + n_eval)}, {2 * n_train})")
+    if b3 != (ran_fwd, ran_bwd, ran_bwd) or counters != (2 * (n_train + n_eval), 2 * n_train):
+        fail("the orbax training run did not run B3 at every step")
+    written = sorted(f for f in os.listdir(os.path.join(twin_run["log_dir"], "checkpoints"))
+                     if f.endswith(".orbax"))
+    if not twins or sorted(os.path.basename(p) for p, _ in twins) != written:
+        fail(f"the orbax run wrote {written}, its saves were {twins}")
+    for orbax_path, twin in twins:
+        got, want = load_checkpoint(orbax_path), load_checkpoint(twin)
+        a, b = checkpoint_arrays(got), checkpoint_arrays(want)
+        same = same_arrays(a, b) and got["opt_state"][0] == () and all(
+            got[k] == want[k] for k in ("config", "scheduler", "iteration", "avg_val_loss"))
+        with open(os.path.join(orbax_path, "_METADATA")) as f:
+            layout = "use_ocdbt false" if '"use_ocdbt": false' in f.read() else "?"
+        print(f"[ckpt] (a) {os.path.basename(orbax_path)} ({layout}, {len(a)} arrays, "
+              f"{sum(v.nbytes for v in a.values()):,} bytes) against the .ckpt of the same "
+              f"state: equal bit for bit in params, opt_state and ema_params: {same}")
+        if not same:
+            fail(f"{orbax_path} does not load to the arrays of {twin}")
+    # unprofiled, in turns (the host sets these runs' pace and drifts between them)
+    runs = {"orbax": [], "pickle": []}
+    for i, backend in enumerate(("orbax", "pickle", "pickle", "orbax")):
+        run = run_train_cli(f"ckpt {backend}", cfg_path, train_cfg,
+                            flags + ["--ckpt_backend", backend], f"ckpt_{i}_{backend}")
+        run["numbers"] = ckpt_log_numbers(run["log"])
+        o = run["numbers"]
+        if not o["held_ms"] or (backend == "orbax") != ("wait_ms" in o) or (
+                backend == "orbax" and o["written"] != len(o["held_ms"])):
+            fail(f"the train CLI's checkpoint lines are missing or wrong: {backend} {o}")
+        runs[backend].append(run)
+    o = [r["numbers"] for r in runs["orbax"]]
+    print(f"[ckpt] (a) {smi}, in the order orbax, pickle, pickle, orbax: ms each save held the "
+          f"loop: orbax {[n['held_ms'] for n in o]}, pickle "
+          f"{[r['numbers']['held_ms'] for r in runs['pickle']]}; orbax writes, ms from each save "
+          f"call to its directory {[n['write_ms'] for n in o]}, wait at the loop's end "
+          f"{[n['wait_ms'] for n in o]} ms; graphs/s: orbax "
+          f"{[r['graphs_per_s'] for r in runs['orbax']]}, pickle "
+          f"{[r['graphs_per_s'] for r in runs['pickle']]} (the profiled twin run "
+          f"{twin_run['graphs_per_s']:.4f})")
+
+    # (b) resume from the .orbax and from the .ckpt of the same states
+    pickle_src = os.path.join(CKPT_PHASE_DIR, "twin_as_pickle")
+    shutil.copytree(twin_run["log_dir"], pickle_src,
+                    ignore=shutil.ignore_patterns("checkpoints", "checkpoints_pickle"))
+    shutil.copytree(os.path.join(twin_run["log_dir"], "checkpoints_pickle"),
+                    os.path.join(pickle_src, "checkpoints"))
+    from_orbax, path_o, it_o = resume_losses("resume .orbax", twin_run["log_dir"], "orbax",
+                                             "resume_orbax")
+    from_pickle, path_p, it_p = resume_losses("resume .ckpt", pickle_src, "pickle",
+                                              "resume_pickle")
+    if (it_o, [x[:2] for x in from_orbax]) != (it_p, [x[:2] for x in from_pickle]):
+        fail(f"the two resumes logged different lines ({it_o}, {it_p})")
+    rel = max(abs(x[2] - y[2]) / max(abs(y[2]), 1e-12) for x, y in zip(from_orbax, from_pickle))
+    print(f"[ckpt] (b) resumed {os.path.relpath(path_o, ROOT)} and "
+          f"{os.path.relpath(path_p, ROOT)} (iteration {it_o}) for {RESUME_ITERS} iterations: "
+          f"{len(from_orbax)} logged losses, equal: {from_orbax == from_pickle}, largest "
+          f"relative difference {rel:.6g} (limit {CLI_LOSS_RTOL}: {NONDETERMINISTIC} can move "
+          f"a step by a bf16 ulp between two runs from one state, as phase 6 shows); "
+          f"from .orbax {from_orbax}")
+    if not rel <= CLI_LOSS_RTOL:
+        fail(f"the resume from the .orbax differs from the resume from the .ckpt by {rel:.6g}")
+
+    # (c) sampling from the 8 members written as .orbax directories
+    members = []
+    t_conv = time.monotonic()
+    for seed in MEMBER_SEEDS:
+        members.append(os.path.join(CKPT_PHASE_DIR, "members", f"seed{seed}_best.orbax"))
+        os.makedirs(os.path.dirname(members[-1]), exist_ok=True)
+        orbax_io.write_checkpoint_orbax(members[-1], load_checkpoint(
+            os.path.join(CKPT_DIR, f"seed{seed}_best.ckpt")))
+    conv_s = time.monotonic() - t_conv
+    got, n_b1, dmae, evaluated = sample_cli(".orbax members", members, interop["test_set"],
+                                            os.path.join(CKPT_PHASE_DIR, "samples_orbax"))
+    want = interop["ckpt_results"]
+    same = len(got) == len(want) > 0 and all(
+        a["smiles"] == b["smiles"] and np.array_equal(a["pos_gen"], b["pos_gen"])
+        for a, b in zip(got, want))
+    print(f"[ckpt] (c) {len(members)} members written as .orbax directories in {conv_s:.3f} s; sampled with "
+          f"phase 10's command: pos_gen of {len(got)} samples equal to phase 10's .ckpt samples "
+          f"bit for bit: {same}; "
+          f"B1 by kernel name {n_b1}; D-MAE mean {dmae:.4f}; evaluate CLI: {evaluated}")
+    if not same:
+        fail("sampling from the .orbax members differs from sampling from the .ckpt members")
+
+    # (d) the JAX package's directory, read on the card
+    with open(os.path.join(ORBAX_FIXTURE, "7.orbax", "_METADATA")) as f:
+        ocdbt = '"use_ocdbt": true' in f.read()
+    ck = load_checkpoint(os.path.join(ORBAX_FIXTURE, "7.orbax"))
+    arrays = checkpoint_arrays(ck)
+    npz = np.load(os.path.join(ORBAX_FIXTURE, "7.npz"))
+    fixture_ok = ocdbt and same_arrays(arrays, {k: npz[k] for k in npz.files})
+    print(f"[ckpt] (d) {os.path.relpath(ORBAX_FIXTURE, ROOT)}/7.orbax (written by the JAX "
+          f"package, OCDBT: {ocdbt}): {len(arrays)} arrays equal to the committed .npz: "
+          f"{fixture_ok}; zstd decoder: {orbax_io.zstd_library}")
+    if not fixture_ok or not orbax_io.zstd_library:
+        fail("the JAX package's orbax directory does not read to its .npz on the card")
+
+    # (e) the build cache: two processes in turn on one empty directory
+    cache = os.path.join(CKPT_PHASE_DIR, "compile_cache")
+    os.makedirs(cache)
+
+    def default_listing():
+        root = _build.BUILD_ROOT
+        return sorted((dirpath, name, os.stat(os.path.join(dirpath, name)).st_mtime_ns)
+                      for dirpath, _, names in os.walk(root) for name in names)
+
+    before = default_listing()
+    torch.cuda.empty_cache()   # the probes share the card with this process
+    free, total = torch.cuda.mem_get_info()
+    with open("/proc/meminfo") as f:
+        host = {k: int(v.split()[0]) / 2**20 for k, v in (line.split(":", 1) for line in f)}
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    print(f"[ckpt] (e) before the probes: card {free / 2**30:.3f} GiB free of {total / 2**30:.3f} "
+          f"(this process reserves {torch.cuda.memory_reserved() / 2**30:.3f}); host "
+          f"{host['MemAvailable']:.3f} GiB available of {host['MemTotal']:.3f} (this process's "
+          f"peak resident {rss:.3f})")
+    env = {**os.environ, "TSDIFF_COMPILE_CACHE": cache}
+    probe_cmd = [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--cache-probe", cache]
+    probes = []
+    atexit.register(stop_processes, probes)   # a failed check stops them too
+    results = []
+    for i in range(2):
+        probes.append(subprocess.Popen(probe_cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                       text=True, env=env, start_new_session=True))
+        t_probe0 = time.monotonic()
+        out, err = probes[i].communicate(timeout=600)
+        wall = time.monotonic() - t_probe0
+        if probes[i].returncode != 0:
+            fail(f"--cache-probe process {i + 1} failed:\n{out[-2000:]}\n{err[-3000:]}")
+        results.append(json.loads(out.strip().splitlines()[-1]))
+        r = results[-1]
+        print(f"[ckpt] (e) process {i + 1} with TSDIFF_COMPILE_CACHE={os.path.relpath(cache, ROOT)}"
+              f"{' (empty)' if i == 0 else ' (as the first left it)'}: build "
+              f"seconds from _build.build_info {r['build_seconds']} (kernels' wall "
+              f"{r['kernels_wall_s']:.3f} s), packer built: {r['packer_built']} "
+              f"({r['packer_s']:.3f} s); start to the first B1 launch "
+              f"{r['start_to_first_launch_s']:.3f} s (process wall {wall:.3f} s); B1 launches "
+              f"{r['b1_launches']}, finite {r['b1_finite']}; roots {r['roots']}")
+    first, second = results
+    if not (all(s > 0 for s in first["build_seconds"].values()) and first["packer_built"]):
+        fail("the first process did not build into the empty cache")
+    if any(second["build_seconds"].values()) or second["packer_built"]:
+        fail(f"the second process built again: {second['build_seconds']}")
+    if not all(r["b1_launches"] == 1 and r["b1_finite"] for r in results):
+        fail("a cache probe did not launch B1 once")
+    untouched = default_listing() == before
+    print(f"[ckpt] (e) {os.path.relpath(_build.BUILD_ROOT, ROOT)}/ untouched by both: {untouched}")
+    if not untouched:
+        fail("the cache probes touched the default build directory")
+    print(f"[ckpt] phase 15 took {time.monotonic() - t_phase:.3f} s")
+    return dict(b1_launches=n_b1, b3_fwd=b3[0], b3_bwd=b3[1], xty=b3[2])
+
+
 def main() -> None:
     try:
         import torch
@@ -4293,6 +4675,7 @@ def main() -> None:
     phase_legacy(smi)
     phase_protein(smi)
     phase_encoders(smi)
+    ckpt = phase_checkpoints(smi, setup, interop)
 
     def entry(name, source, replaces, launches, numbers, by_path=None):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_by",
@@ -4310,10 +4693,12 @@ def main() -> None:
     mesh_path = "sampling CLI on the (1, 2) and (2, 1) meshes, 2 ranks over gloo, both ranks"
     b1 = entry("packed_score", "tsdiff_tpu_torch/csrc/packed_score.cu",
                "tsdiff_tpu/ops/pallas/condensed_score_packed.py:164",
-               main_path["launches"] + served["b1_launches"] + interop["launches"] + mesh["b1"],
+               main_path["launches"] + served["b1_launches"] + interop["launches"] + mesh["b1"]
+               + ckpt["b1_launches"],
                k[(24, "bfloat16")],
                {"sampling CLI": main_path["launches"], serving: served["b1_launches"],
-                "reference interop (phase 10)": interop["launches"], mesh_path: mesh["b1"]})
+                "reference interop (phase 10)": interop["launches"], mesh_path: mesh["b1"],
+                "sampling CLI from .orbax members (phase 15)": ckpt["b1_launches"]})
     # every launch here is counted by kernel name in a profiled run of its
     # path; the served requests' walk steps, not all profiled, stand apart
     b1["serving_walk_steps"] = served["walk_steps"]
@@ -4326,12 +4711,17 @@ def main() -> None:
     b1["mesh_shapes"] = [at_shape(mk[("packed_score", 4, 100)], "M=4 B=100 N=24 bf16 (ens=2)"),
                          at_shape(mk[("packed_score", 8, 50)], "M=8 B=50 N=24 bf16 (dp=2)")]
     mesh_train = "train CLI, 2 ranks over gloo (dp=2), both ranks"
-    b3_fwd = entry("schnet_stack_fwd", stack_src, f"{vjp}:44", tr["launches"][0] + mesh["b3_fwd"],
-                   bf["fwd"], {"train CLI": tr["launches"][0], mesh_train: mesh["b3_fwd"]})
+    orbax_train = "train CLI --ckpt_backend orbax (phase 15)"
+    b3_fwd = entry("schnet_stack_fwd", stack_src, f"{vjp}:44",
+                   tr["launches"][0] + mesh["b3_fwd"] + ckpt["b3_fwd"], bf["fwd"],
+                   {"train CLI": tr["launches"][0], mesh_train: mesh["b3_fwd"],
+                    orbax_train: ckpt["b3_fwd"]})
     b3_fwd["mesh_shapes"] = [at_shape(mk[("fwd", n)], f"B=100 N={n} bf16 (dp=2)")
                              for n in (16, 24)]
-    b3_bwd = entry("schnet_stack_bwd", stack_src, f"{vjp}:72", tr["launches"][1] + mesh["b3_bwd"],
-                   bf["bwd"], {"train CLI": tr["launches"][1], mesh_train: mesh["b3_bwd"]})
+    b3_bwd = entry("schnet_stack_bwd", stack_src, f"{vjp}:72",
+                   tr["launches"][1] + mesh["b3_bwd"] + ckpt["b3_bwd"], bf["bwd"],
+                   {"train CLI": tr["launches"][1], mesh_train: mesh["b3_bwd"],
+                    orbax_train: ckpt["b3_bwd"]})
     b3_bwd["mesh_shapes"] = [at_shape(mk[("bwd", n)], f"B=100 N={n} bf16 (dp=2)")
                              for n in (16, 24)]
     # phase 3's check on the smooth cutoff's fractional mask, N=24
@@ -4347,7 +4737,8 @@ def main() -> None:
         b3_bwd,
         # the backward's weight gradients alone: a launch is one backward call's
         # products, its time the 7 blocks' (the library call: torch.mm for each)
-        entry("schnet_stack_bwd_xty", stack_src, f"{vjp}:72", tr["xty_launches"], bf["xty"]),
+        entry("schnet_stack_bwd_xty", stack_src, f"{vjp}:72", tr["xty_launches"] + ckpt["xty"],
+              bf["xty"], {"train CLI": tr["xty_launches"], orbax_train: ckpt["xty"]}),
         # B4 has no caller on a path in either package: the training run counts 0
         entry("schnet_stack", stack_src, "tsdiff_tpu/ops/pallas/schnet_stack.py:53",
               tr["b4_launches"], bf["stack"]),
@@ -4391,5 +4782,7 @@ if __name__ == "__main__":
         mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
     elif sys.argv[1:2] == ["--mesh-nccl"]:
         mesh_nccl()
+    elif sys.argv[1:2] == ["--cache-probe"]:   # one process of phase 15 (e)
+        cache_probe(sys.argv[2])
     else:
         main()

@@ -8,6 +8,7 @@ says otherwise: both packages run the same numpy operations.
 
 import os
 import pickle
+import sys
 
 import numpy as np
 import pytest
@@ -150,9 +151,11 @@ def test_covmat_functions_match_jax():
     assert lines == jlines
 
 
-def test_covmat_self_check_and_rdmol_branch():
+def test_covmat_self_check_and_rdmol_branch(monkeypatch):
     """The reference stacks scored against themselves: COV 1 at every
-    threshold, MAT ~ 0.  An RDKit ``rdmol`` is not ported and raises."""
+    threshold, MAT ~ 0.  An RDKit ``rdmol`` takes RDKit's route
+    (``tests/test_torch_chem_rdkit.py``), in the port as in the JAX package:
+    where RDKit cannot be imported, both raise ImportError."""
     graphs = make_conformer_corpus(2, seed=5, conformers=3)
     data = []
     for i in range(2):
@@ -161,8 +164,10 @@ def test_covmat_self_check_and_rdmol_branch():
     res = covmat.CovMatEvaluator(num_workers=1, print_fn=lambda *_: None)(data)
     assert (res.CoverageR == 1.0).all() and (res.CoverageP == 1.0).all()
     assert res.MatchingR.max() < 1e-6 and res.MatchingP.max() < 1e-6
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §A\.8b"):
-        covmat.rmsd_confusion_matrix(dict(data[0], rdmol=object()))
+    monkeypatch.setitem(sys.modules, "rdkit", None)
+    for fn in (covmat.rmsd_confusion_matrix, jcovmat.rmsd_confusion_matrix):
+        with pytest.raises(ImportError, match="rdkit"):
+            fn(dict(data[0], rdmol=object()))
 
 
 def test_legacy_datasets_match_jax(tmp_path):

@@ -61,7 +61,9 @@ def test_load_checkpoint_rejects_other_formats(tmp_path):
     p.write_bytes(pickle.dumps({"format": "something-else"}))
     with pytest.raises(ValueError):
         load_checkpoint(str(p))
-    with pytest.raises(NotImplementedError):
+    # a directory is read as an orbax checkpoint (tests/test_torch_orbax.py):
+    # one without its meta file raises, as the JAX package's load does
+    with pytest.raises(FileNotFoundError, match=r"\.meta\.json"):
         load_checkpoint(str(tmp_path))
 
 

@@ -1140,3 +1140,97 @@ def test_rank_of_padding_replays_the_bucket_step(cuda, sidechain):
         graphs(("train", n_pad), fn, batch, t, noise)
         assert (batch.is_sidechain is not None) == sidechain
     assert (indices[-1][2:] == -1).all() and graphs.replays[("train", n_pad)] == 1
+
+
+# -- orbax checkpoint directories on the card ---------------------------------
+
+@pytest.mark.cuda
+def test_orbax_save_snapshots_a_captured_steps_state(cuda, train_inputs, tmp_path):
+    """The H=256 train state after 3 replayed train steps (its tensors the
+    graph's static buffers, updated in place by every replay) saved through
+    the orbax writer, and 3 more replays queued as soon as the save returns:
+    the directory holds the state at the save call (held to copies taken on
+    the stream just before it), bit for bit, though the live state moved."""
+    from orbax_leaves import fixture_arrays
+
+    from tsdiff_tpu_torch.config import Config
+    from tsdiff_tpu_torch.diffusion.objective import draw_timesteps_and_noise
+    from tsdiff_tpu_torch.train import TrainState, load_checkpoint
+    from tsdiff_tpu_torch.train.captured import StepGraphs
+    from tsdiff_tpu_torch.train.checkpoint import checkpoint_payload
+    from tsdiff_tpu_torch.train.orbax_io import OrbaxWriter
+    from tsdiff_tpu_torch.train.trainer import on_device
+
+    model_cfg, batches = train_inputs
+    schedule, state, step, _ = make_trainer(train_inputs, "use_pallas")
+    on_device(state)
+    lr = torch.tensor(5e-4, dtype=torch.float32, device="cuda")
+    graphs = StepGraphs("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def replay():
+        t, noise = draw_timesteps_and_noise(gen, (TRAIN_B, 24, 3), 0, len(schedule.alphas),
+                                            "cuda")
+        graphs(("train", 24), lambda b, t, noise: step(state, b, lr, t=t, noise=noise)[1],
+               batches[24], t, noise)
+
+    for _ in range(3):
+        replay()
+    held = {k: v.clone() for k, v in state_tensors(state).items()}
+    config = Config({"model": dict(model_cfg), "train": {"optimizer": {"weight_decay": 0.0}}})
+    writer = OrbaxWriter()
+    path = str(tmp_path / "3.orbax")
+    writer.save(path, config, state, iteration=3)
+    for _ in range(3):
+        replay()
+    writer.wait()
+    assert graphs.replays[("train", 24)] == 5
+    moved = state_tensors(state)
+    assert any(not torch.equal(moved[k], held[k]) for k in held if k.startswith("param"))
+    part = {p: {k.split(" ", 1)[1]: v for k, v in held.items() if k.startswith(p + " ")}
+            for p in ("param", "mu", "nu", "ema")}
+    at_save = TrainState(part["param"], {"count": held["count"], "mu": part["mu"],
+                                         "nu": part["nu"]}, held["step"], part["ema"])
+    want = fixture_arrays(checkpoint_payload(config, at_save, iteration=3))
+    got = fixture_arrays(load_checkpoint(path))
+    assert set(got) == set(want) and len(want) > 100
+    for k in want:
+        assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+def test_orbax_members_sample_as_ckpt_members(cuda, tmp_path):
+    """Two trained members (H=256) written as ``.orbax`` directories through
+    the writer and read back: the same weights, and one B1 launch on the
+    card from them equal to one from the ``.ckpt`` members, bit for bit."""
+    from orbax_leaves import fixture_arrays
+
+    from tsdiff_tpu_torch.diffusion.ensemble import load_members, stack_params
+    from tsdiff_tpu_torch.train import load_checkpoint
+    from tsdiff_tpu_torch.train.orbax_io import write_checkpoint_orbax
+
+    ckpts = [os.path.join(CKPT_DIR, f"seed{s}_best.ckpt") for s in MEMBER_SEEDS[:2]]
+    dirs = [str(tmp_path / f"m{i}.orbax") for i in range(2)]
+    for src, dst in zip(ckpts, dirs):
+        write_checkpoint_orbax(dst, load_checkpoint(src))
+        a, b = fixture_arrays(load_checkpoint(dst)), fixture_arrays(load_checkpoint(src))
+        assert set(a) == set(b) and all(np.array_equal(a[k], b[k]) for k in b)
+    graphs = served_graphs(6, seed=5)
+    from tsdiff_tpu_torch.core.graph import from_numpy_graphs
+
+    batch = from_numpy_graphs(graphs, max_nodes=24, device="cuda")
+    outs = []
+    for paths in (ckpts, dirs):
+        members, _ = load_members(paths, cuda, torch.bfloat16, fused_score=True)
+        model = members[0]
+        pp = model.precompute_packed_pairs(batch.bond_mat, batch.node_mask)
+        info = model.build_packed_pair_info(batch.pos, batch.node_mask, pp)
+        with torch.no_grad():
+            z = torch.stack([m.node_states(batch.atom_type, batch.r_feat, batch.p_feat,
+                                           batch.node_mask) for m in members]).contiguous()
+        w = stack_params([m.kernel_weights() for m in members])
+        outs.append(ps.packed_score(w, z, info.d_in.contiguous(), info.cmask.contiguous(),
+                                    pp.type_r_in, pp.type_p_in, pp.type_r_out, pp.type_p_out,
+                                    num_blocks=model.num_convs))
+    torch.cuda.synchronize()
+    assert torch.isfinite(outs[0]).all() and torch.equal(outs[0], outs[1])

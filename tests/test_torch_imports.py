@@ -21,13 +21,16 @@ def test_port_imports_without_jax():
                  "models.gin", "models.dualenc", "models.edge", "diffusion.dual_objective",
                  "data.legacy", "data.synthetic", "data.pdb", "eval.protein",
                  "diffusion.protein", "cli.protein_sampling", "ops.basis", "models.egnn",
-                 "models.dimenetpp", "models.comenet"):
+                 "models.dimenetpp", "models.comenet", "train.orbax_io", "utils.compile_cache",
+                 "utils.chem_rdkit", "utils.visualize"):
         assert f"tsdiff_tpu_torch.{name}" in names
     code = f"""
 import importlib, sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
 sys.modules["optax"] = None
+sys.modules["orbax"] = None
+sys.modules["tensorstore"] = None
 sys.path.insert(0, {REPO!r})
 for name in {names!r}:
     importlib.import_module(name)
@@ -36,6 +39,7 @@ assert not bad, bad
 assert "triton" not in sys.modules
 assert "scipy" not in sys.modules
 assert "sympy" not in sys.modules
+assert "rdkit" not in sys.modules and "py3Dmol" not in sys.modules
 print(len({names!r}))
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)

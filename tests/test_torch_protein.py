@@ -255,6 +255,27 @@ def test_protein_sampling_cli_on_a_jax_checkpoint(workdir):
     assert len(stats["sidechain_rmsd"]) == 2
 
 
+def test_protein_sampling_cli_on_an_orbax_checkpoint(workdir):
+    """The JAX-written checkpoint rewritten as an ``.orbax`` directory by the
+    port's writer samples as the ``.ckpt`` does, bit for bit."""
+    from tsdiff_tpu_torch.cli import protein_sampling
+    from tsdiff_tpu_torch.train import load_checkpoint
+    from tsdiff_tpu_torch.train.orbax_io import write_checkpoint_orbax
+
+    root = workdir["root"]
+    orbax_dir = str(root / "jax_as.orbax")
+    write_checkpoint_orbax(orbax_dir, load_checkpoint(workdir["jckpt"]))
+    got = {}
+    for name, ckpt in (("ckpt", workdir["jckpt"]), ("orbax", orbax_dir)):
+        got[name] = _results(protein_sampling.main(
+            [ckpt, "--protein_set", workdir["prot"], "--save_dir", str(root / f"gen_{name}"),
+             "--device", "cpu", "--use_ema", *FLAGS]))
+    assert len(got["orbax"]) == len(got["ckpt"]) == 2
+    for a, b in zip(got["orbax"], got["ckpt"]):
+        assert np.isfinite(a["pos_gen"]).all()
+        np.testing.assert_array_equal(a["pos_gen"], b["pos_gen"])
+
+
 def test_protein_sampling_cli_defaults_to_cuda():
     from tsdiff_tpu_torch.cli import protein_sampling, train
 

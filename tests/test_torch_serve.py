@@ -389,10 +389,13 @@ def test_http_front_end(ckpts):
     (["--compile_cache", "cache"], "_build"),
 ])
 def test_cli_refuses_what_is_not_ported(ckpts, flags, match):
-    """The compile cache is refused; the mesh flags are ported
-    (tests/test_torch_parallel.py) and refuse what cannot run: a mesh
-    without the ranks for it, --multihost without a mesh, cluster flags
-    without --multihost."""
+    """The compile cache is ported (tests/test_torch_compile_cache.py) and
+    parses; the mesh flags are ported (tests/test_torch_parallel.py) and
+    refuse what cannot run: a mesh without the ranks for it, --multihost
+    without a mesh, cluster flags without --multihost."""
+    if flags[0] == "--compile_cache":
+        assert serve.parse_args([ckpts[0], *flags]).compile_cache == flags[1]
+        return
     with pytest.raises(SystemExit, match=match) as e:
         serve.parse_args([ckpts[0], *flags])
     if match != "_build":
@@ -601,3 +604,30 @@ def test_nan_retries_once_at_clip_20(ckpts, monkeypatch, clip):
         assert [c for c, _, _ in calls] == [20.0]
         assert set(svc._runners) == {(8, 0)}
         assert out["nan"] is False
+
+
+def test_service_takes_orbax_members(ckpts, tmp_path):
+    """The JAX-written members rewritten as ``.orbax`` directories by the
+    port's writer: a served round from them equals one from the ``.ckpt``
+    files, bit for bit."""
+    from tsdiff_tpu_torch.train import load_checkpoint
+    from tsdiff_tpu_torch.train.orbax_io import write_checkpoint_orbax
+
+    dirs = []
+    for i, path in enumerate(ckpts):
+        dirs.append(str(tmp_path / f"{i}.orbax"))
+        write_checkpoint_orbax(dirs[-1], load_checkpoint(path))
+    graphs = make_graph_dicts(np.random.default_rng(4), [5, 7, 6], feat_dim=FEAT)
+    tier, bucket = 4, 8
+    gpad = graphs + [graphs[-1]] * (tier - len(graphs))
+    rounds = []
+    for members in (ckpts, dirs):
+        svc = service(members, fused_score=True)
+        try:
+            rounds.append(svc._execute(bucket, tier, from_numpy_graphs(gpad, max_nodes=bucket)))
+        finally:
+            svc.close()
+    (pos_ck, nan_ck), (pos_ox, nan_ox) = rounds
+    assert not bool(np.asarray(nan_ck).any()) and np.isfinite(np.asarray(pos_ck)).all()
+    np.testing.assert_array_equal(np.asarray(pos_ox), np.asarray(pos_ck))
+    np.testing.assert_array_equal(np.asarray(nan_ox), np.asarray(nan_ck))

@@ -230,7 +230,8 @@ def test_schedule_alphas_copied_to_a_device_once():
 
 
 def test_cli_train_rejects_what_is_not_ported(tmp_path):
-    """orbax (§A.2) is refused; the mesh flags are ported
+    """``--ckpt_backend orbax`` is ported (tests/test_torch_orbax.py) and
+    parses; the mesh flags are ported
     (tests/test_torch_parallel.py) and refuse what the JAX CLI's refuse: a
     cluster neither named by the three flags nor started by torchrun, and
     more slices than ranks.  ``dataset.type: sidechain`` is ported
@@ -239,8 +240,9 @@ def test_cli_train_rejects_what_is_not_ported(tmp_path):
     ``is_sidechain``."""
     cfg = tiny_config(str(tmp_path))
     base = [cfg, "--logdir", str(tmp_path / "logs"), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match=r"not yet ported \(ROADMAP §A\.2"):
-        train_cli.main(base + ["--ckpt_backend", "orbax"])
+    assert train_cli.parse_args(base + ["--ckpt_backend", "orbax"]).ckpt_backend == "orbax"
+    with pytest.raises(SystemExit):
+        train_cli.parse_args(base + ["--ckpt_backend", "tensorstore"])
     with pytest.raises(ValueError, match="environment torchrun sets"):
         train_cli.main(base + ["--multihost"])
     with pytest.raises(ValueError, match="not divisible by 2 slices"):

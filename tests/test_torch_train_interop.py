@@ -1,5 +1,5 @@
-"""The train CLI's ``--pretrain`` and ``--profile`` on the CPU, and the
-refusals left.
+"""The train CLI's ``--pretrain`` and ``--profile`` on the CPU, and
+checkpoint directories.
 
 ``--pretrain`` takes any file ``load_checkpoint`` reads: a ``.ckpt`` and a
 reference ``.pt`` of the same weights give the same run, bit for bit; the
@@ -80,8 +80,25 @@ def test_cli_profile_logs_phase_timings(tmp_path, device_data):
 
 
 def test_orbax_directory_is_refused_naming_its_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match=r"orbax.*ROADMAP §A\.2, blocked"):
-        load_checkpoint(str(tmp_path))
+    """An orbax directory is read now (tests/test_torch_orbax.py): one
+    written by the port loads with its meta file; a directory without one
+    raises naming the file it lacks."""
+    from tsdiff_tpu_torch.train.orbax_io import write_checkpoint_orbax
+
+    os.makedirs(tmp_path / "data")
+    cfg = tiny_config(str(tmp_path / "data"))
+    weights = warm_weights(cfg)
+    path = str(tmp_path / "5.orbax")
+    write_checkpoint_orbax(path, {"config": load_config(cfg).to_dict(), "params": weights,
+                                  "opt_state": None, "ema_params": None, "iteration": 5})
+    ck = load_checkpoint(path)
+    assert ck["iteration"] == 5 and ck["format"] == "tsdiff_tpu.ckpt.v1"
+    got = params_from_jax(ck["params"])
+    for name, p in params_from_jax(weights).items():
+        assert torch.equal(got[name], p), name
+    os.makedirs(tmp_path / "bare")
+    with pytest.raises(FileNotFoundError, match=r"bare\.meta\.json"):
+        load_checkpoint(str(tmp_path / "bare"))
 
 
 def test_profiling_utilities_on_the_cpu(tmp_path):

@@ -5,7 +5,7 @@
 
 Port of ``tsdiff_tpu/cli/protein_sampling.py``: loads a sidechain dataset
 built by ``preprocessing --pdb_glob`` and a dual-encoder checkpoint (``dsm``
-or ``diffusion``; a ``.ckpt`` or a reference ``.pt``), regenerates every
+or ``diffusion``; a ``.ckpt``, an ``.orbax`` directory or a reference ``.pt``), regenerates every
 sidechain of each protein from noise with the backbone pinned
 (``diffusion/protein.py``), retries a protein once at clip 20 when its walk
 flags a NaN, and writes ``proteins_gen.pkl`` (one entry per protein:
@@ -116,6 +116,9 @@ def main(argv=None, capture: bool = True) -> str:
     walks eagerly on CUDA too."""
     args = parse_args(argv)
 
+    from tsdiff_tpu_torch.utils.compile_cache import maybe_enable_compile_cache
+
+    maybe_enable_compile_cache()  # TSDIFF_COMPILE_CACHE
     from tsdiff_tpu_torch.data.dataset import load_dataset
     from tsdiff_tpu_torch.data.pdb import write_pdb
     from tsdiff_tpu_torch.diffusion.captured import can_capture

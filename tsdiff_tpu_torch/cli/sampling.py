@@ -6,8 +6,8 @@ Usage:
         --sampling_type ld --n_steps 5000 --timestep_respacing 625 \
         --device cuda ...]
 
-Loads N checkpoints (``.ckpt`` pickles or reference ``.pt`` files; the model
-is rebuilt from the embedded config), reads the test set (a ``tsdiff_tpu.v1``
+Loads N checkpoints (``.ckpt`` pickles, ``.orbax`` directories or reference
+``.pt`` files; the model is rebuilt from the embedded config), reads the test set (a ``tsdiff_tpu.v1``
 or reference PyG ``.pkl``; a ``.txt`` of reaction SMARTS, one per line, or
 one raw SMARTS string, featurized with ``--feat_dict``, which needs RDKit),
 batches it with optional per-reaction repetition (each batch padded to a
@@ -27,7 +27,9 @@ one memory pool; on the CPU the same step runs eagerly.  The step noise is
 drawn before the walk, one draw per step from the batch's generator, so the
 samples are those of the eager loop (``dynamic_sampling``).
 
-Runs on CUDA unless ``--device cpu`` is given.
+Runs on CUDA unless ``--device cpu`` is given.  ``TSDIFF_COMPILE_CACHE``
+names a directory that keeps the compiled kernels between processes
+(``utils/compile_cache.py``).
 
 A dual-encoder ensemble (the GeoDiff-legacy family, ``network: dualenc``)
 averages its members' per-atom scores (the local branch plus the clipped,
@@ -180,6 +182,9 @@ def main(argv=None, capture: bool = True) -> str:
     walks eagerly on CUDA too."""
     args = parse_args(argv)
 
+    from tsdiff_tpu_torch.utils.compile_cache import maybe_enable_compile_cache
+
+    maybe_enable_compile_cache()  # TSDIFF_COMPILE_CACHE
     from tsdiff_tpu_torch.core.graph import from_numpy_graphs
     from tsdiff_tpu_torch.data.dataset import default_buckets, load_dataset, pick_bucket, tier_ladder
     from tsdiff_tpu_torch.data.featurize import featurize_smarts_list

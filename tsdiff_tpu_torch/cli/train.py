@@ -67,7 +67,14 @@ The batches carry ``is_sidechain``, so the dual objectives train in
 sidechain mode; they stream from the host (never device-resident) and each
 train step replays the captured step of its bucket.
 
-Not ported: ``--ckpt_backend orbax`` (§A.2, blocked).
+``--ckpt_backend orbax`` saves ``<iteration>.orbax`` directories in place of
+``.ckpt`` pickles (``train/orbax_io.py``): each save copies the state and
+returns, a writer thread writes the directory, and the loop's end waits for
+the writes (the log's ``Saved checkpoint`` lines give the ms a save held the
+loop, ``Checkpoint writes`` the wait at the end).  A resume, ``--resume_iter``
+and ``--pretrain`` read ``.ckpt`` files and ``.orbax`` directories alike,
+the JAX package's too.  ``TSDIFF_COMPILE_CACHE`` keeps the compiled kernels
+and packer in a directory of its own (``utils/compile_cache.py``).
 """
 
 from __future__ import annotations
@@ -81,10 +88,6 @@ import time
 
 import torch
 
-#: flags of the JAX package's CLI that the port refuses, with their ROADMAP item
-_NOT_PORTED = {
-    "ckpt_backend": ("--ckpt_backend orbax", "§A.2, blocked: orbax needs JAX"),
-}
 #: ``--device_data auto`` keeps the corpus on the device up to this many bytes
 DEVICE_DATA_BUDGET = int(4e9)
 
@@ -123,14 +126,10 @@ def parse_args(argv=None):
     parser.add_argument("--procid", type=int, default=None, help="this process's rank")
     parser.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
                         help="collectives' backend (default: nccl on cuda, gloo on cpu)")
-    # a flag of the JAX package's CLI that is not ported: it raises
-    parser.add_argument("--ckpt_backend", choices=["pickle", "orbax"], default="pickle")
-    args = parser.parse_args(argv)
-    for attr, (flag, item) in _NOT_PORTED.items():
-        value = getattr(args, attr)
-        if value and not (attr == "ckpt_backend" and value == "pickle"):
-            raise NotImplementedError(f"{flag} is not yet ported (ROADMAP {item})")
-    return args
+    parser.add_argument("--ckpt_backend", choices=["pickle", "orbax"], default="pickle",
+                        help="pickle: <iter>.ckpt files; orbax: <iter>.orbax directories, "
+                             "written asynchronously")
+    return parser.parse_args(argv)
 
 
 class ResidentLoop:
@@ -270,6 +269,7 @@ def _train(args, capture: bool) -> str:
         save_checkpoint,
     )
     from tsdiff_tpu_torch.diffusion.captured import can_capture
+    from tsdiff_tpu_torch.train import orbax_io
     from tsdiff_tpu_torch.train.captured import StepGraphs
     from tsdiff_tpu_torch.train.scheduler import get_scheduler
     from tsdiff_tpu_torch.utils.misc import (
@@ -279,12 +279,14 @@ def _train(args, capture: bool) -> str:
         resolve_device,
         seed_all,
     )
+    from tsdiff_tpu_torch.utils.compile_cache import maybe_enable_compile_cache
     from tsdiff_tpu_torch.utils.profiling import PhaseTimer
 
     device = resolve_device(args.device)
     if args.multihost or multihost.launched_by_torchrun():
         device = multihost.initialize(args.coordinator, args.nprocs, args.procid,
                                       device=device, backend=args.dist_backend)
+    maybe_enable_compile_cache()  # TSDIFF_COMPILE_CACHE
     nproc = multihost.process_count()
     is_coord = multihost.is_coordinator()
     resume = os.path.isdir(args.config)
@@ -530,6 +532,7 @@ def _train(args, capture: bool) -> str:
     def phase(name: str):
         return timer.phase(name) if timer is not None else contextlib.nullcontext()
 
+    writes_before = len(orbax_io.default_writer().finished)
     try:
         for it in range(start_iter, config.train.max_iters + 1):
             try:
@@ -564,13 +567,30 @@ def _train(args, capture: bool) -> str:
                 if avg_val_loss < best_loss:
                     best_loss = avg_val_loss
                     if is_coord:  # only the coordinator writes checkpoints
-                        save_checkpoint(os.path.join(ckpt_dir, f"{it}.ckpt"), config, state,
-                                        scheduler.state_dict(), iteration=it,
-                                        avg_val_loss=avg_val_loss)
-                        logger.info(f"Saved checkpoint at iter {it} (val {avg_val_loss:.6f})")
+                        t_save = time.monotonic()
+                        if args.ckpt_backend == "orbax":
+                            # async: the write overlaps the next training steps
+                            orbax_io.save_checkpoint_orbax(
+                                os.path.join(ckpt_dir, f"{it}.orbax"), config, state,
+                                scheduler.state_dict(), iteration=it, avg_val_loss=avg_val_loss)
+                        else:
+                            save_checkpoint(os.path.join(ckpt_dir, f"{it}.ckpt"), config, state,
+                                            scheduler.state_dict(), iteration=it,
+                                            avg_val_loss=avg_val_loss)
+                        logger.info(f"Saved checkpoint at iter {it} (val {avg_val_loss:.6f}) "
+                                    f"[{args.ckpt_backend}, the loop held "
+                                    f"{(time.monotonic() - t_save) * 1e3:.3f} ms]")
     finally:
         if loop is None:
             train_iter.close()  # ends the prefetcher's worker
+        if args.ckpt_backend == "orbax":
+            t_wait = time.monotonic()
+            orbax_io.wait_for_saves()
+            written = orbax_io.default_writer().finished[writes_before:]
+            logger.info("[Train] Checkpoint writes | orbax, waited %.3f ms at the loop's end | "
+                        "%d written, ms from each save call to its directory: %s" % (
+                            (time.monotonic() - t_wait) * 1e3, len(written),
+                            ", ".join("%.3f" % (s * 1e3) for _, s in written)))
     if graphs is not None:
         logger.info("[Train] CUDA graphs | recorded %d: %s | replays %s" % (
             len(graphs.recorded), ", ".join(f"{k} {b}" for k, b in graphs.recorded),

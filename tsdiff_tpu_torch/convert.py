@@ -71,13 +71,15 @@ def torch_name(path: tuple) -> str:
 
 
 def params_from_jax(params_tree: Mapping) -> dict[str, torch.Tensor]:
-    """Flax parameter tree (numpy arrays) -> torch ``state_dict`` (float32
-    CPU tensors).  Accepts the tree with or without its top ``params`` key."""
+    """Flax parameter tree (numpy arrays, or CPU tensors) -> torch
+    ``state_dict`` (float32 CPU tensors).  Accepts the tree with or without its top ``params`` key."""
     if "params" in params_tree and isinstance(params_tree["params"], Mapping):
         params_tree = params_tree["params"]
     out = {}
     for path, value in _leaves(params_tree):
-        arr = np.asarray(value, dtype=np.float32)
+        # a bfloat16 leaf read from an orbax directory is a torch tensor
+        arr = (value.float().numpy() if isinstance(value, torch.Tensor)
+               else np.asarray(value, dtype=np.float32))
         if path[-1] == "kernel":
             arr = arr.T
         name = torch_name(path)

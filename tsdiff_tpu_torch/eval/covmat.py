@@ -9,8 +9,9 @@ thresholds.
 The best RMSD is the numpy one: heavy atoms only (atom type != 1), the
 Kabsch alignment with and without mirror, minimised over the automorphisms
 of the heavy-atom bond graph.  A molecule that carries an RDKit ``rdmol``
-would take RDKit's ``GetBestRMS`` instead; that path is not ported
-(ROADMAP §A.8b) and raises.
+takes RDKit's ``GetBestRMS`` instead (``utils/chem_rdkit.py``), each
+generated conformer first relaxed with MMFF under ``use_ff``, as the JAX
+package's does.
 """
 
 from __future__ import annotations
@@ -57,9 +58,21 @@ def rmsd_confusion_matrix(data: dict, use_ff: bool = False) -> np.ndarray:
     pos_gen = pos_gen.reshape(-1, n, 3)
     num_ref, num_gen = pos_ref.shape[0], pos_gen.shape[0]
 
-    if data.get("rdmol") is not None:
-        raise NotImplementedError(
-            "COV/MAT on an RDKit rdmol (GetBestRMS, use_ff) is not yet ported (ROADMAP §A.8b)")
+    rdmol = data.get("rdmol")
+    if rdmol is not None:
+        from rdkit.Chem.rdForceFieldHelpers import MMFFOptimizeMolecule
+
+        from tsdiff_tpu_torch.utils.chem_rdkit import get_best_rmsd, set_rdmol_positions
+
+        mat = np.empty((num_ref, num_gen))
+        for i in range(num_gen):
+            gen_mol = set_rdmol_positions(rdmol, pos_gen[i])
+            if use_ff:
+                MMFFOptimizeMolecule(gen_mol)
+            for j in range(num_ref):
+                ref_mol = set_rdmol_positions(rdmol, pos_ref[j])
+                mat[j, i] = get_best_rmsd(gen_mol, ref_mol)
+        return mat
 
     # heavy atoms only, as RDKit's RemoveHs; automorphisms of their bond graph
     atom_type = np.asarray(data["atom_type"])

@@ -679,10 +679,11 @@ def parse_args(argv=None):
     parser.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
                         help="collectives' backend (default: nccl on cuda, gloo on cpu; gloo "
                              "walks eagerly)")
-    # the JAX service's compile-cache flag: refused, not ignored
     parser.add_argument("--compile_cache", type=str, default=None,
-                        help="not ported: graphs are recorded per process and the "
-                             "kernels are cached in tsdiff_tpu_torch/_build/")
+                        help="directory that keeps the compiled kernels and packer between "
+                             "processes (or set TSDIFF_COMPILE_CACHE; default "
+                             "tsdiff_tpu_torch/_build/); CUDA graphs are recorded anew by "
+                             "each process")
     args = parser.parse_args(argv)
     from tsdiff_tpu_torch.parallel.multihost import launched_by_torchrun
 
@@ -702,15 +703,14 @@ def parse_args(argv=None):
     if cluster and not args.multihost:
         raise SystemExit(f"{', '.join(cluster)} name a cluster: pass them with --multihost "
                          "and --mesh DP,ENS")
-    if args.compile_cache is not None:
-        raise SystemExit("--compile_cache: there is no compilation cache to keep; CUDA graphs "
-                         "are recorded once per process and (bucket, tier), and the kernels "
-                         "are cached in tsdiff_tpu_torch/_build/")
     return args
 
 
 def main(argv=None):
+    from tsdiff_tpu_torch.utils.compile_cache import maybe_enable_compile_cache
+
     args = parse_args(argv)
+    maybe_enable_compile_cache(args.compile_cache)
     device = args.device
     mesh = None
     if args.mesh != "none":

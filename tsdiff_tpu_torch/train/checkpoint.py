@@ -22,8 +22,12 @@ Checkpoint pickles are read by a restricted unpickler: numpy's globals load,
 optax's state classes load as stand-ins (``OptaxState``), so a checkpoint the
 JAX package wrote loads where neither JAX nor optax is installed, and any
 other global is refused.  A torch zip container (a reference ``<iter>.pt``)
-is converted in memory by ``data/convert.py``.  Orbax directories are not
-read: orbax's storage format has no reader without JAX.
+is converted in memory by ``data/convert.py``.  A directory is an orbax
+checkpoint (``<iter>.orbax``, written by the JAX package's or the port's
+``--ckpt_backend orbax``), read by ``train/orbax_io.py`` into the same
+payload: orbax restores the optax chain's tuples as lists, an optax
+``EmptyState`` as None, and older orbax versions tuples as dicts keyed
+``"0"``, ``"1"``, ...
 """
 
 from __future__ import annotations
@@ -92,14 +96,13 @@ def is_torch_zip(path: str) -> bool:
 
 
 def load_checkpoint(path: str) -> dict:
-    """Load a ``tsdiff_tpu.ckpt.v1`` pickle, or a reference torch ``.pt``
-    converted in memory; raise on any other format."""
+    """Load a ``tsdiff_tpu.ckpt.v1`` pickle, an orbax checkpoint directory,
+    or a reference torch ``.pt`` converted in memory; raise on any other
+    format."""
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path}: orbax checkpoint directories are not read by the port (ROADMAP §A.2, "
-            "blocked: orbax's storage format has no reader without JAX); convert with the "
-            "JAX package's --ckpt_backend pickle"
-        )
+        from tsdiff_tpu_torch.train.orbax_io import load_checkpoint_orbax
+
+        return load_checkpoint_orbax(path)
     if is_torch_zip(path):
         from tsdiff_tpu_torch.data.convert import convert_reference_checkpoint
 
@@ -129,13 +132,14 @@ def opt_state_to_jax(opt: dict, weight_decay: float = 0.0) -> tuple:
     return ((), adam, ()) if weight_decay else ((), adam)
 
 
-def save_checkpoint(path: str, config, state, scheduler_state: dict | None = None,
-                    iteration: int | None = None, avg_val_loss: float | None = None) -> None:
-    """Write ``state`` (a ``train.trainer.TrainState``) as a self-describing
-    pickle, atomically."""
+def checkpoint_payload(config, state, scheduler_state: dict | None = None,
+                       iteration: int | None = None, avg_val_loss: float | None = None) -> dict:
+    """The checkpoint payload of ``state`` (a ``train.trainer.TrainState``):
+    the parameter trees in flax layout and the optimizer state in the optax
+    chain's, as numpy arrays; the pickle and orbax backends both write it."""
     cfg = config.to_dict() if hasattr(config, "to_dict") else dict(config)
     weight_decay = cfg.get("train", {}).get("optimizer", {}).get("weight_decay", 0.0)
-    payload = {
+    return {
         "format": CKPT_FORMAT,
         "config": cfg,
         "params": params_to_jax(state.params),
@@ -145,16 +149,36 @@ def save_checkpoint(path: str, config, state, scheduler_state: dict | None = Non
         "iteration": int(iteration if iteration is not None else state.step),
         "avg_val_loss": avg_val_loss,
     }
+
+
+def save_checkpoint(path: str, config, state, scheduler_state: dict | None = None,
+                    iteration: int | None = None, avg_val_loss: float | None = None) -> None:
+    """Write ``state`` (a ``train.trainer.TrainState``) as a self-describing
+    pickle, atomically."""
+    payload = checkpoint_payload(config, state, scheduler_state, iteration, avg_val_loss)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
     os.replace(tmp, path)
 
 
+def _chain_entries(opt) -> list:
+    """The optax chain's states in order: a tuple or list, or a dict keyed
+    ``"0"``, ``"1"``, ... ordered by number (``"10"`` after ``"9"``), as the
+    JAX package's ``_ordered_leaves`` orders them."""
+    if isinstance(opt, dict):
+        return [opt[k] for k in sorted(opt, key=int)]
+    return list(opt)
+
+
 def _adam_entry(opt):
     """``(count, mu, nu)`` of the chain entry that carries Adam's state, by
-    field name: a dict entry (the port's layout) or an optax state."""
-    for entry in opt:
+    field name: a dict entry (the port's layout, or an optax state as orbax
+    restores it) or an optax state; the chain's empty states (``()``, or None
+    from orbax) hold none."""
+    for entry in _chain_entries(opt):
+        if entry is None:
+            continue
         if not isinstance(entry, dict):
             entry = dict(zip(getattr(entry, "_fields", ()), entry))
         if set(_ADAM_FIELDS) <= set(entry):
@@ -170,7 +194,8 @@ def opt_state_from_checkpoint(ck: dict, device) -> dict:
     if isinstance(opt, dict) and set(_ADAM_FIELDS) <= set(opt):
         count, mu, nu = (opt[k] for k in _ADAM_FIELDS)
         moments = [{k: torch.from_numpy(np.array(v)) for k, v in m.items()} for m in (mu, nu)]
-    elif isinstance(opt, (tuple, list)):
+    elif isinstance(opt, (tuple, list)) or (isinstance(opt, dict) and opt
+                                            and all(str(k).isdigit() for k in opt)):
         count, mu, nu = _adam_entry(opt)
         moments = [params_from_jax(m) for m in (mu, nu)]
     else:
@@ -180,11 +205,12 @@ def opt_state_from_checkpoint(ck: dict, device) -> dict:
 
 
 def get_checkpoint_path(ckpt_dir: str, it: int | None = None) -> tuple[str, int]:
-    """The latest (or the given) ``<iteration>.ckpt`` of a directory."""
+    """The latest (or the given) ``<iteration>.ckpt`` file or
+    ``<iteration>.orbax`` directory of a directory."""
     entries = {}
     for f in os.listdir(ckpt_dir):
         stem, _, ext = f.partition(".")
-        if ext == "ckpt" and stem.isdigit():
+        if ext in ("ckpt", "orbax") and stem.isdigit():
             entries[int(stem)] = f
     if not entries:
         raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
