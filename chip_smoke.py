@@ -136,8 +136,9 @@ Phases (any failure exits non-zero):
    warm-start file logged, the last validation loss below phase 6b's from
    random init; (c) that run resumed for 20 more iterations with
    ``--profile``: the checkpoint read holds the optimizer state in the JAX
-   package's layout, the count continues, ``Phase timings:`` logs ``data``
-   and ``train_step``; (d) the 100 true geometries plus N(0, 0.3 A) noise
+   package's layout, the count continues, ``Phase timings:`` logs the
+   ``tsdiff.train.data`` and ``tsdiff.train.step`` spans and ``trace.json``
+   is written; (d) the 100 true geometries plus N(0, 0.3 A) noise
    attached by the post-processing CLI as ``ts_guess`` and refined with
    ``--from_ts_guess --denoise_from_time_t 1500`` (the 1500-step window in
    625 calls) through B1, counted as in (a): finite, mean D-MAE < 0.6;
@@ -2194,13 +2195,13 @@ def phase_reference_interop(setup: tuple, packed: dict) -> dict:
     count2 = int(load_checkpoint(ck2_path)["opt_state"][1]["count"])
     timings = log[log.find("Phase timings:"):] if "Phase timings:" in log else ""
     phase_ms = {m.group(1): float(m.group(2)) for m in re.finditer(
-        r"^\s*(data|train_step): +\S+s total, +(\S+)ms avg", timings, re.M)}
+        r"^\s*tsdiff\.train\.(\w+): +\S+ ms total, +(\S+) ms a call", timings, re.M)}
     print(f"[interop] (c) resumed {os.path.relpath(ck_path, ROOT)} (iteration {it}, JAX layout "
           f"((), {{count, mu, nu}}) with params' leaf shapes: {jax_layout}, count {count}) to "
           f"iteration {resume_iters}: checkpoint at {it2} with count {count2} (expected "
           f"{None if count is None else count + it2 - it + 1}); losses finite: "
           f"{bool(losses) and bool(np.all(np.isfinite(losses)))}; phase timings {phase_ms}: "
-          f"train_step {phase_ms.get('train_step')} ms per step profiled (a sync per step) "
+          f"train.step {phase_ms.get('step')} host ms per step profiled (no sync) "
           f"against phase 6b's unprofiled {packed['ms_per_step']:.4f} ms on the fixed batch")
     if not jax_layout:
         fail("the checkpoint the resume read does not have the JAX optimizer-state layout")
@@ -2208,8 +2209,10 @@ def phase_reference_interop(setup: tuple, packed: dict) -> dict:
         fail("the resumed run's optimizer count does not continue from the saved one")
     if not losses or not np.all(np.isfinite(losses)):
         fail("the resumed run logged non-finite losses")
-    if set(phase_ms) != {"data", "train_step"}:
-        fail("the --profile run logged no Phase timings with data and train_step")
+    if not {"data", "step"} <= set(phase_ms) or not os.path.exists(
+            os.path.join(resumed, "trace.json")):
+        fail("the --profile run logged no Phase timings of train.data and train.step, "
+             "or wrote no trace.json")
 
     # (d) guess refinement
     rng = np.random.default_rng(2024)

@@ -26,6 +26,7 @@ The card's half (captured against eager, bucket alternation, a learning
 rate changed between replays) is in ``tests/test_torch_cuda.py``."""
 
 import json
+import re
 
 import numpy as np
 import jax
@@ -248,6 +249,7 @@ class EagerLoop:
                  mesh=None):
         self.ensemble, self.schedule, self.settings = ensemble, schedule, settings
         self.captures = 0
+        self.nan_rounds = 0     # the runner's counter, which the CLI logs
         self._traj = None
 
     def run(self, batch, pos_init, gen):
@@ -256,7 +258,9 @@ class EagerLoop:
                                self.settings, generator=gen)
         self._traj = res.traj
         pos = res.pos.cpu().numpy() * final_frame_scale(self.schedule, self.settings)
-        return pos, bool(res.nan_detected.item())
+        nan = bool(res.nan_detected.item())
+        self.nan_rounds += nan
+        return pos, nan
 
     def trajectory(self, tier):
         return self._traj
@@ -294,3 +298,12 @@ def test_sampling_cli_on_the_runner_equals_the_eager_loop(case, inputs, tmp_path
         assert np.isfinite(g["pos_gen"]).all()
         if case == "save_traj":
             assert g["pos_gen"].shape == (6, len(g["atom_type"]), 3)
+    # both walks count the rounds whose NaN flag was set: each batch's first
+    # attempt in the retry case, none otherwise
+    counted = []
+    for side in ("runner", "eager"):
+        with open(tmp_path / side / "log.txt") as f:
+            counted += [int(n) for n in re.findall(r"Walk rounds flagged NaN: (\d+)$", f.read(),
+                                                  re.M)]
+    assert len(counted) == 2 and counted[0] == counted[1]
+    assert counted[0] > 0 if case == "retry" else counted[0] == 0

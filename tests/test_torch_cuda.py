@@ -13,7 +13,9 @@ graph equals the eager round on the same seed bit for bit, through B1 in
 bfloat16 and B5, at tiers 4 and 32 (N=24) and for the dense ensemble; a
 second round of a (bucket, tier, respacing) records no graph; and a
 captured round launches the score kernel once per walk step, counted under
-torch.profiler (the wrappers' counters advance only when a graph is recorded).
+torch.profiler (the wrappers' counters advance only when a graph is recorded);
+a round traced by the benchmark's tracer shows the program's spans on the
+kernels' clock, and none of them as a kernel.
 The sampling CLI from two trained members written as reference ``.pt``
 files gives the samples it gives from their ``.ckpt`` files, bit for bit.
 The train step replayed from its CUDA graph (``train/captured.py``, B3's
@@ -845,6 +847,47 @@ def test_captured_dense_ensemble_round_equals_eager(services):
     assert not nan and np.isfinite(pos).all()
     np.testing.assert_array_equal(pos, ref)
     assert captured._graphs_captured == 1
+
+
+@pytest.mark.cuda
+def test_captured_round_traced_on_one_clock(services):
+    """Under the benchmark's tracer a round that records its graph (the
+    recording runs while the profiler records) and one that replays it:
+    the rounds equal the eager ones bit for bit, the program's spans are no
+    kernels, ``walk.record`` appears in the first round alone, and each
+    round's ``walk.readback``, which waits for the card, ends after the
+    round's last kernel: spans and kernels lie on one clock."""
+    import sys
+
+    from torch.autograd import DeviceType
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from portbench.trace import Tracer
+
+    captured, eager = services(None, True), services(None, False)
+    tracer = Tracer()
+    tracer.start()
+    rounds = [served_round(captured, 16, seed) for seed in (7, 8)]
+    tracer.stop()
+    for (pos, nan), seed in zip(rounds, (7, 8)):
+        ref, _ = served_round(eager, 16, seed)
+        assert not nan
+        np.testing.assert_array_equal(pos, ref)
+    kernels = tracer.summary()["kernels"]
+    assert kernels and not [k for k in kernels if k[0].startswith("tsdiff.")]
+    spans = [(ev.name, ev.time_range.start, ev.time_range.end) for ev in tracer.prof.events()
+             if ev.device_type == DeviceType.CPU and ev.name.startswith("tsdiff.walk.")]
+    walks = [sp for sp in spans if sp[0] == "tsdiff.walk.round"]
+    assert len(walks) == 2
+    for k, (_, r0, r1) in enumerate(walks):
+        inside = [n for n, s, e in spans if r0 <= s and e <= r1]
+        assert ("tsdiff.walk.record" in inside) == (k == 0), inside
+        (_, _, back), = [sp for sp in spans if sp[0] == "tsdiff.walk.readback"
+                         and r0 <= sp[1] <= r1]
+        last = max(e for _, s, e in kernels if r0 <= s <= r1)
+        print(f"round {k}: readback ends {back - last:.1f} us after the round's last kernel; "
+              f"spans {inside}")
+        assert last <= back
 
 
 def write_reference_pt(path: str, ck: dict) -> None:

@@ -379,7 +379,10 @@ def test_http_front_end(ckpts):
     assert code == 404
     health = wait_healthy(port)
     assert health["served"] >= 1
-    assert set(health) == {"ok", "served", "pending", "timed_out", "cancelled", "rejected"}
+    # the JAX service's keys, and the rounds flagged NaN
+    assert set(health) == {"ok", "served", "pending", "timed_out", "cancelled", "rejected",
+                           "nan_rounds"}
+    assert health["nan_rounds"] == 0
 
 
 @pytest.mark.parametrize("flags,match", [

@@ -4,8 +4,10 @@ checkpoint directories.
 ``--pretrain`` takes any file ``load_checkpoint`` reads: a ``.ckpt`` and a
 reference ``.pt`` of the same weights give the same run, bit for bit; the
 run starts from those weights with a fresh optimizer state, as the JAX
-CLI's does.  ``--profile`` logs the phase timings at the end."""
+CLI's does.  ``--profile`` traces a stretch of iterations: ``trace.json`` and
+the spans' host ms in the log."""
 
+import json
 import os
 import pickle
 import re
@@ -67,16 +69,24 @@ def test_cli_pretrain_ckpt_and_pt_give_the_same_first_step(tmp_path):
 
 @pytest.mark.parametrize("device_data", ["on", "off"])
 def test_cli_profile_logs_phase_timings(tmp_path, device_data):
+    """``--profile`` traces the iterations after the first (here 2 and 3):
+    ``trace.json`` in the run directory, and a line per ``tsdiff.train.*``
+    span with its host ms from the profiler's events."""
     cfg = tiny_config(str(tmp_path), max_iters=3)
     run = train_cli.main([cfg, "--logdir", str(tmp_path / "logs"), "--device", "cpu",
                           "--profile", "--device_data", device_data])
     with open(os.path.join(run, "log.txt")) as f:
         log = f.read()
     timings = log[log.index("Phase timings:"):]
-    for phase in ("data", "train_step"):
-        m = re.search(rf"^\s*{phase}: +(\S+)s total, +(\S+)ms avg \((\d+)x\)$", timings, re.M)
+    assert re.match(r"Phase timings: iterations 00002-00003 under torch.profiler", timings)
+    for phase in ("tsdiff.train.data", "tsdiff.train.step"):
+        m = re.search(rf"^\s*{re.escape(phase)}: +(\S+) ms total, +(\S+) ms a call \((\d+)x\)$",
+                      timings, re.M)
         assert m is not None, phase
-        assert int(m.group(3)) == 3 and float(m.group(1)) >= 0
+        assert int(m.group(3)) == 2 and float(m.group(1)) >= float(m.group(2)) > 0
+    with open(os.path.join(run, "trace.json")) as f:
+        names = {ev.get("name") for ev in json.load(f)["traceEvents"]}
+    assert {"tsdiff.train.data", "tsdiff.train.step"} <= names
 
 
 def test_orbax_directory_is_refused_naming_its_roadmap_item(tmp_path):
@@ -102,15 +112,13 @@ def test_orbax_directory_is_refused_naming_its_roadmap_item(tmp_path):
 
 
 def test_profiling_utilities_on_the_cpu(tmp_path):
-    from tsdiff_tpu_torch.utils.profiling import PhaseTimer, device_trace, timed_blocked
+    from tsdiff_tpu_torch.utils.profiling import device_trace, span, span_totals
 
-    timer = PhaseTimer()
-    for _ in range(2):
-        with timer.phase("matmul", sync_value={"out": [torch.ones(2)]}):
-            torch.ones(8, 8) @ torch.ones(8, 8)
-    assert timer.counts["matmul"] == 2 and "matmul" in timer.summary()
-    seconds, out = timed_blocked(torch.add, torch.ones(3), 1)
-    assert seconds >= 0 and torch.equal(out, torch.full((3,), 2.0))
-    with device_trace(str(tmp_path / "trace")):
-        torch.ones(16, 16).sum()
+    assert span("train.step") is span("walk.round", tier=4)     # no profiler: one null context
+    with device_trace(str(tmp_path / "trace")) as prof:
+        for _ in range(2):
+            with span("train.step", bucket=8):
+                torch.ones(8, 8) @ torch.ones(8, 8)
     assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+    (name, (seconds, calls)), = span_totals(prof, "train.").items()
+    assert name == "tsdiff.train.step" and calls == 2 and seconds > 0

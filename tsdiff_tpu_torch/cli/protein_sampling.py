@@ -199,6 +199,7 @@ def main(argv=None, capture: bool = True) -> str:
         logger.info("CUDA graphs recorded: %d, one per (nodes, clip, batch rows): %s" % (
             sum(r.captures for r in runners.values()),
             ", ".join(f"{k} {sorted(r.rounds())}" for k, r in runners.items() if r.captures)))
+    logger.info("Walk rounds flagged NaN: %d" % sum(r.nan_rounds for r in runners.values()))
     out = os.path.join(args.save_dir, "proteins_gen.pkl")
     if is_coord:
         with open(out, "wb") as f:

@@ -371,6 +371,7 @@ def main(argv=None, capture: bool = True) -> str:
         logger.info("CUDA graphs recorded: %d, one per (bucket, tier, clip): %s" % (
             sum(r.captures for r in runners.values()),
             ", ".join(str(k) for k, r in runners.items() if r.captures)))
+    logger.info("Walk rounds flagged NaN: %d" % sum(r.nan_rounds for r in runners.values()))
     save_path = os.path.join(args.save_dir, "samples_all.pkl")
     if is_coord:
         partial = os.path.join(args.save_dir, "samples_not_all.pkl")

@@ -36,10 +36,17 @@ The flags and defaults are the JAX package's CLI's:
 * ``--pretrain CKPT`` warm-starts the parameters and the EMA from any file
   ``load_checkpoint`` reads (a ``.ckpt``, or a reference ``.pt``), keeping
   the fresh optimizer state;
-* ``--profile`` times the ``data`` phase (the next batch, streamed or
-  gathered on the device) and the ``train_step`` phase up to a read of the
-  step's loss, so each step waits for the card, and logs ``Phase timings:``
-  at the end.
+* ``--profile`` runs the 100 iterations after the run's first (2-101 of a
+  fresh run; fewer where ``max_iters`` ends the run sooner) under
+  torch.profiler, the loop otherwise as it runs without the flag (no read
+  of the loss, no synchronisation), writes ``trace.json`` into the run
+  directory (the program's spans and the kernels on one timeline,
+  ``utils/profiling.py``) and logs ``Phase timings:`` at the end: each
+  ``tsdiff.train.*`` span's host ms in total and a call, and its calls, from
+  the profiler's events.  The spans: ``train.data`` (the next batch,
+  streamed or gathered on the device), ``train.step`` (the step's call),
+  and inside it on the card ``train.record`` (a key's first call) or
+  ``train.copy_in``, ``train.replay`` and ``train.copy_out``.
 
 Data parallelism: one process (rank) per GPU, as the JAX CLI runs one
 process over its devices.  ``dp`` is the largest divisor of the batch size
@@ -88,6 +95,11 @@ import time
 
 import torch
 
+from tsdiff_tpu_torch.utils.profiling import device_trace, span, span_totals
+
+#: ``--profile`` traces this many iterations after the first
+PROFILE_ITERS = 100
+
 #: ``--device_data auto`` keeps the corpus on the device up to this many bytes
 DEVICE_DATA_BUDGET = int(4e9)
 
@@ -113,7 +125,9 @@ def parse_args(argv=None):
     parser.add_argument("--pretrain", type=str, default="",
                         help="warm-start params and EMA from a checkpoint (.ckpt or reference .pt)")
     parser.add_argument("--profile", action="store_true",
-                        help="log per-phase timings (data, train_step), the device synced per step")
+                        help="trace the 100 iterations after the first under torch.profiler: "
+                             "trace.json in the run directory, host ms per tsdiff.train.* "
+                             "span in the log")
     parser.add_argument("--multihost", action="store_true", default=False,
                         help="multi-process data parallelism, one rank per GPU; pass "
                              "--coordinator/--nprocs/--procid, or omit all three under torchrun")
@@ -154,6 +168,10 @@ class ResidentLoop:
         the step advances ``cursor``.  A new epoch's plans are copied in
         before its first step is queued, behind the last step that reads the
         old ones."""
+        with span("train.data"):
+            return self._next()
+
+    def _next(self) -> tuple:
         if self.pos == len(self.schedule):
             self.epoch, self.pos = self.epoch + 1, 0
             for b, plan in self.plans.items():
@@ -280,7 +298,6 @@ def _train(args, capture: bool) -> str:
         seed_all,
     )
     from tsdiff_tpu_torch.utils.compile_cache import maybe_enable_compile_cache
-    from tsdiff_tpu_torch.utils.profiling import PhaseTimer
 
     device = resolve_device(args.device)
     if args.multihost or multihost.launched_by_torchrun():
@@ -499,23 +516,18 @@ def _train(args, capture: bool) -> str:
     def train_once(gen) -> tuple[dict, int]:
         """One training step: ``(metrics, real graphs)``."""
         if loop is None:
-            with phase("data"):
+            with span("train.data"):
                 batch, indices = next(train_iter)
             bucket, real = batch.pos.shape[1], int((indices >= 0).sum())
-            with phase("train_step"):
+            with span("train.step"):
                 metrics = run(("train", bucket),
                               lambda b, t, noise: train_step(state, b, lr, t=t, noise=noise)[1],
                               batch, *draws(gen, bucket))
-                if timer is not None:
-                    float(metrics["loss"])  # --profile: the step waits for the card
             return metrics, real
-        with phase("data"):
-            bucket, arrays, plan, cursor, real = loop.next()
-        with phase("train_step"):
+        bucket, arrays, plan, cursor, real = loop.next()
+        with span("train.step"):
             metrics = run(("train", bucket), lambda t, noise: res_train_step(
                 state, arrays, plan, cursor, lr, t=t, noise=noise)[1], *draws(gen, bucket))
-            if timer is not None:
-                float(metrics["loss"])
         return metrics, real
 
     gen = torch.Generator(device=device).manual_seed(config.train.seed + 1)
@@ -527,14 +539,14 @@ def _train(args, capture: bool) -> str:
     # warm-up), validation and checkpoints included; padding graphs not counted
     t_first = None
     n_graphs = 0
-    timer = PhaseTimer() if args.profile else None
-
-    def phase(name: str):
-        return timer.phase(name) if timer is not None else contextlib.nullcontext()
-
+    # --profile: the stretch of iterations under torch.profiler
+    traced = contextlib.ExitStack()
+    prof = None
     writes_before = len(orbax_io.default_writer().finished)
     try:
         for it in range(start_iter, config.train.max_iters + 1):
+            if args.profile and it == start_iter + 1:
+                prof = traced.enter_context(device_trace(log_dir))
             try:
                 metrics, real = train_once(gen)
             except FloatingPointError as e:  # --debug_nans
@@ -580,7 +592,10 @@ def _train(args, capture: bool) -> str:
                         logger.info(f"Saved checkpoint at iter {it} (val {avg_val_loss:.6f}) "
                                     f"[{args.ckpt_backend}, the loop held "
                                     f"{(time.monotonic() - t_save) * 1e3:.3f} ms]")
+            if it == start_iter + PROFILE_ITERS:
+                traced.close()
     finally:
+        traced.close()
         if loop is None:
             train_iter.close()  # ends the prefetcher's worker
         if args.ckpt_backend == "orbax":
@@ -599,8 +614,14 @@ def _train(args, capture: bool) -> str:
         seconds = time.monotonic() - t_first
         logger.info("[Train] Throughput | Iters %05d-%05d | %d graphs in %.3f s | %.1f graphs/s" % (
             start_iter + 1, config.train.max_iters, n_graphs, seconds, n_graphs / seconds))
-    if timer is not None:
-        logger.info("Phase timings:\n%s", timer.summary())
+    if prof is not None:
+        totals = span_totals(prof, "train.")
+        logger.info("Phase timings: iterations %05d-%05d under torch.profiler, %s\n%s" % (
+            start_iter + 1, min(start_iter + PROFILE_ITERS, config.train.max_iters),
+            os.path.join(log_dir, "trace.json"), "\n".join(
+                "%24s: %10.3f ms total, %8.3f ms a call (%dx)" % (
+                    name, 1e3 * sec, 1e3 * sec / n, n)
+                for name, (sec, n) in sorted(totals.items(), key=lambda kv: -kv[1][0]))))
     return log_dir
 
 

@@ -25,6 +25,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from tsdiff_tpu_torch.utils.profiling import span
+
 
 @dataclasses.dataclass(frozen=True)
 class ReactionBatch:
@@ -55,6 +57,15 @@ def from_numpy_graphs(
     tail), the batch does too, False on padding
     (``tsdiff_tpu/core/graph.py:89-96``).
     """
+    with span("pack.host"):
+        arrays = _pack_host(graphs, max_nodes)
+    with span("pack.copy"):
+        return ReactionBatch(**{k: torch.from_numpy(v).to(device) for k, v in arrays.items()})
+
+
+def _pack_host(graphs: list[dict], max_nodes: int | None) -> dict[str, np.ndarray]:
+    """The batch's arrays on the host: the C++ packer for sparse edges,
+    ``pack_numpy`` for a dense ``bond_mat``."""
     n_max = max_nodes or max(int(g["atom_type"].shape[0]) for g in graphs)
     for g in graphs:
         n = int(g["atom_type"].shape[0])
@@ -78,7 +89,7 @@ def from_numpy_graphs(
             m = np.asarray(g["is_sidechain"], bool)
             sc[b, : len(m)] = m
         arrays["is_sidechain"] = sc
-    return ReactionBatch(**{k: torch.from_numpy(v).to(device) for k, v in arrays.items()})
+    return arrays
 
 
 def pack_numpy(graphs: list[dict], n_max: int) -> dict[str, np.ndarray]:

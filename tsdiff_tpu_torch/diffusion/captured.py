@@ -43,6 +43,14 @@ rank to the clip-20 retry, and the final positions are gathered onto every
 rank (``replicate_output``).  A step's collective (the member sum over
 ``ens``) is captured in the graph on NCCL; Gloo's collectives cannot be
 captured, so on a Gloo mesh the caller walks eagerly (``capture=False``).
+
+While ``torch.profiler`` records, a round is one ``walk.round`` span
+(``utils/profiling.py``; ids ``bucket``, ``tier``, ``clip``, ``round``)
+holding, in order, ``walk.prepare`` (the statics), ``walk.start`` (start,
+mask, noise, reset), ``walk.record`` (a tier's first captured round: the
+warm-up step and the capture), ``walk.replay`` (the ``n_walk`` steps) and
+``walk.readback`` (the scale, the copy to the host, the NaN flag's read).
+One span a round, never one a step.
 """
 
 from __future__ import annotations
@@ -55,6 +63,7 @@ import torch.distributed as dist
 
 from tsdiff_tpu_torch.diffusion.sampler import DiffusionWalk, SamplingSettings, at_counter
 from tsdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
+from tsdiff_tpu_torch.utils.profiling import span
 
 
 def can_capture(device, mesh=None) -> bool:
@@ -131,6 +140,9 @@ class WalkRunner:
         self._tiers: dict[int, _TierBuffers] = {}
         #: CUDA graphs recorded, one per tier at most
         self.captures = 0
+        #: rounds whose NaN flag was set: what sends the sampling CLIs and the
+        #: service to their clip-20 retry
+        self.nan_rounds = 0
 
     def rounds(self) -> dict[int, int]:
         """Rounds walked so far, by tier."""
@@ -216,53 +228,66 @@ class WalkRunner:
         noise_shape = (self.n_walk, *pos_init.shape)
         if isinstance(noise, torch.Tensor) and noise.shape != noise_shape:
             raise ValueError(f"noise must be {noise_shape}, got {tuple(noise.shape)}")
-        rows = self._rows(tier)
-        statics = self.ensemble.prepare(batch)
-        buf = self._tiers.get(tier)
-        if buf is None:
-            dev = pos_init.device
-            if self._tables is None:
-                self._tables = self.walk.tables(dev)
-            local = pos_init if rows is None else pos_init[rows]
-            local_noise = (self.n_walk, *local.shape)
-            buf = _TierBuffers(
-                statics=statics, step_fn=self.ensemble.step_fn(statics),
-                pos=torch.empty_like(local), noise=local.new_empty(local_noise),
-                counter=torch.zeros((), dtype=torch.int64, device=dev),
-                nan_flag=torch.zeros((), dtype=torch.bool, device=dev),
-                traj=local.new_zeros(local_noise) if self.settings.save_traj else None,
-            )
-            self._tiers[tier] = buf
-        else:
-            copy_into(buf.statics, statics)
-        mask = buf.statics.node_mask[..., None].to(pos_init.dtype)
-        gen = None if isinstance(noise, torch.Tensor) else noise
-        start = self.walk.start(pos_init, generator=gen)
-        if rows is not None:
-            start = start[rows]
-        start = start * mask
-        pin = _pin(buf.statics)
-        if pin:
-            start = torch.where(pin["sc3"], start, pin["pos_gt"])
-        if gen is None:
-            buf.noise.copy_(noise if rows is None else noise[:, rows])
-        else:
-            self._draw_noise(buf, gen, pos_init.shape, rows)
-        self._reset(buf, start)
-        if self.capture:
-            if buf.graph is None:
-                self._record(buf, start)
-            for _ in range(self.n_walk):
-                buf.graph.replay()
-        else:
-            for _ in range(self.n_walk):
-                self._step(buf)
-        buf.rounds += 1
-        pos = buf.pos * self.scale
-        if self.mesh is None:
-            return pos.cpu().numpy(), bool(buf.nan_flag.item())
-        from tsdiff_tpu_torch.parallel.multihost import replicate_output
+        with span("walk.round", bucket=pos_init.shape[1], tier=tier, clip=self.settings.clip,
+                  round=sum(self.rounds().values())):
+            pos, nan = self._round(batch, pos_init, noise)
+        self.nan_rounds += nan
+        return pos, nan
 
-        flag = buf.nan_flag.to(torch.int32)
-        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
-        return replicate_output(pos, self.mesh).cpu().numpy(), bool(flag.item())
+    def _round(self, batch, pos_init: torch.Tensor, noise) -> tuple[np.ndarray, bool]:
+        tier = pos_init.shape[0]
+        rows = self._rows(tier)
+        with span("walk.prepare"):
+            statics = self.ensemble.prepare(batch)
+            buf = self._tiers.get(tier)
+            if buf is None:
+                dev = pos_init.device
+                if self._tables is None:
+                    self._tables = self.walk.tables(dev)
+                local = pos_init if rows is None else pos_init[rows]
+                local_noise = (self.n_walk, *local.shape)
+                buf = _TierBuffers(
+                    statics=statics, step_fn=self.ensemble.step_fn(statics),
+                    pos=torch.empty_like(local), noise=local.new_empty(local_noise),
+                    counter=torch.zeros((), dtype=torch.int64, device=dev),
+                    nan_flag=torch.zeros((), dtype=torch.bool, device=dev),
+                    traj=local.new_zeros(local_noise) if self.settings.save_traj else None,
+                )
+                self._tiers[tier] = buf
+            else:
+                copy_into(buf.statics, statics)
+        with span("walk.start"):
+            mask = buf.statics.node_mask[..., None].to(pos_init.dtype)
+            gen = None if isinstance(noise, torch.Tensor) else noise
+            start = self.walk.start(pos_init, generator=gen)
+            if rows is not None:
+                start = start[rows]
+            start = start * mask
+            pin = _pin(buf.statics)
+            if pin:
+                start = torch.where(pin["sc3"], start, pin["pos_gt"])
+            if gen is None:
+                buf.noise.copy_(noise if rows is None else noise[:, rows])
+            else:
+                self._draw_noise(buf, gen, pos_init.shape, rows)
+            self._reset(buf, start)
+        if self.capture and buf.graph is None:
+            with span("walk.record"):
+                self._record(buf, start)
+        with span("walk.replay"):
+            if self.capture:
+                for _ in range(self.n_walk):
+                    buf.graph.replay()
+            else:
+                for _ in range(self.n_walk):
+                    self._step(buf)
+        buf.rounds += 1
+        with span("walk.readback"):
+            pos = buf.pos * self.scale
+            if self.mesh is None:
+                return pos.cpu().numpy(), bool(buf.nan_flag.item())
+            from tsdiff_tpu_torch.parallel.multihost import replicate_output
+
+            flag = buf.nan_flag.to(torch.int32)
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+            return replicate_output(pos, self.mesh).cpu().numpy(), bool(flag.item())

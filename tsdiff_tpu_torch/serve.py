@@ -14,7 +14,8 @@ requests in fixed-shape batches:
   * ``python -m tsdiff_tpu_torch.serve CKPT... --port 8000`` — a minimal
     stdlib HTTP front end: ``POST /generate`` with JSON graphs returns
     generated coordinates; ``GET /healthz`` liveness.  The routes, JSON keys
-    and status codes are those of ``python -m tsdiff_tpu.serve``.
+    and status codes are those of ``python -m tsdiff_tpu.serve``; ``/healthz``
+    adds ``nan_rounds``, the rounds whose NaN flag was set.
 
 Graphs use the standard dict layout (data/dataset.py): ``atom_type (n,)``,
 ``r_feat``/``p_feat`` ``(n, F)``, ``edge_index (2, E)`` + ``edge_type (E,)``
@@ -610,6 +611,7 @@ def make_http_server(service: SamplerService, host: str, port: int):
                     "timed_out": service._timed_out,
                     "cancelled": service._cancelled,
                     "rejected": service._rejected,
+                    "nan_rounds": sum(r.nan_rounds for r in list(service._runners.values())),
                 })
             else:
                 self._json(404, {"error": "not found"})

@@ -35,6 +35,10 @@ twin for the sampling step.
 * Wrapper counters (``.launches`` and the like) advance at the eager call
   and at recording, never on replay: a replay's kernels show under
   torch.profiler.
+* While ``torch.profiler`` records, a call is one span of the step's part
+  (``utils/profiling.py``): ``train.record`` (a key's first call, the eager
+  step and the capture), or ``train.copy_in``, ``train.replay`` and
+  ``train.copy_out`` (the output clones).
 * On a data-parallel mesh (NCCL) the step's all-reduces (the loss's sums,
   the gradients) are recorded with it; their communicators exist before,
   made by ``parallel.sharding.Mesh``'s eager warm-up collective and by the
@@ -51,6 +55,7 @@ import torch
 
 from tsdiff_tpu_torch.diffusion.captured import copy_into
 from tsdiff_tpu_torch.utils.misc import map_tree
+from tsdiff_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -82,10 +87,19 @@ class StepGraphs:
     def __call__(self, key, fn, *inputs):
         g = self._graphs.get(key)
         if g is not None:
-            copy_into(g.inputs, inputs)
-            g.graph.replay()
+            with span("train.copy_in"):
+                copy_into(g.inputs, inputs)
+            with span("train.replay"):
+                g.graph.replay()
             self.replays[key] += 1
-            return map_tree(torch.clone, g.outputs)
+            with span("train.copy_out"):
+                return map_tree(torch.clone, g.outputs)
+        with span("train.record"):
+            return self._record(key, fn, inputs)
+
+    def _record(self, key, fn, inputs):
+        """A key's first call: the step eagerly on a side stream, then its
+        graph recorded; returns the eager step's outputs."""
         buffers = map_tree(torch.clone, inputs)
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(device=self.device)

@@ -1,68 +1,36 @@
-"""Tracing and profiling utilities: phase timers that wait for the device,
-and a torch.profiler trace context.
+"""Tracing of the port: program spans on the profiler's clock, and a
+torch.profiler trace context.
 
-A CUDA launch returns before the card finishes, so a phase that ends in
-device work is timed up to a ``torch.cuda.synchronize`` of the device its
-result lies on (``_force_sync``; nothing to wait for on the CPU).
+``span(name, **ids)`` marks a stretch of host work at a layer's boundary
+(the packer, the captured walk, the train step).  With no profiler
+recording it costs one check of a flag and returns a shared null context:
+no string is formatted and nothing is allocated.  While ``torch.profiler``
+records, it opens ``record_function("tsdiff." + name, args)``, ``args``
+the ids as ``k=v`` pairs; the span then lies in the same profile as the
+kernels, on its one clock, is kept in memory and is written out with the
+trace.  A span never waits for the device: it marks host time, and a
+reader of the trace puts the device's idle gaps down to the spans the host
+was in (``portbench/gaps.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from collections import defaultdict
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_NULL = contextlib.nullcontext()
 
 
-class PhaseTimer:
-    """Accumulating wall-clock timers keyed by phase name."""
-
-    def __init__(self):
-        self.totals: dict[str, float] = defaultdict(float)
-        self.counts: dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def phase(self, name: str, sync_value=None):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if sync_value is not None:
-                _force_sync(sync_value)
-            dt = time.perf_counter() - t0
-            self.totals[name] += dt
-            self.counts[name] += 1
-
-    def summary(self) -> str:
-        lines = []
-        for name in sorted(self.totals, key=self.totals.get, reverse=True):
-            n = self.counts[name]
-            tot = self.totals[name]
-            lines.append(f"{name:>24}: {tot:8.3f}s total, {tot / n * 1000:8.2f}ms avg ({n}x)")
-        return "\n".join(lines)
-
-
-def _first_tensor(value):
-    if isinstance(value, torch.Tensor):
-        return value
-    if isinstance(value, dict):
-        value = list(value.values())
-    if isinstance(value, (list, tuple)):
-        for v in value:
-            t = _first_tensor(v)
-            if t is not None:
-                return t
-    return None
-
-
-def _force_sync(value) -> None:
-    """Wait until the device of the first tensor in ``value`` (a tensor, or
-    a dict, list or tuple holding one) has finished its queued work."""
-    t = _first_tensor(value)
-    if t is not None and t.device.type == "cuda":
-        torch.cuda.synchronize(t.device)
+def span(name: str, **ids):
+    """``record_function("tsdiff." + name)`` while the profiler records,
+    else a shared null context."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NULL
+    args = ",".join(f"{k}={v}" for k, v in ids.items()) if ids else None
+    return torch.profiler.record_function("tsdiff." + name, args)
 
 
 @contextlib.contextmanager
@@ -80,9 +48,14 @@ def device_trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-def timed_blocked(fn, *args, **kwargs) -> tuple[float, object]:
-    """Run fn, wait for its output's device, return ``(seconds, output)``."""
-    t0 = time.perf_counter()
-    out = fn(*args, **kwargs)
-    _force_sync(out)
-    return time.perf_counter() - t0, out
+def span_totals(prof, prefix: str) -> dict[str, tuple[float, int]]:
+    """``{name: (host seconds, calls)}`` of the spans of ``prof`` (a
+    finished profile) whose names start with ``"tsdiff." + prefix``."""
+    from torch.autograd import DeviceType
+
+    out: dict[str, tuple[float, int]] = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CPU and ev.name.startswith("tsdiff." + prefix):
+            seconds, calls = out.get(ev.name, (0.0, 0))
+            out[ev.name] = (seconds + (ev.time_range.end - ev.time_range.start) / 1e6, calls + 1)
+    return out
