@@ -12,14 +12,18 @@ Phases (any failure exits non-zero):
    from the ``ptxas`` log; fails if the dense score's warp-specialised kernel,
    B3's ``wgmma`` forward (both builds: B3 and B4), B3 backward's ``wgmma``
    row kernel or its ``wgmma`` weight-gradient kernel spills, or if ptxas
-   serializes the ``wgmma`` of any stack kernel (C7512/C7520);
+   serializes the ``wgmma`` of any stack kernel or of B1's warp-specialised
+   kernel (C7512/C7520); prints the latter's spill stores;
 3. kernels against their plain PyTorch versions at the main paths' shapes:
    the tile product of the warp-specialised kernels alone against a matrix
    product; the packed score step (B1) with the 8 trained campaign members on
    100 synthetic reactions with a jittered geometry, N=24 in float32 (TF32
    off, the ``mma.sync`` kernel) and bfloat16 and N=16 in bfloat16 (the
    warp-specialised ``wgmma`` kernel: two launches bitwise equal, its own
-   launch counter, its L2 weight bytes per launch), and on the same inputs in
+   launch counter, its L2 weight bytes per launch), then the ``wgmma`` kernel
+   alone at N=8 (M=8, B=100), at a served tier (B=4) and at the mesh's M=4
+   (N=16, 24), each against the plain version, two launches bitwise equal and
+   counted, and on the same inputs in
    bfloat16 its int8 variant (B5: the same checks, and its tile product
    against an integer matrix product); the dense fused score step (B2) with
    seed106 on 100 reactions, N=24 in float32 (the ``mma.sync`` kernel) and
@@ -377,6 +381,7 @@ def phase_build() -> None:
           f"{time.monotonic() - t0:.1f} s, one nvcc each in parallel (" + ", ".join(
               f"{n} {_build.build_info[n]['seconds']:.1f} s" for n in SOURCES) + ")")
     spills, wg_dense_spills, wg_rows_spills, wg_xty_spills, wg_fwd_spills = 0, None, None, None, {}
+    wg_b1_spills = None
     for name in SOURCES:
         # ptxas -v: "Compiling entry function '<mangled>'", then its stack and
         # spill line, then "Used N registers, ..."
@@ -394,6 +399,8 @@ def phase_build() -> None:
                 spills += n_spill
                 if kernel == "condensed_score_wg_kernel":
                     wg_dense_spills = n_spill
+                if kernel == "packed_score_wg_kernel":
+                    wg_b1_spills = n_spill
                 if kernel == "schnet_bwd_rows_wg_kernel":
                     wg_rows_spills = n_spill
                 if kernel == "schnet_bwd_xty_wg_kernel":
@@ -405,7 +412,9 @@ def phase_build() -> None:
     print(f"[build] spill stores over all kernels: {spills} bytes; of the dense score's "
           f"warp-specialised kernel: {wg_dense_spills} bytes, of B3 backward's wgmma row kernel: "
           f"{wg_rows_spills} bytes, of its wgmma weight-gradient kernel: {wg_xty_spills} bytes, "
-          f"of the wgmma forward (B3, B4): {wg_fwd_spills} (all must be 0)")
+          f"of the wgmma forward (B3, B4): {wg_fwd_spills} (all must be 0); of B1's "
+          f"warp-specialised kernel: {wg_b1_spills} bytes (1,176 before its filter chain "
+          f"ran in registers)")
     if wg_dense_spills != 0:
         fail(f"condensed_score_wg_kernel spills {wg_dense_spills} bytes (or was not found)")
     if wg_rows_spills != 0:
@@ -424,6 +433,13 @@ def phase_build() -> None:
     if serialized:
         fail("ptxas serializes the wgmma of schnet_fwd_wg_kernel, schnet_bwd_rows_wg_kernel or "
              "schnet_bwd_xty_wg_kernel")
+    # B1's filter chain holds f2's 128 accumulators beside f1's
+    serialized = [line.strip() for line in _build.build_info["packed_score"]["log"].splitlines()
+                  if re.search(r"C75(12|20)", line) and "packed_score_wg_kernel" in line]
+    print(f"[build] packed_score: {len(serialized)} wgmma serialization lines (C7512/C7520) of "
+          f"packed_score_wg_kernel" + "".join(f"\n[build]   {line[:200]}" for line in serialized))
+    if serialized:
+        fail("ptxas serializes the wgmma of packed_score_wg_kernel")
 
 
 def load_member(seed: int, dtype, device, **model_overrides):
@@ -543,7 +559,8 @@ def phase_kernels() -> dict:
     prod = ps.tile_product_selftest(a, wt)
     torch.cuda.synchronize()
     want = a.float() @ wt.float().T
-    for i, name in enumerate(("A from shared memory", "A from registers")):
+    for i, name in enumerate(("A from shared memory", "A from registers",
+                              "full width from K-blocks")):
         err = (prod[i] - want).abs().max().item()
         print(f"[kernels] tile product, {name}: max abs err {err:.3g} of max|ref| "
               f"{want.abs().max().item():.4g} (tol 1e-4 of it)")
@@ -645,7 +662,49 @@ def phase_kernels() -> dict:
             del w8, args8, out8, ref8
         del members, z
         torch.cuda.empty_cache()
+    b1_shapes()
     return result
+
+
+def b1_shapes() -> None:
+    """B1's ``wgmma`` kernel alone at the other shapes its callers launch: N=8
+    at the campaign's M=8, B=100, a served tier (B=4) and the mesh's four
+    members a rank (M=4), on synthetic reactions with the campaign members'
+    weights: against the plain version, two launches bitwise equal and counted
+    by ``packed_score.wg_launches``."""
+    import torch
+
+    from tsdiff_tpu_torch.diffusion.ensemble import stack_params
+    from tsdiff_tpu_torch.ops import packed_score as ps
+
+    members = load_members(torch.bfloat16, torch.device("cuda"))
+    for n_bucket, M, B in ((8, 8, 100), (16, 8, 4), (24, 8, 4), (16, 4, 100), (24, 4, 100)):
+        batch, pos = kernel_batch(n_bucket, seed=4321 + 7 * n_bucket + B, count=B)
+        model = members[0]
+        pp = model.precompute_packed_pairs(batch.bond_mat, batch.node_mask)
+        info = model.build_packed_pair_info(pos, batch.node_mask, pp)
+        with torch.no_grad():
+            z = torch.stack([m.node_states(batch.atom_type, batch.r_feat, batch.p_feat,
+                                           batch.node_mask) for m in members[:M]]).contiguous()
+        w = stack_params([m.kernel_weights() for m in members[:M]])
+        args = (w, z, info.d_in.contiguous(), info.cmask.contiguous(),
+                pp.type_r_in, pp.type_p_in, pp.type_r_out, pp.type_p_out)
+        before = ps.packed_score.wg_launches
+        out = ps.packed_score(*args, num_blocks=model.num_convs)
+        again = ps.packed_score(*args, num_blocks=model.num_convs)
+        ref = ps.packed_score_reference(*args, num_blocks=model.num_convs)
+        torch.cuda.synchronize()
+        tag = f"packed_score N={n_bucket} M={M} B={B} bfloat16"
+        took = ps.packed_score.wg_launches - before
+        print(f"[kernels] {tag}: {took} of 2 launches took the warp-specialised kernel; two "
+              f"launches bitwise equal: {torch.equal(out, again)}")
+        if took != 2:
+            fail(f"{tag}: {took} launches of the warp-specialised kernel")
+        if not torch.equal(out, again):
+            fail(f"{tag}: two launches on the same inputs differ")
+        check_close(f"{tag} out", out, ref, "bfloat16")
+    del members
+    torch.cuda.empty_cache()
 
 
 def phase_dense_kernels() -> dict:

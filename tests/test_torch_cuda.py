@@ -97,7 +97,7 @@ def random_inputs(M, B, N, H, L, dtype, device, seed=0, V=100):
     )
     w = {k: w[k].to(device=device, dtype=dtype).contiguous() for k in ps.W_ORDER}
     if dtype == torch.bfloat16 and H == 256:
-        w = ps.with_wg_image(w)     # what the model's kernel_weights() adds
+        w = ps.with_wg_images(w)    # what the model's kernel_weights() adds
     z = torch.randn(M, B, N, H, generator=g).to(device=device, dtype=dtype)
     d = (0.8 + 4 * torch.rand(B, K, N, generator=g)).to(device)
     cmask = (torch.rand(B, K, N, generator=g) < 0.8).float()
@@ -111,16 +111,19 @@ def random_inputs(M, B, N, H, L, dtype, device, seed=0, V=100):
 def test_tile_product_selftest(cuda):
     """The warp-specialised kernels' tile product alone: 64 x 256 by the
     arranged 256 x 256 weight through the shared-memory ring, A from shared
-    memory and from registers, against a float32 matrix product (an oracle
-    here, never a call of the port).  bf16 products are exact in float32;
-    only the order of the 256-term float32 sums differs."""
+    memory and from registers, and full width from the weight's K-blocks in
+    the 64-byte swizzle (B1's filter chain), against a float32 matrix product
+    (an oracle here, never a call of the port).  bf16 products are exact in
+    float32; only the order of the 256-term float32 sums differs."""
     g = torch.Generator().manual_seed(3)
     a = torch.randn(64, 256, generator=g).to(cuda, torch.bfloat16)
     w = (torch.randn(256, 256, generator=g) / 16).to(cuda, torch.bfloat16)
     out = ps.tile_product_selftest(a, w)
     torch.cuda.synchronize()
     ref = a.float() @ w.float().T
-    for i, name in enumerate(("A from shared memory", "A from registers")):
+    assert out.shape == (3, 64, 256)
+    for i, name in enumerate(("A from shared memory", "A from registers",
+                              "full width from K-blocks")):
         err = (out[i] - ref).abs().max().item()
         print(f"tile product, {name}: max err {err:.3g} of {ref.abs().max().item():.3g}")
         assert err <= 1e-4 * ref.abs().max().item(), name
@@ -151,12 +154,14 @@ def test_kernel_matches_reference(cuda, dtype, N):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("N", [8, 16, 24])
-@pytest.mark.parametrize("M,B", [(1, 3), (2, 4), (1, 1)], ids=["M1-B3", "M2-B4", "M1-B1"])
+@pytest.mark.parametrize("M,B", [(1, 3), (2, 4), (1, 1), (8, 100), (8, 4), (4, 100)],
+                         ids=["M1-B3", "M2-B4", "M1-B1", "M8-B100", "M8-B4", "M4-B100"])
 def test_wg_kernel_shapes_zero_mask_and_repeat(cuda, M, B, N):
     """The warp-specialised bf16 kernel at one and two members, odd and even
-    graph counts, with a whole offset slab of ``cmask`` zero (those rows add
-    nothing to the aggregation): against the plain version, and two launches
-    bitwise equal (no atomics, fixed summation order)."""
+    graph counts, the campaign's M=8, B=100, a served tier (B=4) and the
+    mesh's four members a rank, with a whole offset slab of ``cmask`` zero
+    (those rows add nothing to the aggregation): against the plain version,
+    and two launches bitwise equal (no atomics, fixed summation order)."""
     H, L = 256, 3
     w, z, d, cmask, types = random_inputs(M, B, N, H, L, torch.bfloat16, cuda, seed=7 * N + B)
     cmask[:, N // 4] = 0.0
@@ -173,13 +178,15 @@ def test_wg_kernel_shapes_zero_mask_and_repeat(cuda, M, B, N):
 
 @pytest.mark.cuda
 def test_wg_kernel_needs_the_arranged_weights(cuda):
-    """Without ``weights[WG_IMAGE]`` the bf16 H=256 shape raises: it does not
-    give way to the mma.sync kernel or to the plain version."""
+    """Without ``weights[WG_IMAGE]`` or ``weights[WG_IMAGE_F2K]`` the bf16
+    H=256 shape raises: it does not give way to the mma.sync kernel or to the
+    plain version."""
     w, z, d, cmask, types = random_inputs(1, 2, 8, 256, 1, torch.bfloat16, cuda)
-    bare = {k: v for k, v in w.items() if k != ps.WG_IMAGE}
     calls, launches = ps.packed_score_reference.calls, ps.packed_score.launches
-    with pytest.raises(ValueError):
-        ps.packed_score(bare, z, d, cmask, *types, num_blocks=1)
+    for key in (ps.WG_IMAGE, ps.WG_IMAGE_F2K):
+        bare = {k: v for k, v in w.items() if k != key}
+        with pytest.raises(ValueError):
+            ps.packed_score(bare, z, d, cmask, *types, num_blocks=1)
     assert (ps.packed_score_reference.calls, ps.packed_score.launches) == (calls, launches)
 
 

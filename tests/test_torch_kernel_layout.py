@@ -6,6 +6,8 @@ plain version for CPU tensors whose dictionary carries the arranged entries.
 The address map is stated here a second time, element by element in numpy,
 independently of ``tile_image``'s reshapes: block of ``rows`` rows, atoms of
 128 bytes per row, the 16-byte unit ``u`` of row ``r`` at unit ``u ^ (r % 8)``.
+So is the K-block image of B1's filter chain (``kblock_image``): K-blocks of
+32 columns, rows of 64 bytes, the unit ``u`` of row ``r`` at ``u ^ ((r >> 1) % 4)``.
 """
 
 import math
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 from tsdiff_tpu_torch.core.packed import packed_index_arrays
+from tsdiff_tpu_torch.ops import condensed_score as cs
 from tsdiff_tpu_torch.ops import packed_score as ps
 from tsdiff_tpu_torch.ops import packed_score_int8 as p8
 
@@ -47,6 +50,59 @@ def test_tile_image_address_map_and_inverse(dtype, block_rows, rows):
     np.testing.assert_array_equal(img[1].float().numpy(), want)
     # a 128-byte row of an atom holds one row's K-atom, units permuted
     assert torch.equal(ps.tile_image_inverse(img, rows, K, block_rows), vals)
+
+
+def kblock_offset(n: int, k: int, rows: int) -> int:
+    """Element offset of (row n, column k) of a (rows, K) matrix in its K-block
+    image: K-block k // 32 of rows * 32 elements, row n at 32 n, the 8-element
+    unit u = (k % 32) // 8 at unit u ^ ((n >> 1) % 4) (the 64-byte swizzle)."""
+    block, kk = divmod(k, 32)
+    unit, e = divmod(kk, 8)
+    return block * rows * 32 + n * 32 + (unit ^ ((n >> 1) % 4)) * 8 + e
+
+
+@pytest.mark.parametrize("rows,K", [(256, 256), (64, 96)])
+def test_kblock_image_address_map_and_inverse(rows, K):
+    rng = np.random.default_rng(rows + K)
+    vals = torch.from_numpy(rng.integers(-100, 100, size=(2, rows, K)).astype(np.float32))
+    vals = vals.to(torch.bfloat16)
+    img = ps.kblock_image(vals)
+    assert img.shape == (2, rows * K) and img.dtype == torch.bfloat16 and img.is_contiguous()
+    want = np.empty((rows * K,), dtype=np.float32)
+    src = vals[1].float().numpy()
+    for n in range(rows):
+        for k in range(K):
+            want[kblock_offset(n, k, rows)] = src[n, k]
+    np.testing.assert_array_equal(img[1].float().numpy(), want)
+    assert torch.equal(ps.kblock_image_inverse(img, rows, K), vals)
+    # a K-block of a 256-row matrix is one 16 KB ring stage
+    assert 256 * 32 * 2 == ps.STAGE_BYTES
+    with pytest.raises(ValueError):
+        ps.kblock_image(vals[:, :, :48])
+    with pytest.raises(ValueError):
+        ps.kblock_image(vals.float())
+
+
+def test_f2_kblock_entry_layout_and_round_trip():
+    """``WG_IMAGE_F2K``: f2w's L layers one after another, each its 8 K-blocks
+    of 16 KB, where the producer looks (``f2k + l * H * H + c * 8192``); made
+    by ``with_wg_images`` beside the shared ``WG_IMAGE``, which stays as
+    ``with_wg_image`` makes it for B2 and B5."""
+    M, L, H = 2, 3, 256
+    w = random_weights(M, L)
+    both = ps.with_wg_images(w)
+    f2k = both[ps.WG_IMAGE_F2K]
+    assert f2k.shape == (M, L * H * H) and f2k.dtype == torch.bfloat16 and f2k.is_contiguous()
+    assert torch.equal(both[ps.WG_IMAGE], cs.with_wg_image(w)[ps.WG_IMAGE])
+    assert set(both) == set(w) | {ps.WG_IMAGE, ps.WG_IMAGE_F2K}
+    back = ps.kblock_image_inverse(f2k.reshape(M, L, H * H), H, H)
+    assert torch.equal(back, w["f2w"])
+    for l, n, k in ((0, 0, 0), (2, 255, 255), (1, 100, 77), (1, 3, 40)):
+        off = l * H * H + (k // 32) * (ps.STAGE_BYTES // 2) + kblock_offset(n, k % 32, H)
+        assert f2k[1, off] == w["f2w"][1, l, n, k], (l, n, k)
+    # one member's weights arrange to the same entry as its slice of the stack
+    one = {k: v[1] for k, v in w.items()}
+    assert torch.equal(ps.with_wg_images(one)[ps.WG_IMAGE_F2K], f2k[1])
 
 
 def test_tile_image_refuses_ragged_shapes():
@@ -122,6 +178,56 @@ def test_node_order_aggregation_equals_roll_sums(N):
         rolls = rolls + torch.roll(w[k - 1] * xh, k, dims=0).float()
         rolls = rolls + (w[k - 1] * torch.roll(xh, -k, dims=0)).float()
     torch.testing.assert_close(ps.aggregate_by_node(w, xh), rolls, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("N", [8, 16, 24])
+def test_schedule_interleaves_the_filter_chain(N):
+    """B1's schedule: the stages of ``stage_schedule`` over its tile pairs (the
+    same length, so the same L2 bytes), each tile pair's filter chain taken as
+    f1w(0), then f1w(c+1) and f2w's K-block c in turn, then K-block 7; every
+    other stage where ``stage_schedule`` has it."""
+    L, M, B = 7, 8, 100
+    sched, plain = ps.wg_schedule(N, L), cs.stage_schedule(ps.wg_tile_pairs(N), L)
+    assert len(sched) == len(plain) and sorted(sched) == sorted(plain)
+    assert ps.wg_l2_weight_bytes(M, B, N, L) == M * B * len(plain) * ps.STAGE_BYTES
+    assert [s for s in sched if s[0] not in ("f1w", "f2w")] == \
+        [s for s in plain if s[0] not in ("f1w", "f2w")]
+    chain = [("f1w", 0, 0)] + [s for c in range(8)
+                               for s in ([("f1w", 0, c + 1)] if c < 7 else []) + [("f2w", 0, c)]]
+    starts = [i for i, s in enumerate(sched) if s == ("f1w", 0, 0)]
+    assert len(starts) == ps.wg_tile_pairs(N)
+    for i in starts:
+        assert sched[i:i + 16] == chain
+    at = {s: i for i, s in enumerate(chain)}
+    for c in range(8):
+        assert at[("f1w", 0, c)] < at[("f2w", 0, c)]
+    for c in range(7):
+        assert at[("f1w", 0, c + 1)] < at[("f2w", 0, c)]
+    # every layer's chains too
+    for l in range(L):
+        i = sched.index(("f1w", l, 0))
+        assert sched[i:i + 16] == [(k, l, c) for k, _, c in chain]
+
+
+def test_stage_schedule_of_b2_and_b5_unchanged():
+    """B2's (``stage_schedule``) and B5's schedules keep f1w's eight stages
+    and then f2w's eight per tile pair: only B1 interleaves them."""
+    L = 2
+    sched = cs.stage_schedule(1, L)
+    edge_cat = ([("dw1", 0, c) for c in range(8)]
+                + [(k, 0, c) for c in range(8) for k in ("c0r", "c0p")]
+                + [("c1w", 0, c) for c in range(8)])
+    blocks = []
+    for l in range(L):
+        blocks += [("l1w", l, c) for c in range(8)] + [("f1w", l, c) for c in range(8)]
+        blocks += [("f2w", l, c) for c in range(8)]
+        blocks += [("l2w", l, c) for c in range(8)] + [("ow", l, c) for c in range(8)]
+    head = edge_cat + [(k, 0, c) for c in range(8) for k in ("g0h", "g0e")]
+    assert sched == edge_cat + blocks + head + [("g1w", 0, c) for c in range(4)]
+    assert cs.dense_schedule(24, 7) == cs.stage_schedule(cs.dense_tile_pairs(24), 7)
+    int8 = p8.wg_schedule_int8(24, L)
+    i = int8.index(("f1w", 0, 0))
+    assert int8[i:i + 8] == [("f1w", 0, c) for c in range(4)] + [("f2w", 0, c) for c in range(4)]
 
 
 @pytest.mark.parametrize("N,pairs", [(8, 1), (16, 1), (24, 3)])
@@ -225,13 +331,13 @@ def cpu_inputs(M, B, N, H, seed):
 
 def test_cpu_tensors_take_the_plain_version_with_arranged_entries():
     M, B, N, L = 1, 2, 8, 1
-    w = ps.with_wg_image(random_weights(M, L))
+    w = ps.with_wg_images(random_weights(M, L))
     z, d, cmask, types = cpu_inputs(M, B, N, 256, seed=1)
     calls, launches = ps.packed_score_reference.calls, ps.packed_score.launches
     out = ps.packed_score(w, z, d, cmask, *types, num_blocks=L)
     assert ps.packed_score_reference.calls == calls + 1
     assert (ps.packed_score.launches, ps.packed_score.wg_launches) == (launches, ps.packed_score.wg_launches)
-    bare = {k: v for k, v in w.items() if k != ps.WG_IMAGE}
+    bare = {k: v for k, v in w.items() if k not in (ps.WG_IMAGE, ps.WG_IMAGE_F2K)}
     # the same function of the same inputs; a CPU matrix product may split its
     # float32 sums differently from call to call, and a bf16 rounding then flips
     ref = ps.packed_score_reference(bare, z, d, cmask, *types, num_blocks=L)
@@ -257,7 +363,9 @@ def test_int8_cpu_tensors_take_the_plain_version_with_arranged_entries():
 
 def test_model_kernel_weights_carry_the_image_in_bf16_only():
     """``kernel_weights()`` of the production model (H=256) adds the arranged
-    entry in bfloat16, where a kernel takes it, and not in float32."""
+    entries in bfloat16, where a kernel takes them, and not in float32; B1's
+    own ``WG_IMAGE_F2K`` is in neither B2's (``fused_weights``) nor B5's
+    (``kernel_weights_int8``) dictionary, nor at H=128."""
     import os
 
     from tsdiff_tpu_torch.config import Config
@@ -269,10 +377,20 @@ def test_model_kernel_weights_carry_the_image_in_bf16_only():
     cfg = Config(ck["config"]["model"])
     w = CondenseEncoderEpsNetwork.from_config(cfg, dtype=torch.bfloat16).kernel_weights()
     assert torch.equal(w[ps.WG_IMAGE], ps.arrange_weights({k: w[k] for k in ps.IMAGE_ORDER}))
-    assert set(w) == set(ps.W_ORDER) | {ps.WG_IMAGE}
+    assert torch.equal(w[ps.WG_IMAGE_F2K], ps.arrange_f2_kblocks(w["f2w"]))
+    assert set(w) == set(ps.W_ORDER) | {ps.WG_IMAGE, ps.WG_IMAGE_F2K}
     model32 = CondenseEncoderEpsNetwork.from_config(cfg, dtype=torch.float32)
     assert set(model32.kernel_weights()) == set(ps.W_ORDER)
     w8 = CondenseEncoderEpsNetwork.from_config(cfg, dtype=torch.bfloat16).kernel_weights_int8()
     image8, image = p8.arrange_weights_int8(w8)
     assert torch.equal(w8[p8.WG_IMAGE8], image8) and torch.equal(w8[ps.WG_IMAGE], image)
     assert p8.WG_IMAGE8 not in model32.kernel_weights_int8()
+    assert ps.WG_IMAGE_F2K not in w8
+    fused = CondenseEncoderEpsNetwork.from_config(Config({**ck["config"]["model"],
+                                                          "fused_score": True}),
+                                                  dtype=torch.bfloat16).fused_weights()
+    assert ps.WG_IMAGE in fused and ps.WG_IMAGE_F2K not in fused
+    narrow = {**ck["config"]["model"], "hidden_dim": 128,
+              "encoder": {**ck["config"]["model"]["encoder"], "hidden_dim": 128}}
+    w128 = CondenseEncoderEpsNetwork.from_config(Config(narrow), dtype=torch.bfloat16).kernel_weights()
+    assert w128["f2w"].shape[-1] == 128 and set(w128) == set(ps.W_ORDER)

@@ -43,7 +43,8 @@
 //
 // packed_score_wg_kernel (bf16, H = 256, N <= 24; csrc/wg_pipeline.cuh):
 //   * warp-specialised, 384 threads: a producer warp walks a static schedule
-//     of (matrix, 32-column block) stages, the same for every CTA of a shape,
+//     of (matrix, 32-column block) stages (ops/packed_score.py::wg_schedule),
+//     the same for every CTA of a shape,
 //     and fills a shared-memory ring (3 stages of 16 KB at N=24, more at
 //     smaller N) with one bulk asynchronous copy per stage, completing on
 //     mbarriers; setmaxnreg moves its registers to the consumers.  The
@@ -57,13 +58,33 @@
 //     fragment while the next stage's products are in flight.  The
 //     activations use ex2/lg2/rcp: the accurate expf/log1pf/division cost
 //     40 % of the kernel (10.6 -> 7.4 ms), their error is below bf16's.
-//   * chains (ea -> f1 -> f2, . -> c0 -> c1, . -> g0 -> g1) alternate between
-//     two shared-memory tiles per warpgroup.  Chaining through registers (the
-//     accumulator fragment is the next product's A fragment, 64-column stages)
-//     was built first and is right, but needs both products' fragments and
-//     the accumulators at once: at 232 registers ptxas serialized every wgmma
-//     (C7512) and spilled, 11-12 ms.  What does not fit is then shared memory:
-//     four tiles leave 48 KB for the ring at N=24, hence 32-column stages.
+//   * the chains of edge_cat (. -> c0 -> c1) and the head (. -> g0 -> g1)
+//     alternate between two shared-memory tiles per warpgroup.  Chaining
+//     through registers (the accumulator fragment is the next product's A
+//     fragment, 64-column stages) was built first and is right, but needs
+//     both products' fragments and the accumulators at once: at 232 registers
+//     ptxas serialized every wgmma (C7512) and spilled, 11-12 ms.  What does not
+//     fit is then shared memory: four tiles leave 48 KB for the ring at N=24,
+//     hence 32-column stages.
+//   * the filter chain (ea -> f1 -> f2, L times per tile, 60 % of the flops)
+//     runs in registers (filter_chain): each 32-column stage of f1 is, after
+//     its epilogue, the A fragment of one 32-deep K-block of f2, which runs
+//     full width, two m64n256k16 a K-block with A from registers, from stages
+//     of f2w's K-blocks (256 rows of 64 bytes, the 64-byte swizzle;
+//     ops/packed_score.py::kblock_image, made once at load).  f2 was 128
+//     m64n32k16 a tile, each reading 2 KB of A and 1 KB of B from shared memory
+//     for 16 cycles of tensor work (192 B/cycle against the SM's 128), its
+//     results kept in local memory until the product ended; now 16 m64n256k16
+//     read 8 KB of B each for 128 cycles, s1 never leaves registers, and w
+//     goes to tile B once, from f2's whole 64 x 256 accumulator.  Live across
+//     the chain: f2's 128 accumulators, f1's 16, two sets of 8 fragment
+//     registers.  That fits only with more registers than the launch's 168:
+//     the consumers take 240 and the producer 24 (kRegsConsumerB1), and ptxas
+//     gives a setmaxnreg region its count only if no trap instruction is
+//     inline in the function: with the bounded waits' __trap() inline it held
+//     every region to 168, serialized the wgmma (C7512) and spilled 4.6 KB, at
+//     224, 232 or 240; with the trap called (WG_TRAP_OUTLINED) no C7512 and
+//     1,024 bytes of spill stores (1,176 before; 1,260 at 224, 1,144 at 232).
 //   * ea is stored as 64-row tile images by one bulk copy per tile and
 //     fetched into tile A by the producer one tile ahead (118 MB written and
 //     826 MB read per launch at the shapes above, more than L2 holds: about
@@ -74,13 +95,16 @@
 //   * node products (l1w, l2w, ow) run through the same ring on the N node
 //     rows of a 64-row wgmma, the warpgroups taking alternate stages.
 // Measured on an H100 at 700 W: 6.9 ms at N=24 (14.3 before), 3.5 at N=16
-// (6.9).  The profile (ops/wg_profile.py, -DWG_PROFILE) of one consumer lane:
-// epilogues 21 %, aggregation 14 %, wgmma dispatch 13 %, node products 12 %,
-// ring waits 4 %: the two warpgroups share one shallow ring, so they run in
-// step and nothing hides one's epilogue behind the other's products.  A deeper ring, or one per
+// (6.9); with the filter chain in registers 6.42 and 3.26 (6.90 and 3.50 in
+// the same call, random weights at M=8, B=100).  The profile (ops/wg_profile.py,
+// -DWG_PROFILE) of one consumer lane at N=24: epilogues 25 %, aggregation 16 %,
+// node products 15 %, wgmma dispatch 12 %, ring waits 5 %: the two warpgroups
+// share one shallow ring, so they run in step and nothing hides one's
+// epilogue behind the other's products.  A deeper ring, or one per
 // warpgroup, is the next lever; shared memory is what it costs.
 
 #include "graph_block.cuh"
+#define WG_TRAP_OUTLINED  // the filter chain needs setmaxnreg's registers (wg_pipeline.cuh)
 #include "wg_pipeline.cuh"
 
 namespace {
@@ -93,7 +117,7 @@ using tile::silu_f;
 using tile::ssp_f;
 using tile::to_f;
 
-constexpr int kNumPtrs = 36;
+constexpr int kNumPtrs = 37;
 
 template <typename T>
 struct Params {
@@ -310,7 +334,9 @@ using wgb::GraphSmem;
 using wgb::graph_layout;
 
 // Offsets of the matrices in a member's arranged weight image, in units of
-// kHH elements (ops/packed_score.py::arrange_weights writes this order).
+// kHH elements (ops/packed_score.py::arrange_weights writes this order).  The
+// image holds f2w at units 4 + L + l for B2; this kernel reads f2w from its
+// K-block image (f2k_all) instead.
 struct WImage {
   int L;
   __host__ __device__ int dw1() const { return 0; }
@@ -318,7 +344,6 @@ struct WImage {
   __host__ __device__ int c0p() const { return 2; }
   __host__ __device__ int c1w() const { return 3; }
   __host__ __device__ int f1w(int l) const { return 4 + l; }
-  __host__ __device__ int f2w(int l) const { return 4 + L + l; }
   __host__ __device__ int l1w(int l) const { return 4 + 2 * L + l; }
   __host__ __device__ int l2w(int l) const { return 4 + 3 * L + l; }
   __host__ __device__ int ow(int l) const { return 4 + 4 * L + l; }
@@ -328,8 +353,78 @@ struct WImage {
   __host__ __device__ size_t elems() const { return (size_t)(13 + 10 * L) * (kHH / 2); }
 };
 
+// The filter chain of one warpgroup's 64-row tile, the first product's output
+// kept in registers: per column block c of f1, the f1 stage (m64n32k16 over
+// K = 256, A the ea tile image at a_img) into acc1, epi1(c, acc1, a) leaving
+// its 32 columns as the A fragments of K-block c of f2 (k16 steps 2c, 2c+1),
+// and that K-block's two m64n256k16 into acc2, which holds f2's whole 64 x 256
+// output.  Ring stages in the order f1(0), f1(1), f2(0), f1(2), f2(1), ...,
+// f1(7), f2(6), f2(7) (ops/packed_score.py::wg_schedule).  Step c waits for
+// f2(c-1) and releases its stage, then issues f1(c+1) and f2(c), one commit
+// group each, and waits for all but the newest: f1(c+1) has ended, and f2(c)
+// (with the fragments of K-block c, hence two sets of them) is still on the
+// tensor core while epi1(c+1) runs.  A warpgroup holds at most two stages, so
+// the producer keeps one more in flight than with three.  acc2 is whole, and
+// fenced, on return.  An inactive warpgroup (no rows in this tile) only passes
+// the stages on.
+template <typename Epi>
+__device__ __forceinline__ void filter_chain(wg::Ring& ring, bool active, uint32_t a_img,
+                                             float (&acc2)[128], Epi epi1) {
+  if (!active) {
+    for (int i = 0; i < 2 * kStagesPerMat; ++i) {
+      ring.acquire();
+      ring.release();
+    }
+    return;
+  }
+  float acc1[16];
+  uint32_t a[2][8];
+  auto issue_f1 = [&]() {
+    uint32_t b;
+    WG_T(wg::kProfAcquire, b = ring.acquire());
+    WG_T(wg::kProfDispatch, wg::mma_stage_bf16(acc1, a_img, wg::kAtomBytes, b, true);
+         wg::wgmma_commit());
+  };
+  auto issue_f2 = [&](const uint32_t (&frag)[8], bool zero) {
+    uint32_t b;
+    WG_T(wg::kProfAcquire, b = ring.acquire());
+    WG_T(wg::kProfDispatch, wg::fence_acc128(acc2); wg::mma_kblock_bf16_n256(acc2, frag, b, zero);
+         wg::wgmma_commit(); wg::fence_acc128(acc2));
+  };
+  wg::wgmma_fence();
+  issue_f1();
+  WG_T(wg::kProfWait, wg::wgmma_wait<0>());
+  wg::fence_operand(acc1);
+  ring.release();
+  WG_T(wg::kProfEpilogue, epi1(0, acc1, a[0]));
+#pragma unroll
+  for (int c = 0; c < kStagesPerMat; ++c) {
+    if (c > 0) {
+      WG_T(wg::kProfWait, wg::wgmma_wait<0>());  // f2(c-1) has ended
+      wg::fence_acc128(acc2);
+      ring.release();
+    }
+    wg::wgmma_fence();
+    if (c + 1 < kStagesPerMat) issue_f1();
+    issue_f2(a[c & 1], c == 0);
+    if (c + 1 < kStagesPerMat) {
+      WG_T(wg::kProfWait, wg::wgmma_wait<1>());  // f1(c+1) has ended
+      wg::fence_operand(acc1);
+      ring.release();
+      WG_T(wg::kProfEpilogue, epi1(c + 1, acc1, a[(c + 1) & 1]));
+    }
+  }
+  WG_T(wg::kProfWait, wg::wgmma_wait<0>());
+  wg::fence_acc128(acc2);
+  ring.release();  // f2(7)
+}
+
+// setmaxnreg of the warp-specialised kernel's consumer and producer warpgroups
+constexpr int kRegsConsumerB1 = 240, kRegsProducerB1 = 24;
+
 __global__ void __launch_bounds__(wg::kThreads, 1)
-packed_score_wg_kernel(Params<bf16> p, const bf16* __restrict__ wimg_all) {
+packed_score_wg_kernel(Params<bf16> p, const bf16* __restrict__ wimg_all,
+                       const bf16* __restrict__ f2k_all) {
   extern __shared__ unsigned char smem_raw[];
   const int N = p.N, L = p.L, B = p.B;
   const int K = N / 2, R = K * N, ntiles = (R + 63) / 64, npairs = (ntiles + 1) / 2;
@@ -351,13 +446,14 @@ packed_score_wg_kernel(Params<bf16> p, const bf16* __restrict__ wimg_all) {
   const int warp_idx = __shfl_sync(0xffffffffu, tid >> 5, 0);
   const WImage wi = {L};
   const bf16* wimg = wimg_all + (size_t)m * wi.elems();
+  const bf16* f2k = f2k_all + (size_t)m * L * kHH;  // f2w's K-blocks, layer after layer
   bf16* ea_g = p.ea + (size_t)mb * ntiles * kTileElems;  // tile images, 32 KB each
 
   wgb::cta_setup(sm, base, lay, p.z + (size_t)mb * N * kH, N);
 
   if (warp_idx >= wg::kConsumers / 32) {
     // ===== producer: the static schedule of weight stages and ea tiles =====
-    wg::reg_dealloc<wg::kRegsProducer>();
+    wg::reg_dealloc<kRegsProducerB1>();
     if (tid == wg::kConsumers) {
       wg::Ring ring{full, empty, base + lay.ring, lay.stages};
       auto mat = [&](int unit) { return wimg + (size_t)unit * kHH; };
@@ -389,8 +485,14 @@ packed_score_wg_kernel(Params<bf16> p, const bf16* __restrict__ wimg_all) {
             wg::bulk_load(base + lay.tiles + 2 * w * wg::kTileBytes,
                           ea_g + (size_t)ti * kTileElems, wg::kTileBytes, afull + 8 * w);
           }
-          fill_mat(mat(wi.f1w(l)));
-          fill_mat(mat(wi.f2w(l)));
+          // the filter chain: f1(0), then f1(c+1) and f2's K-block c in turn
+          const bf16* f1 = mat(wi.f1w(l));
+          const bf16* f2 = f2k + (size_t)l * kHH;
+          ring.fill(f1);
+          for (int c = 0; c < kStagesPerMat; ++c) {
+            if (c + 1 < kStagesPerMat) ring.fill(f1 + (c + 1) * kStageElems);
+            ring.fill(f2 + c * kStageElems);
+          }
         }
         fill_mat(mat(wi.l2w(l)));
         fill_mat(mat(wi.ow(l)));
@@ -403,7 +505,7 @@ packed_score_wg_kernel(Params<bf16> p, const bf16* __restrict__ wimg_all) {
     }
   } else {
     // ===== consumers: one 64-row tile of each tile pair per warpgroup =====
-    wg::reg_alloc<wg::kRegsConsumer>();
+    wg::reg_alloc<kRegsConsumerB1>();
     WG_T_BEGIN(t_consumer);
     wg::Ring ring{full, empty, base + lay.ring, lay.stages};
     const int w = warp_idx >> 2, ct = tid & 127, lane = tid & 31;
@@ -568,43 +670,40 @@ packed_score_wg_kernel(Params<bf16> p, const bf16* __restrict__ wimg_all) {
           WG_T(wg::kProfTileWait, wg::mbar_wait(afull + 8 * w, afp));
           afp ^= 1;
         }
-        // f = ssp(rnd(ea f1w + f1b)), tile A into tile B
-        uint32_t hold[64];
-        wg::product_bf16<kStagesPerMat, false, false>(ring, active, tile_a, 0, wg::kAtomBytes, hold,
-                                               [&](int c, float (&acc)[16], uint32_t (&out)[8]) {
+        // s1 = rnd(ssp(rnd(ea f1w + f1b))) in registers, as f2's A fragments
+        float acc2[128];
+        filter_chain(ring, active, tile_a, acc2,
+                     [&](int c, float (&acc)[16], uint32_t (&frag)[8]) {
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            const int col = 32 * c + 8 * j + 2 * t;
-            const float2 bias = ld2(f1b, col);
+            const float2 bias = ld2(f1b, 32 * c + 8 * j + 2 * t);
+            // group j: k16 step j / 2 of the K-block, registers 2 (j % 2), 2 (j % 2) + 1
+            frag[4 * (j >> 1) + 2 * (j & 1)] = wg::pack_bf16(act_ssp(rb(acc[4 * j] + bias.x)),
+                                                             act_ssp(rb(acc[4 * j + 1] + bias.y)));
+            frag[4 * (j >> 1) + 2 * (j & 1) + 1] =
+                wg::pack_bf16(act_ssp(rb(acc[4 * j + 2] + bias.x)),
+                              act_ssp(rb(acc[4 * j + 3] + bias.y)));
+          }
+        });
+        // w = rnd(rnd(s1 f2w + f2b) * c) into tile B, which nothing else reads now
+        if (active) {
+          WG_T_BEGIN(t_epi);
+#pragma unroll
+          for (int j = 0; j < 32; ++j) {
+            const int col = 8 * j + 2 * t;
+            const float2 bias = ld2(f2b, col);
             st_shared32(sm, tb_off + wg::img_off<2>(r_lo, col),
-                        wg::pack_bf16(act_ssp(rb(acc[4 * j] + bias.x)),
-                                      act_ssp(rb(acc[4 * j + 1] + bias.y))));
+                        wg::pack_bf16(rb(acc2[4 * j] + bias.x) * c_lo,
+                                      rb(acc2[4 * j + 1] + bias.y) * c_lo));
             st_shared32(sm, tb_off + wg::img_off<2>(r_hi, col),
-                        wg::pack_bf16(act_ssp(rb(acc[4 * j + 2] + bias.x)),
-                                      act_ssp(rb(acc[4 * j + 3] + bias.y))));
+                        wg::pack_bf16(rb(acc2[4 * j + 2] + bias.x) * c_hi,
+                                      rb(acc2[4 * j + 3] + bias.y) * c_hi));
           }
-        });
-        if (active) {
-          publish();
-          if (elected) wg::mbar_arrive(aempty + 8 * w);  // tile A takes the next ea tile
+          WG_T_END(wg::kProfEpilogue, t_epi);
         }
-        // w = rnd(rnd(f f2w + f2b) * c), kept, then into tile B
-        wg::product_bf16<kStagesPerMat, false, true>(ring, active, tile_b, 0, wg::kAtomBytes, hold,
-                                               [&](int c, float (&acc)[16], uint32_t (&out)[8]) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float2 bias = ld2(f2b, 32 * c + 8 * j + 2 * t);
-            out[2 * j] = wg::pack_bf16(rb(acc[4 * j] + bias.x) * c_lo,
-                                                rb(acc[4 * j + 1] + bias.y) * c_lo);
-            out[2 * j + 1] = wg::pack_bf16(rb(acc[4 * j + 2] + bias.x) * c_hi,
-                                                    rb(acc[4 * j + 3] + bias.y) * c_hi);
-          }
-        });
-        if (active) {
-          wg::bar_sync(bar_wg, 128);
-          WG_T(wg::kProfStoreKept, store_hold(sm, tb_off, hold, r_lo, t));
-        }
-        wg::bar_sync(wgb::kBarConsumers, wg::kConsumers);  // both w tiles are written
+        // both w tiles are written, and every wgmma of the chain has read tile A
+        wg::bar_sync(wgb::kBarConsumers, wg::kConsumers);
+        if (active && elected) wg::mbar_arrive(aempty + 8 * w);  // tile A takes the next ea tile
         WG_T(wg::kProfAggregate, wgb::aggregate_pair(sm, lay, agg, tp, w, ct, N, R));
         wg::bar_sync(wgb::kBarConsumers, wg::kConsumers);  // the w tiles are read, agg is whole
       }
@@ -693,11 +792,13 @@ packed_score_wg_kernel(Params<bf16> p, const bf16* __restrict__ wimg_all) {
 
 // The tile product alone, for a test against a matrix product: out[0] = A W^T
 // with A from shared memory (warpgroup 0), out[1] the same with A from
-// registers (warpgroup 1); A (64, 256) row-major, wimg the arranged (256, 256)
-// weight, out (2, 64, 256) f32.  Eight stages through a ring of three.
+// registers (warpgroup 1), out[2] the same full width from W's K-blocks
+// (warpgroup 1, as B1's filter chain runs f2); A (64, 256) row-major, wimg the
+// arranged (256, 256) weight, kimg its K-block image, out (3, 64, 256) f32.
+// Eight stages of each image through a ring of three.
 __global__ void __launch_bounds__(wg::kThreads, 1)
 tile_product_selftest_kernel(const bf16* __restrict__ A, const bf16* __restrict__ wimg,
-                             float* __restrict__ out) {
+                             const bf16* __restrict__ kimg, float* __restrict__ out) {
   extern __shared__ unsigned char smem_raw[];
   constexpr int kRing = 3;
   const uint32_t raw = wg::smem_u32(smem_raw);
@@ -723,6 +824,7 @@ tile_product_selftest_kernel(const bf16* __restrict__ A, const bf16* __restrict_
     if (tid == wg::kConsumers) {
       wg::Ring ring{full, empty, base + ring_off, kRing};
       for (int c = 0; c < kStagesPerMat; ++c) ring.fill(wimg + c * kStageElems);
+      for (int c = 0; c < kStagesPerMat; ++c) ring.fill(kimg + c * kStageElems);
     }
   } else {
     wg::reg_alloc<wg::kRegsConsumer>();
@@ -744,6 +846,10 @@ tile_product_selftest_kernel(const bf16* __restrict__ A, const bf16* __restrict_
       uint32_t hold[64];
       wg::product_bf16<kStagesPerMat, false, false>(ring, true, base + tile_off, 0, wg::kAtomBytes, hold,
                                              [&](int c, float (&acc)[16], uint32_t (&)[8]) { epi(c, acc); });
+      for (int c = 0; c < kStagesPerMat; ++c) {  // the K-blocks are warpgroup 1's
+        ring.acquire();
+        ring.release();
+      }
     } else {
       // the A fragments as frag_put lays them out, from the rows in global memory
       uint32_t a[64];
@@ -767,6 +873,36 @@ tile_product_selftest_kernel(const bf16* __restrict__ A, const bf16* __restrict_
         wg::fence_operand(acc);
         ring.release();
         epi(c, acc);
+      }
+      // the K-blocks: K-block c takes the fragments of stage c, made afresh
+      float acc2[128];
+#pragma unroll
+      for (int c = 0; c < kStagesPerMat; ++c) {
+        uint32_t frag[8];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = 32 * c + 8 * j + 2 * t;
+          frag[4 * (j >> 1) + 2 * (j & 1)] =
+              __ldg(reinterpret_cast<const unsigned int*>(A + r_lo * kH + col));
+          frag[4 * (j >> 1) + 2 * (j & 1) + 1] =
+              __ldg(reinterpret_cast<const unsigned int*>(A + r_hi * kH + col));
+        }
+        const uint32_t bs = ring.acquire();
+        wg::wgmma_fence();
+        wg::mma_kblock_bf16_n256(acc2, frag, bs, c == 0);
+        wg::wgmma_commit();
+        wg::wgmma_wait<0>();
+        wg::fence_acc128(acc2);
+        ring.release();
+      }
+      float* o2 = out + 2 * 64 * kH;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int col = 8 * j + 2 * t;
+        o2[r_lo * kH + col] = acc2[4 * j];
+        o2[r_lo * kH + col + 1] = acc2[4 * j + 1];
+        o2[r_hi * kH + col] = acc2[4 * j + 2];
+        o2[r_hi * kH + col + 1] = acc2[4 * j + 3];
       }
     }
   }
@@ -797,16 +933,17 @@ int launch_wg(const void* const* ptrs, int M, int B, int N, int L, int V, void* 
   int i = 0;
   fill_params(p, ptrs, i);
   const bf16* wimg = static_cast<const bf16*>(ptrs[i++]);
+  const bf16* f2k = static_cast<const bf16*>(ptrs[i++]);
   p.ea = static_cast<bf16*>(const_cast<void*>(ptrs[i++]));
   p.out = static_cast<float*>(const_cast<void*>(ptrs[i++]));
-  if (i != kNumPtrs || wimg == nullptr) return (int)cudaErrorInvalidValue;
+  if (i != kNumPtrs || wimg == nullptr || f2k == nullptr) return (int)cudaErrorInvalidValue;
   p.M = M; p.B = B; p.N = N; p.H = kH; p.L = L; p.V = V;
   cudaError_t e = cudaFuncSetAttribute(packed_score_wg_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)lay.total);
   if (e != cudaSuccess) return (int)e;
   packed_score_wg_kernel<<<M * B, wg::kThreads, lay.total, static_cast<cudaStream_t>(stream)>>>(
-      p, wimg);
+      p, wimg, f2k);
   return (int)cudaGetLastError();
 }
 
@@ -817,7 +954,7 @@ int launch(const void* const* ptrs, int M, int B, int N, int H, int L, int V, vo
   Params<T> p;
   int i = 0;
   fill_params(p, ptrs, i);
-  ++i;  // the arranged weight image: the warp-specialised kernel's
+  i += 2;  // the arranged weight images: the warp-specialised kernel's
   p.ea = static_cast<T*>(const_cast<void*>(ptrs[i++]));
   p.out = static_cast<float*>(const_cast<void*>(ptrs[i++]));
   if (i != kNumPtrs) return (int)cudaErrorInvalidValue;
@@ -839,8 +976,8 @@ extern "C" {
 
 // Launches the score kernel on `stream`; returns the cudaError_t of the launch.
 // ptrs: d, cmask, z, tr_in, tp_in, tr_out, tp_out, the 26 weights in the
-// order of Params, the arranged weight image (may be null where
-// packed_score_uses_wg says 0), the ea scratch and the output.  bf16 at H = 256
+// order of Params, the arranged weight image and f2w's K-block image (both may
+// be null where packed_score_uses_wg says 0), the ea scratch and the output.  bf16 at H = 256
 // takes the warp-specialised kernel whenever its shared memory fits (N <= 24);
 // every other shape, and float32, takes the mma.sync kernel.
 int packed_score_launch(const void* const* ptrs, int M, int B, int N, int H, int L, int V,
@@ -856,16 +993,18 @@ int packed_score_launch(const void* const* ptrs, int M, int B, int N, int H, int
 // scratch is ceil(R / 64) tile images of 32 KB per (member, graph).
 int packed_score_uses_wg(int N, int H, int is_bf16) { return wg_takes(N, H, is_bf16) ? 1 : 0; }
 
-// out (2, 64, 256) f32 = A (64, 256) bf16 times the arranged (256, 256) bf16
-// weight image, transposed: through the ring, with A from shared memory and
-// from registers.
-int packed_score_tile_selftest(const void* A, const void* wimg, void* out, void* stream) {
+// out (3, 64, 256) f32 = A (64, 256) bf16 times the (256, 256) bf16 weight,
+// transposed: through the ring, from the arranged image with A from shared
+// memory and from registers, and from the K-block image full width.
+int packed_score_tile_selftest(const void* A, const void* wimg, const void* kimg, void* out,
+                               void* stream) {
   const int smem = 3 * wg::kStageBytes + wg::kTileBytes + 128 + 1024;
   cudaError_t e = cudaFuncSetAttribute(tile_product_selftest_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   tile_product_selftest_kernel<<<1, wg::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(A), static_cast<const bf16*>(wimg), static_cast<float*>(out));
+      static_cast<const bf16*>(A), static_cast<const bf16*>(wimg), static_cast<const bf16*>(kimg),
+      static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
 

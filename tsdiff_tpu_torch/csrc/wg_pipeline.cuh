@@ -28,10 +28,15 @@
 //
 // The accumulator fragment also maps onto the A register fragments of the
 // next product (frag_put; mma_rs_bf16 takes them), but a chain held that way
-// needs the fragments of two products and the accumulators at once, 160
-// registers before any address or bias: at the 232 a consumer thread can have
-// ptxas then serializes every wgmma of the kernel (C7512) and spills.  So the
-// chains here go through shared memory, two tiles per warpgroup.
+// with 32-column stages on both sides needs the fragments of two products and
+// the accumulators at once, 160 registers before any address or bias: at the
+// 232 a consumer thread can have ptxas then serializes every wgmma of the
+// kernel (C7512) and spills.  So the chains here go through shared memory, two
+// tiles per warpgroup.  One exception, B1's filter chain (packed_score.cu):
+// each 32 columns of the first product's output are the A fragments of one
+// 32-deep K-block of the second, which runs full width (m64n256k16, A from
+// registers: mma_kblock_bf16_n256) from a stage of 256 rows of 64 bytes in the
+// 64-byte swizzle (make_desc_sw64).
 
 #pragma once
 
@@ -105,6 +110,18 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
 }
+// A wait that has spun kSpinLimit times traps.  Where the including source
+// defines WG_TRAP_OUTLINED before the include, the trap is a call: with a trap
+// instruction inline anywhere in a function, ptxas holds every region of it to
+// the launch's register count (168 a thread at 384 threads), whatever setmaxnreg
+// gives the warpgroup, and it does not for a call (packed_score.cu defines it).
+#ifdef WG_TRAP_OUTLINED
+__device__ __noinline__ void trap_outlined() { __trap(); }
+#define WG_TRAP() trap_outlined()
+#else
+#define WG_TRAP() __trap()
+#endif
+
 // returns when the barrier's phase differs from `parity`
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done = 0, spins = 0;
@@ -117,7 +134,7 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
     if (done) break;
-    if (++spins > kSpinLimit) __trap();
+    if (++spins > kSpinLimit) WG_TRAP();
   }
 }
 // global -> shared, `bytes` a multiple of 16, both 16-byte aligned
@@ -543,6 +560,49 @@ __device__ __forceinline__ void mma_tt_bf16_n256(float (&d)[128], uint64_t da, u
 __device__ __forceinline__ void fence_acc128(float (&x)[128]) {
 #pragma unroll
   for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+
+// descriptor of a K-major operand whose rows are 64 bytes (32 bf16 of K) and
+// lie one after another, 1024-byte aligned: 8-row groups of 512 bytes, the
+// 16-byte unit u of row r at unit u ^ ((r >> 1) & 3) (the 64-byte swizzle:
+// address bits 4-5 XOR bits 7-8)
+__device__ __forceinline__ uint64_t make_desc_sw64(uint32_t saddr) {
+  uint64_t d = (uint64_t)((saddr & 0x3FFFF) >> 4);
+  d |= (uint64_t)1 << 16;           // leading byte offset: unused with a swizzle
+  d |= (uint64_t)(512 >> 4) << 32;  // stride between 8-row groups
+  d |= (uint64_t)2 << 62;           // 64-byte swizzle
+  return d;
+}
+
+// d (+)= A(registers) B(shared)^T, m64n256k16 bf16, B K-major; d laid out as
+// mma_tt_bf16_n256's
+__device__ __forceinline__ void mma_rs_bf16_n256(float (&d)[128], uint32_t a0, uint32_t a1,
+                                                 uint32_t a2, uint32_t a3, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18,"
+      " %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52,"
+      " %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69,"
+      " %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86,"
+      " %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102,"
+      " %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116,"
+      " %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : WG_ACC128(WG_F, d)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(acc));
+}
+
+// acc (+)= A B^T over one 32-deep K-block, all 256 output columns: two
+// m64n256k16 steps, A the register fragments a[0..3] (k16 step 0) and a[4..7]
+// (step 1) as frag_put lays out one 32-column stage, B the K-block stage at
+// b_stage (256 rows of 64 bytes, make_desc_sw64), step 1 32 bytes into its rows.
+__device__ __forceinline__ void mma_kblock_bf16_n256(float (&acc)[128], const uint32_t (&a)[8],
+                                                     uint32_t b_stage, bool zero) {
+  const uint64_t db = make_desc_sw64(b_stage);
+  mma_rs_bf16_n256(acc, a[0], a[1], a[2], a[3], db, zero ? 0 : 1);
+  mma_rs_bf16_n256(acc, a[4], a[5], a[6], a[7], db + (32 >> 4), 1);
 }
 
 }  // namespace wg

@@ -65,11 +65,11 @@ from tsdiff_tpu_torch.models.edge import make_edge_encoder
 from tsdiff_tpu_torch.models.init import init_params_
 from tsdiff_tpu_torch.models.mlp import MLP, linear
 from tsdiff_tpu_torch.models.schnet import SchNetEncoder
-from tsdiff_tpu_torch.ops.condensed_score import condensed_score, extract_weights
+from tsdiff_tpu_torch.ops.condensed_score import condensed_score, extract_weights, with_wg_image
 from tsdiff_tpu_torch.ops.packed_score import (
     extract_weights_packed,
     packed_score,
-    with_wg_image,
+    with_wg_images,
 )
 from tsdiff_tpu_torch.ops.packed_score_int8 import (
     cast_unquantized,
@@ -372,11 +372,12 @@ class CondenseEncoderEpsNetwork(nn.Module):
     def kernel_weights(self) -> dict[str, torch.Tensor]:
         """This member's score-kernel weights in the working dtype, with the
         matrices arranged once more as the warp-specialised kernel's tile
-        images (``WG_IMAGE``) where a kernel takes them: bfloat16 at H = 256."""
+        images (``WG_IMAGE``) and f2w as its filter chain's K-blocks
+        (``WG_IMAGE_F2K``) where a kernel takes them: bfloat16 at H = 256."""
         w = extract_weights_packed(self.state_dict())
         w = {k: v.to(self.dtype).contiguous() for k, v in w.items()}
         if self.dtype == torch.bfloat16 and w["dw1"].shape[-1] == 256:
-            w = with_wg_image(w)
+            w = with_wg_images(w)
         return w
 
     def kernel_weights_int8(self) -> dict[str, torch.Tensor]:

@@ -33,10 +33,12 @@ asynchronous copies, two consumer warpgroups run ``wgmma`` on one 64-row tile
 each, so a stage read from L2 serves 128 pair rows (``wg_l2_weight_bytes``
 against ``mma_sync_l2_weight_bytes``).  It reads the matrices from
 ``weights[WG_IMAGE]``, the copy ``arrange_weights`` makes once, in exactly the
-swizzled image ``wgmma`` reads.  float32, other widths and larger N take the
-first port's ``mma.sync`` kernel, by the explicit branch in
-``packed_score_launch``.  See the source's header for the design and what the
-card said about it.
+swizzled image ``wgmma`` reads, and f2w from ``weights[WG_IMAGE_F2K]``, its
+K-blocks (``kblock_image``) for the filter chain, which keeps f1's output in
+registers as f2's A operand (``with_wg_images`` adds both).  float32, other
+widths and larger N take the first port's ``mma.sync`` kernel, by the explicit
+branch in ``packed_score_launch``.  See the source's header for the design and
+what the card said about it.
 """
 
 from __future__ import annotations
@@ -75,7 +77,7 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.packed_score_launch.restype = ctypes.c_int
     lib.packed_score_uses_wg.argtypes = [ctypes.c_int] * 3
     lib.packed_score_uses_wg.restype = ctypes.c_int
-    lib.packed_score_tile_selftest.argtypes = [ctypes.c_void_p] * 4
+    lib.packed_score_tile_selftest.argtypes = [ctypes.c_void_p] * 5
     lib.packed_score_tile_selftest.restype = ctypes.c_int
     lib.packed_score_error_string.argtypes = [ctypes.c_int]
     lib.packed_score_error_string.restype = ctypes.c_char_p
@@ -144,6 +146,53 @@ def arrange_weights(weights: dict) -> torch.Tensor:
     return torch.cat([tile_image(weights[k]).flatten(lead) for k in IMAGE_ORDER], dim=-1)
 
 
+#: B1's own arranged entry: f2w of every layer as K-blocks (``kblock_image``)
+WG_IMAGE_F2K = "wg_image_f2k"
+
+
+def _kblock_swizzle(rows: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    r = torch.arange(rows, device=device)[:, None]
+    return r, torch.arange(4, device=device)[None, :] ^ ((r >> 1) % 4)
+
+
+def kblock_image(w: torch.Tensor) -> torch.Tensor:
+    """``w (..., rows, K)`` bfloat16 as the K-block image the filter chain's
+    full-width product reads, flattened to ``(..., rows * K)``: K-blocks of 32
+    columns one after another, each its ``rows`` rows of 64 bytes one after
+    another, in which the 16-byte unit ``u`` of row ``r`` sits at unit
+    ``u ^ ((r >> 1) % 4)``: the 64-byte swizzle.  A K-block of f2w (256 rows)
+    is one 16 KB ring stage."""
+    *lead, rows, K = w.shape
+    if w.element_size() != 2 or rows % 8 or K % 32:
+        raise ValueError(f"kblock_image needs a 16-bit (rows, K) with rows % 8 == 0 and "
+                         f"K % 32 == 0, got {w.dtype} {rows}, {K}")
+    x = w.reshape(*lead, rows, K // 32, 4, 8).movedim(-3, -4)  # (..., block, row, unit, element)
+    r, u = _kblock_swizzle(rows, w.device)
+    return x[..., r, u, :].reshape(*lead, rows * K).contiguous()
+
+
+def kblock_image_inverse(img: torch.Tensor, rows: int, K: int) -> torch.Tensor:
+    """``(..., rows, K)`` back from ``kblock_image``'s ``(..., rows * K)``."""
+    lead = img.shape[:-1]
+    x = img.reshape(*lead, K // 32, rows, 4, 8)
+    r, u = _kblock_swizzle(rows, img.device)
+    return x[..., r, u, :].movedim(-4, -3).reshape(*lead, rows, K).contiguous()
+
+
+def arrange_f2_kblocks(f2w: torch.Tensor) -> torch.Tensor:
+    """f2w ``(..., L, H, H)`` as the flat K-block images of its L layers, one
+    after another: B1's ``WG_IMAGE_F2K``."""
+    return kblock_image(f2w).flatten(-2)
+
+
+def with_wg_images(weights: dict) -> dict[str, torch.Tensor]:
+    """``weights`` with B1's arranged entries: ``WG_IMAGE`` (the image B2 and
+    B5 read too) and ``WG_IMAGE_F2K``.  Made once, where the weight dictionary
+    is built (``CondenseEncoderEpsNetwork.kernel_weights``); the plain version never
+    reads them."""
+    return {**with_wg_image(weights), WG_IMAGE_F2K: arrange_f2_kblocks(weights["f2w"])}
+
+
 def split_image(image: torch.Tensor, num_blocks: int, H: int = 256) -> dict[str, torch.Tensor]:
     """The matrices back from ``arrange_weights``'s tensor: its inverse."""
     out, pos, L = {}, 0, num_blocks
@@ -181,14 +230,35 @@ def aggregate_by_node(w: torch.Tensor, xh: torch.Tensor) -> torch.Tensor:
     return agg
 
 
+def wg_tile_pairs(N: int) -> int:
+    """Tile pairs of one graph's R = (N/2)*N packed pair rows: a stage feeds
+    two 64-row tiles, one per consumer warpgroup."""
+    return (-(-((N // 2) * N) // TILE_ROWS) + 1) // 2
+
+
 def wg_schedule(N: int, num_blocks: int) -> list[tuple[str, int, int]]:
     """The static schedule of weight stages every CTA of the warp-specialised
-    kernel walks, producer and consumers alike: ``(matrix, layer, 32-column
-    block)`` per stage (``ops.condensed_score.stage_schedule``).  A stage
-    feeds two 64-row tiles, one per consumer warpgroup, so the R = (N/2)*N
-    pair rows take ``ceil(ceil(R/64) / 2)`` tile pairs; the node products run
-    through the same ring."""
-    return stage_schedule((-(-((N // 2) * N) // TILE_ROWS) + 1) // 2, num_blocks)
+    kernel walks, producer and consumers alike: ``(matrix, layer, block)``
+    per stage, over ``wg_tile_pairs(N)`` tile pairs; the node products run
+    through the same ring.  It is ``ops.condensed_score.stage_schedule`` with
+    each tile pair's filter chain reordered: f2w's stages are its 32-column
+    K-blocks (from ``WG_IMAGE_F2K``), taken as f1w(0), then f1w(c+1) and
+    f2w's K-block c in turn, then f2w's K-block 7 (``csrc/packed_score.cu::
+    filter_chain``).  The same stages, so the same L2 bytes."""
+    sched, out, i = stage_schedule(wg_tile_pairs(N), num_blocks), [], 0
+    blocks = 256 // STAGE_COLS
+    while i < len(sched):
+        name, l, _ = sched[i]
+        if name != "f1w":
+            out.append(sched[i])
+            i += 1
+            continue
+        out.append(("f1w", l, 0))
+        for c in range(blocks):
+            out += [("f1w", l, c + 1)] if c + 1 < blocks else []
+            out.append(("f2w", l, c))
+        i += 2 * blocks
+    return out
 
 
 def wg_l2_weight_bytes(M: int, B: int, N: int, num_blocks: int) -> int:
@@ -209,20 +279,22 @@ def mma_sync_l2_weight_bytes(M: int, B: int, N: int, num_blocks: int, H: int = 2
 
 
 def tile_product_selftest(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The kernel's tile product alone, on the card: ``(2, 64, 256)`` float32
+    """The kernel's tile product alone, on the card: ``(3, 64, 256)`` float32
     ``a @ w.T`` for ``a (64, 256)`` and ``w (256, 256)`` in bfloat16, through
     the shared-memory ring with ``a`` from shared memory (index 0) and from
-    registers (index 1).  For tests; the port never calls it."""
+    registers (index 1), and full width from ``w``'s K-blocks with ``a`` from
+    registers (index 2, as the filter chain runs f2).  For tests; the port
+    never calls it."""
     if a.shape != (64, 256) or w.shape != (256, 256) or a.dtype != torch.bfloat16 \
             or w.dtype != torch.bfloat16 or a.device.type != "cuda" or w.device != a.device:
         raise ValueError("tile_product_selftest takes CUDA bfloat16 (64, 256) and (256, 256)")
     lib = _kernel_lib()
-    img = tile_image(w.contiguous())
-    out = torch.empty((2, 64, 256), dtype=torch.float32, device=a.device)
+    img, kimg = tile_image(w.contiguous()), kblock_image(w.contiguous())
+    out = torch.empty((3, 64, 256), dtype=torch.float32, device=a.device)
     a = a.contiguous()
     with torch.cuda.device(a.device):
         err = lib.packed_score_tile_selftest(
-            a.data_ptr(), img.data_ptr(), out.data_ptr(),
+            a.data_ptr(), img.data_ptr(), kimg.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"tile self-test launch failed ({err}: "
@@ -349,17 +421,20 @@ def _check_cuda_args(weights, z, d, cmask, types, num_blocks):
     return M, B, N, H, L, V
 
 
-def _check_image(weights, M, L, H, z) -> torch.Tensor:
-    image = weights.get(WG_IMAGE)
-    n = (13 + 10 * L) * (H * H // 2)
-    if image is None:
-        raise ValueError(f"this shape takes the warp-specialised kernel, which needs the "
-                         f"arranged weights[{WG_IMAGE!r}] (with_wg_image)")
-    if tuple(image.shape) != (M, n) or image.dtype != z.dtype or not image.is_contiguous() \
-            or image.device != z.device:
-        raise ValueError(f"weights[{WG_IMAGE!r}] must be a contiguous {z.dtype} {(M, n)} tensor "
-                         f"on {z.device}, got {image.dtype} {tuple(image.shape)} on {image.device}")
-    return image
+def _check_images(weights, M, L, H, z) -> tuple[torch.Tensor, torch.Tensor]:
+    images = []
+    for key, n in ((WG_IMAGE, (13 + 10 * L) * (H * H // 2)), (WG_IMAGE_F2K, L * H * H)):
+        image = weights.get(key)
+        if image is None:
+            raise ValueError(f"this shape takes the warp-specialised kernel, which needs the "
+                             f"arranged weights[{key!r}] (with_wg_images)")
+        if tuple(image.shape) != (M, n) or image.dtype != z.dtype or not image.is_contiguous() \
+                or image.device != z.device:
+            raise ValueError(f"weights[{key!r}] must be a contiguous {z.dtype} {(M, n)} tensor "
+                             f"on {z.device}, got {image.dtype} {tuple(image.shape)} on "
+                             f"{image.device}")
+        images.append(image)
+    return images[0], images[1]
 
 
 def packed_score(
@@ -379,8 +454,9 @@ def packed_score(
 
     Which kernel is decided by the shape alone, in ``packed_score_launch``:
     bfloat16 at H = 256 with N <= 24 (what its shared memory holds) takes the
-    warp-specialised ``wgmma`` kernel, which needs the arranged entry
-    ``weights[WG_IMAGE]`` (``with_wg_image``) and raises without it; float32,
+    warp-specialised ``wgmma`` kernel, which needs the arranged entries
+    ``weights[WG_IMAGE]`` and ``weights[WG_IMAGE_F2K]`` (``with_wg_images``)
+    and raises without them; float32,
     other widths and larger N take the ``mma.sync`` kernel.  Neither gives
     way to the other, or to the plain version, when it fails.
     ``packed_score.launches`` counts all launches, ``packed_score.wg_launches``
@@ -396,14 +472,14 @@ def packed_score(
     use_wg = bool(lib.packed_score_uses_wg(N, H, int(z.dtype == torch.bfloat16)))
     out = torch.empty((M, B, K, N), dtype=torch.float32, device=z.device)
     if use_wg:
-        image = _check_image(weights, M, L, H, z)
+        image, f2k = _check_images(weights, M, L, H, z)
         # the kernel's own scratch: ea as 64-row tile images
         ea = torch.empty((M * B, -(-(K * N) // TILE_ROWS), TILE_ROWS * H), dtype=z.dtype,
                          device=z.device)
     else:
-        image = None
+        image = f2k = None
         ea = torch.empty((M * B, K * N, H), dtype=z.dtype, device=z.device)
-    tensors = [d, cmask, z, *types, *(weights[k] for k in W_ORDER), image, ea, out]
+    tensors = [d, cmask, z, *types, *(weights[k] for k in W_ORDER), image, f2k, ea, out]
     ptrs = (ctypes.c_void_p * len(tensors))(
         *[None if t is None else t.data_ptr() for t in tensors])
     stream = torch.cuda.current_stream(z.device).cuda_stream

@@ -43,6 +43,7 @@ import ctypes
 import torch
 
 from tsdiff_tpu_torch.ops.condensed_score import silu as _silu
+from tsdiff_tpu_torch.ops.condensed_score import stage_schedule
 from tsdiff_tpu_torch.ops.packed_score import (
     STAGE_BYTES,
     TILE_ROWS,
@@ -52,7 +53,7 @@ from tsdiff_tpu_torch.ops.packed_score import (
     packed_score_cost,
     tile_image,
     tile_image_inverse,
-    wg_schedule,
+    wg_tile_pairs,
 )
 from tsdiff_tpu_torch.ops.schnet_stack import ssp
 
@@ -161,11 +162,11 @@ def with_wg_images_int8(weights: dict) -> dict[str, torch.Tensor]:
 
 def wg_schedule_int8(N: int, num_blocks: int) -> list[tuple[str, int, int]]:
     """The static schedule of 16 KB weight stages of the warp-specialised int8
-    kernel: ``ops.packed_score.wg_schedule`` with the int8 matrices in stages
-    of 64 output columns (half as many stages) and the node matrices, in the
-    working type, in stages of 32."""
+    kernel: ``ops.condensed_score.stage_schedule`` over B1's tile pairs with
+    the int8 matrices in stages of 64 output columns (half as many stages) and
+    the node matrices, in the working type, in stages of 32."""
     sched = []
-    for name, l, c in wg_schedule(N, num_blocks):
+    for name, l, c in stage_schedule(wg_tile_pairs(N), num_blocks):
         if name in NODE_IMAGE_ORDER:
             sched.append((name, l, c))
         elif c % 2 == 0:

@@ -153,7 +153,7 @@ def main(argv: list[str]) -> None:
     print(f"card: {smi}; M={M} B={B} N={N} H={H} L={L} bfloat16")
     dev = torch.device("cuda")
     w32, z, d, cmask, types = random_case(M, B, N, H, L, seed=N, device=dev)
-    wb = ps.with_wg_image({k: v.to(torch.bfloat16).contiguous() for k, v in w32.items()})
+    wb = ps.with_wg_images({k: v.to(torch.bfloat16).contiguous() for k, v in w32.items()})
     w8 = quantize_stacked(w32)
     wd, zd, dd, cd, embs = dense_case(B, N, H, L, seed=N + 1, device=dev)
     sw, sh, sea, sc, shs, scot = stack_case(200, N, H, L, seed=N + 2, device=dev)
