@@ -9,7 +9,9 @@
 * Each encoder, with the JAX weights converted (``convert.params_from_jax``)
   and back (``params_to_jax`` with the module), matches JAX in its output
   and in the gradient of one weight at 1e-5 of max|ref|.  DimeNet++'s
-  reference runs in float64 (its basis, above); ComENet's phi on an edge
+  reference runs in float64 (its basis, above), and the JAX module's one
+  ``lin_sbf1``/``lin_sbf2`` pair is copied into each of the port's blocks
+  (``convert.sbf_per_block``); ComENet's phi on an edge
   that is one of its target's two reference vectors and tau on an edge whose
   ends take the same reference atom are set to their exact values, 0 and
   pi, on both sides (the port's rule, ``models/comenet.py``; JAX folds
@@ -32,7 +34,7 @@ from tsdiff_tpu.models.dimenetpp import DimeNetPPEncoder as JDimeNet
 from tsdiff_tpu.models.egnn import EGNNMixed2DEncoder as JEGNN
 from tsdiff_tpu.ops import basis as jbasis
 from tsdiff_tpu_torch.config import Config
-from tsdiff_tpu_torch.convert import params_from_jax, params_to_jax
+from tsdiff_tpu_torch.convert import params_from_jax, params_to_jax, sbf_per_block
 from tsdiff_tpu_torch.models import load_encoder
 from tsdiff_tpu_torch.models.comenet import ComENetEncoder, comenet_features
 from tsdiff_tpu_torch.models.dimenetpp import DimeNetPPEncoder
@@ -195,7 +197,7 @@ def test_dimenetpp_matches_jax():
     node, pos, m, attr, node_mask = _inputs(2)
     jm = JDimeNet(**DIME)
     jp = jm.init(jax.random.key(0), node, pos, m, attr, node_mask)
-    model = _port(DimeNetPPEncoder, jp, **DIME)
+    model = _port(DimeNetPPEncoder, sbf_per_block(jp), **DIME)
     with jax.enable_x64(True):
         p64 = jax.tree_util.tree_map(lambda x: jnp.asarray(x, jnp.float64), jp)
         f64 = lambda a: jnp.asarray(a, jnp.float64)  # noqa: E731
@@ -331,5 +333,5 @@ def test_load_encoder_matches_jax_shapes():
         jp = init(jload(JConfig(encoder=dict(enc, name=name)), "encoder"))
         model = load_encoder(Config(encoder=dict(enc, name=name)), "encoder")
         got = params_to_jax(model.state_dict(), model)["params"]
-        want = jax.tree_util.tree_map(np.shape, jp["params"])
+        want = jax.tree_util.tree_map(np.shape, sbf_per_block(jp["params"]))
         assert jax.tree_util.tree_map(np.shape, got) == want, name

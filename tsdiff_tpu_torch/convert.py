@@ -26,8 +26,10 @@ The optional encoders (EGNN, DimeNet++, ComENet) add flax ``LayerNorm``
 leaves (``scale``, ``bias``: a torch ``nn.LayerNorm``'s ``weight`` and
 ``bias``), kernels of a flax ``nn.Dense`` used directly, with no ``Dense_0``
 level (a ``models.mlp.Dense``), and bare parameters that keep their name and
-layout (``dist_emb/freq``, ``lin_sbf1``, GraphNorm's ``alpha``/``gamma``/
-``beta``).
+layout (``dist_emb/freq``, ``e<l>_lin_sbf1``, GraphNorm's ``alpha``/``gamma``/
+``beta``).  The JAX package's DimeNet++ holds one ``lin_sbf1``/``lin_sbf2``
+pair for all its blocks, the port one per block: ``sbf_per_block`` copies
+the pair into every block before ``params_from_jax``.
 
 The way back needs to know what each ``weight`` is.  Given the torch
 ``module``, ``params_to_jax`` reads it from the module types; without it,
@@ -87,6 +89,32 @@ def params_from_jax(params_tree: Mapping) -> dict[str, torch.Tensor]:
             raise ValueError(f"two flax leaves map to torch name {name!r}")
         out[name] = torch.from_numpy(np.array(arr))  # a writable, contiguous copy
     return out
+
+
+_DIMENET_BLOCK = re.compile(r"^e(\d+)_lin_ji$")
+
+
+def sbf_per_block(params_tree: Mapping) -> dict:
+    """A flax tree whose DimeNet++ modules hold one ``lin_sbf1``/``lin_sbf2``
+    pair for all interaction blocks (the JAX package's) -> the same tree
+    with the pair copied into every block as ``e<l>_lin_sbf1`` and
+    ``e<l>_lin_sbf2``, the port's per-block layout (the published block's);
+    every other leaf as it is.  A tree already per block is returned as it
+    is."""
+    out = {}
+    for key, value in params_tree.items():
+        out[key] = sbf_per_block(value) if isinstance(value, Mapping) else value
+    if "lin_sbf1" in out and "lin_sbf2" in out:
+        blocks = [int(m.group(1)) for m in map(_DIMENET_BLOCK.match, out) if m]
+        sbf1, sbf2 = out.pop("lin_sbf1"), out.pop("lin_sbf2")
+        for l in sorted(blocks):
+            out[f"e{l}_lin_sbf1"] = _copy(sbf1)
+            out[f"e{l}_lin_sbf2"] = {k: _copy(v) for k, v in sbf2.items()}
+    return out
+
+
+def _copy(leaf):
+    return leaf.clone() if isinstance(leaf, torch.Tensor) else np.array(leaf)
 
 
 def param_kinds(module: torch.nn.Module) -> dict[str, str]:

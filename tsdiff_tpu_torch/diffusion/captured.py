@@ -144,6 +144,11 @@ class WalkRunner:
         #: service to their clip-20 retry
         self.nan_rounds = 0
 
+    def statics(self, tier: int):
+        """The ensemble's statics of the last round at ``tier``, as the
+        tier's buffers hold them (the batch's counters among them)."""
+        return self._tiers[tier].statics
+
     def rounds(self) -> dict[int, int]:
         """Rounds walked so far, by tier."""
         return {tier: buf.rounds for tier, buf in self._tiers.items()}

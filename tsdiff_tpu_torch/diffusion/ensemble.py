@@ -14,7 +14,10 @@ ensemble (packed).
   and chain-rules it to per-atom vectors with ``eq_transform_packed``.
 * ``DenseEnsemble`` — the member-invariant radius mask and distances are
   built once per step, each member's unfused ``score_step`` runs on them,
-  and the scores are averaged.
+  and the scores are averaged (the SchNet members without ``fused_score``,
+  and every member whose encoder is DimeNet++).  Its statics count the
+  batch's real and computed pairs and triplets (``DenseStatics.counts``),
+  which the dense grid's work scales with.
 * On a mesh (``parallel/sharding.py``) each rank holds its block of the
   members (``load_members(..., mesh=)``), and the mean over members is the
   rank's member sum, an ``all_reduce(SUM)`` over the ``ens`` group, then
@@ -152,10 +155,24 @@ def make_packed_ensemble_eps_fn(members: list, batch: ReactionBatch):
 
 @dataclasses.dataclass(frozen=True)
 class DenseStatics:
-    """Per-batch inputs of the dense ensemble's step."""
+    """Per-batch inputs of the dense ensemble's step, and its counters."""
 
     node_mask: torch.Tensor       # (B, N) bool
     members: list                 # each member's StaticFeatures
+    #: (6,) int64 on the device, real then computed: atoms (real, B N),
+    #: ordered pairs of two atoms (n (n - 1) a graph, B N^2), ordered
+    #: triplets k -> j -> i with k != i (n (n - 1) (n - 2), B N^3)
+    counts: torch.Tensor | None = None
+
+
+def pair_triplet_counts(node_mask: torch.Tensor) -> torch.Tensor:
+    """``DenseStatics.counts`` of a batch's node mask (B, N), made on its
+    device without reading it back."""
+    n = node_mask.sum(dim=1, dtype=torch.int64)
+    B, N = node_mask.shape
+    grid = n.new_tensor([B * N, B * N * N, B * N ** 3])
+    return torch.stack([n.sum(), grid[0], (n * (n - 1)).sum(), grid[1],
+                        (n * (n - 1) * (n - 2)).sum(), grid[2]])
 
 
 class DenseEnsemble:
@@ -170,7 +187,8 @@ class DenseEnsemble:
 
     def prepare(self, batch: ReactionBatch) -> DenseStatics:
         return DenseStatics(node_mask=batch.node_mask.clone(),
-                            members=[_precompute_static(m, batch) for m in self.members])
+                            members=[_precompute_static(m, batch) for m in self.members],
+                            counts=pair_triplet_counts(batch.node_mask))
 
     def step_fn(self, statics: DenseStatics):
         """``pos -> (edge_inv (B, N, N, 1), emask (B, N, N), d (B, N, N))``."""

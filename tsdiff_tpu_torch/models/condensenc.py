@@ -8,7 +8,9 @@ Structure (hidden H = 256 in the trained checkpoints):
   edge attr    edge_cat(concat[e(d, type_r), e(d, type_p)]), e the edge
                encoder: d_emb(d) * bond_emb(type) (mlp) or
                concat[RBF(d), bond_emb(type)] (gaussian)
-  encoder      L SchNet interaction blocks over the global edge set
+  encoder      L SchNet interaction blocks over the global edge set, or
+               DimeNet++ (``encoder.name: dimenetpp``) over it: node states,
+               positions, the edge set and edge attr in, node states out
   head         re-extended at ``pred_edge_order``, then
                edge_inv = grad_dist_mlp(concat[h_i * h_j, edge_attr])
 
@@ -35,6 +37,16 @@ configuration, mlp with swish and the hard cutoff, and refuse any other, as
 the JAX model asserts it on the same paths.  With ``use_pallas`` the
 training path runs B3 on whatever cutoff mask the encoder gives, the smooth
 cutoff's fractional one included.
+
+The encoder is built by name from the model config's ``encoder``:
+``schnet`` (every path above) or ``dimenetpp`` (``models/dimenetpp.py``,
+the dense path only, in training and sampling: ``DenseEnsemble``).  The
+fused, packed and B3 paths and ``score_quant`` are SchNet's kernels, and a
+model with another encoder refuses them, naming its encoder.  DimeNet++
+takes the same node states and the encoder order's ``edge_attr`` (its
+radial embedding's modulation, so its width is the wrapper's), and the
+positions; under a bf16 network its linear layers take bf16 inputs and the
+rest of it runs in float32.
 """
 
 from __future__ import annotations
@@ -107,6 +119,19 @@ class StaticFeatures:
     fused_weights: dict | None = None
 
 
+def _check_dense_encoder(enc, hidden_dim: int, **paths) -> None:
+    """Refuse an encoder other than SchNet that the condensed network cannot
+    run, or a SchNet-only path (the kernels, ``score_quant``) set with it."""
+    if enc.name != "dimenetpp":
+        raise NotImplementedError(f"unsupported encoder {enc.name} for condensenc")
+    if enc.hidden_dim != hidden_dim:
+        raise ValueError(f"the {enc.name} encoder's hidden_dim {enc.hidden_dim} must be the "
+                         f"network's {hidden_dim}: edge_attr modulates its radial embedding")
+    for name, value in paths.items():
+        if value not in (False, None, "none"):
+            raise ValueError(f"{name} runs SchNet's kernels; this model's encoder is {enc.name}")
+
+
 class EdgeCat(nn.Module):
     """2-layer fusion MLP of the concatenated R/P edge embeddings."""
 
@@ -140,6 +165,7 @@ class CondenseEncoderEpsNetwork(nn.Module):
         score_quant: str | None = None,
         dtype: torch.dtype | None = None,
         generator: torch.Generator | None = None,
+        encoder_config=None,
     ):
         """``use_pallas`` runs the SchNet stack through the fused CUDA op
         (its plain twin on CPU tensors); ``fused_score`` runs ``score_step``
@@ -147,11 +173,19 @@ class CondenseEncoderEpsNetwork(nn.Module):
         take the packed path; ``score_quant="int8"`` picks the packed path's
         int8 op; ``packed_train`` makes the objective train through the
         differentiable packed forward ``score_step_packed_xla``.
+        ``encoder_config``: the model config's ``encoder`` for an encoder
+        other than SchNet (``dimenetpp``), which then replaces the SchNet
+        stack of ``num_convs``, ``cutoff``, ``smooth_conv``.
         Parameters are initialised from ``generator``
-        (``models.init``)."""
+        (``models.init``; DimeNet++'s by its own initialisers)."""
         super().__init__()
         if hidden_dim % 2:
             raise ValueError("hidden_dim must be even")
+        self.encoder_name = "schnet" if encoder_config is None else encoder_config.name
+        if self.encoder_name != "schnet":
+            _check_dense_encoder(encoder_config, hidden_dim, use_pallas=use_pallas,
+                                 fused_score=fused_score, packed_train=packed_train,
+                                 score_quant=score_quant)
         self.hidden_dim = hidden_dim
         self.edge_order = edge_order
         self.pred_edge_order = pred_edge_order
@@ -170,19 +204,25 @@ class CondenseEncoderEpsNetwork(nn.Module):
         self.atom_feat_embedding = nn.Linear(feat_dim, half, bias=False)
         self.edge_enc = make_edge_encoder(edge_encoder, hidden_dim, mlp_act, cutoff)
         self.edge_cat = EdgeCat(self.edge_enc.out_channels, edge_cat_act)
-        self.encoder = SchNetEncoder(
-            hidden_channels=hidden_dim, num_filters=hidden_dim, num_interactions=num_convs,
-            cutoff=cutoff, smooth=smooth_conv, use_pallas=use_pallas,
-        )
+        if encoder_config is None:
+            self.encoder = SchNetEncoder(
+                hidden_channels=hidden_dim, num_filters=hidden_dim, num_interactions=num_convs,
+                cutoff=cutoff, smooth=smooth_conv, use_pallas=use_pallas,
+            )
+        else:
+            from tsdiff_tpu_torch.models.dimenetpp import DimeNetPPEncoder
+
+            self.encoder = DimeNetPPEncoder.from_config(encoder_config)
+            self.num_convs, self.cutoff = self.encoder.num_layers, self.encoder.cutoff
         self.grad_dist_mlp = MLP(2 * hidden_dim, [hidden_dim, hidden_dim // 2, 1], mlp_act)
         init_params_(self, generator)
+        if encoder_config is not None:
+            self.encoder._init(generator)   # glorot_orthogonal, not init_params_'s uniform
 
     @classmethod
     def from_config(cls, config, dtype=None, generator=None) -> "CondenseEncoderEpsNetwork":
         """Build from a model config, as checkpoints embed it."""
         enc = config.encoder
-        if enc.name != "schnet":
-            raise NotImplementedError(f"unsupported encoder {enc.name} for condensenc")
         return cls(
             hidden_dim=config.hidden_dim,
             feat_dim=config.feat_dim,
@@ -194,19 +234,24 @@ class CondenseEncoderEpsNetwork(nn.Module):
             edge_cutoff=config.edge_cutoff,
             num_convs=enc.num_convs,
             cutoff=enc.cutoff,
-            smooth_conv=enc.smooth_conv,
+            smooth_conv=enc.smooth_conv if enc.name == "schnet" else False,
             use_pallas=config.get("use_pallas", False),
             fused_score=config.get("fused_score", False),
             packed_train=config.get("packed_train", False),
             score_quant=config.get("score_quant", None),
             dtype=dtype,
             generator=generator,
+            encoder_config=None if enc.name == "schnet" else enc,
         )
 
     def require_kernel_configuration(self, path: str) -> None:
         """Raise ``ValueError`` unless this model has the configuration the
-        kernel paths compute: the mlp edge encoder, swish activations and
-        the hard cutoff (the JAX model asserts the same on these paths)."""
+        kernel paths compute: the SchNet encoder, the mlp edge encoder,
+        swish activations and the hard cutoff (the JAX model asserts the
+        same on these paths)."""
+        if self.encoder_name != "schnet":
+            raise ValueError(f"the {path} needs the SchNet encoder; this model's encoder is "
+                             f"{self.encoder_name}")
         if self.edge_encoder != "mlp":
             raise ValueError(f"the {path} needs the mlp edge encoder")
         if self.encoder.smooth:
@@ -318,7 +363,11 @@ class CondenseEncoderEpsNetwork(nn.Module):
             return edge_inv, edges_out, d_out
         d_emb = self.edge_enc.d_embedding(d_in.to(dt)[..., None])
         ea = self.edge_attr(d_emb, static.emb_r_in, static.emb_p_in)
-        node_attr = self.encoder(static.z, ea, d_in, edges_in.mask_global, dt)
+        if self.encoder_name == "schnet":
+            node_attr = self.encoder(static.z, ea, d_in, edges_in.mask_global, dt)
+        else:
+            node_attr = self.encoder(static.z.float(), pos.float(), edges_in.mask_global,
+                                     ea.float(), node_mask, dtype=dt).to(dt)
         if self.pred_edge_order != self.edge_order:
             ea = self.edge_attr(d_emb, static.emb_r_out, static.emb_p_out)
         h_pair = torch.cat([node_attr[:, :, None, :] * node_attr[:, None, :, :], ea], dim=-1)

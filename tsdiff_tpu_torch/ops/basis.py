@@ -7,7 +7,7 @@ the associated Legendre recurrences for the harmonics) and lambdifies them;
 here the same functions are evaluated directly by the same recurrences, so
 nothing needs sympy:
 
-* ``spherical_jn``: ``j_0 .. j_{n-1}`` by the upward recurrence
+* ``spherical_jn``: ``j_l`` by the upward recurrence
   ``j_{l+1} = (2l + 1) / x * j_l - j_{l-1}`` from ``j_0 = sin x / x`` and
   ``j_1 = sin x / x^2 - cos x / x``;
 * ``bessel_basis``: ``norm[l, i] * j_l(zeros[l, i] * x)`` over the first
@@ -18,9 +18,10 @@ nothing needs sympy:
   enumerated per l as the JAX package's Python list (m = 0..l, then -l..-1).
 
 The Bessel recurrence loses accuracy to cancellation for high orders at
-small arguments, as the closed forms do, and so does the diagonal
-``sqrt(1 - cos^2)`` near the poles; both run in float64 and their results
-are cast back to the input's type.  scipy is imported inside ``Jn_zeros``.
+small arguments, as the closed forms do: below 1 the power series is taken
+instead.  The diagonal ``sqrt(1 - cos^2)`` loses accuracy near the poles.
+Both run in float64 and their results are cast back to the input's type.
+scipy is imported inside ``Jn_zeros``.
 """
 
 from __future__ import annotations
@@ -64,28 +65,52 @@ def bessel_norms(n: int, k: int) -> np.ndarray:
     return 1.0 / np.sqrt(0.5 * sp.spherical_jn(orders, zeros) ** 2)
 
 
-def spherical_jn(n: int, x: torch.Tensor) -> torch.Tensor:
-    """``(..., n)``: ``j_0(x) .. j_{n-1}(x)`` in x's type (float64 inside)."""
-    t = x.to(torch.float64)
-    s, c = torch.sin(t), torch.cos(t)
-    out = [s / t]
-    if n > 1:
-        out.append(s / t**2 - c / t)
+def spherical_jn(t: torch.Tensor) -> torch.Tensor:
+    """``j_l(t[..., l, i])``: on each row l of ``t`` (..., n, k), the order l
+    alone, in t's type (float64 inside).  From 1 on by the upward recurrence;
+    below it, where the recurrence cancels (an atom pair a few hundredths of
+    an angstrom apart in a noisy walk step), by the power series ``x^l /
+    (2l+1)!! sum_m (-x^2/2)^m / (m! (2l+3) ... (2l+2m+1))``, 12 terms."""
+    x = t.to(torch.float64)
+    n = x.shape[-2]
+    # each row's order, made on x's device (a CUDA graph records no copy)
+    order = torch.arange(n, dtype=torch.float64, device=x.device)[:, None]
+    small = x < 1.0
+    xs = torch.where(small, x, torch.zeros_like(x))
+    xl = torch.where(small, torch.ones_like(x), x)
+    s, c = torch.sin(xl), torch.cos(xl)
+    prev, cur = s / xl, s / xl**2 - c / xl
+    rec = torch.where(order == 0, prev, cur)
     for l in range(1, n - 1):
-        out.append((2 * l + 1) / t * out[l] - out[l - 1])
-    return torch.stack(out, dim=-1).to(x.dtype)
+        prev, cur = cur, (2 * l + 1) / xl * cur - prev
+        rec = torch.where(order == l + 1, cur, rec)
+    half_sq = -xs * xs / 2.0
+    m = torch.arange(1, 12, dtype=torch.float64, device=x.device)[:, None, None]
+    ratio = 1.0 / (m * (2 * order + 2 * m + 1))                  # (term m / term m-1) / half_sq
+    term = xs**order / torch.cumprod(2 * order + 1, dim=0)
+    series = term
+    for r in ratio:
+        term = term * half_sq * r
+        series = series + term
+    return torch.where(small, series, rec).to(t.dtype)
 
 
-def bessel_basis(num_spherical: int, num_radial: int, x: torch.Tensor) -> torch.Tensor:
+def bessel_constants(num_spherical: int, num_radial: int, device=None):
+    """``(zeros, norms)`` of ``bessel_basis``, (n, k) float64 tensors on
+    ``device``."""
+    return (torch.from_numpy(Jn_zeros(num_spherical, num_radial)).to(device),
+            torch.from_numpy(bessel_norms(num_spherical, num_radial)).to(device))
+
+
+def bessel_basis(num_spherical: int, num_radial: int, x: torch.Tensor,
+                 constants: tuple | None = None) -> torch.Tensor:
     """``(..., num_spherical * num_radial)``: ``norm[l, i] * j_l(zeros[l, i]
-    * x)``, l-major, the JAX package's ``bessel_basis`` evaluated at x."""
-    zeros = torch.from_numpy(Jn_zeros(num_spherical, num_radial)).to(x.device)
-    norms = torch.from_numpy(bessel_norms(num_spherical, num_radial)).to(x.device)
-    t = x.to(torch.float64)[..., None, None] * zeros              # (..., l, i)
-    j = spherical_jn(num_spherical, t)                           # (..., l, i, order)
-    eye = torch.eye(num_spherical, dtype=torch.float64, device=x.device)
-    j_l = torch.einsum("...lio,lo->...li", j, eye)               # order l of row l
-    return (norms * j_l).reshape(*x.shape, -1).to(x.dtype)
+    * x)``, l-major, the JAX package's ``bessel_basis`` evaluated at x.
+    ``constants``: ``bessel_constants`` already on x's device (a CUDA graph
+    records no copy from the host)."""
+    zeros, norms = constants or bessel_constants(num_spherical, num_radial, x.device)
+    j = spherical_jn(x.to(torch.float64)[..., None, None] * zeros)   # (..., l, i)
+    return (norms * j).reshape(*x.shape, -1).to(x.dtype)
 
 
 def sph_harm_prefactor(l: int, m: int) -> float:
