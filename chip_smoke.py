@@ -215,8 +215,11 @@ Phases (any failure exits non-zero):
    ComENet H=256, 4 layers), B=8, N=24 and 32, f32, TF32 off, eval mode:
    output and every parameter's gradient on the card against the CPU
    (``ENCODER_AGREE``, or ``ENCODER_F32_FACTOR`` times the CPU's own float32
-   error against float64 where larger), ms per forward and backward; whether
-   sympy imports there, for information;
+   error against float64 where larger), and the card's forward without
+   autograd against its forward with it under the same limit (DimeNet++'s
+   blocks take the triplet kernel without autograd: one launch a block by
+   its counter), ms per forward and backward; whether sympy imports there,
+   for information;
 15. checkpoint directories and the build cache: (a) the train CLI with 6a's
    flags and ``--ckpt_backend orbax`` under torch.profiler, a ``.ckpt`` of
    the same state written beside each save: every ``.orbax`` directory loads
@@ -235,7 +238,17 @@ Phases (any failure exits non-zero):
    processes (``--cache-probe``) in turn on one empty
    ``TSDIFF_COMPILE_CACHE``: each builds the kernels and the packer (or
    finds them there) and launches B1 once; the second builds nothing
-   (``_build.build_info`` 0.0); ``tsdiff_tpu_torch/_build/`` untouched.
+   (``_build.build_info`` 0.0); ``tsdiff_tpu_torch/_build/`` untouched;
+16. DimeNet++ through the captured walk: the condensed network with
+   DimeNet++ at its published widths (the benchmark's configuration and
+   stand-in weights), bf16, B=100 synthetic reactions in the N=16 and N=24
+   buckets, ``PROFILED_WALK`` steps of ``ld`` replayed from one CUDA graph
+   under torch.profiler: the triplet kernel (``csrc/dimenet_triplet.cu``)
+   once a block at each step by kernel name, its counter at the eager first
+   step and the recording, the plain version never called; the kernel on
+   the four blocks' inputs recorded at the reactions' jittered geometry against
+   the plain version (``TOL_TRIPLET``), two launches bitwise equal; its
+   time beside its bound and the plain version's einsums.
 
 The second-to-last lines are a JSON object of per-kernel numbers and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -266,7 +279,8 @@ CKPT_DIR = os.path.join(ROOT, "artifacts", "seeds", "ckpts")
 MEMBER_SEEDS = (106, 101, 104, 102, 108, 103, 109, 105)
 OUT_DIR = os.path.join(ROOT, ".scratch", "chip_smoke")  # gitignored
 TRAIN_DIR = os.path.join(ROOT, ".scratch", "chip_smoke_train")
-SOURCES = ("packed_score", "schnet_stack", "condensed_score", "packed_score_int8")
+SOURCES = ("packed_score", "schnet_stack", "condensed_score", "packed_score_int8",
+           "dimenet_triplet")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # bf16 tensor cores; f32 without them
@@ -381,7 +395,7 @@ def phase_build() -> None:
           f"{time.monotonic() - t0:.1f} s, one nvcc each in parallel (" + ", ".join(
               f"{n} {_build.build_info[n]['seconds']:.1f} s" for n in SOURCES) + ")")
     spills, wg_dense_spills, wg_rows_spills, wg_xty_spills, wg_fwd_spills = 0, None, None, None, {}
-    wg_b1_spills = None
+    wg_b1_spills, triplet_spills = None, {}
     for name in SOURCES:
         # ptxas -v: "Compiling entry function '<mangled>'", then its stack and
         # spill line, then "Used N registers, ..."
@@ -390,7 +404,8 @@ def phase_build() -> None:
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
                 short = re.search(r"\d+(packed_score\w*?kernel|tile_product\w*?kernel|schnet_\w*?kernel|"
-                                  r"condensed_score\w*?kernel)(I\w+?)?E", m.group(1))
+                                  r"condensed_score\w*?kernel|dimenet_triplet_kernel)(I\w+?)?E",
+                                  m.group(1))
                 kernel = (short.group(1) + (short.group(2) or "")) if short else m.group(1)[-60:]
             elif "bytes spill" in line:
                 stack = line.strip()
@@ -407,6 +422,8 @@ def phase_build() -> None:
                     wg_xty_spills = n_spill
                 if kernel.startswith("schnet_fwd_wg_kernel"):  # B3 (hs stored) and B4
                     wg_fwd_spills[kernel] = n_spill
+                if kernel.startswith("dimenet_triplet_kernel"):  # ILb1: bf16, ILb0: float32
+                    triplet_spills[kernel] = n_spill
                 print(f"[build] {name}: {kernel}: {line.strip().replace('ptxas info    : ', '')}; "
                       f"{stack}")
     print(f"[build] spill stores over all kernels: {spills} bytes; of the dense score's "
@@ -414,7 +431,10 @@ def phase_build() -> None:
           f"{wg_rows_spills} bytes, of its wgmma weight-gradient kernel: {wg_xty_spills} bytes, "
           f"of the wgmma forward (B3, B4): {wg_fwd_spills} (all must be 0); of B1's "
           f"warp-specialised kernel: {wg_b1_spills} bytes (1,176 before its filter chain "
-          f"ran in registers)")
+          f"ran in registers); of DimeNet++'s triplet kernel (Lb1 bf16, Lb0 float32): "
+          f"{triplet_spills}")
+    if len(triplet_spills) != 2:
+        fail(f"dimenet_triplet_kernel was not found twice in the ptxas log: {triplet_spills}")
     if wg_dense_spills != 0:
         fail(f"condensed_score_wg_kernel spills {wg_dense_spills} bytes (or was not found)")
     if wg_rows_spills != 0:
@@ -4282,6 +4302,7 @@ def phase_encoders(smi: str, device: str = "cuda", shapes=((8, 24), (8, 32))) ->
 
     from tsdiff_tpu_torch.config import Config
     from tsdiff_tpu_torch.models import load_encoder
+    from tsdiff_tpu_torch.ops import dimenet_triplet as dt
 
     try:
         import sympy
@@ -4321,12 +4342,29 @@ def phase_encoders(smi: str, device: str = "cuda", shapes=((8, 24), (8, 32))) ->
 
             err_y, err_g, g_scale = errs(device, "cpu")
             f32_y, f32_g, _ = errs("cpu", "f64")
+            dev_y, dev_g, _ = errs(device, "f64")
             lim_y = max(ENCODER_AGREE, ENCODER_F32_FACTOR * f32_y)
             lim_g = max(ENCODER_AGREE, ENCODER_F32_FACTOR * f32_g)
             y_got = res[device][0]
             pad_zero = bool((y_got[~x["node_mask"]] == 0).all()) if name != "egnn" else True
             fwd = bwd = None
+            err_ng = 0.0
             if device == "cuda":
+                launches = dt.triplet_sum.launches
+                with torch.no_grad():
+                    y_ng = encoder_call(name, dev, xd).cpu().double()
+                # without autograd DimeNet++'s blocks take the triplet kernel,
+                # with it the plain version: the same function
+                err_ng = float((y_ng - y_got).abs().max()) / max(float(y_got.abs().max()), 1e-30)
+                ng_launches = dt.triplet_sum.launches - launches
+                want_launches = enc["num_convs"] if name == "dimenetpp" else 0
+                print(f"[encoders] {name} at B={B} N={N}: the card's forward without autograd "
+                      f"against its forward with it: {err_ng:.3g} of max (limit {lim_y:.3g}), "
+                      f"{ng_launches} triplet kernel launches (want {want_launches})")
+                if not err_ng <= lim_y or ng_launches != want_launches:
+                    fail(f"[encoders] {name} at B={B} N={N}: the forward without autograd "
+                         f"disagrees with the forward with it, or launched the triplet kernel "
+                         f"{ng_launches} times")
                 with torch.no_grad():
                     fwd = cuda_time_ms(lambda: encoder_call(name, dev, xd), 5)[0]
                 y = encoder_call(name, dev, xd)
@@ -4335,13 +4373,14 @@ def phase_encoders(smi: str, device: str = "cuda", shapes=((8, 24), (8, 32))) ->
             print(f"[encoders] {name} {enc} at B={B} N={N}: {device} against the CPU, output "
                   f"{err_y:.3g} of max|CPU| (limit {lim_y:.3g}), gradients of its "
                   f"{len(res['cpu'][1])} parameters {err_g:.3g} of their max|CPU| {g_scale:.4g} (limit {lim_g:.3g}); "
-                  f"the CPU's float32 against float64: {f32_y:.3g}, {f32_g:.3g}; padded rows zero "
+                  f"the CPU's float32 against float64: {f32_y:.3g}, {f32_g:.3g}, the card's: "
+                  f"{dev_y:.3g}, {dev_g:.3g}; padded rows zero "
                   f"{pad_zero}" + (f"; {fwd:.3f} ms per forward, {bwd:.3f} ms per backward"
                                    if fwd else ""))
             if not (err_y <= lim_y and err_g <= lim_g and pad_zero
                     and torch.isfinite(y_got).all()):
                 fail(f"[encoders] {name} at B={B} N={N} disagrees with the CPU")
-            out[(name, N)] = dict(err=max(err_y, err_g), fwd_ms=fwd, bwd_ms=bwd)
+            out[(name, N)] = dict(err=max(err_y, err_g, err_ng), fwd_ms=fwd, bwd_ms=bwd)
     print(f"[encoders] {smi}: phase 14 done")
     return out
 
@@ -4738,6 +4777,7 @@ def main() -> None:
     phase_protein(smi)
     phase_encoders(smi)
     ckpt = phase_checkpoints(smi, setup, interop)
+    dimenet = phase_dimenet_walk(smi)
 
     def entry(name, source, replaces, launches, numbers, by_path=None):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_by",
@@ -4811,12 +4851,171 @@ def main() -> None:
         | {"serving_max_abs_err": served["b5_err"],
            "mesh_shapes": [at_shape(mk[("packed_score_int8", 4, 100)],
                                     "M=4 B=100 N=24 bf16 (ens=2)")]},
+        # no TPU kernel: the JAX package leaves the chain to XLA (its einsums)
+        entry("dimenet_triplet", "tsdiff_tpu_torch/csrc/dimenet_triplet.cu",
+              "tsdiff_tpu/models/dimenetpp.py:199", dimenet["launches"],
+              dimenet["by_n"][24],
+              {"DimeNet++ captured walk (phase 16)": dimenet["launches"]})
+        | {"shapes": [at_shape(dimenet["by_n"][16], "B=100 N=16 bf16")],
+           "walk_us_by_n": {n: v["walk_us"] for n, v in dimenet["by_n"].items()}},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}))
+
+
+# -- phase 16: DimeNet++ through the captured walk ------------------------------
+
+#: the benchmark's configuration of the condensed network with DimeNet++
+#: (published widths, bf16) and, named in it, its committed stand-in weights
+DIMENET_CONFIG = os.path.join(ROOT, "portbench", "configs", "tsdiff-condensed-dimenetpp-h128.json")
+#: the triplet kernel against its plain version in bf16, of max|ref|, as
+#: tests/test_torch_dimenet_triplet.py holds it: the kernel read 4.0e-8 to
+#: 2.2e-7 on an H100 (only the sum over k is taken in another order); one
+#: bf16 ulp of S or of lin_sbf2's output flipped reads ~1.2e-5; a chain that
+#: leaves either rounding out 1.9e-3 to 6.0e-3
+TOL_TRIPLET = 1e-4
+#: reactions a walk of phase 16, as the campaign's batches
+DIMENET_BATCH = 100
+
+
+def triplet_cost(args: tuple) -> dict:
+    """Flop and bytes of one triplet kernel launch on ``args`` (rbf_bes,
+    sbf1, cbf, w2, x_kj, dtype): 2 (ns Bb + Bb I + I) a triplet of the
+    padded grid and the rw fold; the inputs read once, T written once."""
+    rbf_bes, sbf1, cbf, w2, x_kj, _ = args
+    B, N, _, ns, nr = rbf_bes.shape
+    I, Bb = w2.shape
+    flops = 2 * B * N ** 3 * (ns * Bb + Bb * I + I) + 2 * B * N * N * ns * nr * Bb
+    read = sum(t.numel() * t.element_size() for t in (rbf_bes, sbf1, cbf, w2, x_kj))
+    return {"flops": flops, "bytes": read + x_kj.numel() * 4}
+
+
+def phase_dimenet_walk(smi: str) -> dict:
+    """Phase 16: the condensed network with DimeNet++ at its published
+    widths in bf16, with the benchmark's stand-in weights, walked by a
+    ``WalkRunner`` (one CUDA graph of the step) over ``PROFILED_WALK`` steps
+    of the 5000-step ``ld`` schedule, B=100 synthetic reactions in the N=16
+    and the N=24 bucket, under torch.profiler: the triplet kernel once a
+    block at each replayed step and at the eager first step by kernel name,
+    its counter at the eager step and the recording, no call of the plain
+    version; then the four blocks' inputs recorded from a forward at the
+    reactions' jittered geometry, the kernel on each against the plain version
+    (``TOL_TRIPLET``) and two launches equal bit for bit; the kernel timed
+    on the first block's inputs (CUDA events, and device time under
+    torch.profiler, which the JSON line keeps) beside its bound and beside
+    the plain version's three einsums."""
+    import numpy as np
+    import torch
+
+    from tsdiff_tpu_torch.config import Config
+    from tsdiff_tpu_torch.core.graph import from_numpy_graphs
+    from tsdiff_tpu_torch.diffusion.captured import WalkRunner
+    from tsdiff_tpu_torch.diffusion.ensemble import make_ensemble
+    from tsdiff_tpu_torch.diffusion.sampler import SamplingSettings
+    from tsdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
+    from tsdiff_tpu_torch.models import dimenetpp, get_model
+    from tsdiff_tpu_torch.ops import dimenet_triplet as dt
+
+    with open(DIMENET_CONFIG) as f:
+        cfg = json.load(f)
+    model_cfg = Config(cfg["model"])
+    dev = torch.device("cuda")
+    model = get_model(model_cfg, dtype=torch.bfloat16).to(dev).eval()
+    model.load_state_dict(torch.load(os.path.join(ROOT, cfg["weights"]), map_location=dev,
+                                     weights_only=True))
+    blocks = cfg["model"]["encoder"]["num_convs"]
+    ensemble = make_ensemble([model])
+    schedule = DiffusionSchedule.from_config(model_cfg)
+    settings = SamplingSettings(sampling_type="ld", n_steps=5000, step_lr=1e-7, clip=1000.0,
+                                timestep_respacing=PROFILED_WALK)
+    pool = torch.cuda.graph_pool_handle()
+    runners = []        # alive to the end: a graph's pool goes with the last graph that holds it
+    out = {"launches": 0, "by_n": {}, "max_abs_err": 0.0}
+    for N in (16, 24):
+        tag = f"[dimenet] B={DIMENET_BATCH} N={N} bf16"
+        batch, pos_jit = kernel_batch(N, seed=1600 + N, count=DIMENET_BATCH)
+        runner = WalkRunner(ensemble, schedule, settings, True, pool, step_draws=True)
+        runners.append(runner)
+        gen = torch.Generator(device="cuda").manual_seed(1600 + N)
+        pos_init = torch.randn((DIMENET_BATCH, N, 3), generator=gen, device="cuda")
+        noise = torch.randn((runner.n_walk, DIMENET_BATCH, N, 3), generator=gen, device="cuda")
+        dt.triplet_sum.launches = dt.triplet_sum_reference.calls = 0
+        (pos, nan), prof = profiled_call(lambda: runner.run(batch, pos_init, noise),
+                                         device_only=True)
+        counter, plain_calls = dt.triplet_sum.launches, dt.triplet_sum_reference.calls
+        launched = sum(n for name, n in kernel_counts(prof).items() if "dimenet_triplet" in name)
+        walk_ms = sum(ms for ms, _, name in device_kernels(prof, 1) if "dimenet_triplet" in name)
+        step_ms = sum(ms for ms, _, _ in device_kernels(prof, runner.n_walk + 1))
+        want = blocks * (runner.n_walk + 1)
+        print(f"{tag}: a captured walk of {runner.n_walk} steps ({runner.captures} graph) under "
+              f"torch.profiler: the triplet kernel launched {launched} times by name (want "
+              f"{want}: {blocks} blocks at each replayed step and at the eager first step), "
+              f"{walk_ms / max(launched, 1) * 1e3:.2f} us a launch there, {step_ms:.3f} ms of "
+              f"device time a step over all kernels; its counter {counter} (want {2 * blocks}: "
+              f"the eager first step and the recording), the plain version called {plain_calls} "
+              f"times (want 0); NaN flag {nan}")
+        if launched != want or counter != 2 * blocks or plain_calls != 0:
+            fail(f"{tag}: the walk did not run the triplet kernel once a block a step")
+        if nan or not np.isfinite(pos).all():
+            fail(f"{tag}: the walk flagged NaN or returned non-finite positions")
+        out["launches"] += launched
+
+        # the blocks' inputs from a forward at the reactions' jittered
+        # geometry (a walk of PROFILED_WALK steps ends far from it: beyond
+        # the cutoff, where the Bessel basis is zero)
+        calls = []
+
+        def record(*args):
+            calls.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+            return dt.triplet_sum_reference(*args)
+
+        orig, dimenetpp.triplet_sum = dimenetpp.triplet_sum, record
+        try:
+            with torch.no_grad():
+                model(batch.atom_type, batch.r_feat, batch.p_feat, pos_jit, batch.bond_mat,
+                      batch.node_mask)
+        finally:
+            dimenetpp.triplet_sum = orig
+        if len(calls) != blocks or any(c[-1] != torch.bfloat16 for c in calls):
+            fail(f"{tag}: recorded {len(calls)} block calls, not {blocks} in bf16")
+        err_n = 0.0
+        for layer, args in enumerate(calls):
+            with torch.no_grad():
+                if not dt.takes_kernel(*args):
+                    fail(f"{tag}: block {layer}'s inputs do not take the kernel")
+                got, again = dt.triplet_sum(*args), dt.triplet_sum(*args)
+                want_t = dt.triplet_sum_reference(*args)
+            torch.cuda.synchronize()
+            err = check_close(f"{tag} block {layer}", got, want_t, "bfloat16",
+                              tol=(TOL_TRIPLET, TOL_TRIPLET))
+            if not torch.equal(got, again):
+                fail(f"{tag} block {layer}: two launches differ")
+            err_n = max(err_n, err)
+        kernel = lambda: dt.triplet_sum(*calls[0])  # noqa: E731
+        library = lambda: dt.triplet_sum_reference(*calls[0])  # noqa: E731
+        with torch.no_grad():
+            timing = time_and_bound(
+                f"dimenet_triplet B={DIMENET_BATCH} N={N} bf16", kernel, library,
+                triplet_cost(calls[0]), "bfloat16", library=library,
+                library_what="the plain version's three einsums")
+            # a launch from Python takes longer on the host than the kernel on
+            # the card: the events time the host; the profiler the card
+            kernel_dev, library_dev = profiled_ms(kernel), profiled_ms(library)
+        print(f"[kernels] dimenet_triplet B={DIMENET_BATCH} N={N} bf16 by device time under "
+              f"torch.profiler: the kernel {fmt_ms(kernel_dev)} ms, the einsums "
+              f"{fmt_ms(library_dev)} ms")
+        timing.update(ms_events=timing["ms"], library_ms_events=timing["library_ms"])
+        if kernel_dev is not None and library_dev is not None:
+            timing.update(ms=kernel_dev, ms_by="profiler", library_ms=library_dev,
+                          library_ms_by="profiler")
+        out["by_n"][N] = dict(timing, max_abs_err=err_n, walk_us=walk_ms / launched * 1e3,
+                              step_ms=step_ms)
+        out["max_abs_err"] = max(out["max_abs_err"], err_n)
+    print(f"[dimenet] {smi}: phase 16 done")
+    return out
 
 
 def mesh_nccl() -> None:

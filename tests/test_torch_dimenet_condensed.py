@@ -16,7 +16,10 @@ radial functions) and 2 interaction blocks:
 * a checkpoint embedding such a config loads through ``load_members`` and
   samples through the sampling CLI and the service;
 * the SchNet-only paths refuse it, naming the encoder;
-* its spans and the dense ensemble's counters;
+* the encoder's output, and with autograd its gradients, equal to what
+  the block with its own three einsums gave (the fused triplet chain's
+  plain version on the CPU), bit for bit;
+* its spans and the dense ensemble's and the triplet chain's counters;
 * the JAX module's one ``lin_sbf`` pair, copied into each block by
   ``convert.sbf_per_block``, gives the JAX module's output with 2 blocks.
 """
@@ -45,6 +48,7 @@ from tsdiff_tpu_torch.convert import params_from_jax, params_to_jax, sbf_per_blo
 from tsdiff_tpu_torch.core.geometry import eq_transform  # noqa: E402
 from tsdiff_tpu_torch.core.graph import from_numpy_graphs  # noqa: E402
 from tsdiff_tpu_torch.models import get_model  # noqa: E402
+from tsdiff_tpu_torch.ops.dimenet_triplet import triplet_sum, triplet_sum_reference  # noqa: E402
 
 SCHEDULE = dict(beta_schedule="sigmoid", beta_start=1e-7, beta_end=2e-3,
                 num_diffusion_timesteps=5000)
@@ -219,6 +223,65 @@ def test_packed_paths_refuse_the_encoder():
         model(encoder=dict(MODEL["encoder"], hidden_dim=16))
 
 
+def parent_block(self, layer, e1, rbf, rbf_bes, cbf, edge_attr, dtype):
+    """``DimeNetPPEncoder._block`` as it stood before the fused triplet
+    chain, with its three einsums."""
+    from tsdiff_tpu_torch.models.dimenetpp import _lin
+
+    ns, nr = self.num_spherical, self.num_radial
+    act = torch.nn.functional.silu
+    lin = lambda m, x: _lin(m, x, dtype)  # noqa: E731
+    blk = lambda name: getattr(self, f"e{layer}_{name}")  # noqa: E731
+    rw = torch.einsum("bjkln,lnc->bjklc", rbf_bes, blk("lin_sbf1").reshape(ns, nr, -1))
+    sbf2 = lin(blk("lin_sbf2"), torch.einsum("bijkl,bjklc->bijkc", cbf, rw))
+    x1 = e1
+    x_ji = act(lin(blk("lin_ji"), x1))
+    x_kj = act(lin(blk("lin_kj"), x1))
+    r = lin(blk("lin_rbf2"), lin(blk("lin_rbf1"), rbf))
+    x_kj = x_kj * (edge_attr * r)
+    x_kj = act(lin(blk("lin_down"), x_kj))
+    # T[i, j] = sum_k x_kj[j, k] * sbf2[i, j, k]
+    t = torch.einsum("bjkc,bijkc->bijc", x_kj, sbf2)
+    e1_new = x_ji + act(lin(blk("lin_up"), t))
+    for ri in range(self.num_before_skip):
+        e1_new = blk(f"res_before_{ri}")(e1_new, dtype)
+    e1_new = act(lin(blk("lin"), e1_new)) + x1
+    for ri in range(self.num_after_skip):
+        e1_new = blk(f"res_after_{ri}")(e1_new, dtype)
+    return e1_new, lin(blk("lin_rbf"), rbf) * e1_new
+
+
+@pytest.mark.parametrize("grad", [False, True], ids=["no_grad", "autograd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_encoder_gives_the_parents_output_bit_for_bit(monkeypatch, dtype, grad):
+    """On the CPU the block's chain is the plain version: the network's
+    output, and with autograd every parameter's gradient, equal what the
+    block with its own three einsums gave."""
+    from tsdiff_tpu_torch.models.dimenetpp import DimeNetPPEncoder
+
+    graphs, _, pos = inputs()
+    pb = from_numpy_graphs(graphs, max_nodes=N_PAD)
+    m = model(dtype)
+    results = []
+    for block in (None, parent_block):
+        with monkeypatch.context() as mp:
+            if block is not None:
+                mp.setattr(DimeNetPPEncoder, "_block", block)
+            m.zero_grad()
+            calls = triplet_sum_reference.calls
+            with torch.set_grad_enabled(grad):
+                edge_inv, _, _ = m(pb.atom_type, pb.r_feat, pb.p_feat, pos, pb.bond_mat,
+                                   pb.node_mask)
+                if grad:
+                    edge_inv.square().sum().backward()
+            assert triplet_sum_reference.calls == calls + (2 if block is None else 0)
+        results.append([edge_inv.detach()] + [
+            p.grad.clone() for p in m.parameters() if grad and p.grad is not None])
+    assert len(results[0]) == len(results[1]) > (20 if grad else 0)
+    for a, b in zip(*results):
+        assert torch.equal(a, b)
+
+
 def test_spans_and_counters():
     from torch.autograd import DeviceType
 
@@ -241,6 +304,11 @@ def test_spans_and_counters():
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CPU]
     assert names.count("tsdiff.dimenet.basis") == 1
     assert names.count("tsdiff.dimenet.block") == 2
+    # each block's triplet chain: the plain version on the CPU, no launch
+    calls, launches = triplet_sum_reference.calls, triplet_sum.launches
+    fn(pos)
+    assert triplet_sum_reference.calls == calls + 2
+    assert triplet_sum.launches == launches
     other = ens.prepare(from_numpy_graphs(graphs[:1] * B, max_nodes=N_PAD))
     copy_into(statics, other)
     assert statics.counts.tolist() == other.counts.tolist()

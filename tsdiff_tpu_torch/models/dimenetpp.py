@@ -22,6 +22,14 @@ every sum over k and over j stay float32.  The bases are one span,
 ``tsdiff.dimenet.basis``, and each interaction block one,
 ``tsdiff.dimenet.block`` (``utils/profiling.py``).
 
+Each block's triplet chain (the ``lin_sbf1`` fold, the angular sum,
+``lin_sbf2`` and the product with ``x_kj`` summed over k) is
+``ops/dimenet_triplet.py::triplet_sum``: on the card, without autograd, in
+bf16 or float32 and up to its N, one hand-written kernel
+(``csrc/dimenet_triplet.cu``) that writes only T (B, N, N, I); on the CPU,
+with autograd on (training) and at larger N, the plain einsums, which give
+what this module computed before the kernel, bit for bit.
+
 The Bessel and harmonic factors are ``ops/basis.py``'s, evaluated without
 sympy.  Linear layers are ``Dense`` (a flax ``nn.Dense`` each, initialised
 ``glorot_orthogonal`` where the JAX module does), named as the JAX
@@ -38,6 +46,7 @@ from torch import nn
 
 from tsdiff_tpu_torch.models.mlp import Dense, linear
 from tsdiff_tpu_torch.ops.basis import bessel_basis, bessel_constants, real_sph_harm
+from tsdiff_tpu_torch.ops.dimenet_triplet import triplet_sum
 from tsdiff_tpu_torch.utils.profiling import span
 
 
@@ -269,20 +278,18 @@ class DimeNetPPEncoder(nn.Module):
 
     def _block(self, layer, e1, rbf, rbf_bes, cbf, edge_attr, dtype):
         """Interaction block ``layer``: ``(e1, e2)`` after it."""
-        ns, nr = self.num_spherical, self.num_radial
         act = F.silu
         lin = lambda m, x: _lin(m, x, dtype)  # noqa: E731
         blk = lambda name: getattr(self, f"e{layer}_{name}")  # noqa: E731
-        rw = torch.einsum("bjkln,lnc->bjklc", rbf_bes, blk("lin_sbf1").reshape(ns, nr, -1))
-        sbf2 = lin(blk("lin_sbf2"), torch.einsum("bijkl,bjklc->bijkc", cbf, rw))
         x1 = e1
         x_ji = act(lin(blk("lin_ji"), x1))
         x_kj = act(lin(blk("lin_kj"), x1))
         r = lin(blk("lin_rbf2"), lin(blk("lin_rbf1"), rbf))
         x_kj = x_kj * (edge_attr * r)
         x_kj = act(lin(blk("lin_down"), x_kj))
-        # T[i, j] = sum_k x_kj[j, k] * sbf2[i, j, k]
-        t = torch.einsum("bjkc,bijkc->bijc", x_kj, sbf2)
+        w2 = blk("lin_sbf2").weight
+        t = triplet_sum(rbf_bes, blk("lin_sbf1"), cbf, w2 if dtype is None else _cast(w2, dtype),
+                        x_kj, dtype)
         e1_new = x_ji + act(lin(blk("lin_up"), t))
         for ri in range(self.num_before_skip):
             e1_new = blk(f"res_before_{ri}")(e1_new, dtype)
